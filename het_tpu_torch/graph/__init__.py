@@ -1,0 +1,3 @@
+from .structures import CompactInfo, HeteroGraph, Segments  # noqa: F401
+from .build import build_heterograph, build_segments  # noqa: F401
+from .synth import random_heterograph  # noqa: F401

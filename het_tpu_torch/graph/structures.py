@@ -1,0 +1,132 @@
+"""Graph containers: ``Segments``, ``CompactInfo`` and ``HeteroGraph``.
+
+Counterparts of ``het_tpu.graph.structures`` with the same field names, as
+plain frozen dataclasses holding torch index tensors (int32, ``row_valid``
+bool).  Left out are the fields that only served TPU kernels: the
+one-hot-reduce scheduling tables (``TileTables``, ``in_tables``,
+``out_tables``, ``edge_tables``, ``node_tables``, ``canon_tables``) and
+the ``perm_*`` maps of the perm_direct backward.
+
+Canonical edge order is destination-sorted: edges stably sorted by
+(dst, rel, src), padded with sentinel edges whose ``dst == num_nodes``.
+Every aggregation is then a sorted segment sum over a row pointer, which
+needs no atomics on the GPU either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+
+def _to(obj, device):
+    """``dataclasses.replace`` with every tensor field moved to ``device``."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v.to(device)
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = v.to(device)
+    return dataclasses.replace(obj, **kw)
+
+
+@dataclass(frozen=True)
+class Segments:
+    """A tile-padded, segment-partitioned row space: segment ``s`` occupies
+    rows ``seg_ptrs[s]:seg_ptrs[s+1]``, a multiple of ``tile`` long."""
+
+    n_src: int  # real (unpadded) source rows
+    n_rows: int  # padded total rows
+    n_segments: int
+    tile: int
+    seg_ptrs: torch.Tensor  # (n_segments + 1,)
+    tile_seg: torch.Tensor  # (n_rows // tile,) segment id per row tile
+    row_seg: torch.Tensor  # (n_rows,) segment id per padded row
+    perm: torch.Tensor  # (n_rows,) source row per padded row (0 on padding)
+    inv: torch.Tensor  # (n_src,) source row -> padded row
+    row_valid: torch.Tensor  # (n_rows,) bool, False on padding rows
+    # host copy of seg_ptrs: the per-relation row slices of segment_matmul
+    seg_ptrs_static: Tuple[int, ...] = ()
+
+    def to(self, device) -> "Segments":
+        return _to(self, device)
+
+
+@dataclass(frozen=True)
+class CompactInfo:
+    """Unique-(relation, node) compact rows of one edge endpoint side.
+
+    ``edge_map`` maps each canonical edge to the padded compact row of its
+    (relation, endpoint) pair (0 on padding edges).  The two sorted
+    segmentations are the transposes of that expansion and of the
+    node -> compact-row gather, so both backward passes are sorted segment
+    sums:
+
+    * ``edge_sort_perm`` / ``edge_row_ptr``: real edges ordered by compact
+      row, padding edges appended past ``edge_row_ptr[-1]``;
+    * ``node_sort_perm`` / ``node_row_ptr``: compact rows ordered by node
+      id, padding rows past ``node_row_ptr[-1]``;
+    * destination side only, ``canon_ptr`` / ``canon_to_row``: the
+      canonical (dst, rel) runs, contiguous in canonical order, and the run
+      of each compact row (sentinel ``n_runs`` on padding rows).
+    """
+
+    seg: Segments
+    node_ids: torch.Tensor  # (seg.n_rows,)
+    edge_map: torch.Tensor  # (num_padded_edges,)
+    edge_sort_perm: torch.Tensor  # (num_padded_edges,)
+    edge_row_ptr: torch.Tensor  # (seg.n_rows + 1,)
+    node_sort_perm: torch.Tensor  # (seg.n_rows,)
+    node_row_ptr: torch.Tensor  # (num_nodes + 1,)
+    canon_ptr: Optional[torch.Tensor] = None  # (n_runs + 1,)
+    canon_to_row: Optional[torch.Tensor] = None  # (seg.n_rows,)
+
+    def to(self, device) -> "CompactInfo":
+        return _to(self, device)
+
+
+@dataclass(frozen=True)
+class HeteroGraph:
+    """Relation-partitioned heterogeneous graph in canonical edge order.
+
+    Per-edge tensors are indexed by canonical edge position: edges stably
+    sorted by (dst, rel, src), padded to ``num_padded_edges`` with sentinel
+    edges (``dst == num_nodes``)."""
+
+    num_nodes: int
+    num_edges: int  # real edges
+    num_padded_edges: int
+    num_rels: int
+    num_ntypes: int
+    ntype_offsets: Tuple[int, ...]
+    rel_names: Tuple[str, ...]
+
+    src: torch.Tensor  # (EP,)
+    dst: torch.Tensor  # (EP,) == num_nodes on padding
+    rel: torch.Tensor  # (EP,)
+    eid_orig: torch.Tensor  # (EP,) input edge id of each canonical edge
+    in_row_ptr: torch.Tensor  # (num_nodes + 1,) CSR over dst
+    edge_rel_seg: Segments  # relation-sorted view of the edges
+    out_perm: torch.Tensor  # (EP,) canonical positions sorted by src
+    out_row_ptr: torch.Tensor  # (num_nodes + 1,)
+    ntype_seg: Segments
+    compact_src: Optional[CompactInfo]
+    compact_dst: Optional[CompactInfo]
+    in_deg: torch.Tensor  # (num_nodes,)
+    out_deg: torch.Tensor  # (num_nodes,)
+    # True only for the union-list compact kind, which is not built yet
+    compact_shared: bool = False
+
+    def to(self, device) -> "HeteroGraph":
+        return _to(self, device)
+
+    def describe(self) -> str:
+        return (
+            f"HeteroGraph(nodes={self.num_nodes}, edges={self.num_edges}"
+            f" (padded {self.num_padded_edges}), rels={self.num_rels},"
+            f" ntypes={self.num_ntypes})"
+        )

@@ -1,0 +1,8 @@
+"""Graph ops of the port.  Each picks its implementation from the device
+of its tensors: hand-written CUDA kernels on the card, their plain
+PyTorch versions on the CPU."""
+
+from .common import (gather_dst, gather_nodes, safe_div,  # noqa: F401
+                     take_rows)
+from .linear import compact_typed_linear, segment_matmul  # noqa: F401
+from .spmm import CLIP_LOGIT, relational_fused_gat_compact  # noqa: F401

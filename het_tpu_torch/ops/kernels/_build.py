@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
+``ctypes``.  Libraries go to ``het_tpu_torch/_build/`` (listed in
+``.gitignore``) under a name that carries a hash of the source, so an
+edited source is rebuilt and a stale library is never loaded.  Nothing is
+built at import: the first launch builds what it needs, or a caller builds
+every kernel at once with :func:`build_all`, one ``nvcc`` per source, all
+running together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, List, Tuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("seg_reduce",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+NVCC_TIMEOUT_S = 600
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def _start(name: str) -> Tuple[str, str, subprocess.Popen]:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = _lib_path(name)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def build_all(names=SOURCES) -> List[str]:
+    """Compile every kernel library not yet built, all ``nvcc`` processes
+    at once; returns each compiler's output (register and spill counts
+    from ``-Xptxas -v``).  Raises if any build fails."""
+    jobs = [(n, *_start(n)) for n in names if not os.path.exists(
+        _lib_path(n))]
+    logs, failed = [], []
+    try:
+        for name, out, tmp, proc in jobs:
+            text, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            logs.append(f"[nvcc {name}]\n{text}")
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(name)
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed for {failed}:\n" + "\n".join(logs)
+        )
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(_lib_path(name))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,63 @@
+"""Trainer configuration with the reference's flag spellings.
+
+The subset of ``het_tpu/train/config.py`` that the port runs so far, plus
+``--device``.  Values the port does not support yet raise when the
+trainer builds the model or the graph, naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass
+class TrainConfig:
+    model: str = "RGAT"
+    dataset: str = "aifb"
+    n_infeat: int = 64
+    num_classes: int = 8
+    num_heads: int = 1
+    num_layers: int = 1
+    hidden: int = 64
+    lr: float = 1e-2
+    num_epochs: int = 10  # training steps (full-graph: one step an epoch)
+    dropout: float = 0.5
+    compact: bool = False  # --compact_as_of_node_flag
+    multiply_first: bool = False  # --multiply_among_weights_first_flag
+    # edge-softmax overflow protection: "clip" (clamp logits to +-60) or
+    # "raw" (reference parity); "max" is not ported yet
+    stable_softmax: str = "clip"
+    dataset_scale: float = 1.0  # synthetic stand-in scale (1.0 = published)
+    seed: int = 0
+    device: str = "cuda"
+
+
+def add_args(parser: argparse.ArgumentParser) -> None:
+    p = parser
+    p.add_argument("--model", type=str, default="RGAT")
+    p.add_argument("--dataset", "-d", type=str, default="aifb")
+    p.add_argument("--n_infeat", type=int, default=64)
+    p.add_argument("--num_classes", type=int, default=8)
+    p.add_argument("--num_heads", type=int, default=1)
+    p.add_argument("--num_layers", type=int, default=1)
+    p.add_argument("--hidden", type=int, default=64)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--num_epochs", "-e", type=int, default=10)
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--compact_as_of_node_flag", action="store_true",
+                   dest="compact")
+    p.add_argument("--multiply_among_weights_first_flag",
+                   action="store_true", dest="multiply_first")
+    p.add_argument("--stable_softmax", type=str, default="clip",
+                   choices=["clip", "max", "raw"])
+    p.add_argument("--dataset_scale", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda")
+
+
+def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    return TrainConfig(**{k: v for k, v in vars(args).items()
+                          if k in fields})

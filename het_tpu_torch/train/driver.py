@@ -1,0 +1,130 @@
+"""Full-graph training driver (counterpart of ``het_tpu/train/driver.py``).
+
+Node embeddings feed the model; the loss is the NLL of ``log_softmax`` on
+the training nodes; the optimizer is Adam, whose defaults (eps outside the
+square root, bias correction) are ``optax.adam``'s.  The run is f32 with
+TF32 off.  Each step's loss is printed with its time: CUDA events on the
+card, the host clock on the CPU.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from ..data.loaders import Dataset, load_dataset
+from ..models import NodeEmbed, RGATModel
+from ..utils.misc import nll_loss, resolve_device
+from .config import TrainConfig
+
+
+class NodeClassifier(nn.Module):
+    """Learned node embeddings (``embed``) feeding a model (``model``)."""
+
+    def __init__(self, embed: NodeEmbed, model: nn.Module):
+        super().__init__()
+        self.embed = embed
+        self.model = model
+
+    def forward(self, g, *, generator: Optional[torch.Generator] = None):
+        return self.model(g, self.embed(), generator=generator)
+
+
+def build_model(cfg: TrainConfig, data: Dataset, *,
+                seg_sum_impl: str = "kernel",
+                generator: Optional[torch.Generator] = None
+                ) -> NodeClassifier:
+    """The model ``cfg`` names, with parameters drawn from ``generator``."""
+    if cfg.model.upper() != "RGAT":
+        raise NotImplementedError(
+            f"--model {cfg.model}: only RGAT is ported so far (ROADMAP.md "
+            "queue 1 lists RGCN, HGT and GAT)"
+        )
+    g = data.graph
+    model = RGATModel(
+        cfg.n_infeat, cfg.hidden, data.num_classes, g.num_rels,
+        cfg.num_heads, max(cfg.num_layers, 1), compact=cfg.compact,
+        multiply_first=cfg.multiply_first, dropout=cfg.dropout,
+        stable_softmax=cfg.stable_softmax, seg_sum_impl=seg_sum_impl,
+        generator=generator,
+    )
+    return NodeClassifier(
+        NodeEmbed(g.num_nodes, cfg.n_infeat, generator=generator), model
+    )
+
+
+def train(
+    cfg: TrainConfig,
+    data: Optional[Dataset] = None,
+    *,
+    state: Optional[Mapping[str, Any]] = None,
+    seg_sum_impl: str = "kernel",
+    log: Callable[[str], None] = print,
+) -> Dict[str, Any]:
+    """Train ``cfg.num_epochs`` full-graph steps and return the metrics.
+
+    ``state`` (a state dict) replaces the seeded initial parameters;
+    ``seg_sum_impl="plain"`` runs the segment sums' plain PyTorch versions
+    on the card instead of the kernel, to compare the two."""
+    dev = resolve_device(cfg.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if data is None:
+        data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
+                            num_classes=cfg.num_classes, seed=cfg.seed,
+                            build_compact=cfg.compact)
+    net = build_model(cfg, data, seg_sum_impl=seg_sum_impl,
+                      generator=torch.Generator().manual_seed(cfg.seed))
+    if state is not None:
+        net.load_state_dict(
+            {k: torch.as_tensor(v) for k, v in state.items()}
+        )
+    net.to(dev).train()
+    g = data.graph.to(dev)
+    train_idx = torch.as_tensor(data.train_idx, device=dev).long()
+    labels = torch.as_tensor(data.labels, device=dev).long()[train_idx]
+    opt = torch.optim.Adam(net.parameters(), lr=cfg.lr)
+    drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+
+    on_card = dev.type == "cuda"
+    losses, step_ms = [], []
+    for step in range(cfg.num_epochs):
+        if on_card:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        else:
+            h0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        logits = net(g, generator=drop_gen)
+        loss = nll_loss(logits[train_idx], labels)
+        loss.backward()
+        opt.step()
+        if on_card:
+            t1.record()
+            t1.synchronize()
+            ms = t0.elapsed_time(t1)
+        else:
+            ms = (time.perf_counter() - h0) * 1e3
+        losses.append(loss.detach().item())
+        step_ms.append(ms)
+        log(f"step {step} loss {losses[-1]:.6f} step_ms {ms:.3f}")
+    return {
+        "dataset": data.name,
+        "model": cfg.model,
+        "device": (torch.cuda.get_device_name(dev) if on_card else "cpu"),
+        "timer": "cuda_events" if on_card else "host_clock",
+        "loss_list": losses,
+        "step_ms_list": step_ms,
+        "num_nodes": data.graph.num_nodes,
+        "num_edges": data.graph.num_edges,
+        "num_rels": data.graph.num_rels,
+        "flags": {"compact": cfg.compact,
+                  "multiply_first": cfg.multiply_first,
+                  "stable_softmax": cfg.stable_softmax,
+                  "seg_sum_impl": seg_sum_impl},
+        "synthetic_data": data.meta.get("synthetic", False),
+    }

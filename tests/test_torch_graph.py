@@ -1,0 +1,81 @@
+"""The port's graph builder and synthetic loaders against het_tpu's: every
+field the port keeps, and the planted labels and split, must be exactly
+equal."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from het_tpu.data import loaders as jl
+from het_tpu.graph import random_heterograph as j_random_heterograph
+from het_tpu_torch.data import loaders as tl
+from het_tpu_torch.graph import random_heterograph as t_random_heterograph
+
+
+def _assert_same(t_obj, j_obj, where):
+    """Every field of the port's dataclass equals het_tpu's field of the
+    same name (tensors exactly, including dtype)."""
+    for f in dataclasses.fields(t_obj):
+        tv, jv = getattr(t_obj, f.name), getattr(j_obj, f.name)
+        name = f"{where}.{f.name}"
+        if dataclasses.is_dataclass(tv):
+            _assert_same(tv, jv, name)
+        elif hasattr(tv, "numpy"):
+            jv = np.asarray(jv)
+            tv = tv.numpy()
+            assert tv.dtype == jv.dtype, (name, tv.dtype, jv.dtype)
+            np.testing.assert_array_equal(tv, jv, err_msg=name)
+        else:
+            assert tv == jv, (name, tv, jv)
+
+
+@pytest.mark.parametrize("power_law", [False, True])
+def test_random_heterograph_matches(power_law):
+    kw = dict(num_nodes=48, num_edges=400, num_rels=4, seed=3, tile=8,
+              power_law=power_law)
+    _assert_same(t_random_heterograph(**kw), j_random_heterograph(**kw), "g")
+
+
+def test_synthetic_mag_matches():
+    t = tl._synthetic("mag", scale=0.002, seed=1)
+    j = jl._synthetic("mag", scale=0.002, seed=1)
+    _assert_same(t.graph, j.graph, "mag")
+    for f in ("labels", "train_idx", "test_idx"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+    assert t.num_classes == j.num_classes
+
+
+def test_npy_shards_match(tmp_path):
+    rng = np.random.default_rng(0)
+    root = tmp_path / "toy"
+    root.mkdir()
+    for r in range(3):
+        coo = rng.integers(0, 40, size=(2, 60 + 10 * r)).astype(np.int32)
+        np.save(root / f"r{r}_coo_.npy", coo)
+    t = tl.load_dataset("toy", data_roots=(str(tmp_path),), tile=8)
+    j = jl.load_dataset("toy", data_roots=(str(tmp_path),), tile=8)
+    _assert_same(t.graph, j.graph, "toy")
+    for f in ("labels", "train_idx", "test_idx"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+
+
+def test_padding_invariants():
+    g = t_random_heterograph(num_nodes=30, num_edges=200, num_rels=3)
+    E, EP, N = g.num_edges, g.num_padded_edges, g.num_nodes
+    assert (g.dst[E:] == N).all() and (g.dst[:E] < N).all()
+    assert (g.compact_src.edge_map[E:] == 0).all()
+    for info in (g.compact_src, g.compact_dst):
+        assert int(info.edge_row_ptr[-1]) == E
+        assert (info.edge_sort_perm[E:].numpy() == np.arange(E, EP)).all()
+        n_real = int(info.seg.row_valid.sum())
+        assert int(info.node_row_ptr[-1]) == n_real
+    assert int(g.compact_dst.canon_ptr[-1]) == E
+
+
+def test_union_compact_raises():
+    from het_tpu_torch.graph import build_heterograph
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_heterograph(np.array([0]), np.array([1]), np.array([0]), 2,
+                          compact_union=True)
