@@ -2,13 +2,22 @@
 
 Counterpart of ``het_tpu/models/rgat.py`` with the same parameter names
 and shapes: ``conv_weights`` (R, H, in, D), ``attn_l``/``attn_r``
-(R, H, D), ``h_bias`` (out,).  The branch ported so far is the dual-list
-compact + multiply-first split form, the one the reference's
-``--compact_as_of_node_flag --multiply_among_weights_first_flag`` run
-takes: the attention logits ride the feature projection as extra output
-columns (``x · (W·a)``), both sides stay on compact rows, and the fused
-compact softmax aggregation sums them into destinations.  Every other
-branch raises ``NotImplementedError`` naming its ROADMAP item.
+(R, H, D), ``h_bias`` (out,).  Ported are the four dual-list branches:
+
+* plain (per edge): ``edge_typed_linear`` projects each edge's source and
+  destination rows, ``edge_rel_inner`` takes the attention logits, and
+  the fused per-edge softmax aggregation sums into destinations;
+* plain multiply-first: the logits ride the projection as extra output
+  columns (``x · (W·a)``), so no inner product;
+* compact: one projected row per unique (relation, node) pair on each
+  side, logits by ``segment_rel_inner`` on those rows;
+* compact multiply-first (the reference's
+  ``--compact_as_of_node_flag --multiply_among_weights_first_flag`` run):
+  both the features and the logits on compact rows from one matmul.
+
+The union-compact branch, the packed branch (>= ``PACKED_COMPACT_ROWS``
+source compact rows, multiply-first) and ``stable="max"`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,28 +66,19 @@ class RGATLayer(nn.Module):
         multiply_first: bool = False,
         dropout: float = 0.5,
         stable_softmax=False,
-        seg_sum_impl: str = "kernel",
+        impl: str = "kernel",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if out_feat % num_heads:
             raise ValueError("out_feat must be a multiple of num_heads")
-        if not compact:
-            raise NotImplementedError(
-                "plain (per-edge) RGAT is not ported yet (ROADMAP.md, "
-                "'The rest of RGAT: the plain path')"
-            )
-        if not multiply_first:
-            raise NotImplementedError(
-                "compact RGAT without multiply_first is not ported yet "
-                "(ROADMAP.md, 'The rest of RGAT: compact, not "
-                "multiply-first')"
-            )
         self.out_feat = out_feat
         self.activation = activation
+        self.compact = compact
+        self.multiply_first = multiply_first
         self.dropout = dropout
         self.stable_softmax = stable_softmax
-        self.seg_sum_impl = seg_sum_impl
+        self.impl = impl
         H, D = num_heads, out_feat // num_heads
         self.conv_weights = nn.Parameter(torch.empty(num_rels, H, in_feat, D))
         self.attn_l = nn.Parameter(torch.empty(num_rels, H, D))
@@ -89,29 +89,10 @@ class RGATLayer(nn.Module):
 
     def forward(self, g, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if g.compact_shared:
-            raise NotImplementedError(
-                "union-list compact RGAT is not ported yet (ROADMAP.md, "
-                "'The rest of RGAT: the union-compact branch')"
-            )
-        if g.compact_src.seg.n_rows >= PACKED_COMPACT_ROWS:
-            raise NotImplementedError(
-                f"{g.compact_src.seg.n_rows} source compact rows take the "
-                "packed-operand fused op, which is not ported yet "
-                "(ROADMAP.md, 'The rest of RGAT: the packed branch')"
-            )
-        impl = self.seg_sum_impl
-        conv_w = self.conv_weights
-        wa_l = torch.einsum("rhkd,rhd->rhk", conv_w, self.attn_l)
-        wa_r = torch.einsum("rhkd,rhd->rhk", conv_w, self.attn_r)
-        w_cat = torch.cat([wa_l[..., None], conv_w], dim=-1)  # (R,H,K,1+D)
-        fe = ops.compact_typed_linear(g, x, w_cat, "src", seg_sum_impl=impl)
-        er_c = ops.compact_typed_linear(g, x, wa_r[..., None], "dst",
-                                        seg_sum_impl=impl)[..., 0]
-        h = ops.relational_fused_gat_compact(
-            g, fe[..., 1:], fe[..., 0], er_c, LEAKY_RELU_SLOPE,
-            stable=self.stable_softmax, seg_sum_impl=impl,
-        )
+        if self.compact:
+            h = self._compact(g, x)
+        else:
+            h = self._plain(g, x)
         h = h.reshape(g.num_nodes, self.out_feat) + self.h_bias
         if self.activation is not None:
             h = self.activation(h)
@@ -120,6 +101,64 @@ class RGATLayer(nn.Module):
                 raise ValueError("training with dropout needs a generator")
             h = dropout(h, self.dropout, generator)
         return h
+
+    def _weights_times_attn(self):
+        """``W·a_l`` and ``W·a_r`` (R, H, K): the multiply-first logit
+        columns."""
+        return (torch.einsum("rhkd,rhd->rhk", self.conv_weights, self.attn_l),
+                torch.einsum("rhkd,rhd->rhk", self.conv_weights, self.attn_r))
+
+    def _compact(self, g, x):
+        if g.compact_shared:
+            raise NotImplementedError(
+                "union-list compact RGAT is not ported yet (ROADMAP.md, "
+                "'The rest of RGAT: the union-compact branch')"
+            )
+        impl, slope, stable = self.impl, LEAKY_RELU_SLOPE, self.stable_softmax
+        conv_w = self.conv_weights
+        if not self.multiply_first:
+            feat_c = ops.compact_typed_linear(g, x, conv_w, "src", impl=impl)
+            el_c = ops.segment_rel_inner(feat_c, self.attn_l,
+                                         g.compact_src.seg, impl=impl)
+            feat_c_dst = ops.compact_typed_linear(g, x, conv_w, "dst",
+                                                  impl=impl)
+            er_c = ops.segment_rel_inner(feat_c_dst, self.attn_r,
+                                         g.compact_dst.seg, impl=impl)
+            return ops.relational_fused_gat_compact(
+                g, feat_c, el_c, er_c, slope, stable=stable, impl=impl)
+        if g.compact_src.seg.n_rows >= PACKED_COMPACT_ROWS:
+            raise NotImplementedError(
+                f"{g.compact_src.seg.n_rows} source compact rows take the "
+                "packed-operand fused op, which is not ported yet "
+                "(ROADMAP.md, 'The rest of RGAT: the packed branch')"
+            )
+        wa_l, wa_r = self._weights_times_attn()
+        w_cat = torch.cat([wa_l[..., None], conv_w], dim=-1)  # (R,H,K,1+D)
+        fe = ops.compact_typed_linear(g, x, w_cat, "src", impl=impl)
+        er_c = ops.compact_typed_linear(g, x, wa_r[..., None], "dst",
+                                        impl=impl)[..., 0]
+        return ops.relational_fused_gat_compact(
+            g, fe[..., 1:], fe[..., 0], er_c, slope, stable=stable,
+            impl=impl)
+
+    def _plain(self, g, x):
+        impl, slope, stable = self.impl, LEAKY_RELU_SLOPE, self.stable_softmax
+        conv_w = self.conv_weights
+        if self.multiply_first:
+            D = conv_w.shape[-1]
+            wa_l, wa_r = self._weights_times_attn()
+            w_cat = torch.cat([conv_w, wa_l[..., None]], dim=-1)  # (R,H,K,D+1)
+            fe = ops.edge_typed_linear(g, x, w_cat, "src", impl=impl)
+            feat_e, el = fe[..., :D], fe[..., D]
+            er = ops.edge_typed_linear(g, x, wa_r[..., None], "dst",
+                                       impl=impl)[..., 0]
+        else:
+            feat_e = ops.edge_typed_linear(g, x, conv_w, "src", impl=impl)
+            el = ops.edge_rel_inner(g, feat_e, self.attn_l, impl=impl)
+            feat_dst_e = ops.edge_typed_linear(g, x, conv_w, "dst", impl=impl)
+            er = ops.edge_rel_inner(g, feat_dst_e, self.attn_r, impl=impl)
+        return ops.relational_fused_gat(g, feat_e, el, er, slope,
+                                        stable=stable, impl=impl)
 
 
 class RGATModel(nn.Module):
@@ -139,7 +178,7 @@ class RGATModel(nn.Module):
         multiply_first: bool = False,
         dropout: float = 0.5,
         stable_softmax=False,
-        seg_sum_impl: str = "kernel",
+        impl: str = "kernel",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -150,7 +189,7 @@ class RGATModel(nn.Module):
                 activation=torch.relu if i < num_layers - 1 else None,
                 compact=compact, multiply_first=multiply_first,
                 dropout=dropout, stable_softmax=stable_softmax,
-                seg_sum_impl=seg_sum_impl, generator=generator,
+                impl=impl, generator=generator,
             )
             for i in range(num_layers)
         )

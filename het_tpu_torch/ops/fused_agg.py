@@ -1,6 +1,11 @@
-"""Fused compact edge softmax + aggregation with an analytic backward.
+"""Fused edge softmax + aggregation with an analytic backward.
 
-Counterpart of ``het_tpu/ops/pallas/fused_agg.py::_make_compact_fused_op``
+:class:`FusedGAT` is the counterpart of
+``het_tpu/ops/pallas/fused_agg.py::_make_fused_op`` (per-edge inputs, the
+plain RGAT path): one sorted segment sum of ``[z | z*feat]`` over
+``in_row_ptr`` forward, gathers and elementwise work backward.
+
+:class:`CompactFusedGAT` is the counterpart of ``_make_compact_fused_op``
 (the single-sided compact op, ``COMPACT_BWD="permute"``):
 
     out[v] = sum_{dst(e)=v} softmax_v(act(el_c[rowS(e)] + er_c[rowD(e)]))
@@ -60,6 +65,52 @@ def _edge_terms(el_feat_c, er_c, infoS, infoD, H, slope, clip):
     raw = ge[:, :H] + take_rows(er_c, infoD.edge_map)
     z = torch.exp(_act_apply(raw, slope, clip))
     return z, _act_deriv(raw, slope, clip), ge[:, H:]
+
+
+class FusedGAT(torch.autograd.Function):
+    """``forward(feat2d (EP, H*D), raw (EP, H), g, slope, clip, impl) ->
+    (N, H, D)`` with ``raw = el + er`` per canonical edge.  The forward
+    saves ``(feat2d, raw, s, out)``; the backward is the one in the module
+    docstring with per-edge inputs: ``dfeat`` and ``draw`` in canonical
+    order, zero on padding edges (their ``dst`` gathers a zero row)."""
+
+    @staticmethod
+    def forward(ctx, feat2d, raw, g, slope: float, clip: Optional[float],
+                impl: str):
+        H = raw.shape[1]
+        D = feat2d.shape[1] // H
+        z = torch.exp(_act_apply(raw.float(), slope, clip))
+        # padding edges give finite z and lie past in_row_ptr's end
+        payload = torch.cat([z, z.repeat_interleave(D, 1) * feat2d.float()],
+                            dim=1)
+        agg = seg_sum_sorted(payload, g.in_row_ptr, impl=impl)
+        s, num = agg[:, :H], agg[:, H:]
+        out = safe_div(num.view(-1, H, D), s[..., None])
+        ctx.save_for_backward(feat2d, raw, s, out)
+        ctx.g, ctx.slope, ctx.clip = g, slope, clip
+        return out.to(feat2d.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        feat2d, raw, s, out = ctx.saved_tensors
+        g, slope, clip = ctx.g, ctx.slope, ctx.clip
+        H = raw.shape[1]
+        HD = feat2d.shape[1]
+        D = HD // H
+        raw32 = raw.float()
+        z = torch.exp(_act_apply(raw32, slope, clip))
+        ct = ct.float()
+        t2 = (out * ct).sum(-1)  # (N, H)
+        # one dst gather (monotone in canonical order) serves ct, s and t2
+        cpe = gather_dst(g, torch.cat([ct.reshape(-1, HD), s, t2], dim=1))
+        ctd = cpe[:, :HD]
+        alpha = safe_div(z, cpe[:, HD:HD + H])
+        t1 = (feat2d.float() * ctd).view(-1, H, D).sum(-1)
+        draw = alpha * (t1 - cpe[:, HD + H:]) * _act_deriv(raw32, slope,
+                                                           clip)
+        dfeat = alpha.repeat_interleave(D, 1) * ctd
+        return (dfeat.to(feat2d.dtype), draw.to(raw.dtype),
+                None, None, None, None)
 
 
 class CompactFusedGAT(torch.autograd.Function):

@@ -8,10 +8,10 @@ there through ``seg_sum_sorted_packed``).  Rows of ``vals`` outside
 which is how padding edges and padding compact rows drop out.  The kernel
 is ``csrc/seg_reduce.cu``; its header says what bounds it and how.
 
-The device of ``vals`` picks the implementation: a CUDA tensor launches
-the kernel (or raises), a CPU tensor takes :func:`seg_sum_sorted_plain`.
-``impl="plain"`` asks for the plain version on the card as well, which is
-how a run compares the two; nothing falls back from one to the other.
+The device of ``vals`` picks the implementation (``_build.takes_plain``):
+a CUDA tensor launches the kernel (or raises), a CPU tensor takes
+:func:`seg_sum_sorted_plain`, and ``impl="plain"`` asks for the plain
+version on the card as well; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -22,8 +22,6 @@ from typing import Optional
 import torch
 
 from . import _build
-
-IMPLS = ("kernel", "plain")
 
 
 def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
@@ -63,15 +61,9 @@ def _check(vals, row_ptr, perm):
 
 
 def _seg_sum_sorted_cuda(vals, row_ptr, perm):
-    lib = _build.load("seg_reduce")
-    fn = lib.het_seg_sum_sorted_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.het_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.het_cuda_error_string.restype = ctypes.c_char_p
+    fn = _build.bind("seg_reduce", "het_seg_sum_sorted_f32", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
     n = row_ptr.numel() - 1
     C = vals.shape[1]
     out = torch.empty(n, C, dtype=torch.float32, device=vals.device)
@@ -82,11 +74,7 @@ def _seg_sum_sorted_cuda(vals, row_ptr, perm):
         err = fn(vals.data_ptr(), row_ptr.data_ptr(),
                  perm.data_ptr() if perm is not None else None,
                  out.data_ptr(), n, C, stream)
-    if err:
-        raise RuntimeError(
-            "seg_sum_sorted kernel launch failed: "
-            + lib.het_cuda_error_string(err).decode()
-        )
+    _build.check_launch("seg_reduce", err, "seg_sum_sorted")
     seg_sum_sorted.launches += 1
     return out
 
@@ -97,13 +85,10 @@ def seg_sum_sorted(vals: torch.Tensor, row_ptr: torch.Tensor,
     """Sum rows of ``vals`` (rows, C) f32 over the sorted segmentation
     ``row_ptr`` (n + 1,) int32, reading row ``perm[e]`` for edge ``e`` when
     ``perm`` (int32) is given.  Returns (n, C) f32."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    plain = _build.takes_plain(vals, impl, "seg_sum_sorted")
     _check(vals, row_ptr, perm)
-    if vals.device.type == "cpu" or impl == "plain":
+    if plain:
         return seg_sum_sorted_plain(vals, row_ptr, perm)
-    if vals.device.type != "cuda":
-        raise ValueError(f"no seg_sum_sorted kernel for {vals.device}")
     return _seg_sum_sorted_cuda(vals, row_ptr, perm)
 
 

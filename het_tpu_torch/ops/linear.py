@@ -1,6 +1,6 @@
-"""Relation-typed linears over compact rows.
+"""Relation-typed linears and relation-typed inner products.
 
-Counterpart of the compact path of ``het_tpu/ops/linear.py``:
+Counterpart of ``het_tpu/ops/linear.py``:
 
 * :func:`segment_matmul` multiplies each relation's rows by that
   relation's weight, one dense matmul per relation over the row slice
@@ -10,17 +10,28 @@ Counterpart of the compact path of ``het_tpu/ops/linear.py``:
 * :func:`compact_typed_linear` gathers node rows into the unique
   (relation, node) compact rows and applies :func:`segment_matmul`.  The
   gather's backward is the sorted segment sum over ``node_row_ptr`` with
-  ``node_sort_perm``, as ``_compact_gather`` has it.
+  ``node_sort_perm``, as ``_compact_gather`` has it;
+* :func:`edge_typed_linear` does the same per edge: node rows gathered
+  into the relation-sorted edge rows (``edge_rel_seg``), multiplied, and
+  read back in canonical edge order.  The gather's backward is a sorted
+  segment sum over the source or destination CSR, reading the cotangent
+  rows through a permutation, as ``_make_edge_row_gather`` has it;
+* :func:`edge_rel_inner` and :func:`segment_rel_inner` are the
+  attention-logit inner products ``<feat[h], a[rel, h]>``; their ``a``
+  gradient is the grouped dW kernel (``kernels.segment_matmul_dw``).
+
+``impl`` ("kernel" or "plain") picks the version of every kernel an op
+runs; see ``kernels/_build.py``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .common import gather_nodes
-from .kernels import seg_sum_sorted
+from .common import gather_nodes, take_rows
+from .kernels import seg_sum_sorted, segment_matmul_dw
 
 
 def _flat_weight(w_r: torch.Tensor) -> torch.Tensor:
@@ -73,8 +84,9 @@ def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor,
     (n_rows, H, O): row ``i`` of segment ``s`` times ``w[s]``."""
     if x_rows.dim() != 2:
         raise NotImplementedError(
-            "segment_matmul takes (n_rows, K) rows; per-head inputs belong "
-            "to the plain RGAT path (ROADMAP.md, 'The rest of RGAT')"
+            "segment_matmul takes (n_rows, K) rows; per-head (n_rows, H, K) "
+            "inputs have no caller on the ported paths yet (ROADMAP.md "
+            "queue 1)"
         )
     if seg.seg_ptrs_static[-1] != x_rows.shape[0]:
         raise ValueError("x_rows does not span the segment row space")
@@ -104,7 +116,7 @@ class _CompactGather(torch.autograd.Function):
 
 def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
                          side: str = "src", *,
-                         seg_sum_impl: str = "kernel") -> torch.Tensor:
+                         impl: str = "kernel") -> torch.Tensor:
     """Typed linear over unique (relation, node) rows of one side:
     returns (compact n_rows, H, O), one row per (relation, node) pair,
     zero on padding rows."""
@@ -114,5 +126,101 @@ def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
     seg = info.seg
     row_idx = torch.where(seg.row_valid, info.node_ids,
                           torch.full_like(info.node_ids, g.num_nodes))
-    x_rows = _CompactGather.apply(x, row_idx, info, seg_sum_impl)
+    x_rows = _CompactGather.apply(x, row_idx, info, impl)
     return segment_matmul(x_rows, w, seg)
+
+
+def _edge_row_idx(g, side: str) -> torch.Tensor:
+    """Node row of each relation-sorted edge row: ``src`` or ``dst`` of
+    the edge it holds, the sentinel ``num_nodes`` on padding rows."""
+    idx = g.src if side == "src" else g.dst
+    seg = g.edge_rel_seg
+    return torch.where(seg.row_valid, take_rows(idx, seg.perm),
+                       torch.full_like(seg.perm, g.num_nodes))
+
+
+class _EdgeRowGather(torch.autograd.Function):
+    """Node rows -> relation-sorted edge rows (zero on padding rows).
+
+    Backward, without writing a permuted copy of the cotangent: the
+    destination side reads row ``seg.inv[e]`` for canonical edge ``e``
+    (dst-sorted) and sums over ``in_row_ptr``; the source side reads row
+    ``seg.inv[out_perm[p]]`` for src-sorted position ``p`` and sums over
+    ``out_row_ptr``.  Padding edges lie past both row pointers' ends."""
+
+    @staticmethod
+    def forward(ctx, x, g, side: str, impl: str):
+        if x.shape[0] != g.num_nodes:
+            raise ValueError(f"x has {x.shape[0]} rows, the graph "
+                             f"{g.num_nodes} nodes")
+        ctx.g, ctx.side, ctx.impl = g, side, impl
+        ctx.x_shape = x.shape
+        return gather_nodes(x, _edge_row_idx(g, side))
+
+    @staticmethod
+    def backward(ctx, ct_rows):
+        g, seg = ctx.g, ctx.g.edge_rel_seg
+        flat = ct_rows.reshape(ct_rows.shape[0], -1).float().contiguous()
+        if ctx.side == "src":
+            perm = take_rows(seg.inv, g.out_perm)
+            dx = seg_sum_sorted(flat, g.out_row_ptr, perm, impl=ctx.impl)
+        else:
+            dx = seg_sum_sorted(flat, g.in_row_ptr, seg.inv, impl=ctx.impl)
+        return dx.view(ctx.x_shape).to(ct_rows.dtype), None, None, None
+
+
+def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
+                      side: str = "src", *,
+                      impl: str = "kernel") -> torch.Tensor:
+    """Per-edge typed linear ``y_e = x[side(e)] @ W[rel(e)]``: x (N, K),
+    w (R, H, K, O) -> (num_padded_edges, H, O) in canonical edge order,
+    exactly zero on padding edges."""
+    seg = g.edge_rel_seg
+    x_rows = _EdgeRowGather.apply(x, g, side, impl)
+    return seg.scatter_back(segment_matmul(x_rows, w, seg))
+
+
+class _RelInner(torch.autograd.Function):
+    """``score[i, h] = <feat[i, h], a[rel[i], h]>``.  Backward: ``d_feat
+    = ct * a[rel]``; ``d_a`` is the grouped dW over the segments of
+    ``seg``, with rows taken in segment order through ``perm`` (None when
+    the rows already are) and the cotangent zeroed on invalid rows."""
+
+    @staticmethod
+    def forward(ctx, feat, a, rel, seg, perm: Optional[torch.Tensor],
+                impl: str):
+        ctx.save_for_backward(feat, a, rel)
+        ctx.seg, ctx.perm, ctx.impl = seg, perm, impl
+        return (feat * take_rows(a, rel)).sum(-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        feat, a, rel = ctx.saved_tensors
+        seg, perm = ctx.seg, ctx.perm
+        ct = ct.float()
+        d_feat = (ct[..., None] * take_rows(a, rel)).to(feat.dtype)
+        fr, cr = feat.float(), ct
+        if perm is not None:
+            fr, cr = take_rows(fr, perm), take_rows(cr, perm)
+        cr = torch.where(seg.row_valid[:, None], cr, torch.zeros_like(cr))
+        R, H, D = a.shape
+        da = segment_matmul_dw(fr.contiguous(), cr[..., None], (R, H, D, 1),
+                               seg, impl=ctx.impl)[..., 0]
+        return d_feat, da.to(a.dtype), None, None, None, None
+
+
+def edge_rel_inner(g, feat_e: torch.Tensor, a: torch.Tensor, *,
+                   impl: str = "kernel") -> torch.Tensor:
+    """``score_e[h] = <feat_e[h], a[rel_e, h]>``: feat_e (EP, H, D) in
+    canonical edge order, a (R, H, D) -> (EP, H).  The ``a`` gradient
+    reads the edges in relation order (``edge_rel_seg.perm``)."""
+    seg = g.edge_rel_seg
+    return _RelInner.apply(feat_e, a, g.rel, seg, seg.perm, impl)
+
+
+def segment_rel_inner(x_rows: torch.Tensor, a: torch.Tensor, seg, *,
+                      impl: str = "kernel") -> torch.Tensor:
+    """``score[i, h] = <x_rows[i, h], a[segment(i), h]>`` for rows already
+    in the segment space of ``seg`` (compact rows): (n_rows, H, D),
+    (R, H, D) -> (n_rows, H)."""
+    return _RelInner.apply(x_rows, a, seg.row_seg, seg, None, impl)

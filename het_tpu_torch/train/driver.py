@@ -34,7 +34,7 @@ class NodeClassifier(nn.Module):
 
 
 def build_model(cfg: TrainConfig, data: Dataset, *,
-                seg_sum_impl: str = "kernel",
+                impl: str = "kernel",
                 generator: Optional[torch.Generator] = None
                 ) -> NodeClassifier:
     """The model ``cfg`` names, with parameters drawn from ``generator``."""
@@ -48,7 +48,7 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
         cfg.n_infeat, cfg.hidden, data.num_classes, g.num_rels,
         cfg.num_heads, max(cfg.num_layers, 1), compact=cfg.compact,
         multiply_first=cfg.multiply_first, dropout=cfg.dropout,
-        stable_softmax=cfg.stable_softmax, seg_sum_impl=seg_sum_impl,
+        stable_softmax=cfg.stable_softmax, impl=impl,
         generator=generator,
     )
     return NodeClassifier(
@@ -61,14 +61,14 @@ def train(
     data: Optional[Dataset] = None,
     *,
     state: Optional[Mapping[str, Any]] = None,
-    seg_sum_impl: str = "kernel",
+    impl: str = "kernel",
     log: Callable[[str], None] = print,
 ) -> Dict[str, Any]:
     """Train ``cfg.num_epochs`` full-graph steps and return the metrics.
 
     ``state`` (a state dict) replaces the seeded initial parameters;
-    ``seg_sum_impl="plain"`` runs the segment sums' plain PyTorch versions
-    on the card instead of the kernel, to compare the two."""
+    ``impl="plain"`` runs every kernel's plain PyTorch version on the card
+    instead of the kernel, to compare the two."""
     dev = resolve_device(cfg.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -76,7 +76,7 @@ def train(
         data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
                             num_classes=cfg.num_classes, seed=cfg.seed,
                             build_compact=cfg.compact)
-    net = build_model(cfg, data, seg_sum_impl=seg_sum_impl,
+    net = build_model(cfg, data, impl=impl,
                       generator=torch.Generator().manual_seed(cfg.seed))
     if state is not None:
         net.load_state_dict(
@@ -125,6 +125,6 @@ def train(
         "flags": {"compact": cfg.compact,
                   "multiply_first": cfg.multiply_first,
                   "stable_softmax": cfg.stable_softmax,
-                  "seg_sum_impl": seg_sum_impl},
+                  "impl": impl},
         "synthetic_data": data.meta.get("synthetic", False),
     }

@@ -2,7 +2,7 @@
 
     python -m het_tpu_torch.utils.profile_step --model RGAT -d mag \\
         --dataset_scale 0.1 --num_heads 4 --num_layers 2 \\
-        --compact_as_of_node_flag --multiply_among_weights_first_flag
+        [--compact_as_of_node_flag] [--multiply_among_weights_first_flag]
 
 Takes the trainer's flags, runs six steps and traces steps 3-5 with
 ``torch.profiler`` (the trainer's per-step log call advances the
@@ -28,6 +28,7 @@ TOP = 30  # kernels listed by name
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
     ("seg_sum_sorted", "seg_sum_sorted (port kernel)"),
+    ("segment_matmul_dw", "segment_matmul_dw (port kernel)"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("splitKreduce", "matmul"),
     ("index", "gather / index"), ("gather", "gather / index"),
     ("Cat", "concatenate"),

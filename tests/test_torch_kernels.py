@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from het_tpu_torch.graph import random_heterograph
-from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
+from het_tpu_torch.ops.kernels import (seg_sum_sorted, seg_sum_sorted_plain,
+                                       segment_matmul_dw,
+                                       segment_matmul_dw_plain)
 
 
 @pytest.fixture
@@ -59,3 +61,55 @@ def test_seg_sum_rejects_cpu_index_for_cuda_values(cuda):
     ptr = torch.tensor([0, 3, 10], dtype=torch.int32)
     with pytest.raises(ValueError):
         seg_sum_sorted(vals, ptr)
+
+
+def _segments(sizes, tile):
+    """Segments over rows grouped by the given per-segment row counts."""
+    import numpy as np
+    from het_tpu_torch.graph.build import build_segments
+
+    seg_of_row = np.repeat(np.arange(len(sizes)), sizes)
+    return build_segments(seg_of_row, len(sizes), tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,H,Hx,K,O", [
+    ((5000, 0, 3000, 17), 4, 4, 16, 1),  # the attention-vector shape
+    ((5000, 0, 3000, 17), 4, 4, 2, 1),  # K % 4 != 0: scalar loads
+    ((5000, 0, 3000, 17), 2, 1, 8, 1),  # head-broadcast x
+    ((4100, 0, 70, 9000), 1, 1, 64, 64),  # segment-matmul dW
+    ((4100, 0, 70, 9000), 2, 2, 70, 5),  # ragged k and o tiles
+    ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
+    ((300,), 1, 1, 1, 1),  # one segment, K = O = 1
+    ((40, 7), 1, 1, 1, 65),  # K = 1, O past one tile
+])
+def test_segment_matmul_dw_kernel_matches_plain(cuda, sizes, H, Hx, K, O):
+    """Tolerance: 1e-5 * sum |x| |ct| per output (f32 sums in another
+    order); empty segments are exactly zero."""
+    seg = _segments(sizes, tile=8).to(cuda)
+    n = seg.n_rows
+    gen = torch.Generator(device=cuda).manual_seed(n + K + O)
+    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
+    ct = torch.randn(n, H * O, device=cuda, generator=gen)
+    segment_matmul_dw.launches = 0
+    got = segment_matmul_dw(x, ct, (len(sizes), H, K, O), seg)
+    torch.cuda.synchronize()
+    assert segment_matmul_dw.launches == 1
+    want = segment_matmul_dw_plain(x, ct, (len(sizes), H, K, O), seg)
+    scale = segment_matmul_dw_plain(x.abs(), ct.abs(), (len(sizes), H, K, O),
+                                    seg)
+    assert got.shape == want.shape
+    assert ((got - want).abs() <= 1e-5 * scale).all()
+    for s, size in enumerate(sizes):
+        if size == 0:
+            assert (got[s] == 0).all()
+
+
+@pytest.mark.gpu
+def test_segment_matmul_dw_kernel_is_deterministic(cuda):
+    seg = _segments((30000, 100, 20000), tile=128).to(cuda)
+    x = torch.randn(seg.n_rows, 64, device=cuda)
+    ct = torch.randn(seg.n_rows, 4, device=cuda)
+    a = segment_matmul_dw(x, ct, (3, 4, 16, 1), seg)
+    b = segment_matmul_dw(x, ct, (3, 4, 16, 1), seg)
+    assert torch.equal(a, b)

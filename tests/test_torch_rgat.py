@@ -1,9 +1,10 @@
-"""The port's 2-layer compact multiply-first RGAT against het_tpu's (pallas
-backend, interpret mode on the CPU) with the same parameters, carried by
-``params_from_jax``: logits, every parameter gradient, and three Adam
-steps against ``jax.value_and_grad`` + ``optax.adam``.  Tolerances:
-values rtol 1e-4 / atol 2e-4, gradients rtol 5e-3 / atol 2e-4 (the
-repo's backend-parity ones)."""
+"""The port's 2-layer RGAT against het_tpu's (pallas backend, interpret
+mode on the CPU) with the same parameters, carried by ``params_from_jax``,
+in each of the four dual-list branches (plain or compact, with or without
+multiply-first): logits, every parameter gradient, and three Adam steps
+against ``jax.value_and_grad`` + ``optax.adam``.  Tolerances: values rtol
+1e-4 / atol 2e-4, gradients rtol 5e-3 / atol 2e-4 (the repo's
+backend-parity ones)."""
 
 import dataclasses
 
@@ -29,6 +30,13 @@ from het_tpu_torch.utils.misc import nll_loss
 VAL = dict(rtol=1e-4, atol=2e-4)
 GRAD = dict(rtol=5e-3, atol=2e-4)
 IN, HID, CLS, HEADS, LR = 12, 8, 4, 2, 1e-2
+# branch -> (compact, multiply_first)
+BRANCHES = {
+    "plain": (False, False),
+    "plain_multiply_first": (False, True),
+    "compact": (True, False),
+    "compact_multiply_first": (True, True),
+}
 
 
 @pytest.fixture
@@ -39,14 +47,20 @@ def pallas_backend():
 
 
 @pytest.fixture(scope="module")
-def setup():
+def graphs():
     kw = dict(num_nodes=48, num_edges=400, num_rels=4, seed=5, tile=8)
-    jg, tg = j_random_heterograph(**kw), t_random_heterograph(**kw)
+    return j_random_heterograph(**kw), t_random_heterograph(**kw)
+
+
+@pytest.fixture(scope="module", params=list(BRANCHES))
+def setup(request, graphs):
+    jg, tg = graphs
+    compact, multiply_first = BRANCHES[request.param]
     rng = np.random.default_rng(3)
     jmodel = JRGATModel(in_feat=IN, hidden=HID, num_classes=CLS,
                         num_rels=jg.num_rels, num_heads=HEADS, num_layers=2,
-                        compact=True, multiply_first=True, dropout=0.0,
-                        stable_softmax="clip")
+                        compact=compact, multiply_first=multiply_first,
+                        dropout=0.0, stable_softmax="clip")
     jembed = JNodeEmbed(num_nodes=jg.num_nodes, embed_dim=IN)
     e_params = jembed.init(jax.random.PRNGKey(1))
     prev = jops.get_backend()
@@ -61,7 +75,7 @@ def setup():
     labels = rng.integers(0, CLS, jg.num_nodes)
     train_idx = rng.permutation(jg.num_nodes)[:36]
     jfn = _j_loss(jg, jmodel, jembed, labels, train_idx)
-    return jg, tg, jfn, tree, labels, train_idx
+    return jg, tg, jfn, tree, labels, train_idx, request.param
 
 
 def _j_loss(jg, jmodel, jembed, labels, train_idx):
@@ -73,11 +87,13 @@ def _j_loss(jg, jmodel, jembed, labels, train_idx):
     return jax.jit(jax.value_and_grad(loss, has_aux=True))
 
 
-def _t_net(tg, tree):
+def _t_net(tg, tree, branch):
+    compact, multiply_first = BRANCHES[branch]
     net = NodeClassifier(
         NodeEmbed(tg.num_nodes, IN),
-        RGATModel(IN, HID, CLS, tg.num_rels, HEADS, 2, compact=True,
-                  multiply_first=True, dropout=0.0, stable_softmax="clip"),
+        RGATModel(IN, HID, CLS, tg.num_rels, HEADS, 2, compact=compact,
+                  multiply_first=multiply_first, dropout=0.0,
+                  stable_softmax="clip"),
     )
     net.load_state_dict(params_from_jax(tree))
     return net.train()
@@ -92,8 +108,8 @@ def _j_leaf(tree, name):
 
 
 def test_forward_and_grads(pallas_backend, setup):
-    jg, tg, jfn, tree, labels, train_idx = setup
-    net = _t_net(tg, tree)
+    jg, tg, jfn, tree, labels, train_idx, branch = setup
+    net = _t_net(tg, tree, branch)
     logits = net(tg)
     (jv, jlogits), jgrad = jfn(tree)
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
@@ -111,7 +127,7 @@ def test_forward_and_grads(pallas_backend, setup):
 
 
 def test_three_adam_steps(pallas_backend, setup):
-    jg, tg, loss_fn, tree, labels, train_idx = setup
+    jg, tg, loss_fn, tree, labels, train_idx, branch = setup
     tx = optax.adam(LR)
     params = jax.tree.map(jnp.asarray, tree)
     opt_state = tx.init(params)
@@ -122,7 +138,7 @@ def test_three_adam_steps(pallas_backend, setup):
         params = optax.apply_updates(params, updates)
         j_losses.append(float(v))
 
-    net = _t_net(tg, tree)
+    net = _t_net(tg, tree, branch)
     opt = torch.optim.Adam(net.parameters(), lr=LR)
     idx = torch.from_numpy(train_idx)
     y = torch.from_numpy(labels[train_idx])
@@ -141,11 +157,13 @@ def test_three_adam_steps(pallas_backend, setup):
                                    err_msg=name, **VAL)
 
 
-def test_cpu_training_run():
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_cpu_training_run(branch):
+    compact, multiply_first = BRANCHES[branch]
     cfg = TrainConfig(model="RGAT", dataset="mag", dataset_scale=0.002,
                       n_infeat=16, hidden=16, num_heads=2, num_layers=2,
-                      compact=True, multiply_first=True, num_epochs=3,
-                      device="cpu")
+                      compact=compact, multiply_first=multiply_first,
+                      num_epochs=3, device="cpu")
     logs = []
     m1 = train(cfg, log=logs.append)
     assert len(logs) == 3 and m1["timer"] == "host_clock"
@@ -158,21 +176,25 @@ def test_cpu_training_run():
     assert m3["loss_list"][-1] < m3["loss_list"][0]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(compact=False, multiply_first=True), "plain"),
-    (dict(compact=True, multiply_first=False), "multiply-first"),
+@pytest.mark.parametrize("kw", [
+    dict(compact=False, multiply_first=False),
+    dict(compact=True, multiply_first=True),
 ])
-def test_unported_branches_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        RGATLayer(4, 4, 2, 1, **kw)
+def test_unported_branches_raise(graphs, kw):
+    """``stable="max"`` raises on the plain and the compact path."""
+    tg = graphs[1]
+    layer = RGATLayer(IN, HID, tg.num_rels, HEADS, stable_softmax="max",
+                      **kw)
+    with pytest.raises(NotImplementedError, match="stable=max"):
+        layer(tg, torch.zeros(tg.num_nodes, IN))
 
 
 @pytest.mark.parametrize("graph_change,match", [
     ("union", "union"),
     ("packed", "packed"),
 ])
-def test_unported_graph_branches_raise(setup, graph_change, match):
-    tg = setup[1]
+def test_unported_graph_branches_raise(graphs, graph_change, match):
+    tg = graphs[1]
     if graph_change == "union":
         tg = dataclasses.replace(tg, compact_shared=True)
     else:
@@ -183,3 +205,14 @@ def test_unported_graph_branches_raise(setup, graph_change, match):
                       multiply_first=True)
     with pytest.raises(NotImplementedError, match=match):
         layer(tg, torch.zeros(tg.num_nodes, IN))
+
+
+def test_plain_path_needs_no_compact_indices(graphs):
+    """The plain branches run on a graph built without compact rows."""
+    tg = dataclasses.replace(graphs[1], compact_src=None, compact_dst=None)
+    for mf in (False, True):
+        layer = RGATLayer(IN, HID, tg.num_rels, HEADS, multiply_first=mf,
+                          dropout=0.0)
+        out = layer(tg, torch.randn(tg.num_nodes, IN))
+        assert out.shape == (tg.num_nodes, HID)
+        assert torch.isfinite(out).all()

@@ -56,16 +56,71 @@ def test_default_device_is_cuda_and_raises_without_gpu(monkeypatch):
 
 
 def test_cpu_training_launches_no_kernel():
-    from het_tpu_torch.ops.kernels import seg_sum_sorted
+    from het_tpu_torch.ops.kernels import seg_sum_sorted, segment_matmul_dw
     from het_tpu_torch.train import TrainConfig, train
 
-    seg_sum_sorted.launches = 0
+    seg_sum_sorted.launches = segment_matmul_dw.launches = 0
     m = train(TrainConfig(model="RGAT", dataset="aifb", dataset_scale=0.01,
                           n_infeat=8, hidden=8, num_heads=2, num_layers=2,
                           compact=True, multiply_first=True, num_epochs=1,
                           device="cpu"), log=lambda s: None)
     assert len(m["loss_list"]) == 1
     assert seg_sum_sorted.launches == 0
+    assert segment_matmul_dw.launches == 0
+
+
+def test_cpu_plain_rgat_training_launches_no_kernel():
+    """The plain RGAT step reaches both kernels' wrappers (the segment sum
+    and the grouped dW); on CPU tensors they run their plain versions."""
+    from het_tpu_torch.ops.kernels import seg_sum_sorted, segment_matmul_dw
+    from het_tpu_torch.train import TrainConfig, train
+
+    seg_sum_sorted.launches = segment_matmul_dw.launches = 0
+    m = train(TrainConfig(model="RGAT", dataset="mag", dataset_scale=0.001,
+                          n_infeat=8, hidden=8, num_heads=2, num_layers=2,
+                          num_epochs=1, device="cpu"), log=lambda s: None)
+    assert m["flags"]["compact"] is False and len(m["loss_list"]) == 1
+    assert seg_sum_sorted.launches == 0
+    assert segment_matmul_dw.launches == 0
+
+
+def test_kernel_wrappers_raise_on_unknown_impl():
+    import torch
+    from het_tpu_torch.graph import random_heterograph
+    from het_tpu_torch.ops.kernels import seg_sum_sorted, segment_matmul_dw
+
+    g = random_heterograph(num_nodes=10, num_edges=30, num_rels=2)
+    seg = g.edge_rel_seg
+    with pytest.raises(ValueError, match="impl"):
+        seg_sum_sorted(torch.zeros(g.num_padded_edges, 2), g.in_row_ptr,
+                       impl="auto")
+    with pytest.raises(ValueError, match="impl"):
+        segment_matmul_dw(torch.zeros(seg.n_rows, 3),
+                          torch.zeros(seg.n_rows, 1), (2, 1, 3, 1), seg,
+                          impl="auto")
+
+
+def test_unported_branches_name_their_roadmap_item():
+    """Union-list compact and ``stable="max"`` raise, naming the ROADMAP
+    item that ports them."""
+    import numpy as np
+    from het_tpu_torch.graph import build_heterograph
+    from het_tpu_torch.train import TrainConfig, train
+
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, 'The rest of RGAT: the "
+                             "union-compact branch'"):
+        build_heterograph(np.array([0]), np.array([1]), np.array([0]), 2,
+                          compact_union=True)
+    for compact in (False, True):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, 'The rest of RGAT: "
+                                 "stable=max'"):
+            train(TrainConfig(model="RGAT", dataset="aifb",
+                              dataset_scale=0.01, num_heads=2, num_layers=1,
+                              compact=compact, multiply_first=True,
+                              stable_softmax="max", num_epochs=1,
+                              device="cpu"), log=lambda s: None)
 
 
 def test_unported_model_raises():
