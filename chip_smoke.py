@@ -13,9 +13,10 @@ Phases, each of which fails the run:
    stand-in at scale 0.1:
    * ``seg_sum_sorted`` at every shape the compact multiply-first and the
      plain RGAT steps give it, plus edge cases;
-   * ``segment_matmul_dw`` at the plain RGAT step's shapes, at the general
-     segment-matmul shapes (Hx = 1, K = O = 64, S = 4 and S = 535, about
-     1e6 rows), plus edge cases;
+   * ``segment_matmul_dw`` at every shape the plain RGAT and the compact
+     steps give it, at the general segment-matmul shapes (Hx = 1,
+     K = O = 64, S = 4 and S = 535, about 1e6 rows), plus edge cases, with
+     a control that a dW from inputs rounded to TF32 fails the tolerance;
 4. training runs of the 2-layer RGAT (heads 4, in 64, hidden 64, 8
    classes, clip softmax, f32, TF32 off, dropout 0), each once through the
    kernels and once through their plain versions from the same seeded
@@ -42,6 +43,10 @@ STEPS, SHORT_STEPS = 5, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TOL_RTOL = 1e-5  # f32 sums in another order
+# segment_matmul_dw: |kernel - plain| <= DW_TOL * sum |x| |ct| per output.
+# f32 sums in another order stay far inside it; products of inputs rounded
+# to TF32 (10-bit mantissa) do not
+DW_TOL = 1e-6
 TRAIN_RTOL = 1e-4
 # training runs: name -> (compact, multiply_first, steps, seg_sum launches
 # a step, segment_matmul_dw launches a step).  Per layer: the compact
@@ -256,72 +261,115 @@ def _segments(sizes, tile, dev):
 
 
 def _dw_shapes(g, dev):
-    """(label, launches per step or 0, seg, H, Hx, K, O, zero ct on invalid
-    rows): the plain RGAT step's attention-vector dW (two a layer, one per
-    attention vector), the general segment-matmul dW and edge cases."""
+    """(label, run or None, launches per step, seg, H, Hx, K, O, zero ct
+    on invalid rows): the attention-vector dW of the plain RGAT step (two a
+    layer over the relation-sorted edge rows) and of the compact step (per
+    layer, attn_l over the source and attn_r over the destination compact
+    rows), the general segment-matmul dW and edge cases."""
     import numpy as np
 
     E = g.edge_rel_seg
-    R = g.num_rels
     dims = _dims()
     rng = np.random.default_rng(0)
     big = 1_000_000
     skew = 1.0 / (1.0 + np.arange(535))  # a few large relations, a long tail
-    shapes = [(f"l{layer} attn_l/attn_r dW", 2, E, HEADS, HEADS,
-               dims[layer + 1] // HEADS, 1, True) for layer in range(LAYERS)]
+    shapes = []
+    for layer in range(LAYERS):
+        K = dims[layer + 1] // HEADS
+        shapes += [
+            (f"l{layer} attn_l/attn_r dW, edge rows", MAIN, 2, E, HEADS,
+             HEADS, K, 1, True),
+            (f"l{layer} attn_l dW, src compact rows", "compact", 1,
+             g.compact_src.seg, HEADS, HEADS, K, 1, True),
+            (f"l{layer} attn_r dW, dst compact rows", "compact", 1,
+             g.compact_dst.seg, HEADS, HEADS, K, 1, True),
+        ]
     shapes += [
-        ("general S=4", 0, _segments(rng.multinomial(
+        ("general S=4", None, 0, _segments(rng.multinomial(
             big, [0.4, 0.3, 0.2, 0.1]), 128, dev), 1, 1, 64, 64, False),
-        ("general S=535", 0, _segments(rng.multinomial(
+        ("general S=535", None, 0, _segments(rng.multinomial(
             big, skew / skew.sum()), 128, dev), 1, 1, 64, 64, False),
-        ("edge: empty segments", 0, _segments((40, 0, 17, 0), 8, dev), 2, 2,
-         8, 1, False),
-        ("edge: all empty", 0, _segments((0, 0, 0), 8, dev), 2, 2, 4, 3,
+        ("edge: empty segments", None, 0, _segments((40, 0, 17, 0), 8, dev),
+         2, 2, 8, 1, False),
+        ("edge: all empty", None, 0, _segments((0, 0, 0), 8, dev), 2, 2, 4,
+         3, False),
+        ("edge: one segment", None, 0, _segments((300,), 8, dev), 1, 1, 64,
+         64, False),
+        ("edge: K=1", None, 0, _segments((50, 0, 900), 8, dev), 1, 1, 1, 64,
          False),
-        ("edge: one segment", 0, _segments((300,), 8, dev), 1, 1, 64, 64,
+        ("edge: O=1", None, 0, _segments((50, 0, 900), 8, dev), 2, 1, 8, 1,
          False),
-        ("edge: K=1", 0, _segments((50, 0, 900), 8, dev), 1, 1, 1, 64,
-         False),
-        ("edge: O=1", 0, _segments((50, 0, 900), 8, dev), 2, 1, 8, 1, False),
     ]
-    assert R == E.n_segments
+    assert g.num_rels == E.n_segments
     return shapes
+
+
+def _tf32(t):
+    """``t`` rounded to TF32 (10-bit mantissa, to nearest, ties away from
+    zero), as a tensor-core load would round it."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def _worst_share(diff, limit):
+    """max of diff / limit (0 where both are 0; inf where only the limit
+    is)."""
+    import torch
+
+    share = torch.where(limit > 0, diff / limit,
+                        torch.where(diff > 0, float("inf"), 0.0))
+    return share.max().item() if share.numel() else 0.0
 
 
 def check_dw(g, dev, flush):
     """segment_matmul_dw against its plain version at every shape, within
-    |kernel - plain| <= 1e-5 * sum |x| |ct| (the plain version on absolute
-    values); per-shape times.  Returns the kernel's JSON entry (per-step
-    totals of this slice's main path)."""
+    |kernel - plain| <= DW_TOL * sum |x| |ct| (the plain version on
+    absolute values), and a control: the plain version on inputs rounded to
+    TF32 must fail that limit at every shape that has rows, so the check
+    tells an f32 kernel from a TF32 one.  Per-shape times.  Returns the
+    kernel's JSON entry: per-step totals of this slice's main path, and of
+    every run under ``per_run``."""
     import torch
     from het_tpu_torch.ops.kernels import (segment_matmul_dw,
                                            segment_matmul_dw_plain)
 
     print(f"segment_matmul_dw vs plain tolerance: |kernel - plain| <= "
-          f"{TOL_RTOL} * sum|x|*|ct|")
+          f"{DW_TOL} * sum|x|*|ct|; 'share' is the largest |diff| / limit")
     gen = torch.Generator(device=dev).manual_seed(1)
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
-                 bytes_ms=0.0, ops_ms=0.0)
+    totals = {}
     max_err = 0.0
-    print("shape | S | rows | H | Hx | K | O | kernel ms | bound ms | "
-          "plain ms | per-relation torch.matmul ms")
-    for label, per_step, seg, H, Hx, K, O, mask in _dw_shapes(g, dev):
+    print("shape | run | S | rows | H | Hx | K | O | kernel share | TF32 "
+          "control share | kernel ms | bound ms | plain ms | per-relation "
+          "torch.matmul ms")
+    for label, run, per_step, seg, H, Hx, K, O, mask in _dw_shapes(g, dev):
         S, n = seg.n_segments, seg.n_rows
         w_shape = (S, H, K, O)
         x = torch.randn(n, Hx * K, device=dev, generator=gen)
         ct = torch.randn(n, H * O, device=dev, generator=gen)
-        if mask:  # as edge_rel_inner's backward: no cotangent on padding
+        if mask:  # as _RelInner's backward: no cotangent on padding rows
             ct = torch.where(seg.row_valid[:, None], ct, 0.0)
         got = segment_matmul_dw(x, ct, w_shape, seg)
         torch.cuda.synchronize()
         want = segment_matmul_dw_plain(x, ct, w_shape, seg)
-        scale = segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape, seg)
+        limit = DW_TOL * segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape,
+                                                 seg)
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: shape {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)}")
         err = (got - want).abs()
-        if got.shape != want.shape or not bool(
-                (err <= TOL_RTOL * scale).all()):
+        share = _worst_share(err, limit)
+        if share > 1.0:
             raise AssertionError(
                 f"{label}: kernel differs from plain by {err.max().item()}"
-                f" (allowed {TOL_RTOL} * sum|x||ct|)")
+                f", {share} times the limit {DW_TOL} * sum|x||ct|")
+        control = _worst_share((segment_matmul_dw_plain(
+            _tf32(x), _tf32(ct), w_shape, seg) - want).abs(), limit)
+        if limit.max().item() > 0 and not control > 1.0:
+            raise AssertionError(
+                f"{label}: a TF32-input dW stays within the limit ({control}"
+                f" of it), so the check cannot tell it from f32")
         max_err = max(max_err, err.max().item() if err.numel() else 0.0)
         ptrs = seg.seg_ptrs_static
 
@@ -344,7 +392,7 @@ def check_dw(g, dev, flush):
             return out
 
         if (yardstick() - want).abs().max().item() > 1e-4 * max(
-                scale.max().item(), 1.0):
+                limit.max().item() / DW_TOL, 1.0):
             raise AssertionError(f"{label}: yardstick disagrees")
         rows = ptrs[-1] - ptrs[0]
         nbytes = rows * (Hx * K + H * O) * 4 + S * H * K * O * 4 + (S + 1) * 4
@@ -356,16 +404,23 @@ def check_dw(g, dev, flush):
         plain = _time_ms(
             lambda: segment_matmul_dw_plain(x, ct, w_shape, seg), 5, flush)
         yard = _time_ms(yardstick, 5, flush)
-        print(f"{label} | {S} | {rows} | {H} | {Hx} | {K} | {O} | "
-              f"{ms:.4f} | {bound * 1e3:.4f} "
+        print(f"{label} | {run} | {S} | {rows} | {H} | {Hx} | {K} | {O} | "
+              f"{share:.4g} | {control:.4g} | {ms:.4f} | {bound * 1e3:.4f} "
               f"({'bytes' if bytes_s >= ops_s else 'operations'}) | "
               f"{plain:.4f} | {yard:.4f}")
+        if run is None:
+            continue
+        total = totals.setdefault(run, dict(
+            ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
+            bytes_ms=0.0, ops_ms=0.0))
         for key, v in (("ms", ms), ("plain_ms", plain),
                        ("bound_ms", bound * 1e3), ("yardstick_ms", yard),
                        ("bytes_ms", bytes_s * 1e3), ("ops_ms", ops_s * 1e3)):
             total[key] += per_step * v
-    print(f"[{MAIN}] segment_matmul_dw per-step totals (ms):",
-          json.dumps(total))
+    for run, total in totals.items():
+        print(f"[{run}] segment_matmul_dw per-step totals (ms):",
+              json.dumps(total))
+    total = totals[MAIN]
     return {
         "name": "segment_matmul_dw",
         "route": "cuda",
@@ -381,6 +436,7 @@ def check_dw(g, dev, flush):
         "library_ms": None,  # no single PyTorch call computes a grouped dW
         "yardstick_ms": total["yardstick_ms"],
         "yardstick": "per-relation torch.matmul loop",
+        "per_run": totals,
     }
 
 

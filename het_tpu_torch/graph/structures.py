@@ -55,13 +55,6 @@ class Segments:
     def to(self, device) -> "Segments":
         return _to(self, device)
 
-    def scatter_back(self, y: torch.Tensor) -> torch.Tensor:
-        """Padded-space rows read back in source-row order; the backward is
-        a masked gather, not a scatter."""
-        from ..ops.common import take_rows_injective
-
-        return take_rows_injective(y, self.inv, self.perm, self.row_valid)
-
 
 @dataclass(frozen=True)
 class CompactInfo:

@@ -1,4 +1,4 @@
-"""Build, load and dispatch the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
@@ -7,12 +7,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 edited source is rebuilt and a stale library is never loaded.  Nothing is
 built at import: the first launch builds what it needs, or a caller builds
 every kernel at once with :func:`build_all`, one ``nvcc`` per source, all
-running together.
-
-Every kernel wrapper picks its version the same way (:func:`takes_plain`):
-a CPU tensor takes the plain PyTorch version, a CUDA tensor launches the
-kernel or the wrapper raises, and ``impl="plain"`` asks for the plain
-version on the card as well, which is how a run compares the two.
+running together.  How a wrapper calls a library is ``_dispatch``'s.
 """
 
 from __future__ import annotations
@@ -23,16 +18,13 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, List, Sequence, Tuple
-
-import torch
+from typing import Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("seg_reduce", "segment_mm")
-IMPLS = ("kernel", "plain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,34 +99,3 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _LIBS[name] = lib
     return lib
-
-
-def bind(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
-    """C function ``symbol`` of kernel library ``name``, with its ctypes
-    signature set (every pointer and the stream as ``c_void_p``)."""
-    fn = getattr(load(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-    return fn
-
-
-def check_launch(name: str, err: int, what: str) -> None:
-    """Raise if a launch in library ``name`` returned a CUDA error."""
-    if err:
-        text = bind(name, "het_cuda_error_string", [ctypes.c_int],
-                    ctypes.c_char_p)(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {text}")
-
-
-def takes_plain(t: torch.Tensor, impl: str, what: str) -> bool:
-    """Whether a wrapper given ``t`` runs its plain version: on a CPU
-    tensor, or where ``impl="plain"``.  Raises for an unknown ``impl`` and
-    for a device that has no kernel."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if t.device.type == "cpu" or impl == "plain":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for {t.device}")
-    return False

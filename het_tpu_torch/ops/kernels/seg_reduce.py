@@ -8,7 +8,7 @@ there through ``seg_sum_sorted_packed``).  Rows of ``vals`` outside
 which is how padding edges and padding compact rows drop out.  The kernel
 is ``csrc/seg_reduce.cu``; its header says what bounds it and how.
 
-The device of ``vals`` picks the implementation (``_build.takes_plain``):
+The device of ``vals`` picks the implementation (``_dispatch.takes_plain``):
 a CUDA tensor launches the kernel (or raises), a CPU tensor takes
 :func:`seg_sum_sorted_plain`, and ``impl="plain"`` asks for the plain
 version on the card as well; nothing falls back from one to the other.
@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _dispatch
 
 
 def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
@@ -61,7 +61,7 @@ def _check(vals, row_ptr, perm):
 
 
 def _seg_sum_sorted_cuda(vals, row_ptr, perm):
-    fn = _build.bind("seg_reduce", "het_seg_sum_sorted_f32", [
+    fn = _dispatch.bind("seg_reduce", "het_seg_sum_sorted_f32", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
     n = row_ptr.numel() - 1
@@ -74,7 +74,7 @@ def _seg_sum_sorted_cuda(vals, row_ptr, perm):
         err = fn(vals.data_ptr(), row_ptr.data_ptr(),
                  perm.data_ptr() if perm is not None else None,
                  out.data_ptr(), n, C, stream)
-    _build.check_launch("seg_reduce", err, "seg_sum_sorted")
+    _dispatch.check_launch("seg_reduce", err, "seg_sum_sorted")
     seg_sum_sorted.launches += 1
     return out
 
@@ -85,7 +85,7 @@ def seg_sum_sorted(vals: torch.Tensor, row_ptr: torch.Tensor,
     """Sum rows of ``vals`` (rows, C) f32 over the sorted segmentation
     ``row_ptr`` (n + 1,) int32, reading row ``perm[e]`` for edge ``e`` when
     ``perm`` (int32) is given.  Returns (n, C) f32."""
-    plain = _build.takes_plain(vals, impl, "seg_sum_sorted")
+    plain = _dispatch.takes_plain(vals, impl, "seg_sum_sorted")
     _check(vals, row_ptr, perm)
     if plain:
         return seg_sum_sorted_plain(vals, row_ptr, perm)

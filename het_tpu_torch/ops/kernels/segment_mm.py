@@ -11,7 +11,7 @@ caller that must drop padding rows zeroes their ``ct``.  A segment that
 owns no rows gives zeros.  The kernel is ``csrc/segment_mm.cu``; its
 header says what bounds it and how.
 
-The device of ``x_rows`` picks the implementation (``_build.takes_plain``):
+The device of ``x_rows`` picks the implementation (``_dispatch.takes_plain``):
 a CUDA tensor launches the kernel (or raises), a CPU tensor takes
 :func:`segment_matmul_dw_plain`, and ``impl="plain"`` asks for the plain
 version on the card as well.
@@ -25,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _dispatch
 
 
 def _operands(x_rows, ct_rows, w_shape) -> Tuple[torch.Tensor, torch.Tensor,
@@ -68,12 +68,12 @@ def segment_matmul_dw_plain(x_rows: torch.Tensor, ct_rows: torch.Tensor,
 def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
     S, H, K, O = w_shape
     n_rows = x2.shape[0]
-    fn = _build.bind("segment_mm", "het_segment_matmul_dw_f32", [
+    fn = _dispatch.bind("segment_mm", "het_segment_matmul_dw_f32", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p])
-    chunks = _build.bind("segment_mm", "het_segment_matmul_dw_max_chunks",
+    chunks = _dispatch.bind("segment_mm", "het_segment_matmul_dw_max_chunks",
                          [ctypes.c_int64, ctypes.c_int], ctypes.c_int64)
     dev = x2.device
     out = torch.empty(S, H, K, O, dtype=torch.float32, device=dev)
@@ -88,7 +88,7 @@ def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
         err = fn(x2.data_ptr(), ct2.data_ptr(), seg_ptrs.data_ptr(),
                  chunk_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
                  n_rows, S, H, Hx, K, O, stream)
-    _build.check_launch("segment_mm", err, "segment_matmul_dw")
+    _dispatch.check_launch("segment_mm", err, "segment_matmul_dw")
     segment_matmul_dw.launches += 1
     return out
 
@@ -101,7 +101,7 @@ def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
     (n_rows, H*O) or (n_rows, H, O); both f32 in the row space of the
     :class:`~het_tpu_torch.graph.structures.Segments` ``seg``."""
     S = w_shape[0]
-    plain = _build.takes_plain(x_rows, impl, "segment_matmul_dw")
+    plain = _dispatch.takes_plain(x_rows, impl, "segment_matmul_dw")
     if x_rows.dtype != torch.float32 or ct_rows.dtype != torch.float32:
         raise TypeError(f"x_rows and ct_rows must be float32, got "
                         f"{x_rows.dtype} and {ct_rows.dtype}")

@@ -21,7 +21,7 @@ Counterpart of ``het_tpu/ops/linear.py``:
   gradient is the grouped dW kernel (``kernels.segment_matmul_dw``).
 
 ``impl`` ("kernel" or "plain") picks the version of every kernel an op
-runs; see ``kernels/_build.py``.
+runs; see ``kernels/_dispatch.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import gather_nodes, take_rows
+from .common import gather_nodes, take_rows, take_rows_injective
 from .kernels import seg_sum_sorted, segment_matmul_dw
 
 
@@ -177,7 +177,8 @@ def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
     exactly zero on padding edges."""
     seg = g.edge_rel_seg
     x_rows = _EdgeRowGather.apply(x, g, side, impl)
-    return seg.scatter_back(segment_matmul(x_rows, w, seg))
+    return take_rows_injective(segment_matmul(x_rows, w, seg), seg.inv,
+                               seg.perm, seg.row_valid)
 
 
 class _RelInner(torch.autograd.Function):

@@ -4,7 +4,8 @@ the XLA ``segment_sum`` formula, on segmentations with an empty segment,
 for head-broadcast and per-head x, O = 1 and O = 5, on the resident
 branch and on the streamed one (W past its 4 MB VMEM budget, few rows).
 Tolerance: rtol 1e-4 / atol 2e-4 (the repo's forward parity one; f32 sums
-in another order)."""
+in another order).  Also checks that the kernel-vs-plain limit on the card,
+1e-6 * sum |x| |ct| per output, holds for f32 and fails for TF32 inputs."""
 
 import numpy as np
 import jax
@@ -93,3 +94,34 @@ def test_plain_dw_takes_3d_rows_and_rejects_bad_shapes():
     with pytest.raises(ValueError, match="impl"):
         segment_matmul_dw(torch.from_numpy(x), torch.from_numpy(ct),
                           w_shape, tseg, impl="cuda")
+
+
+def _tf32(t):
+    """``t`` rounded to TF32 (10-bit mantissa, to nearest)."""
+    bits = t.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("H_,Hx,K,O", [(4, 4, 16, 1), (1, 1, 64, 64)])
+def test_dw_limit_tells_f32_from_tf32(H_, Hx, K, O):
+    """The limit 1e-6 * sum |x| |ct| that holds the CUDA dW against its
+    plain version: the f32 plain version stays inside it against a float64
+    sum, and the same sum of TF32-rounded inputs (what a tensor-core dW
+    would compute) does not."""
+    rng = np.random.default_rng(K + O)
+    tseg = t_build_segments(np.repeat([0, 2, 3], [12000, 3000, 500]), S, 128)
+    n = tseg.n_rows
+    x = torch.from_numpy(rng.standard_normal((n, Hx * K)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((n, H_ * O)).astype(np.float32))
+    w_shape = (S, H_, K, O)
+    exact = torch.zeros(w_shape, dtype=torch.float64)
+    ptrs = tseg.seg_ptrs_static
+    for s in range(S):  # float64, one einsum per segment
+        xs = x[ptrs[s]:ptrs[s + 1]].double().view(-1, Hx, K)
+        cs = ct[ptrs[s]:ptrs[s + 1]].double().view(-1, H_, O)
+        exact[s] = torch.einsum("nhk,nho->hko", xs.expand(-1, H_, K), cs)
+    limit = 1e-6 * segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape, tseg)
+    f32 = segment_matmul_dw(x, ct, w_shape, tseg)
+    tf32 = segment_matmul_dw(_tf32(x), _tf32(ct), w_shape, tseg)
+    assert ((f32.double() - exact).abs() <= limit).all()
+    assert not ((tf32.double() - exact).abs() <= limit).all()
