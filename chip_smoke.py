@@ -17,13 +17,22 @@ Phases, each of which fails the run:
      steps give it, at the general segment-matmul shapes (Hx = 1,
      K = O = 64, S = 4 and S = 535, about 1e6 rows), plus edge cases, with
      a control that a dW from inputs rounded to TF32 fails the tolerance;
+   * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
+     data-parallel runs give rank 0's shard, at the general shapes (S =
+     535: W is 8.8 MB) and edge cases, with the same TF32 control;
 4. training runs of the 2-layer RGAT (heads 4, in 64, hidden 64, 8
    classes, clip softmax, f32, TF32 off, dropout 0), each once through the
    kernels and once through their plain versions from the same seeded
    parameters: five steps of the compact multiply-first and of the plain
    (per-edge) branch, with finite losses that fall, per-step agreement and
    every kernel's launch count; two steps each of the plain multiply-first
-   and the compact branch, with agreement and launch counts.
+   and the compact branch, with agreement and launch counts;
+5. data-parallel training: the graph split into P = 2 destination-range
+   shards (balanced on edges), two ranks spawned as processes on cuda:0
+   over gloo, five steps of compact multiply-first (halo "auto") and two
+   of plain RGAT (halo "boundary"), through the kernels and the plain
+   versions, each held per step to the other and to a single-process run
+   on the unpartitioned graph, with each kernel's launches a step a rank.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -61,7 +70,29 @@ RUNS = {
     "plain_multiply_first": (False, True, SHORT_STEPS, 6, 0),
     "compact": (True, False, SHORT_STEPS, 10, 4),
 }
-MAIN = "plain"  # this slice's main path
+MAIN = "plain"  # the single-card path whose launches the first two kernels report
+# segment_matmul_fwd / _dx: |kernel - plain| <= MM_TOL * sum |x| |W| per
+# output (the plain version on absolute values); TF32 inputs fail it
+MM_TOL = 1e-5
+# data-parallel runs, P ranks as processes on cuda:0 (gloo): name ->
+# (compact, multiply_first, steps, halo, launches a step a rank of
+# seg_sum_sorted, segment_matmul_fwd, segment_matmul_dx, segment_matmul_dw).
+# Per layer every branch makes two typed linears, whose offsets live only
+# on the device on a shard (one forward each, one dX each where the layer's
+# input needs a gradient: layer 1, not layer 0, whose input is the fixed
+# features) and whose weight gradients are grouped dWs; the plain branch
+# adds two attention-vector dWs.  Segment sums: the compact branches 3 in
+# layer 0 (the two compact-gather backwards need an input gradient) and 5
+# in layer 1; the plain branch 1 in layer 0 (the edge-gather backwards
+# need one too) and 3 in layer 1.
+P = 2
+DP_RUNS = {
+    "dp_compact_multiply_first": (True, True, STEPS, "auto", 8, 4, 2, 4),
+    "dp_plain": (False, False, SHORT_STEPS, "boundary", 4, 4, 2, 8),
+}
+DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
+DP_KERNELS = ("seg_sum_sorted", "segment_matmul_fwd", "segment_matmul_dx",
+              "segment_matmul_dw")
 
 
 def _card_line() -> str:
@@ -440,6 +471,344 @@ def check_dw(g, dev, flush):
     }
 
 
+# ------------------------------------------- segment_matmul_fwd / _dx
+
+
+def _mm_shapes(shards, dev):
+    """(label, run or None, forward launches a step, dX launches a step,
+    seg, S, H, Hx, K, O) of every forward and dX the data-parallel runs
+    give rank 0's shard, the general shapes and edge cases.  Offsets live
+    only on the device, as on a shard."""
+    import dataclasses
+
+    import numpy as np
+
+    dims = _dims()
+    rng = np.random.default_rng(2)
+    big = 1_000_000
+    skew = 1.0 / (1.0 + np.arange(535))
+    cs = shards["dp_compact_multiply_first"]
+    ps = shards["dp_plain"]
+    R = ps.num_rels
+    shapes = []
+    for layer in range(LAYERS):
+        K, D = dims[layer], dims[layer + 1] // HEADS
+        dx = 1 if layer > 0 else 0
+        shapes += [
+            (f"l{layer} src compact [W.a_l | W]", "dp_compact_multiply_first",
+             1, dx, cs.compact_src.seg.to(dev), R, HEADS, 1, K, 1 + D),
+            (f"l{layer} dst compact W.a_r", "dp_compact_multiply_first", 1,
+             dx, cs.compact_dst.seg.to(dev), R, HEADS, 1, K, 1),
+            (f"l{layer} edge rows W (src, dst)", "dp_plain", 2, 2 * dx,
+             ps.edge_rel_seg.to(dev), R, HEADS, 1, K, D),
+        ]
+
+    def general(sizes, tile):
+        return dataclasses.replace(_segments(sizes, tile, dev),
+                                   seg_ptrs_static=None)
+
+    shapes += [
+        ("general S=4", None, 0, 0, general(rng.multinomial(
+            big, [0.4, 0.3, 0.2, 0.1]), 128), 4, 1, 1, 64, 64),
+        ("general S=535 (W 8.8 MB)", None, 0, 0, general(rng.multinomial(
+            big, skew / skew.sum()), 128), 535, 1, 1, 64, 64),
+        ("edge: empty segment", None, 0, 0, general((40, 0, 17, 0), 8), 4,
+         2, 1, 8, 3),
+        ("edge: one segment", None, 0, 0, general((300,), 8), 1, 1, 1, 64,
+         64),
+        ("edge: K=1", None, 0, 0, general((50, 0, 900), 8), 3, 1, 1, 1, 64),
+        ("edge: O=1", None, 0, 0, general((50, 0, 900), 8), 3, 2, 1, 8, 1),
+        ("edge: per-head x", None, 0, 0, general((500, 0, 700), 8), 3, 4, 4,
+         16, 5),
+    ]
+    for shape in shapes:
+        assert shape[4].seg_ptrs_static is None, shape[0]
+    return shapes
+
+
+def _mm_yardstick(direction, a, w, ptrs, Hx):
+    """The per-relation ``torch.matmul`` loop over host offsets (the
+    port's ``_SegmentMatmul``, its weight reshapes made beforehand); the
+    port never calls it for offsets held only on the device."""
+    import torch
+
+    S, H, K, O = w.shape
+    if direction == "fwd":  # (n, K) @ (K, H*O), or per head (K, O)
+        flat = w.permute(0, 2, 1, 3).reshape(S, K, H * O)
+        heads, width, out_w = w, K, H * O
+    else:  # (n, H*O) @ (H*O, K), or per head (O, K)
+        flat = w.permute(0, 1, 3, 2).reshape(S, H * O, K)
+        heads, width, out_w = w.transpose(2, 3), O, Hx * K
+    out = a.new_zeros(a.shape[0], out_w)
+
+    def run():
+        for s in range(S):
+            lo, hi = ptrs[s], ptrs[s + 1]
+            if hi == lo:
+                continue
+            if Hx == 1:
+                torch.matmul(a[lo:hi], flat[s], out=out[lo:hi])
+            else:
+                prod = torch.matmul(
+                    a[lo:hi].view(hi - lo, H, width).transpose(0, 1),
+                    heads[s])
+                out[lo:hi] = prod.transpose(0, 1).reshape(hi - lo, -1)
+        return out
+
+    return run
+
+
+def check_fwd_dx(shards, dev, flush):
+    """segment_matmul_fwd and segment_matmul_dx against their plain
+    versions at every shape, within |kernel - plain| <= MM_TOL * sum |x|
+    |W| (the plain version on absolute values), with the control that the
+    plain version on TF32-rounded inputs fails that limit wherever there
+    are rows; per-shape times.  Returns both kernels' JSON entries."""
+    import torch
+    from het_tpu_torch.ops.kernels import (segment_matmul_dx,
+                                           segment_matmul_dx_plain,
+                                           segment_matmul_fwd,
+                                           segment_matmul_fwd_plain)
+    from het_tpu_torch.ops.kernels.segment_mm import host_seg_ptrs
+
+    print(f"segment_matmul_fwd/_dx vs plain tolerance: |kernel - plain| <= "
+          f"{MM_TOL} * sum|x|*|W|; 'share' is the largest |diff| / limit")
+    print("direction | shape | run | S | rows | H | Hx | K | O | kernel share"
+          " | TF32 control share | kernel ms | bound ms | plain ms | "
+          "per-relation torch.matmul ms")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kernels = {"fwd": (segment_matmul_fwd, segment_matmul_fwd_plain),
+               "dx": (segment_matmul_dx, segment_matmul_dx_plain)}
+    totals = {"fwd": {}, "dx": {}}
+    max_err = {"fwd": 0.0, "dx": 0.0}
+    for (label, run, n_fwd, n_dx, seg, S, H, Hx, K, O) in _mm_shapes(
+            shards, dev):
+        n = seg.n_rows
+        w = torch.randn(S, H, K, O, device=dev, generator=gen) / math.sqrt(K)
+        ptrs = host_seg_ptrs(seg)
+        for direction, per_step in (("fwd", n_fwd), ("dx", n_dx)):
+            fn, plain_fn = kernels[direction]
+            width = Hx * K if direction == "fwd" else H * O
+            a = torch.randn(n, width, device=dev, generator=gen)
+            extra = () if direction == "fwd" else (Hx,)
+            got = fn(a, w, seg, *extra)
+            torch.cuda.synchronize()
+            want = plain_fn(a, w, seg, *extra)
+            limit = MM_TOL * plain_fn(a.abs(), w.abs(), seg, *extra)
+            if got.shape != want.shape:
+                raise AssertionError(f"{direction} {label}: shape "
+                                     f"{tuple(got.shape)} vs "
+                                     f"{tuple(want.shape)}")
+            err = (got - want).abs()
+            share = _worst_share(err, limit)
+            if share > 1.0:
+                raise AssertionError(
+                    f"{direction} {label}: kernel differs from plain by "
+                    f"{err.max().item()}, {share} times the limit")
+            control = _worst_share((plain_fn(_tf32(a), _tf32(w), seg, *extra)
+                                    - want).abs(), limit)
+            if limit.max().item() > 0 and not control > 1.0:
+                raise AssertionError(
+                    f"{direction} {label}: a TF32-input product stays within"
+                    f" the limit ({control} of it)")
+            max_err[direction] = max(max_err[direction],
+                                     err.max().item() if err.numel() else 0.0)
+            yard = _mm_yardstick(direction, a, w, ptrs, Hx)
+            if not torch.allclose(yard().reshape(want.shape), want,
+                                  rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"{direction} {label}: yardstick "
+                                     "disagrees")
+            nbytes = n * (Hx * K + H * O) * 4 + S * H * K * O * 4 + (S + 1) * 4
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            ops_s = 2 * n * H * K * O / F32_FLOP_PER_S
+            bound = max(bytes_s, ops_s)
+            ms = _time_ms(lambda: fn(a, w, seg, *extra), 20, flush)
+            plain = _time_ms(lambda: plain_fn(a, w, seg, *extra), 5, flush)
+            yard_ms = _time_ms(yard, 5, flush)
+            print(f"{direction} | {label} | {run} | {S} | {n} | {H} | {Hx} |"
+                  f" {K} | {O} | {share:.4g} | {control:.4g} | {ms:.4f} | "
+                  f"{bound * 1e3:.4f} "
+                  f"({'bytes' if bytes_s >= ops_s else 'operations'}) | "
+                  f"{plain:.4f} | {yard_ms:.4f}")
+            if run is None:
+                continue
+            total = totals[direction].setdefault(run, dict(
+                ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
+                bytes_ms=0.0, ops_ms=0.0))
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("bound_ms", bound * 1e3), ("yardstick_ms", yard_ms),
+                           ("bytes_ms", bytes_s * 1e3),
+                           ("ops_ms", ops_s * 1e3)):
+                total[key] += per_step * v
+    entries = []
+    for direction, name, replaces in (
+            ("fwd", "segment_matmul_fwd",
+             "het_tpu/ops/pallas/segment_mm.py:131,220"),
+            ("dx", "segment_matmul_dx",
+             "het_tpu/ops/pallas/segment_mm.py:324,478")):
+        for run, total in totals[direction].items():
+            print(f"[{run}] {name} per-step totals, rank 0 (ms):",
+                  json.dumps(total))
+        total = totals[direction][DP_MAIN]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "het_tpu_torch/csrc/segment_mm.cu",
+            "replaces": replaces,
+            "launches": None,  # filled from the data-parallel run
+            "max_abs_err": max_err[direction],
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                         else "operations"),
+            "library_ms": None,  # no single PyTorch call: no f32 grouped GEMM
+            "yardstick_ms": total["yardstick_ms"],
+            "yardstick": "per-relation torch.matmul loop over host offsets",
+            "per_run": totals[direction],
+        })
+    return entries
+
+
+# ------------------------------------------------------- data parallel
+
+
+def _dp_features(g, seed=0):
+    """Fixed node features and labels, as the data-parallel dry run has
+    them: features from a numpy seed, every real node labelled."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((g.num_nodes, IN_FEAT)).astype(np.float32)
+
+
+def partition_dp(data):
+    """Each data-parallel run's partition of the graph: P shards by
+    destination ranges balanced on edges.  Returns {run: (shards, info)}."""
+    from het_tpu_torch.parallel import halo_bytes, partition_by_dst
+
+    g = data.graph
+    E = g.num_edges
+    coo = [t[:E].numpy() for t in (g.src, g.dst, g.rel)]
+    out = {}
+    for run, (compact, _, _, halo, *_) in DP_RUNS.items():
+        t0 = time.perf_counter()
+        shards, info = partition_by_dst(
+            *coo, g.num_nodes, g.num_rels, P, tile=g.edge_rel_seg.tile,
+            build_compact=compact, balance="edges", halo=halo)
+        hb = halo_bytes(shards[0], P, IN_FEAT)
+        print(f"[{run}] partitioned in {time.perf_counter() - t0:.1f} s: "
+              f"halo={halo} -> {hb['mode']} ({hb['bytes']} B a rank receives "
+              f"for a {IN_FEAT}-wide layer; all-gather {hb['gather_bytes']} "
+              f"B), bounds {info.bounds}, nodes_per_part "
+              f"{info.nodes_per_part}, per shard: real edges "
+              f"{[int((s.dst < s.num_nodes).sum()) for s in shards]}, "
+              f"padded {shards[0].num_padded_edges}, src_space "
+              f"{shards[0].src_space}, edge rows "
+              f"{shards[0].edge_rel_seg.n_rows}"
+              + (f", compact rows src {shards[0].compact_src.seg.n_rows} dst"
+                 f" {shards[0].compact_dst.seg.n_rows}" if compact else ""))
+        out[run] = (shards, info)
+    return out
+
+
+def check_dp(data, parts, dev, card):
+    """Every DP_RUNS entry on P spawned ranks sharing cuda:0 (gloo),
+    through the kernels and through the plain versions from the same
+    seeded parameters, each against a single-process run of the port's
+    RGAT on the unpartitioned graph.  Returns {run: rank 0's launches}."""
+    import tempfile
+
+    import torch
+    from het_tpu_torch.models import RGATModel
+    from het_tpu_torch.parallel import train_full
+    from het_tpu_torch.parallel.launch import spawn_ranks
+
+    g = data.graph
+    x = _dp_features(g)
+    labels = data.labels
+    jobs, singles = [], {}
+    for run, (compact, mf, steps, *_rest) in DP_RUNS.items():
+        shards, info = parts[run]
+        kw = dict(in_feat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                  num_rels=g.num_rels, num_heads=HEADS, num_layers=LAYERS,
+                  compact=compact, multiply_first=mf, dropout=0.0,
+                  stable_softmax="clip")
+        state = _initial_state(RGATModel(**kw))
+        model = RGATModel(**kw)
+        model.load_state_dict(state)
+        single = train_full(model.to(dev).train(), g.to(dev),
+                            torch.from_numpy(x).to(dev),
+                            torch.as_tensor(labels).to(dev), steps=steps)
+        singles[run] = single["loss_list"]
+        print(f"[{run}] single process, unpartitioned ({card}): "
+              f"{json.dumps(single)}")
+        del model
+        for impl in ("kernel", "plain"):
+            jobs.append(dict(shards=shards, nodes_per_part=info.nodes_per_part,
+                             x=info.pad_node_data(x),
+                             labels=info.pad_node_data(labels, fill=-1),
+                             model=kw, state=state, steps=steps, lr=1e-2,
+                             impl=impl))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        results = spawn_ranks(P, jobs, workdir=workdir, device="cuda")
+    print(f"data-parallel ranks ran in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    i = 0
+    for run, (compact, _, steps, _, *per_step) in DP_RUNS.items():
+        want = {k: v * steps for k, v in zip(DP_KERNELS, per_step)}
+        runs = {}
+        for impl in ("kernel", "plain"):
+            runs[impl] = [results[rank][i] for rank in range(P)]
+            i += 1
+        for impl, ranks in runs.items():
+            for rank, m in enumerate(ranks):
+                losses = m["loss_list"]
+                if len(losses) != steps or not all(map(math.isfinite,
+                                                       losses)):
+                    raise AssertionError(f"{run} {impl} rank {rank}: losses "
+                                         f"{losses}")
+                if steps == STEPS and not losses[-1] < losses[0]:
+                    raise AssertionError(f"{run} {impl} rank {rank}: loss "
+                                         f"did not fall: {losses}")
+                for step, (a, b) in enumerate(zip(losses, singles[run])):
+                    if abs(a - b) > TRAIN_RTOL * abs(b):
+                        raise AssertionError(
+                            f"{run} {impl} rank {rank} step {step}: loss {a}"
+                            f" vs single process {b} (rtol {TRAIN_RTOL})")
+                expect = want if impl == "kernel" else dict.fromkeys(want, 0)
+                if m["launches"] != expect:
+                    raise AssertionError(f"{run} {impl} rank {rank}: "
+                                         f"launched {m['launches']}, expected"
+                                         f" {expect}")
+                if m["backend"] != "gloo" or m["device"] != "cuda:0":
+                    raise AssertionError(f"{run}: rank {rank} ran on "
+                                         f"{m['device']} with {m['backend']}")
+        for step, (a, b) in enumerate(zip(runs["kernel"][0]["loss_list"],
+                                          runs["plain"][0]["loss_list"])):
+            if abs(a - b) > TRAIN_RTOL * abs(b):
+                raise AssertionError(f"{run} step {step}: kernel loss {a} vs"
+                                     f" plain {b} (rtol {TRAIN_RTOL})")
+        keys = ["compact_src", "compact_dst"] if compact else ["edge_rel_seg"]
+        if not any(m["device_only"][k] for m in runs["kernel"] for k in keys):
+            raise AssertionError(f"{run}: every shard kept host offsets; the "
+                                 "segment-matmul kernels were not reached")
+        summary = {impl: [{
+            "rank": rank, "losses": m["loss_list"], "step_ms": m["step_ms_list"],
+            "median_warm_step_ms": statistics.median(m["step_ms_list"][1:]),
+            "launches": m["launches"], "peak_mem_gb": m["peak_mem_gb"],
+            "device_only_offsets": m["device_only"]}
+            for rank, m in enumerate(ranks)] for impl, ranks in runs.items()}
+        summary["single_process_losses"] = singles[run]
+        print(f"training {run}, {P} ranks sharing one card over gloo "
+              f"(step times of ranks that share a card are not scaling "
+              f"figures; {card}):", json.dumps(summary))
+        launches[run] = runs["kernel"][0]["launches"]
+    return launches
+
+
 # ------------------------------------------------------------------ training
 
 
@@ -470,7 +839,7 @@ def check_training(data, dev, card, run):
     versions from the same parameters.  Returns the kernel run's launches
     of each kernel and the summary printed."""
     import torch
-    from het_tpu_torch.ops.kernels import seg_sum_sorted, segment_matmul_dw
+    from het_tpu_torch.ops import kernels
     from het_tpu_torch.train import TrainConfig, build_model, train
 
     compact, multiply_first, steps, want_seg, want_dw = RUNS[run]
@@ -484,11 +853,12 @@ def check_training(data, dev, card, run):
     runs = {}
     for impl in ("kernel", "plain"):
         torch.cuda.reset_peak_memory_stats(dev)
-        seg_sum_sorted.launches = segment_matmul_dw.launches = 0
+        for name in DP_KERNELS:
+            getattr(kernels, name).launches = 0
         m = train(cfg, data, state=state, impl=impl,
                   log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
-        m["launches"] = {"seg_sum_sorted": seg_sum_sorted.launches,
-                         "segment_matmul_dw": segment_matmul_dw.launches}
+        m["launches"] = {name: getattr(kernels, name).launches
+                         for name in DP_KERNELS}
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         runs[impl] = m
     k, p = runs["kernel"], runs["plain"]
@@ -503,8 +873,9 @@ def check_training(data, dev, card, run):
             raise AssertionError(
                 f"{run} step {step}: kernel loss {a} vs plain {b} "
                 f"(rtol {TRAIN_RTOL})")
-    want = {"seg_sum_sorted": want_seg * steps,
-            "segment_matmul_dw": want_dw * steps}
+    # host-known offsets: the typed linears take per-relation matmuls
+    want = {"seg_sum_sorted": want_seg * steps, "segment_matmul_fwd": 0,
+            "segment_matmul_dx": 0, "segment_matmul_dw": want_dw * steps}
     if k["launches"] != want:
         raise AssertionError(f"{run}: kernel run launched {k['launches']},"
                              f" expected {want}")
@@ -560,8 +931,11 @@ def main() -> int:
           f"rows {g.edge_rel_seg.n_rows} {g.edge_rel_seg.seg_ptrs_static}")
     gd = g.to(dev)
 
+    parts = partition_dp(data)
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     entries = [check_seg_sum(gd, dev, flush), check_dw(gd, dev, flush)]
+    entries += check_fwd_dx({run: shards[0] for run, (shards, _) in
+                             parts.items()}, dev, flush)
     del flush, gd
     torch.cuda.empty_cache()
 
@@ -573,10 +947,17 @@ def main() -> int:
              ["median_warm_step_ms"])
     print(f"plain / compact multiply-first step time, kernels ({card}): "
           f"{ratio:.3f}")
+    launches.update(check_dp(data, parts, dev, card))
     for entry in entries:
-        entry["launches"] = launches[MAIN][entry["name"]]
-        entry["launches_by_run"] = {r: launches[r][entry["name"]]
-                                    for r in RUNS}
+        kernel = entry["name"]
+        # each kernel's launches on its own main path: the single-card
+        # plain RGAT for the segment sum and the dW, the data-parallel run
+        # for the forward and dX, whose only caller is a shard
+        main = (DP_MAIN if kernel in ("segment_matmul_fwd",
+                                      "segment_matmul_dx") else MAIN)
+        entry["launches"] = launches[main][kernel]
+        entry["launches_by_run"] = {r: counts[kernel]
+                                    for r, counts in launches.items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

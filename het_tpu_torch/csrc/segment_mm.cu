@@ -1,5 +1,50 @@
-// Grouped weight gradient of the relation-segmented matmul, for Hopper
-// (sm_90a):
+// Relation-segmented matmul for Hopper (sm_90a): the forward, the input
+// gradient (dX) and the grouped weight gradient (dW) of
+//
+//     y[i, h, o] = sum_k x[i, (Hx > 1 ? h : 0) * K + k] * W[s(i), h, k, o]
+//
+// with s(i) the segment whose rows [seg_ptrs[s], seg_ptrs[s+1]) hold row i.
+// W is (S, H, K, O) f32, Hx in {1, H}, seg_ptrs (S + 1,) int32 on the
+// device, non-decreasing, seg_ptrs[S] <= n_rows.  The offsets are read on
+// the device only: the segmentations these kernels serve (the shards of a
+// partitioned graph) have no host copy of them.
+//
+// ------------------------------------------------------- forward and dX
+//
+//     fwd: y[i, h*O + o]  = sum_k x[i, (Hx>1 ? h : 0)*K + k] W[s, h, k, o]
+//     dX:  dx[i, h*K + k] = sum_o ct[i, h*O + o] W[s, h, k, o]   (Hx = H)
+//          dx[i, k]       = sum_{h,o} ct[i, h*O + o] W[s, h, k, o] (Hx = 1)
+//
+// Replace the TPU kernels het_tpu/ops/pallas/segment_mm.py::_fwd_resident
+// and ::_fwd_streamed (forward), ::_dx_resident and the streamed
+// ::segment_matmul_rows_dx (dX).  Those keep W whole in VMEM, or DMA one
+// relation's block per run of row tiles once W passes the VMEM budget,
+// and fold the heads into the minor dimension for the MXU; all three are
+// TPU workarounds.  Here both directions are one templated kernel, a
+// tiled f32 GEMM whose B operand is the block's relation's weight:
+//
+//  * a block owns a tile of 64 rows and 64 output columns, or 256 rows and
+//    16 columns where the output is that narrow (blockIdx.y also picks
+//    the head when Hx = H).  It finds the segments that meet its rows by a
+//    binary search of seg_ptrs and, for each (one, unless the tile crosses
+//    a segment boundary), stages 64- or 32-deep slices of its rows and of
+//    that relation's weight columns in shared memory, so any K and H*O
+//    fit (S = 535, K = O = 64 and past it: W is never held whole); each
+//    thread keeps a 4 x 4 register tile and the block writes the rows of
+//    that segment;
+//  * rows outside [seg_ptrs[0], seg_ptrs[S]) are written as zeros;
+//  * plain f32 fused multiply-adds, no tensor cores: their f32 path is
+//    TF32, which the port's f32 runs (TF32 off) must not take.
+//
+// Bound.  Bytes: x (or ct) read once, y (or dx) written once, W read
+// once: n_rows * (Hx*K + H*O) * 4 + S*H*K*O*4.  Operations: 2 * n_rows *
+// H*K*O.  At K = O = 64 that is 2 * 64 * 64 / ((64 + 64) * 4) = 16
+// operations a byte, near the f32 ridge of 67 TFLOP/s over 3.35 TB/s
+// (20); the main path's narrow shapes (O = 1 to 17) are bytes bound.
+// A block re-reads its weight columns from L2, never from device memory
+// more than once in the bound's sense.
+//
+// ------------------------------------------------------------------- dW
 //
 //     dW[s, h, k, o] = sum_{i in [seg_ptrs[s], seg_ptrs[s+1])}
 //                          x[i, (Hx > 1 ? h : 0) * K + k] * ct[i, h * O + o]
@@ -358,6 +403,180 @@ int64_t max_chunks(int64_t n_rows, int S) {
   return (n_rows + kChunkRows - 1) / kChunkRows + S;
 }
 
+// ------------------------------------------------------- forward and dX
+
+// A block's output tile is BM rows by BN columns, 4 x 4 outputs a thread
+// (BM / 4 * BN / 4 = kThreads), and it stages BD-deep slices of the
+// reduction.  Wide tiles for wide outputs; narrow ones for the attention
+// columns of the main path (H*O = 4 or 12), where a 64-column tile would
+// leave 15 of every 16 threads without a column.  BD = 64 takes K = 64 in
+// one stage, so a block waits for device memory once.
+template <int BM, int BN, int BD>
+struct Tile {
+  static_assert(BM / 4 * (BN / 4) == kThreads, "4 x 4 outputs a thread");
+  static constexpr int kRows = BM, kCols = BN, kDepth = BD;
+};
+using WideTile = Tile<64, 64, 64>;
+using NarrowTile = Tile<256, 16, 32>;
+
+// One template for both directions (see the header).  Per group g (the
+// head when Hx = H, else the only group): the reduction index r runs over
+// R entries of A's columns [a_off, a_off + R), the output index c over C
+// columns [o_off, o_off + C) of `out`, and the weight entry for (r, c) is
+// W[s, j / O, k, j % O] with (k, j) = (r, j_off + c) forward and
+// (c, j_off + r) for dX.
+template <bool kDx, typename T>
+__global__ void __launch_bounds__(kThreads)
+segment_matmul_rows_kernel(const float* __restrict__ a,
+                           const float* __restrict__ w,
+                           const int32_t* __restrict__ seg_ptrs,
+                           float* __restrict__ out, int64_t n_rows, int S,
+                           int H, int Hx, int K, int O) {
+  constexpr int BM = T::kRows, BN = T::kCols, BD = T::kDepth;
+  // +4: the staging stores walk the depth, BM + 4 floats apart
+  __shared__ __align__(16) float as[BD][BM + 4];
+  __shared__ __align__(16) float ws[BD][BN];
+  const int HO = H * O;
+  const bool per_head = Hx > 1;
+  const int64_t lda = kDx ? HO : static_cast<int64_t>(Hx) * K;
+  const int64_t ldo = kDx ? static_cast<int64_t>(Hx) * K : HO;
+  const int R = kDx ? (per_head ? O : HO) : K;
+  const int C = kDx ? K : (per_head ? O : HO);
+  const int ctiles = (C + BN - 1) / BN;
+  const int g = blockIdx.y / ctiles;
+  const int c0 = (blockIdx.y % ctiles) * BN;
+  const int j_off = per_head ? g * O : 0;
+  const int a_off = kDx ? j_off : (per_head ? g * K : 0);
+  const int o_off = kDx ? (per_head ? g * K : 0) : j_off;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * BM;
+  const int64_t r1 = r0 + BM < n_rows ? r0 + BM : n_rows;
+  const int tx = threadIdx.x % (BN / 4), ty = threadIdx.x / (BN / 4);
+
+  // rows that no segment holds read as zero rows
+  const int64_t p0 = __ldg(seg_ptrs), pS = __ldg(seg_ptrs + S);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int64_t i = r0 + ty * 4 + p;
+    if (i >= r1 || (i >= p0 && i < pS)) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + tx * 4 + q;
+      if (c < C) out[i * ldo + o_off + c] = 0.f;
+    }
+  }
+
+  // the first segment that ends past r0
+  int s = 0;
+  for (int hi = S; s < hi;) {
+    const int mid = (s + hi) >> 1;
+    if (__ldg(seg_ptrs + mid + 1) > r0) hi = mid; else s = mid + 1;
+  }
+  for (; s < S; ++s) {
+    const int64_t lo_s = __ldg(seg_ptrs + s), hi_s = __ldg(seg_ptrs + s + 1);
+    if (lo_s >= r1) break;
+    const int64_t ra = lo_s > r0 ? lo_s : r0, rb = hi_s < r1 ? hi_s : r1;
+    if (ra >= rb) continue;  // an empty segment
+    const float* wsg = w + static_cast<int64_t>(s) * H * K * O;
+    float acc[4][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+
+    for (int rk = 0; rk < R; rk += BD) {
+      const int depth = R - rk < BD ? R - rk : BD;
+      // this segment's rows of A, every load of the stage in flight at
+      // once; depth fastest, so neighbouring threads read neighbouring
+      // addresses of one row
+#pragma unroll
+      for (int e = threadIdx.x; e < BM * BD; e += kThreads) {
+        const int m = e / BD, d = e % BD;
+        const int64_t i = r0 + m;
+        as[d][m] = i >= ra && i < rb && d < depth
+                       ? __ldg(a + i * lda + a_off + rk + d) : 0.f;
+      }
+      // the relation's weight slice, output columns fastest
+#pragma unroll
+      for (int e = threadIdx.x; e < BD * BN; e += kThreads) {
+        const int d = e / BN, c = e % BN;
+        const int cc = c0 + c;
+        float v = 0.f;
+        if (d < depth && cc < C) {
+          const int k = kDx ? cc : rk + d;
+          const int j = j_off + (kDx ? rk + d : cc);
+          const int h = j / O;
+          v = __ldg(wsg + (static_cast<int64_t>(h) * K + k) * O + (j - h * O));
+        }
+        ws[d][c] = v;
+      }
+      __syncthreads();
+      auto fma_depth = [&](int d) {
+        const float4 av = *reinterpret_cast<const float4*>(&as[d][ty * 4]);
+        const float4 bv = *reinterpret_cast<const float4*>(&ws[d][tx * 4]);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(ar[p], br[q], acc[p][q]);
+      };
+      if (depth == BD) {  // a full stage: a loop the compiler unrolls
+#pragma unroll
+        for (int d = 0; d < BD; ++d) fma_depth(d);
+      } else {  // the last, short stage (R = 4 or 12: all of it)
+#pragma unroll 4
+        for (int d = 0; d < depth; ++d) fma_depth(d);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int64_t i = r0 + ty * 4 + p;
+      if (i < ra || i >= rb) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + tx * 4 + q;
+        if (c < C) out[i * ldo + o_off + c] = acc[p][q];
+      }
+    }
+  }
+}
+
+template <bool kDx, typename T>
+int launch_rows_tiled(const float* a, const float* w,
+                      const int32_t* seg_ptrs, float* out, int64_t n_rows,
+                      int S, int H, int Hx, int K, int O, int C,
+                      cudaStream_t st) {
+  const int64_t ytiles = static_cast<int64_t>(Hx > 1 ? H : 1) *
+                         ((C + T::kCols - 1) / T::kCols);
+  const int64_t xtiles = (n_rows + T::kRows - 1) / T::kRows;
+  if (ytiles == 0 || xtiles == 0) return cudaSuccess;  // nothing to write
+  if (ytiles > 65535 || xtiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(xtiles),
+                  static_cast<unsigned>(ytiles));
+  segment_matmul_rows_kernel<kDx, T><<<grid, kThreads, 0, st>>>(
+      a, w, seg_ptrs, out, n_rows, S, H, Hx, K, O);
+  return cudaGetLastError();
+}
+
+int launch_rows(bool dx, const float* a, const float* w,
+                const int32_t* seg_ptrs, float* out, int64_t n_rows, int S,
+                int H, int Hx, int K, int O, void* stream) {
+  if (n_rows < 0 || S < 0 || H < 0 || K < 0 || O < 0 ||
+      (Hx != 1 && Hx != H)) {
+    return cudaErrorInvalidValue;
+  }
+  // an empty reduction (K = 0 forward, O = 0 dX) still writes zeros
+  const int C = dx ? K : (Hx > 1 ? O : H * O);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool narrow = C <= NarrowTile::kCols;
+#define HET_ROWS(DX, T) \
+  launch_rows_tiled<DX, T>(a, w, seg_ptrs, out, n_rows, S, H, Hx, K, O, C, st)
+  if (dx) return narrow ? HET_ROWS(true, NarrowTile) : HET_ROWS(true, WideTile);
+  return narrow ? HET_ROWS(false, NarrowTile) : HET_ROWS(false, WideTile);
+#undef HET_ROWS
+}
+
 }  // namespace
 
 extern "C" {
@@ -427,6 +646,27 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
     segment_matmul_dw_reduce_kernel<32><<<rgrid, kThreads, 0, st>>>(
         partial, chunk_ptr, out, NJ);
   return cudaGetLastError();
+}
+
+// Forward: x (n_rows, Hx*K) f32 and W (S, H, K, O) f32, row-major, on the
+// device; seg_ptrs as above; y (n_rows, H*O) f32.  Launches on `stream`
+// and returns the launch error (0 on success).
+int het_segment_matmul_fwd_f32(const float* x, const float* w,
+                               const int32_t* seg_ptrs, float* y,
+                               int64_t n_rows, int S, int H, int Hx, int K,
+                               int O, void* stream) {
+  return launch_rows(false, x, w, seg_ptrs, y, n_rows, S, H, Hx, K, O,
+                     stream);
+}
+
+// dX: ct (n_rows, H*O) f32 and W (S, H, K, O) f32; dx (n_rows, Hx*K) f32,
+// per head when Hx = H, summed over the heads when Hx = 1.
+int het_segment_matmul_dx_f32(const float* ct, const float* w,
+                              const int32_t* seg_ptrs, float* dx,
+                              int64_t n_rows, int S, int H, int Hx, int K,
+                              int O, void* stream) {
+  return launch_rows(true, ct, w, seg_ptrs, dx, n_rows, S, H, Hx, K, O,
+                     stream);
 }
 
 const char* het_cuda_error_string(int err) {

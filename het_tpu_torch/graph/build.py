@@ -9,7 +9,7 @@ segmentations.  The result holds CPU tensors; move it with ``.to(device)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,9 +33,13 @@ def _i32(a) -> torch.Tensor:
 
 
 def build_segments(seg_of_row: np.ndarray, n_segments: int,
-                   tile: int) -> Segments:
+                   tile: int, force_rows: Optional[int] = None) -> Segments:
     """Group source rows by segment id, padding each segment to a multiple
-    of ``tile`` rows so every row tile is single-segment."""
+    of ``tile`` rows so every row tile is single-segment.
+
+    ``force_rows`` pads the total to a fixed size (the extra invalid rows
+    go to the last segment), so that the shards of a partitioned graph
+    share their shapes (``het_tpu_torch.parallel.partition``)."""
     seg_of_row = np.asarray(seg_of_row)
     n_src = int(seg_of_row.shape[0])
     order = counting_argsort(seg_of_row)
@@ -43,6 +47,12 @@ def build_segments(seg_of_row: np.ndarray, n_segments: int,
     padded = ((counts + tile - 1) // tile * tile) if tile > 1 else counts
     seg_ptrs = np.zeros(n_segments + 1, dtype=np.int64)
     np.cumsum(padded, out=seg_ptrs[1:])
+    if force_rows is not None:
+        if force_rows < seg_ptrs[-1] or force_rows % max(tile, 1):
+            raise ValueError(f"force_rows={force_rows} is below "
+                             f"{seg_ptrs[-1]} rows or not a multiple of "
+                             f"the tile {tile}")
+        seg_ptrs[-1] = force_rows
     n_rows = int(seg_ptrs[-1])
 
     perm = np.zeros(n_rows, dtype=np.int64)
@@ -78,13 +88,31 @@ def build_segments(seg_of_row: np.ndarray, n_segments: int,
 
 
 def _build_compact(rel: np.ndarray, node: np.ndarray, num_nodes: int,
-                   num_rels: int, tile: int,
-                   num_padded_edges: int) -> CompactInfo:
+                   num_rels: int, tile: int, num_padded_edges: int,
+                   force_rows: Optional[int] = None,
+                   force_pairs: Optional[int] = None) -> CompactInfo:
     """Unique (relation, node) pairs, the direct-index edge map and its
-    sorted segmentations (see :class:`CompactInfo`)."""
+    sorted segmentations (see :class:`CompactInfo`).
+
+    ``force_pairs`` pads the pair count with dummy (last relation,
+    sentinel node) pairs so that partitioned shards share one shape: a
+    dummy row gathers the zero sentinel row and no edge refers to it, so
+    its gradient is exactly zero.  ``force_rows`` is
+    :func:`build_segments`'."""
     pair_rel, pair_node, inverse = unique_pairs(rel, node, num_nodes)
     E = int(rel.shape[0])
-    seg = build_segments(pair_rel, num_rels, tile)
+    pair_rel = pair_rel.astype(np.int64)
+    pair_node = pair_node.astype(np.int64)
+    if force_pairs is not None:
+        extra = force_pairs - int(pair_rel.shape[0])
+        if extra < 0:
+            raise ValueError(f"force_pairs={force_pairs} is below the "
+                             f"{pair_rel.shape[0]} pairs")
+        pair_rel = np.concatenate(
+            [pair_rel, np.full(extra, num_rels - 1, dtype=np.int64)])
+        pair_node = np.concatenate(
+            [pair_node, np.full(extra, num_nodes, dtype=np.int64)])
+    seg = build_segments(pair_rel, num_rels, tile, force_rows=force_rows)
     inv = seg.inv.numpy()
     node_ids = np.zeros(seg.n_rows, dtype=np.int64)
     node_ids[inv] = pair_node
@@ -142,6 +170,29 @@ def _canonical_runs(c_dst: np.ndarray, c_rel: np.ndarray,
     return _i32(canon_ptr), _i32(to_run)
 
 
+def _node_types(num_nodes, ntype_offsets, node_ntype, tile, force_rows):
+    """``ntype_offsets``, the type count and ``ntype_seg``: node types from
+    contiguous id ranges, or from an explicit per-node array (a shard's
+    destination range may span type boundaries)."""
+    if ntype_offsets is None:
+        ntype_offsets = (0, num_nodes)
+    ntype_offsets = tuple(int(o) for o in ntype_offsets)
+    num_ntypes = len(ntype_offsets) - 1
+    if node_ntype is not None:
+        node_ntype = np.asarray(node_ntype, dtype=np.int64)
+        if node_ntype.shape[0] != num_nodes:
+            raise ValueError("node_ntype needs one entry per node")
+        if num_nodes:
+            num_ntypes = max(num_ntypes, int(node_ntype.max()) + 1)
+    else:
+        node_ntype = np.zeros(num_nodes, dtype=np.int64)
+        for t in range(num_ntypes):
+            node_ntype[ntype_offsets[t]: ntype_offsets[t + 1]] = t
+    ntype_seg = build_segments(node_ntype, num_ntypes, tile,
+                               force_rows=force_rows)
+    return ntype_offsets, num_ntypes, ntype_seg
+
+
 def build_heterograph(
     src: np.ndarray,
     dst: np.ndarray,
@@ -154,11 +205,19 @@ def build_heterograph(
     tile: int = 128,
     build_compact: bool = True,
     compact_union: bool = False,
+    force_sizes: Optional[Dict[str, int]] = None,
+    src_space: Optional[int] = None,
+    node_ntype: Optional[np.ndarray] = None,
 ) -> HeteroGraph:
     """Build a :class:`HeteroGraph` from COO arrays in any edge order.
 
     ``tile`` is the relation-segment padding granularity.  Node types are
-    the contiguous id ranges of ``ntype_offsets`` (one type by default)."""
+    the contiguous id ranges of ``ntype_offsets`` (one type by default),
+    or ``node_ntype``, one type per node.  ``src_space`` is the number of
+    source rows when it differs from ``num_nodes`` (a shard of a
+    partitioned graph); padding edges then take ``src = src_space``.
+    ``force_sizes`` pads the sizes a partitioned graph's shards must share
+    (keys as ``het_tpu_torch.parallel.partition._force_size_keys``)."""
     if compact_union:
         raise NotImplementedError(
             "union-list compact (compact_union) is not ported yet; "
@@ -172,27 +231,31 @@ def build_heterograph(
         raise ValueError("src, dst and rel must have one entry per edge")
     if num_rels is None:
         num_rels = int(rel.max()) + 1 if E else 1
+    if src_space is None:
+        src_space = num_nodes
     if E and not (
-        0 <= src.min() and src.max() < num_nodes
+        0 <= src.min() and src.max() < src_space
         and 0 <= dst.min() and dst.max() < num_nodes
         and 0 <= rel.min() and rel.max() < num_rels
     ):
         raise ValueError("edge endpoint or relation id out of range")
-    if num_nodes >= 2**31 or E >= 2**31:
+    if max(num_nodes, src_space) >= 2**31 or E >= 2**31:
         raise ValueError("graph too large for int32 indices")
+    force = force_sizes or {}
 
     order = canonical_sort(src, dst, rel)
     c_src, c_dst, c_rel = src[order], dst[order], rel[order]
 
     EP = max(round_up(E, EDGE_PAD), EDGE_PAD) + EDGE_EXTRA
+    EP = max(EP, force.get("num_padded_edges", 0))
     pad = EP - E
-    p_src = np.concatenate([c_src, np.full(pad, num_nodes, dtype=np.int64)])
+    p_src = np.concatenate([c_src, np.full(pad, src_space, dtype=np.int64)])
     p_dst = np.concatenate([c_dst, np.full(pad, num_nodes, dtype=np.int64)])
     p_rel = np.concatenate([c_rel, np.zeros(pad, dtype=np.int64)])
     p_eid = np.concatenate([order, np.zeros(pad, dtype=np.int64)])
 
     in_deg = np.bincount(c_dst, minlength=num_nodes).astype(np.int64)
-    out_deg = np.bincount(c_src, minlength=num_nodes).astype(np.int64)
+    out_deg = np.bincount(c_src, minlength=src_space).astype(np.int64)
     in_row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(in_deg, out=in_row_ptr[1:])
 
@@ -200,37 +263,36 @@ def build_heterograph(
     out_perm = np.concatenate(
         [counting_argsort(c_src), np.arange(E, EP, dtype=np.int64)]
     )
-    out_row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    out_row_ptr = np.zeros(src_space + 1, dtype=np.int64)
     np.cumsum(out_deg, out=out_row_ptr[1:])
 
     # relation segments cover every padded edge slot (padding edges go to
     # relation 0 and are marked invalid)
-    edge_rel_seg = build_segments(p_rel, num_rels, tile)
+    edge_rel_seg = build_segments(p_rel, num_rels, tile,
+                                  force_rows=force.get("edge_rel_rows"))
     erv = edge_rel_seg.row_valid.numpy() & (
-        p_src[edge_rel_seg.perm.numpy()] < num_nodes
+        p_src[edge_rel_seg.perm.numpy()] < src_space
     )
     edge_rel_seg = dataclasses.replace(
         edge_rel_seg, row_valid=torch.from_numpy(erv)
     )
 
-    if ntype_offsets is None:
-        ntype_offsets = (0, num_nodes)
-    ntype_offsets = tuple(int(o) for o in ntype_offsets)
-    num_ntypes = len(ntype_offsets) - 1
-    node_ntype = np.zeros(num_nodes, dtype=np.int64)
-    for t in range(num_ntypes):
-        node_ntype[ntype_offsets[t]: ntype_offsets[t + 1]] = t
-    ntype_seg = build_segments(node_ntype, num_ntypes, tile)
+    ntype_offsets, num_ntypes, ntype_seg = _node_types(
+        num_nodes, ntype_offsets, node_ntype, tile, force.get("ntype_rows"))
 
     compact_src = compact_dst = None
     if build_compact:
-        compact_src = _build_compact(c_rel, c_src, num_nodes, num_rels,
-                                     tile, EP)
-        compact_dst = _build_compact(c_rel, c_dst, num_nodes, num_rels,
-                                     tile, EP)
+        compact_src = _build_compact(
+            c_rel, c_src, src_space, num_rels, tile, EP,
+            force_rows=force.get("compact_src_rows"),
+            force_pairs=force.get("compact_src_pairs"))
+        compact_dst = _build_compact(
+            c_rel, c_dst, num_nodes, num_rels, tile, EP,
+            force_rows=force.get("compact_dst_rows"),
+            force_pairs=force.get("compact_dst_pairs"))
         canon_ptr, canon_to_row = _canonical_runs(c_dst, c_rel, compact_dst)
         compact_dst = dataclasses.replace(compact_dst, canon_ptr=canon_ptr,
-                               canon_to_row=canon_to_row)
+                                          canon_to_row=canon_to_row)
 
     if rel_names is None:
         rel_names = tuple(f"rel{i}" for i in range(num_rels))
@@ -255,5 +317,5 @@ def build_heterograph(
         compact_dst=compact_dst,
         in_deg=_i32(in_deg),
         out_deg=_i32(out_deg),
+        num_src_space=0 if src_space == num_nodes else int(src_space),
     )
-

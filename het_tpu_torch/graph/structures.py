@@ -49,8 +49,10 @@ class Segments:
     perm: torch.Tensor  # (n_rows,) source row per padded row (0 on padding)
     inv: torch.Tensor  # (n_src,) source row -> padded row
     row_valid: torch.Tensor  # (n_rows,) bool, False on padding rows
-    # host copy of seg_ptrs: the per-relation row slices of segment_matmul
-    seg_ptrs_static: Tuple[int, ...] = ()
+    # host copy of seg_ptrs: the per-relation row slices of segment_matmul.
+    # None where the offsets live only in ``seg_ptrs`` on the device (the
+    # shards of a partitioned graph whose relation sizes differ)
+    seg_ptrs_static: Optional[Tuple[int, ...]] = None
 
     def to(self, device) -> "Segments":
         return _to(self, device)
@@ -117,9 +119,25 @@ class HeteroGraph:
     compact_src: Optional[CompactInfo]
     compact_dst: Optional[CompactInfo]
     in_deg: torch.Tensor  # (num_nodes,)
-    out_deg: torch.Tensor  # (num_nodes,)
+    out_deg: torch.Tensor  # (src_space,)
+    # Source-index space, 0 when it is the destination space.  On a shard
+    # of a partitioned graph (``het_tpu_torch.parallel``) destinations are
+    # local rows while sources index the halo buffer: the padded-global
+    # node space of the all-gather, or the boundary buffer
+    # ``[own rows | rows received from each peer]``.
+    num_src_space: int = 0
+    # boundary halo exchange (``parallel.dp.halo_exchange``): this shard's
+    # own source rows (B_self,) and, per peer, the local rows it sends
+    # (n_parts, B_off); both local row ids, None without the exchange
+    halo_self_idx: Optional[torch.Tensor] = None
+    halo_send_idx: Optional[torch.Tensor] = None
     # True only for the union-list compact kind, which is not built yet
     compact_shared: bool = False
+
+    @property
+    def src_space(self) -> int:
+        """Rows of the source-side features ``x`` the graph indexes."""
+        return self.num_src_space or self.num_nodes
 
     def to(self, device) -> "HeteroGraph":
         return _to(self, device)

@@ -1,3 +1,3 @@
 from .embed import NodeEmbed  # noqa: F401
 from .rgat import RGATLayer, RGATModel  # noqa: F401
-from .weights import params_from_jax  # noqa: F401
+from .weights import dp_params_from_jax, params_from_jax  # noqa: F401

@@ -88,11 +88,18 @@ class RGATLayer(nn.Module):
         self.h_bias = nn.Parameter(torch.zeros(out_feat))
 
     def forward(self, g, x: torch.Tensor, *,
+                x_dst: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``x`` indexes the graph's source space, ``x_dst`` its
+        destinations (``x`` when None).  They differ on a shard of a
+        partitioned graph, where ``x`` is the halo buffer and ``x_dst``
+        the shard's own rows."""
+        if x_dst is None:
+            x_dst = x
         if self.compact:
-            h = self._compact(g, x)
+            h = self._compact(g, x, x_dst)
         else:
-            h = self._plain(g, x)
+            h = self._plain(g, x, x_dst)
         h = h.reshape(g.num_nodes, self.out_feat) + self.h_bias
         if self.activation is not None:
             h = self.activation(h)
@@ -108,7 +115,7 @@ class RGATLayer(nn.Module):
         return (torch.einsum("rhkd,rhd->rhk", self.conv_weights, self.attn_l),
                 torch.einsum("rhkd,rhd->rhk", self.conv_weights, self.attn_r))
 
-    def _compact(self, g, x):
+    def _compact(self, g, x, x_dst):
         if g.compact_shared:
             raise NotImplementedError(
                 "union-list compact RGAT is not ported yet (ROADMAP.md, "
@@ -120,7 +127,7 @@ class RGATLayer(nn.Module):
             feat_c = ops.compact_typed_linear(g, x, conv_w, "src", impl=impl)
             el_c = ops.segment_rel_inner(feat_c, self.attn_l,
                                          g.compact_src.seg, impl=impl)
-            feat_c_dst = ops.compact_typed_linear(g, x, conv_w, "dst",
+            feat_c_dst = ops.compact_typed_linear(g, x_dst, conv_w, "dst",
                                                   impl=impl)
             er_c = ops.segment_rel_inner(feat_c_dst, self.attn_r,
                                          g.compact_dst.seg, impl=impl)
@@ -135,13 +142,13 @@ class RGATLayer(nn.Module):
         wa_l, wa_r = self._weights_times_attn()
         w_cat = torch.cat([wa_l[..., None], conv_w], dim=-1)  # (R,H,K,1+D)
         fe = ops.compact_typed_linear(g, x, w_cat, "src", impl=impl)
-        er_c = ops.compact_typed_linear(g, x, wa_r[..., None], "dst",
+        er_c = ops.compact_typed_linear(g, x_dst, wa_r[..., None], "dst",
                                         impl=impl)[..., 0]
         return ops.relational_fused_gat_compact(
             g, fe[..., 1:], fe[..., 0], er_c, slope, stable=stable,
             impl=impl)
 
-    def _plain(self, g, x):
+    def _plain(self, g, x, x_dst):
         impl, slope, stable = self.impl, LEAKY_RELU_SLOPE, self.stable_softmax
         conv_w = self.conv_weights
         if self.multiply_first:
@@ -150,12 +157,13 @@ class RGATLayer(nn.Module):
             w_cat = torch.cat([conv_w, wa_l[..., None]], dim=-1)  # (R,H,K,D+1)
             fe = ops.edge_typed_linear(g, x, w_cat, "src", impl=impl)
             feat_e, el = fe[..., :D], fe[..., D]
-            er = ops.edge_typed_linear(g, x, wa_r[..., None], "dst",
+            er = ops.edge_typed_linear(g, x_dst, wa_r[..., None], "dst",
                                        impl=impl)[..., 0]
         else:
             feat_e = ops.edge_typed_linear(g, x, conv_w, "src", impl=impl)
             el = ops.edge_rel_inner(g, feat_e, self.attn_l, impl=impl)
-            feat_dst_e = ops.edge_typed_linear(g, x, conv_w, "dst", impl=impl)
+            feat_dst_e = ops.edge_typed_linear(g, x_dst, conv_w, "dst",
+                                               impl=impl)
             er = ops.edge_rel_inner(g, feat_dst_e, self.attn_r, impl=impl)
         return ops.relational_fused_gat(g, feat_e, el, er, slope,
                                         stable=stable, impl=impl)

@@ -4,12 +4,15 @@
 ``{"embed": {"params": {"embed"}}, "model": {"params": {"RGATLayer_i":
 {...}}}}``; the port keeps the same arrays under the same leaf names in a
 :class:`~het_tpu_torch.train.driver.NodeClassifier` state dict.
+``het_tpu.parallel.DPGNN.init`` returns a list of per-layer
+``{"params": {...}}`` dicts; the port's ``DPGNN`` (and ``RGATModel``)
+keeps them as ``layers.{i}.*``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +30,15 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         for leaf, value in leaves.items():
             out[f"model.layers.{m.group(1)}.{leaf}"] = _tensor(value)
     return out
+
+
+def dp_params_from_jax(layers: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
+    """``DPGNN.init``'s list of per-layer flax dicts -> the state dict of
+    the port's ``DPGNN`` (``layers.{i}.{conv_weights,attn_l,attn_r,
+    h_bias}``)."""
+    return {f"layers.{i}.{leaf}": _tensor(value)
+            for i, layer in enumerate(layers)
+            for leaf, value in layer["params"].items()}
 
 
 def _tensor(a) -> torch.Tensor:

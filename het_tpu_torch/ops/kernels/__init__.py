@@ -2,4 +2,6 @@
 
 from .seg_reduce import seg_sum_sorted, seg_sum_sorted_plain  # noqa: F401
 from .segment_mm import (segment_matmul_dw,  # noqa: F401
-                         segment_matmul_dw_plain)
+                         segment_matmul_dw_plain, segment_matmul_dx,
+                         segment_matmul_dx_plain, segment_matmul_fwd,
+                         segment_matmul_fwd_plain)

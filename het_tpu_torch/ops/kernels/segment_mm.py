@@ -1,20 +1,32 @@
-"""Grouped weight gradient of the relation-segmented matmul: the
-hand-written CUDA kernel and its plain version.
+"""Relation-segmented matmul: the hand-written CUDA kernels and their
+plain versions.
 
-    dW[s, h, k, o] = sum_{i in segment s} x[i, h if Hx > 1 else 0, k]
-                                          * ct[i, h, o]
+    y[i, h]  = x[i, h if Hx > 1 else 0] @ W[seg(i), h]          forward
+    dx[i, h] = sum_o ct[i, h, o] W[seg(i), h, :, o]  (per head, Hx = H;
+               summed over the heads when Hx = 1)                 dX
+    dW[s, h, k, o] = sum_{i in segment s} x[i, h|0, k] ct[i, h, o]  dW
 
-Counterpart of ``het_tpu/ops/pallas/segment_mm.py::segment_matmul_rows_dw``
-(its resident form ``_dw_resident`` and its streamed form, one CUDA kernel
-for both).  Every row of a segment is summed, valid or not, as there; a
-caller that must drop padding rows zeroes their ``ct``.  A segment that
-owns no rows gives zeros.  The kernel is ``csrc/segment_mm.cu``; its
-header says what bounds it and how.
+with ``seg(i)`` the segment whose rows ``seg_ptrs[s]:seg_ptrs[s+1]`` hold
+row ``i``, read on the device: these kernels serve the segmentations whose
+offsets have no host copy (``Segments.seg_ptrs_static is None``, the
+shards of a partitioned graph), and the dW also the attention-vector
+gradients of the plain RGAT.  Counterparts of
+``het_tpu/ops/pallas/segment_mm.py``: :func:`segment_matmul_fwd` of
+``segment_matmul_rows_fwd`` (``_fwd_resident`` and ``_fwd_streamed``),
+:func:`segment_matmul_dx` of ``segment_matmul_rows_dx`` (``_dx_resident``
+and the streamed form), :func:`segment_matmul_dw` of
+``segment_matmul_rows_dw`` (``_dw_resident`` and the streamed form); one
+CUDA kernel covers each pair.  Every row of a segment is summed in the
+dW, valid or not, as there; a caller that must drop padding rows zeroes
+their ``ct``.  A segment that owns no rows gives zeros, and the forward
+and dX write zeros on rows outside ``[seg_ptrs[0], seg_ptrs[S])``.  The
+kernels are ``csrc/segment_mm.cu``; its header says what bounds them.
 
-The device of ``x_rows`` picks the implementation (``_dispatch.takes_plain``):
-a CUDA tensor launches the kernel (or raises), a CPU tensor takes
-:func:`segment_matmul_dw_plain`, and ``impl="plain"`` asks for the plain
-version on the card as well.
+The device of the first operand picks the implementation
+(``_dispatch.takes_plain``): a CUDA tensor launches the kernel (or
+raises), a CPU tensor takes the plain version, and ``impl="plain"`` asks
+for the plain version on the card as well.  Only the plain versions read
+the offsets on the host.
 """
 
 from __future__ import annotations
@@ -28,17 +40,35 @@ import torch
 from . import _dispatch
 
 
+def host_seg_ptrs(seg) -> Tuple[int, ...]:
+    """The segment offsets on the host: ``seg_ptrs_static``, or a copy of
+    ``seg_ptrs`` where the offsets live only on the device (a sync; the
+    plain versions alone read it)."""
+    if seg.seg_ptrs_static is not None:
+        return seg.seg_ptrs_static
+    return tuple(seg.seg_ptrs.tolist())
+
+
+def _rows2d(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], math.prod(t.shape[1:]))
+
+
+def _heads_of(x2: torch.Tensor, H: int, K: int, what: str) -> int:
+    """Hx of an (n_rows, Hx*K) operand, Hx in {1, H}."""
+    Hx = x2.shape[1] // K if K else 1
+    if x2.shape[1] != Hx * K or Hx not in (1, H):
+        raise ValueError(f"{what} {tuple(x2.shape)} is not (n_rows, Hx*K) "
+                         f"with Hx in (1, {H}), K={K}")
+    return Hx
+
+
 def _operands(x_rows, ct_rows, w_shape) -> Tuple[torch.Tensor, torch.Tensor,
                                                   int]:
     """x (n_rows, Hx*K) and ct (n_rows, H*O) as 2-D views, and Hx."""
     S, H, K, O = w_shape
     n = x_rows.shape[0]
-    x2 = x_rows.reshape(n, math.prod(x_rows.shape[1:]))
-    ct2 = ct_rows.reshape(ct_rows.shape[0], math.prod(ct_rows.shape[1:]))
-    Hx = x2.shape[1] // K if K else 1
-    if x2.shape[1] != Hx * K or Hx not in (1, H):
-        raise ValueError(f"x_rows {tuple(x_rows.shape)} is not (n_rows, Hx*K)"
-                         f" with Hx in (1, {H}), K={K}")
+    x2, ct2 = _rows2d(x_rows), _rows2d(ct_rows)
+    Hx = _heads_of(x2, H, K, "x_rows")
     if ct2.shape != (n, H * O):
         raise ValueError(f"ct_rows {tuple(ct_rows.shape)} is not "
                          f"({n}, {H}*{O})")
@@ -48,10 +78,10 @@ def _operands(x_rows, ct_rows, w_shape) -> Tuple[torch.Tensor, torch.Tensor,
 def segment_matmul_dw_plain(x_rows: torch.Tensor, ct_rows: torch.Tensor,
                             w_shape, seg) -> torch.Tensor:
     """Plain PyTorch version: one f32 ``einsum`` per segment over the host
-    slices ``seg.seg_ptrs_static``."""
+    slices of the offsets (:func:`host_seg_ptrs`)."""
     S, H, K, O = w_shape
     x2, ct2, Hx = _operands(x_rows, ct_rows, w_shape)
-    ptrs = seg.seg_ptrs_static
+    ptrs = host_seg_ptrs(seg)
     out = torch.zeros(S, H, K, O, dtype=torch.float32, device=x2.device)
     for s in range(S):
         lo, hi = ptrs[s], ptrs[s + 1]
@@ -93,6 +123,33 @@ def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
     return out
 
 
+def _check_seg(seg, S: int, n_rows: int) -> None:
+    if seg.n_segments != S or seg.seg_ptrs.numel() != S + 1:
+        raise ValueError(f"seg has {seg.n_segments} segments, the weight {S}")
+    if seg.n_rows > n_rows:  # seg.n_rows is seg_ptrs[S], known on the host
+        raise ValueError(f"seg spans {seg.n_rows} rows, the operand "
+                         f"{n_rows}")
+
+
+def _check_cuda(operands, seg) -> None:
+    """What a kernel takes: contiguous operands and int32 offsets on the
+    first operand's device."""
+    dev = operands[0][1].device
+    for name, t in operands + (("seg.seg_ptrs", seg.seg_ptrs),):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if seg.seg_ptrs.dtype != torch.int32:
+        raise TypeError("seg.seg_ptrs must be int32")
+
+
+def _check_f32(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
 def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
                       seg, *, impl: str = "kernel") -> torch.Tensor:
     """dW (S, H, K, O) f32 of ``y[i, h] = x_rows[i, h|0] @ W[seg(i), h]``
@@ -100,30 +157,141 @@ def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
     (n_rows, Hx*K) or (n_rows, Hx, K) with Hx in {1, H}; ``ct_rows`` is
     (n_rows, H*O) or (n_rows, H, O); both f32 in the row space of the
     :class:`~het_tpu_torch.graph.structures.Segments` ``seg``."""
-    S = w_shape[0]
     plain = _dispatch.takes_plain(x_rows, impl, "segment_matmul_dw")
-    if x_rows.dtype != torch.float32 or ct_rows.dtype != torch.float32:
-        raise TypeError(f"x_rows and ct_rows must be float32, got "
-                        f"{x_rows.dtype} and {ct_rows.dtype}")
+    _check_f32(x_rows=x_rows, ct_rows=ct_rows)
     x2, ct2, Hx = _operands(x_rows, ct_rows, w_shape)
-    if seg.n_segments != S or seg.seg_ptrs.numel() != S + 1:
-        raise ValueError(f"seg has {seg.n_segments} segments, w_shape {S}")
-    if seg.seg_ptrs_static and seg.seg_ptrs_static[-1] > x2.shape[0]:
-        raise ValueError("seg_ptrs reach past the last row")
+    _check_seg(seg, w_shape[0], x2.shape[0])
     if plain:
         return segment_matmul_dw_plain(x2, ct2, w_shape, seg)
-    for name, t in (("x_rows", x2), ("ct_rows", ct2),
-                    ("seg.seg_ptrs", seg.seg_ptrs)):
-        if t.device != x2.device:
-            raise ValueError(f"{name} is on {t.device}, x_rows on "
-                             f"{x2.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if seg.seg_ptrs.dtype != torch.int32:
-        raise TypeError("seg.seg_ptrs must be int32")
+    _check_cuda((("x_rows", x2), ("ct_rows", ct2)), seg)
     return _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg.seg_ptrs)
 
 
 # launches of the CUDA kernel since the count was last set to 0 (one a
 # call: the plan, chunk and reduce passes of csrc/segment_mm.cu)
 segment_matmul_dw.launches = 0
+
+
+# ------------------------------------------------------------ forward, dX
+
+
+def segment_matmul_fwd_plain(x_rows: torch.Tensor, w: torch.Tensor,
+                             seg) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_matmul_fwd`: one f32
+    ``torch.matmul`` per segment over the host slices of the offsets."""
+    S, H, K, O = w.shape
+    x2 = _rows2d(x_rows)
+    Hx = _heads_of(x2, H, K, "x_rows")
+    out = torch.zeros(x2.shape[0], H, O, dtype=torch.float32,
+                      device=x2.device)
+    ptrs = host_seg_ptrs(seg)
+    for s in range(S):
+        lo, hi = ptrs[s], ptrs[s + 1]
+        if hi == lo:
+            continue
+        xs = x2[lo:hi].float().view(hi - lo, Hx, K).transpose(0, 1)
+        # (Hx, n, K) @ (H, K, O) -> (H, n, O), x broadcast over the heads
+        out[lo:hi] = torch.matmul(xs, w[s].float()).transpose(0, 1)
+    return out
+
+
+def segment_matmul_dx_plain(ct_rows: torch.Tensor, w: torch.Tensor, seg,
+                            x_heads: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_matmul_dx`: one f32
+    ``torch.matmul`` per segment over the host slices of the offsets."""
+    S, H, K, O = w.shape
+    ct2 = _rows2d(ct_rows)
+    out = torch.zeros(ct2.shape[0], x_heads * K, dtype=torch.float32,
+                      device=ct2.device)
+    ptrs = host_seg_ptrs(seg)
+    for s in range(S):
+        lo, hi = ptrs[s], ptrs[s + 1]
+        if hi == lo:
+            continue
+        cs = ct2[lo:hi].float()
+        wt = w[s].float().transpose(1, 2)  # (H, O, K)
+        if x_heads == 1:
+            out[lo:hi] = cs @ wt.reshape(H * O, K)
+        else:
+            per_head = torch.matmul(cs.view(hi - lo, H, O).transpose(0, 1),
+                                    wt)  # (H, n, K)
+            out[lo:hi] = per_head.transpose(0, 1).reshape(hi - lo, H * K)
+    return out
+
+
+def _segment_matmul_rows_cuda(symbol, a2, w, seg_ptrs, out, Hx):
+    fn = _dispatch.bind("segment_mm", symbol, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    S, H, K, O = w.shape
+    if out.numel() == 0:
+        return False
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(a2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
+                 out.data_ptr(), a2.shape[0], S, H, Hx, K, O, stream)
+    _dispatch.check_launch("segment_mm", err, symbol)
+    return True
+
+
+def segment_matmul_fwd(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
+                       impl: str = "kernel") -> torch.Tensor:
+    """(n_rows, H, O) f32: row ``i`` of segment ``s`` times ``w[s]``.
+
+    ``x_rows`` is (n_rows, K), (n_rows, Hx*K) or (n_rows, Hx, K) f32 with
+    Hx in {1, H} (one input row for every head, or one a head); ``w`` is
+    (S, H, K, O) f32; ``seg`` the
+    :class:`~het_tpu_torch.graph.structures.Segments` of the rows, whose
+    offsets the kernel reads on the device."""
+    plain = _dispatch.takes_plain(x_rows, impl, "segment_matmul_fwd")
+    _check_f32(x_rows=x_rows, w=w)
+    if w.dim() != 4:
+        raise ValueError(f"w must be (S, H, K, O), got {tuple(w.shape)}")
+    S, H, K, O = w.shape
+    x2 = _rows2d(x_rows)
+    Hx = _heads_of(x2, H, K, "x_rows")
+    _check_seg(seg, S, x2.shape[0])
+    if plain:
+        return segment_matmul_fwd_plain(x2, w, seg)
+    _check_cuda((("x_rows", x2), ("w", w)), seg)
+    out = torch.empty(x2.shape[0], H, O, dtype=torch.float32,
+                      device=x2.device)
+    if _segment_matmul_rows_cuda("het_segment_matmul_fwd_f32", x2, w,
+                                 seg.seg_ptrs, out, Hx):
+        segment_matmul_fwd.launches += 1
+    return out
+
+
+def segment_matmul_dx(ct_rows: torch.Tensor, w: torch.Tensor, seg,
+                      x_heads: int = 1, *,
+                      impl: str = "kernel") -> torch.Tensor:
+    """(n_rows, x_heads*K) f32, the input gradient of
+    :func:`segment_matmul_fwd` for the cotangent ``ct_rows`` ((n_rows,
+    H*O) or (n_rows, H, O) f32): per head when the input had one row a head
+    (``x_heads = H``), summed over the heads when it had one for all
+    (``x_heads = 1``)."""
+    plain = _dispatch.takes_plain(ct_rows, impl, "segment_matmul_dx")
+    _check_f32(ct_rows=ct_rows, w=w)
+    if w.dim() != 4:
+        raise ValueError(f"w must be (S, H, K, O), got {tuple(w.shape)}")
+    S, H, K, O = w.shape
+    ct2 = _rows2d(ct_rows)
+    if ct2.shape[1] != H * O or x_heads not in (1, H):
+        raise ValueError(f"ct_rows {tuple(ct_rows.shape)} is not (n_rows, "
+                         f"{H}*{O}), or x_heads={x_heads} not in (1, {H})")
+    _check_seg(seg, S, ct2.shape[0])
+    if plain:
+        return segment_matmul_dx_plain(ct2, w, seg, x_heads)
+    _check_cuda((("ct_rows", ct2), ("w", w)), seg)
+    out = torch.empty(ct2.shape[0], x_heads * K, dtype=torch.float32,
+                      device=ct2.device)
+    if _segment_matmul_rows_cuda("het_segment_matmul_dx_f32", ct2, w,
+                                 seg.seg_ptrs, out, x_heads):
+        segment_matmul_dx.launches += 1
+    return out
+
+
+# launches of each CUDA kernel since its count was last set to 0
+segment_matmul_fwd.launches = 0
+segment_matmul_dx.launches = 0

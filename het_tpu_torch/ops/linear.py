@@ -3,10 +3,12 @@
 Counterpart of ``het_tpu/ops/linear.py``:
 
 * :func:`segment_matmul` multiplies each relation's rows by that
-  relation's weight, one dense matmul per relation over the row slice
-  ``seg_ptrs_static[r]:seg_ptrs_static[r+1]`` (the JAX package's
-  static-mix plan, ``segment_matmul_static_mix``; there too the matmul is
-  left to the compiler's library, here ``torch.matmul``);
+  relation's weight: one dense matmul per relation over the row slice
+  ``seg_ptrs_static[r]:seg_ptrs_static[r+1]`` where the offsets are known
+  on the host (the JAX package's static-mix plan,
+  ``segment_matmul_static_mix``; there too the matmul is left to the
+  compiler's library, here ``torch.matmul``), the segment-matmul kernels
+  where they live only on the device (a shard of a partitioned graph);
 * :func:`compact_typed_linear` gathers node rows into the unique
   (relation, node) compact rows and applies :func:`segment_matmul`.  The
   gather's backward is the sorted segment sum over ``node_row_ptr`` with
@@ -31,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from .common import gather_nodes, take_rows, take_rows_injective
-from .kernels import seg_sum_sorted, segment_matmul_dw
+from .kernels import (seg_sum_sorted, segment_matmul_dw, segment_matmul_dx,
+                      segment_matmul_fwd)
 
 
 def _flat_weight(w_r: torch.Tensor) -> torch.Tensor:
@@ -78,18 +81,53 @@ class _SegmentMatmul(torch.autograd.Function):
         return dx, dw, None
 
 
-def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor,
-                   seg) -> torch.Tensor:
+class _SegmentMatmulRows(torch.autograd.Function):
+    """Segment matmul whose offsets live only on the device (a shard of a
+    partitioned graph): forward and dX by the CUDA kernels of
+    ``kernels.segment_matmul_fwd`` / ``segment_matmul_dx``, dW by the
+    grouped ``segment_matmul_dw``, as ``segment_matmul_rows_pallas`` has
+    them; dX only where the input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x_rows, w, seg, impl: str):
+        ctx.save_for_backward(x_rows, w)
+        ctx.seg, ctx.impl = seg, impl
+        return segment_matmul_fwd(x_rows, w, seg, impl=impl)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x_rows, w = ctx.saved_tensors
+        seg, impl = ctx.seg, ctx.impl
+        ct = ct.float().contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = segment_matmul_dx(ct, w, seg, 1, impl=impl).to(x_rows.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = segment_matmul_dw(x_rows, ct, tuple(w.shape), seg,
+                                   impl=impl).to(w.dtype)
+        return dx, dw, None, None
+
+
+def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
+                   impl: str = "kernel") -> torch.Tensor:
     """x_rows (n_rows, K) of the segment row space, w (S, H, K, O) ->
-    (n_rows, H, O): row ``i`` of segment ``s`` times ``w[s]``."""
+    (n_rows, H, O): row ``i`` of segment ``s`` times ``w[s]``.
+
+    Dispatches as the JAX package's pallas backend does: host-known
+    offsets take the per-relation ``torch.matmul`` slices; offsets that
+    live only on the device (``seg_ptrs_static is None``) take the
+    segment-matmul kernels, which read them there."""
     if x_rows.dim() != 2:
         raise NotImplementedError(
             "segment_matmul takes (n_rows, K) rows; per-head (n_rows, H, K) "
             "inputs have no caller on the ported paths yet (ROADMAP.md "
             "queue 1)"
         )
-    if seg.seg_ptrs_static[-1] != x_rows.shape[0]:
+    if seg.n_rows != x_rows.shape[0]:
         raise ValueError("x_rows does not span the segment row space")
+    if seg.seg_ptrs_static is None:
+        return _SegmentMatmulRows.apply(x_rows.contiguous(), w.contiguous(),
+                                        seg, impl)
     return _SegmentMatmul.apply(x_rows, w, seg.seg_ptrs_static)
 
 
@@ -124,19 +162,29 @@ def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
     if info is None:
         raise ValueError("graph built without compact indices")
     seg = info.seg
+    rows = _side_rows(g, side)
+    if x.shape[0] != rows:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph's {side} "
+                         f"side {rows}")
     row_idx = torch.where(seg.row_valid, info.node_ids,
-                          torch.full_like(info.node_ids, g.num_nodes))
+                          torch.full_like(info.node_ids, rows))
     x_rows = _CompactGather.apply(x, row_idx, info, impl)
-    return segment_matmul(x_rows, w, seg)
+    return segment_matmul(x_rows, w, seg, impl=impl)
+
+
+def _side_rows(g, side: str) -> int:
+    """Rows of the features a side indexes: the source space (the halo
+    buffer on a shard) or the local destinations."""
+    return g.src_space if side == "src" else g.num_nodes
 
 
 def _edge_row_idx(g, side: str) -> torch.Tensor:
     """Node row of each relation-sorted edge row: ``src`` or ``dst`` of
-    the edge it holds, the sentinel ``num_nodes`` on padding rows."""
+    the edge it holds, the side's sentinel row on padding rows."""
     idx = g.src if side == "src" else g.dst
     seg = g.edge_rel_seg
     return torch.where(seg.row_valid, take_rows(idx, seg.perm),
-                       torch.full_like(seg.perm, g.num_nodes))
+                       torch.full_like(seg.perm, _side_rows(g, side)))
 
 
 class _EdgeRowGather(torch.autograd.Function):
@@ -150,9 +198,9 @@ class _EdgeRowGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, g, side: str, impl: str):
-        if x.shape[0] != g.num_nodes:
-            raise ValueError(f"x has {x.shape[0]} rows, the graph "
-                             f"{g.num_nodes} nodes")
+        if x.shape[0] != _side_rows(g, side):
+            raise ValueError(f"x has {x.shape[0]} rows, the graph's {side} "
+                             f"side {_side_rows(g, side)}")
         ctx.g, ctx.side, ctx.impl = g, side, impl
         ctx.x_shape = x.shape
         return gather_nodes(x, _edge_row_idx(g, side))
@@ -177,8 +225,8 @@ def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
     exactly zero on padding edges."""
     seg = g.edge_rel_seg
     x_rows = _EdgeRowGather.apply(x, g, side, impl)
-    return take_rows_injective(segment_matmul(x_rows, w, seg), seg.inv,
-                               seg.perm, seg.row_valid)
+    return take_rows_injective(segment_matmul(x_rows, w, seg, impl=impl),
+                               seg.inv, seg.perm, seg.row_valid)
 
 
 class _RelInner(torch.autograd.Function):

@@ -13,9 +13,14 @@ import torch
 from het_tpu_torch.graph import random_heterograph
 from het_tpu_torch.ops.kernels import (seg_sum_sorted, seg_sum_sorted_plain,
                                        segment_matmul_dw,
-                                       segment_matmul_dw_plain)
+                                       segment_matmul_dw_plain,
+                                       segment_matmul_dx,
+                                       segment_matmul_dx_plain,
+                                       segment_matmul_fwd,
+                                       segment_matmul_fwd_plain)
 
 DW_TOL = 1e-6  # segment_matmul_dw: times sum |x| |ct| per output
+MM_TOL = 1e-5  # forward and dX: times sum |x| |W| per output
 
 
 @pytest.fixture
@@ -126,3 +131,46 @@ def test_segment_matmul_dw_kernel_is_deterministic(cuda):
     a = segment_matmul_dw(x, ct, (3, 4, 16, 1), seg)
     b = segment_matmul_dw(x, ct, (3, 4, 16, 1), seg)
     assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,H,Hx,K,O", [
+    ((5000, 0, 3000, 17), 4, 1, 64, 17),  # compact multiply-first source
+    ((5000, 0, 3000, 17), 4, 1, 64, 1),  # attention-vector columns
+    ((5000, 0, 3000, 17), 4, 4, 16, 5),  # per-head x
+    ((4100, 0, 70, 9000), 1, 1, 64, 64),  # general shape
+    ((200, 300, 0, 100), 4, 1, 700, 100),  # W past 4 MB: 1.1e6 floats
+    ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
+    ((300,), 1, 1, 1, 1),  # one segment, K = O = 1
+    ((40, 7), 1, 1, 1, 65),  # K = 1, O past one column tile
+])
+def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
+                                                   O):
+    """Forward and dX on offsets held only on the device.  Tolerance:
+    MM_TOL * sum |x| |W| per output (f32 sums in another order), which the
+    plain version on inputs rounded to TF32 fails; rows past the segments
+    (the operand is longer) are zeros."""
+    import dataclasses
+
+    seg = dataclasses.replace(_segments(sizes, tile=8),
+                              seg_ptrs_static=None).to(cuda)
+    n = seg.n_rows + 8
+    gen = torch.Generator(device=cuda).manual_seed(n + K + O)
+    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
+    ct = torch.randn(n, H * O, device=cuda, generator=gen)
+    w = torch.randn(len(sizes), H, K, O, device=cuda, generator=gen)
+    for fn, plain, a, extra in (
+            (segment_matmul_fwd, segment_matmul_fwd_plain, x, ()),
+            (segment_matmul_dx, segment_matmul_dx_plain, ct, (Hx,))):
+        fn.launches = 0
+        got = fn(a, w, seg, *extra)
+        torch.cuda.synchronize()
+        assert fn.launches == (1 if got.numel() else 0)
+        want = plain(a, w, seg, *extra)
+        scale = plain(a.abs(), w.abs(), seg, *extra)
+        assert got.shape == want.shape
+        assert ((got - want).abs() <= MM_TOL * scale).all()
+        assert (got[seg.n_rows:] == 0).all()
+        if scale.any():
+            tf32 = plain(_tf32(a), _tf32(w), seg, *extra)
+            assert not ((tf32 - want).abs() <= MM_TOL * scale).all()

@@ -130,3 +130,24 @@ def test_unported_model_raises():
         train(TrainConfig(model="HGT", dataset="aifb", dataset_scale=0.01,
                           compact=True, multiply_first=True, num_epochs=1,
                           device="cpu"), log=lambda s: None)
+
+
+def test_parallel_modules_follow_the_rules(monkeypatch):
+    """The data-parallel modules are among the files the import rule
+    walks, and their entry points take the card unless told otherwise:
+    without one they raise before opening a process group."""
+    import inspect
+
+    from het_tpu_torch.parallel import dp, launch, partition
+
+    files = set(_port_files())
+    for mod in (dp, launch, partition):
+        assert os.path.abspath(mod.__file__) in files
+    assert inspect.signature(dp.setup_rank).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(launch.spawn_ranks).parameters[
+        "device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dp.setup_rank(0, 1, init_method="file:///nonexistent/rendezvous")
+    assert not torch.distributed.is_initialized()

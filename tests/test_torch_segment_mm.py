@@ -1,11 +1,18 @@
-"""The port's grouped dW (plain version, which is what a CPU tensor runs)
-against het_tpu's ``segment_matmul_rows_dw`` (Pallas, interpret mode) and
-the XLA ``segment_sum`` formula, on segmentations with an empty segment,
-for head-broadcast and per-head x, O = 1 and O = 5, on the resident
-branch and on the streamed one (W past its 4 MB VMEM budget, few rows).
+"""The port's segment-matmul kernels' plain versions (what a CPU tensor
+runs) against het_tpu's Pallas kernels in interpret mode: the grouped dW
+against ``segment_matmul_rows_dw`` and the XLA ``segment_sum`` formula,
+the forward and dX against ``segment_matmul_rows_fwd`` and
+``segment_matmul_rows_dx``, on segmentations with an empty segment, for
+head-broadcast and per-head x, O = 1 and O = 5, on the resident branch
+and on the streamed one (W past its 4 MB VMEM budget, few rows); and
+``segment_matmul`` on offsets that live only on the device against
+``jax.vjp`` of ``segment_matmul_rows_pallas``.
 Tolerance: rtol 1e-4 / atol 2e-4 (the repo's forward parity one; f32 sums
 in another order).  Also checks that the kernel-vs-plain limit on the card,
 1e-6 * sum |x| |ct| per output, holds for f32 and fails for TF32 inputs."""
+
+import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -15,10 +22,15 @@ import torch
 
 from het_tpu.graph.build import build_segments as j_build_segments
 from het_tpu.ops.pallas.segment_mm import (W_RESIDENT_BYTES,
-                                           segment_matmul_rows_dw)
+                                           segment_matmul_rows_dw,
+                                           segment_matmul_rows_dx,
+                                           segment_matmul_rows_fwd,
+                                           segment_matmul_rows_pallas)
 from het_tpu_torch.graph.build import build_segments as t_build_segments
+from het_tpu_torch.ops import segment_matmul
 from het_tpu_torch.ops.kernels import (segment_matmul_dw,
-                                       segment_matmul_dw_plain)
+                                       segment_matmul_dw_plain,
+                                       segment_matmul_dx, segment_matmul_fwd)
 
 TOL = dict(rtol=1e-4, atol=2e-4)
 S, H, EMPTY = 4, 2, 1  # segment 1 owns no rows
@@ -125,3 +137,115 @@ def test_dw_limit_tells_f32_from_tf32(H_, Hx, K, O):
     tf32 = segment_matmul_dw(_tf32(x), _tf32(ct), w_shape, tseg)
     assert ((f32.double() - exact).abs() <= limit).all()
     assert not ((tf32.double() - exact).abs() <= limit).all()
+
+
+# ------------------------------------------------------------ forward, dX
+
+
+def _fwd_case(Hx, O, branch):
+    """x (n, Hx*K), ct (n, H*O), w (S, H, K, O) and both packages'
+    Segments on :func:`_case`'s rows (segment ``EMPTY`` owns none).  The
+    streamed branch passes the VMEM budget through K and O together
+    (O = K), so neither direction sums over more than a few hundred
+    terms."""
+    rng = np.random.default_rng(Hx * 10 + (O or 0))
+    if branch == "resident":
+        K = 12
+    else:
+        K = O = math.isqrt(W_RESIDENT_BYTES // (S * H * 4)) + 8
+    seg_of_row = rng.choice([0, 2, 3], size=21)
+    jseg = j_build_segments(seg_of_row, S, 8)
+    tseg = t_build_segments(seg_of_row, S, 8)
+    n = jseg.n_rows
+    x = rng.standard_normal((n, Hx * K)).astype(np.float32)
+    ct = rng.standard_normal((n, H * O)).astype(np.float32)
+    w = rng.standard_normal((S, H, K, O)).astype(np.float32)
+    assert (w.nbytes <= W_RESIDENT_BYTES) == (branch == "resident")
+    return x, ct, w, jseg, tseg
+
+
+@pytest.mark.parametrize("branch,O", [("resident", 1), ("resident", 5),
+                                      ("streamed", None)])
+@pytest.mark.parametrize("Hx", [1, H])
+def test_plain_fwd_and_dx_match_pallas(Hx, branch, O):
+    """The plain forward and dX (what a CPU tensor runs) against
+    het_tpu's ``segment_matmul_rows_fwd`` / ``segment_matmul_rows_dx``
+    (Pallas, interpret mode), on the resident and the streamed branch;
+    the forward also against the per-row formula in float64."""
+    x, ct, w, jseg, tseg = _fwd_case(Hx, O, branch)
+    n, K, O = x.shape[0], w.shape[2], w.shape[3]
+    x_j = x.reshape(n, Hx, K) if Hx > 1 else x
+    y = segment_matmul_fwd(torch.from_numpy(x), torch.from_numpy(w), tseg)
+    assert y.shape == (n, H, O)
+    y_j = segment_matmul_rows_fwd(jnp.asarray(x_j), jnp.asarray(w), jseg,
+                                  interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    x3 = np.broadcast_to(x.reshape(n, Hx, K), (n, H, K)).astype(np.float64)
+    formula = np.einsum("nhk,nhko->nho", x3, w[np.asarray(jseg.row_seg)])
+    np.testing.assert_allclose(y.numpy(), formula, **TOL)
+
+    dx = segment_matmul_dx(torch.from_numpy(ct), torch.from_numpy(w), tseg,
+                           Hx)
+    assert dx.shape == (n, Hx * K)
+    dx_j = segment_matmul_rows_dx(jnp.asarray(ct), jnp.asarray(w), jseg,
+                                  Hx > 1, Hx, interpret=True)
+    np.testing.assert_allclose(dx.numpy(),
+                               np.asarray(dx_j).reshape(n, Hx * K), **TOL)
+
+
+def test_plain_fwd_and_dx_zero_rows_outside_the_segments():
+    """Rows past ``seg_ptrs[S]`` (the operand may be longer than the
+    segment space) come out as zeros in both directions."""
+    tseg = t_build_segments(np.array([0, 0, 2, 2, 2]), 3, 4)
+    n = tseg.n_rows + 5
+    w = torch.randn(3, 2, 3, 4)
+    y = segment_matmul_fwd(torch.randn(n, 3), w, tseg)
+    dx = segment_matmul_dx(torch.randn(n, 8), w, tseg, 2)
+    assert (y[tseg.n_rows:] == 0).all() and (dx[tseg.n_rows:] == 0).all()
+    assert y[:tseg.n_rows].abs().sum() > 0
+    with pytest.raises(ValueError):
+        segment_matmul_dx(torch.randn(n, 8), w, tseg, 3)
+    with pytest.raises(ValueError):
+        segment_matmul_fwd(torch.randn(2, 3), w, tseg)
+
+
+def _device_only(seg):
+    """``seg`` with its offsets on the device only, as on a shard."""
+    return dataclasses.replace(seg, seg_ptrs_static=None)
+
+
+@pytest.mark.parametrize("Hx", [1, H])
+def test_plain_dw_reads_device_offsets(Hx):
+    """With ``seg_ptrs_static = None`` the plain dW reads ``seg_ptrs``
+    and gives what it gives with the host copy."""
+    x, ct, w_shape, _, tseg = _case(Hx, 5, "resident")
+    xt, ctt = torch.from_numpy(x), torch.from_numpy(ct)
+    want = segment_matmul_dw_plain(xt, ctt, w_shape, tseg)
+    got = segment_matmul_dw_plain(xt, ctt, w_shape, _device_only(tseg))
+    assert torch.equal(got, want)
+    assert want.abs().sum() > 0
+
+
+def test_segment_matmul_on_device_offsets_matches_pallas_vjp():
+    """The port's ``segment_matmul`` on a segmentation without host
+    offsets (the kernels' autograd path, plain versions on the CPU):
+    output and both gradients against ``jax.vjp`` of het_tpu's
+    ``segment_matmul_rows_pallas``."""
+    x, ct, w, jseg, tseg = _fwd_case(1, 5, "resident")
+    jseg_dev = dataclasses.replace(jseg, seg_ptrs_static=None)
+    y_j, vjp = jax.vjp(lambda a, b: segment_matmul_rows_pallas(a, b,
+                                                               jseg_dev),
+                       jnp.asarray(x), jnp.asarray(w))
+    n = x.shape[0]
+    ct3 = ct.reshape(n, H, 5)
+    dx_j, dw_j = vjp(jnp.asarray(ct3))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = segment_matmul(xt, wt, _device_only(tseg))
+    y.backward(torch.from_numpy(ct3))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j), **TOL)
+    # and the same values as the host-offset path (per-relation matmuls)
+    y_static = segment_matmul(torch.from_numpy(x), torch.from_numpy(w), tseg)
+    np.testing.assert_allclose(y_static.numpy(), y.detach().numpy(), **TOL)
