@@ -12,11 +12,13 @@ Phases, each of which fails the run:
    beside its bound and a PyTorch yardstick, on the synthetic ogbn-mag
    stand-in at scale 0.1:
    * ``seg_sum_sorted`` at every shape the compact multiply-first and the
-     plain RGAT steps give it, plus edge cases;
+     plain RGAT steps give it, on one card and on rank 0's shard of each
+     data-parallel run, plus edge cases;
    * ``segment_matmul_dw`` at every shape the plain RGAT and the compact
-     steps give it, at the general segment-matmul shapes (Hx = 1,
-     K = O = 64, S = 4 and S = 535, about 1e6 rows), plus edge cases, with
-     a control that a dW from inputs rounded to TF32 fails the tolerance;
+     steps give it, and the data-parallel runs give rank 0's shard, at the
+     general segment-matmul shapes (Hx = 1, K = O = 64, S = 4 and S = 535,
+     about 1e6 rows), plus edge cases, with a control that a dW from
+     inputs rounded to TF32 fails the tolerance;
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
      data-parallel runs give rank 0's shard, at the general shapes (S =
      535: W is 8.8 MB) and edge cases, with the same TF32 control;
@@ -57,28 +59,31 @@ TOL_RTOL = 1e-5  # f32 sums in another order
 # to TF32 (10-bit mantissa) do not
 DW_TOL = 1e-6
 TRAIN_RTOL = 1e-4
-# training runs: name -> (compact, multiply_first, steps, seg_sum launches
-# a step, segment_matmul_dw launches a step).  Per layer: the compact
+# training runs: name -> (compact, multiply_first, steps, launches a step
+# of each kernel; the ones not named launch none).  Per layer: the compact
 # branches reduce 5 times (forward aggregation, the (dst, rel) and the
 # src-compact backward reductions, two compact-gather backwards), the
 # plain ones 3 times (forward aggregation, two edge-gather backwards; the
 # per-edge fused backward is gathers only); every branch without
-# multiply-first takes two attention-vector dW a layer.
+# multiply-first takes two attention-vector dW a layer.  Host-known
+# offsets: the typed linears take per-relation matmuls.
 RUNS = {
-    "compact_multiply_first": (True, True, STEPS, 10, 0),
-    "plain": (False, False, STEPS, 6, 4),
-    "plain_multiply_first": (False, True, SHORT_STEPS, 6, 0),
-    "compact": (True, False, SHORT_STEPS, 10, 4),
+    "compact_multiply_first": (True, True, STEPS, dict(seg_sum_sorted=10)),
+    "plain": (False, False, STEPS, dict(seg_sum_sorted=6,
+                                        segment_matmul_dw=4)),
+    "plain_multiply_first": (False, True, SHORT_STEPS,
+                             dict(seg_sum_sorted=6)),
+    "compact": (True, False, SHORT_STEPS, dict(seg_sum_sorted=10,
+                                               segment_matmul_dw=4)),
 }
 MAIN = "plain"  # the single-card path whose launches the first two kernels report
 # segment_matmul_fwd / _dx: |kernel - plain| <= MM_TOL * sum |x| |W| per
 # output (the plain version on absolute values); TF32 inputs fail it
 MM_TOL = 1e-5
 # data-parallel runs, P ranks as processes on cuda:0 (gloo): name ->
-# (compact, multiply_first, steps, halo, launches a step a rank of
-# seg_sum_sorted, segment_matmul_fwd, segment_matmul_dx, segment_matmul_dw).
-# Per layer every branch makes two typed linears, whose offsets live only
-# on the device on a shard (one forward each, one dX each where the layer's
+# (compact, multiply_first, steps, halo, launches a step a rank).  Per
+# layer every branch makes two typed linears, whose offsets live only on
+# the device on a shard (one forward each, one dX each where the layer's
 # input needs a gradient: layer 1, not layer 0, whose input is the fixed
 # features) and whose weight gradients are grouped dWs; the plain branch
 # adds two attention-vector dWs.  Segment sums: the compact branches 3 in
@@ -87,12 +92,29 @@ MM_TOL = 1e-5
 # need one too) and 3 in layer 1.
 P = 2
 DP_RUNS = {
-    "dp_compact_multiply_first": (True, True, STEPS, "auto", 8, 4, 2, 4),
-    "dp_plain": (False, False, SHORT_STEPS, "boundary", 4, 4, 2, 8),
+    "dp_compact_multiply_first": (True, True, STEPS, "auto", dict(
+        seg_sum_sorted=8, segment_matmul_fwd=4, segment_matmul_dx=2,
+        segment_matmul_dw=4)),
+    "dp_plain": (False, False, SHORT_STEPS, "boundary", dict(
+        seg_sum_sorted=4, segment_matmul_fwd=4, segment_matmul_dx=2,
+        segment_matmul_dw=8)),
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
-DP_KERNELS = ("seg_sum_sorted", "segment_matmul_fwd", "segment_matmul_dx",
-              "segment_matmul_dw")
+
+
+def _per_step(run):
+    """Each kernel's launches a step (a rank) of a training run."""
+    return (RUNS[run][3] if run in RUNS else DP_RUNS[run][4])
+
+
+def _check_shape_count(kernel, shapes_per_run):
+    """The shapes a check lists for each run cover exactly the launches
+    the run is asserted to make: {run: launches a step of the shapes}."""
+    for run, n in shapes_per_run.items():
+        want = _per_step(run).get(kernel, 0)
+        if n != want:
+            raise AssertionError(f"{kernel}: {n} shapes a step listed for "
+                                 f"{run}, {want} launches asserted")
 
 
 def _card_line() -> str:
@@ -134,38 +156,45 @@ def _dims():
 # ------------------------------------------------------------ seg_sum_sorted
 
 
-def _seg_sum_shapes(g):
-    """{run: [(label, launches per step, rows of vals, C, row_ptr, perm)]}
-    of every seg_sum_sorted launch of one training step."""
+def _seg_sum_shapes(g, compact, first_input_grad):
+    """[(label, rows of vals, C, row_ptr, perm)] of every seg_sum_sorted
+    launch of one training step of the compact branches (the reductions
+    of both) or the plain ones on ``g``.  Layer 0's gather backwards run
+    only where its input needs a gradient: the learned embeddings of a
+    single-card run, not the fixed features of a data-parallel one."""
     S, D = g.compact_src, g.compact_dst
     E = g.edge_rel_seg
     EP = g.num_padded_edges
     dims = _dims()
-    src_perm = E.inv.index_select(0, g.out_perm)  # rows -> src order
-    compact, plain = [], []
+    shapes = []
     for layer in range(LAYERS):
         width = HEADS + dims[layer + 1]  # [z | z*feat], [draw | dfeat]
-        fwd = (f"l{layer} fwd dst [z|z*feat]", 1, EP, width,
-               g.in_row_ptr, None)
-        compact += [
-            fwd,
-            (f"l{layer} bwd (dst,rel) runs draw", 1, EP, HEADS,
-             D.canon_ptr, None),
-            (f"l{layer} bwd src-compact [draw|dfeat]", 1, EP, width,
-             S.edge_row_ptr, S.edge_sort_perm),
-            (f"l{layer} bwd src gather", 1, S.seg.n_rows, dims[layer],
-             S.node_row_ptr, S.node_sort_perm),
-            (f"l{layer} bwd dst gather", 1, D.seg.n_rows, dims[layer],
-             D.node_row_ptr, D.node_sort_perm),
-        ]
-        plain += [
-            fwd,
-            (f"l{layer} bwd src edge gather", 1, E.n_rows, dims[layer],
-             g.out_row_ptr, src_perm),
-            (f"l{layer} bwd dst edge gather", 1, E.n_rows, dims[layer],
-             g.in_row_ptr, E.inv),
-        ]
-    return {"compact_multiply_first": compact, MAIN: plain}
+        gathers = layer > 0 or first_input_grad
+        shapes.append((f"l{layer} fwd dst [z|z*feat]", EP, width,
+                       g.in_row_ptr, None))
+        if compact:
+            shapes += [
+                (f"l{layer} bwd (dst,rel) runs draw", EP, HEADS,
+                 D.canon_ptr, None),
+                (f"l{layer} bwd src-compact [draw|dfeat]", EP, width,
+                 S.edge_row_ptr, S.edge_sort_perm),
+            ]
+            if gathers:
+                shapes += [
+                    (f"l{layer} bwd src gather", S.seg.n_rows, dims[layer],
+                     S.node_row_ptr, S.node_sort_perm),
+                    (f"l{layer} bwd dst gather", D.seg.n_rows, dims[layer],
+                     D.node_row_ptr, D.node_sort_perm),
+                ]
+        elif gathers:
+            src_perm = E.inv.index_select(0, g.out_perm)  # rows -> src order
+            shapes += [
+                (f"l{layer} bwd src edge gather", E.n_rows, dims[layer],
+                 g.out_row_ptr, src_perm),
+                (f"l{layer} bwd dst edge gather", E.n_rows, dims[layer],
+                 g.in_row_ptr, E.inv),
+            ]
+    return shapes
 
 
 def _seg_sum_edge_cases(dev):
@@ -203,10 +232,12 @@ def _compare_seg_sum(vals, ptr, perm, label):
     return (got - want).abs().max().item() if want.numel() else 0.0
 
 
-def check_seg_sum(g, dev, flush):
-    """Kernel against plain at every main-path shape of both 5-step runs
-    and at the edge cases; per-shape times.  Returns the kernel's JSON
-    entry (per-step totals of this slice's main path)."""
+def check_seg_sum(graphs, dev, flush):
+    """Kernel against plain at every shape of a step of each 5-step
+    single-card run and of each data-parallel run on rank 0's shard
+    (``graphs``: run -> graph on the card), and at the edge cases;
+    per-shape times.  Returns the kernel's JSON entry: per-step totals of
+    the single-card main path, and of every run under ``per_run``."""
     import torch
     from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
 
@@ -220,14 +251,19 @@ def check_seg_sum(g, dev, flush):
         _compare_seg_sum(vals, ptr, perm, label)
         print(f"seg_sum edge case ok: {label}")
 
+    runs = {run: _seg_sum_shapes(g, (RUNS[run] if run in RUNS
+                                     else DP_RUNS[run])[0], run in RUNS)
+            for run, g in graphs.items()}
+    _check_shape_count("seg_sum_sorted",
+                       {run: len(shapes) for run, shapes in runs.items()})
     totals = {}
     max_err = 0.0
-    for run, shapes in _seg_sum_shapes(g).items():
+    for run, shapes in runs.items():
         total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                      bytes_ms=0.0, ops_ms=0.0)
         print(f"[{run}] shape | n | rows read | C | perm | kernel ms | "
               "bound ms | plain ms | segment_reduce ms")
-        for label, per_step, rows, C, ptr, perm in shapes:
+        for label, rows, C, ptr, perm in shapes:
             vals = torch.randn(rows, C, device=dev, generator=gen)
             max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label))
             n = ptr.numel() - 1
@@ -260,7 +296,7 @@ def check_seg_sum(g, dev, flush):
                            ("bound_ms", bound * 1e3), ("library_ms", lib),
                            ("bytes_ms", bytes_s * 1e3),
                            ("ops_ms", ops_s * 1e3)):
-                total[key] += per_step * v
+                total[key] += v
         print(f"[{run}] per-step totals (ms):", json.dumps(total))
         totals[run] = total
     t = totals[MAIN]
@@ -291,12 +327,14 @@ def _segments(sizes, tile, dev):
     return build_segments(seg_of_row, len(sizes), tile).to(dev)
 
 
-def _dw_shapes(g, dev):
+def _dw_shapes(g, shards, dev):
     """(label, run or None, launches per step, seg, H, Hx, K, O, zero ct
     on invalid rows): the attention-vector dW of the plain RGAT step (two a
     layer over the relation-sorted edge rows) and of the compact step (per
     layer, attn_l over the source and attn_r over the destination compact
-    rows), the general segment-matmul dW and edge cases."""
+    rows); on rank 0's shard, whose offsets live only on the device, the
+    typed-linear dWs of both data-parallel runs and the plain one's
+    attention-vector dWs; the general segment-matmul dW and edge cases."""
     import numpy as np
 
     E = g.edge_rel_seg
@@ -304,6 +342,8 @@ def _dw_shapes(g, dev):
     rng = np.random.default_rng(0)
     big = 1_000_000
     skew = 1.0 / (1.0 + np.arange(535))  # a few large relations, a long tail
+    cs = shards["dp_compact_multiply_first"]
+    ps = shards["dp_plain"]
     shapes = []
     for layer in range(LAYERS):
         K = dims[layer + 1] // HEADS
@@ -314,6 +354,20 @@ def _dw_shapes(g, dev):
              g.compact_src.seg, HEADS, HEADS, K, 1, True),
             (f"l{layer} attn_r dW, dst compact rows", "compact", 1,
              g.compact_dst.seg, HEADS, HEADS, K, 1, True),
+        ]
+    for layer in range(LAYERS):
+        K, D = dims[layer], dims[layer + 1] // HEADS
+        shapes += [
+            (f"l{layer} shard src compact [W.a_l | W] dW",
+             "dp_compact_multiply_first", 1, cs.compact_src.seg, HEADS, 1,
+             K, 1 + D, False),
+            (f"l{layer} shard dst compact W.a_r dW",
+             "dp_compact_multiply_first", 1, cs.compact_dst.seg, HEADS, 1,
+             K, 1, False),
+            (f"l{layer} shard edge rows W dW (src, dst)", "dp_plain", 2,
+             ps.edge_rel_seg, HEADS, 1, K, D, False),
+            (f"l{layer} shard attn_l/attn_r dW, edge rows", "dp_plain", 2,
+             ps.edge_rel_seg, HEADS, HEADS, D, 1, True),
         ]
     shapes += [
         ("general S=4", None, 0, _segments(rng.multinomial(
@@ -330,8 +384,15 @@ def _dw_shapes(g, dev):
          False),
         ("edge: O=1", None, 0, _segments((50, 0, 900), 8, dev), 2, 1, 8, 1,
          False),
+        ("edge: per-head x, O>1", None, 0, _segments((50, 0, 900), 8, dev),
+         2, 2, 70, 5, False),
+        ("edge: shared x, heads across tiles", None, 0,
+         _segments((50, 0, 900), 8, dev), 3, 1, 70, 30, False),
     ]
     assert g.num_rels == E.n_segments
+    for shape in shapes:
+        if shape[1] in DP_RUNS:
+            assert shape[3].seg_ptrs_static is None, shape[0]
     return shapes
 
 
@@ -354,17 +415,20 @@ def _worst_share(diff, limit):
     return share.max().item() if share.numel() else 0.0
 
 
-def check_dw(g, dev, flush):
-    """segment_matmul_dw against its plain version at every shape, within
+def check_dw(g, shards, dev, flush):
+    """segment_matmul_dw against its plain version at every shape (``g``
+    the single-card graph, ``shards`` rank 0's shard of each data-parallel
+    run, both on the card), within
     |kernel - plain| <= DW_TOL * sum |x| |ct| (the plain version on
     absolute values), and a control: the plain version on inputs rounded to
     TF32 must fail that limit at every shape that has rows, so the check
     tells an f32 kernel from a TF32 one.  Per-shape times.  Returns the
-    kernel's JSON entry: per-step totals of this slice's main path, and of
-    every run under ``per_run``."""
+    kernel's JSON entry: per-step totals of the single-card main path,
+    and of every run under ``per_run``."""
     import torch
     from het_tpu_torch.ops.kernels import (segment_matmul_dw,
                                            segment_matmul_dw_plain)
+    from het_tpu_torch.ops.kernels.segment_mm import host_seg_ptrs
 
     print(f"segment_matmul_dw vs plain tolerance: |kernel - plain| <= "
           f"{DW_TOL} * sum|x|*|ct|; 'share' is the largest |diff| / limit")
@@ -374,7 +438,13 @@ def check_dw(g, dev, flush):
     print("shape | run | S | rows | H | Hx | K | O | kernel share | TF32 "
           "control share | kernel ms | bound ms | plain ms | per-relation "
           "torch.matmul ms")
-    for label, run, per_step, seg, H, Hx, K, O, mask in _dw_shapes(g, dev):
+    shapes = _dw_shapes(g, shards, dev)
+    counts = dict.fromkeys(list(RUNS) + list(DP_RUNS), 0)
+    for shape in shapes:
+        if shape[1] is not None:
+            counts[shape[1]] += shape[2]
+    _check_shape_count("segment_matmul_dw", counts)
+    for label, run, per_step, seg, H, Hx, K, O, mask in shapes:
         S, n = seg.n_segments, seg.n_rows
         w_shape = (S, H, K, O)
         x = torch.randn(n, Hx * K, device=dev, generator=gen)
@@ -402,7 +472,7 @@ def check_dw(g, dev, flush):
                 f"{label}: a TF32-input dW stays within the limit ({control}"
                 f" of it), so the check cannot tell it from f32")
         max_err = max(max_err, err.max().item() if err.numel() else 0.0)
-        ptrs = seg.seg_ptrs_static
+        ptrs = host_seg_ptrs(seg)  # read once, outside the timed calls
 
         def yardstick():
             # the per-relation torch.matmul loop of _SegmentMatmul's
@@ -477,8 +547,8 @@ def check_dw(g, dev, flush):
 def _mm_shapes(shards, dev):
     """(label, run or None, forward launches a step, dX launches a step,
     seg, S, H, Hx, K, O) of every forward and dX the data-parallel runs
-    give rank 0's shard, the general shapes and edge cases.  Offsets live
-    only on the device, as on a shard."""
+    give rank 0's shard (on the card), the general shapes and edge cases.
+    Offsets live only on the device, as on a shard."""
     import dataclasses
 
     import numpy as np
@@ -496,11 +566,11 @@ def _mm_shapes(shards, dev):
         dx = 1 if layer > 0 else 0
         shapes += [
             (f"l{layer} src compact [W.a_l | W]", "dp_compact_multiply_first",
-             1, dx, cs.compact_src.seg.to(dev), R, HEADS, 1, K, 1 + D),
+             1, dx, cs.compact_src.seg, R, HEADS, 1, K, 1 + D),
             (f"l{layer} dst compact W.a_r", "dp_compact_multiply_first", 1,
-             dx, cs.compact_dst.seg.to(dev), R, HEADS, 1, K, 1),
+             dx, cs.compact_dst.seg, R, HEADS, 1, K, 1),
             (f"l{layer} edge rows W (src, dst)", "dp_plain", 2, 2 * dx,
-             ps.edge_rel_seg.to(dev), R, HEADS, 1, K, D),
+             ps.edge_rel_seg, R, HEADS, 1, K, D),
         ]
 
     def general(sizes, tile):
@@ -526,44 +596,16 @@ def _mm_shapes(shards, dev):
     return shapes
 
 
-def _mm_yardstick(direction, a, w, ptrs, Hx):
-    """The per-relation ``torch.matmul`` loop over host offsets (the
-    port's ``_SegmentMatmul``, its weight reshapes made beforehand); the
-    port never calls it for offsets held only on the device."""
-    import torch
-
-    S, H, K, O = w.shape
-    if direction == "fwd":  # (n, K) @ (K, H*O), or per head (K, O)
-        flat = w.permute(0, 2, 1, 3).reshape(S, K, H * O)
-        heads, width, out_w = w, K, H * O
-    else:  # (n, H*O) @ (H*O, K), or per head (O, K)
-        flat = w.permute(0, 1, 3, 2).reshape(S, H * O, K)
-        heads, width, out_w = w.transpose(2, 3), O, Hx * K
-    out = a.new_zeros(a.shape[0], out_w)
-
-    def run():
-        for s in range(S):
-            lo, hi = ptrs[s], ptrs[s + 1]
-            if hi == lo:
-                continue
-            if Hx == 1:
-                torch.matmul(a[lo:hi], flat[s], out=out[lo:hi])
-            else:
-                prod = torch.matmul(
-                    a[lo:hi].view(hi - lo, H, width).transpose(0, 1),
-                    heads[s])
-                out[lo:hi] = prod.transpose(0, 1).reshape(hi - lo, -1)
-        return out
-
-    return run
-
-
 def check_fwd_dx(shards, dev, flush):
     """segment_matmul_fwd and segment_matmul_dx against their plain
     versions at every shape, within |kernel - plain| <= MM_TOL * sum |x|
     |W| (the plain version on absolute values), with the control that the
     plain version on TF32-rounded inputs fails that limit wherever there
-    are rows; per-shape times.  Returns both kernels' JSON entries."""
+    are rows; per-shape times beside the yardstick, the plain version on
+    host-known offsets (per-relation ``torch.matmul`` without the host
+    read of ``seg_ptrs``).  Returns both kernels' JSON entries."""
+    import dataclasses
+
     import torch
     from het_tpu_torch.ops.kernels import (segment_matmul_dx,
                                            segment_matmul_dx_plain,
@@ -575,17 +617,24 @@ def check_fwd_dx(shards, dev, flush):
           f"{MM_TOL} * sum|x|*|W|; 'share' is the largest |diff| / limit")
     print("direction | shape | run | S | rows | H | Hx | K | O | kernel share"
           " | TF32 control share | kernel ms | bound ms | plain ms | "
-          "per-relation torch.matmul ms")
+          "plain on host offsets ms")
     gen = torch.Generator(device=dev).manual_seed(3)
     kernels = {"fwd": (segment_matmul_fwd, segment_matmul_fwd_plain),
                "dx": (segment_matmul_dx, segment_matmul_dx_plain)}
     totals = {"fwd": {}, "dx": {}}
     max_err = {"fwd": 0.0, "dx": 0.0}
-    for (label, run, n_fwd, n_dx, seg, S, H, Hx, K, O) in _mm_shapes(
-            shards, dev):
+    shapes = _mm_shapes(shards, dev)
+    for i, name in ((2, "segment_matmul_fwd"), (3, "segment_matmul_dx")):
+        counts = dict.fromkeys(DP_RUNS, 0)
+        for shape in shapes:
+            if shape[1] is not None:
+                counts[shape[1]] += shape[i]
+        _check_shape_count(name, counts)
+    for (label, run, n_fwd, n_dx, seg, S, H, Hx, K, O) in shapes:
         n = seg.n_rows
         w = torch.randn(S, H, K, O, device=dev, generator=gen) / math.sqrt(K)
-        ptrs = host_seg_ptrs(seg)
+        # the yardstick's offsets, read on the host once beforehand
+        static = dataclasses.replace(seg, seg_ptrs_static=host_seg_ptrs(seg))
         for direction, per_step in (("fwd", n_fwd), ("dx", n_dx)):
             fn, plain_fn = kernels[direction]
             width = Hx * K if direction == "fwd" else H * O
@@ -613,18 +662,14 @@ def check_fwd_dx(shards, dev, flush):
                     f" the limit ({control} of it)")
             max_err[direction] = max(max_err[direction],
                                      err.max().item() if err.numel() else 0.0)
-            yard = _mm_yardstick(direction, a, w, ptrs, Hx)
-            if not torch.allclose(yard().reshape(want.shape), want,
-                                  rtol=1e-4, atol=1e-4):
-                raise AssertionError(f"{direction} {label}: yardstick "
-                                     "disagrees")
             nbytes = n * (Hx * K + H * O) * 4 + S * H * K * O * 4 + (S + 1) * 4
             bytes_s = nbytes / HBM_BYTES_PER_S
             ops_s = 2 * n * H * K * O / F32_FLOP_PER_S
             bound = max(bytes_s, ops_s)
             ms = _time_ms(lambda: fn(a, w, seg, *extra), 20, flush)
             plain = _time_ms(lambda: plain_fn(a, w, seg, *extra), 5, flush)
-            yard_ms = _time_ms(yard, 5, flush)
+            yard_ms = _time_ms(lambda: plain_fn(a, w, static, *extra), 5,
+                               flush)
             print(f"{direction} | {label} | {run} | {S} | {n} | {H} | {Hx} |"
                   f" {K} | {O} | {share:.4g} | {control:.4g} | {ms:.4f} | "
                   f"{bound * 1e3:.4f} "
@@ -664,7 +709,7 @@ def check_fwd_dx(shards, dev, flush):
                          else "operations"),
             "library_ms": None,  # no single PyTorch call: no f32 grouped GEMM
             "yardstick_ms": total["yardstick_ms"],
-            "yardstick": "per-relation torch.matmul loop over host offsets",
+            "yardstick": "plain version on host-known offsets",
             "per_run": totals[direction],
         })
     return entries
@@ -721,6 +766,7 @@ def check_dp(data, parts, dev, card):
 
     import torch
     from het_tpu_torch.models import RGATModel
+    from het_tpu_torch.ops.kernels import KERNELS
     from het_tpu_torch.parallel import train_full
     from het_tpu_torch.parallel.launch import spawn_ranks
 
@@ -757,8 +803,8 @@ def check_dp(data, parts, dev, card):
     print(f"data-parallel ranks ran in {time.perf_counter() - t0:.1f} s")
     launches = {}
     i = 0
-    for run, (compact, _, steps, _, *per_step) in DP_RUNS.items():
-        want = {k: v * steps for k, v in zip(DP_KERNELS, per_step)}
+    for run, (compact, _, steps, _, per_step) in DP_RUNS.items():
+        want = {k: per_step.get(k, 0) * steps for k in KERNELS}
         runs = {}
         for impl in ("kernel", "plain"):
             runs[impl] = [results[rank][i] for rank in range(P)]
@@ -842,7 +888,7 @@ def check_training(data, dev, card, run):
     from het_tpu_torch.ops import kernels
     from het_tpu_torch.train import TrainConfig, build_model, train
 
-    compact, multiply_first, steps, want_seg, want_dw = RUNS[run]
+    compact, multiply_first, steps, per_step = RUNS[run]
     cfg = TrainConfig(
         model="RGAT", dataset="mag", dataset_scale=0.1, n_infeat=IN_FEAT,
         hidden=HIDDEN, num_classes=CLASSES, num_heads=HEADS,
@@ -853,12 +899,10 @@ def check_training(data, dev, card, run):
     runs = {}
     for impl in ("kernel", "plain"):
         torch.cuda.reset_peak_memory_stats(dev)
-        for name in DP_KERNELS:
-            getattr(kernels, name).launches = 0
+        kernels.reset_launches()
         m = train(cfg, data, state=state, impl=impl,
                   log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
-        m["launches"] = {name: getattr(kernels, name).launches
-                         for name in DP_KERNELS}
+        m["launches"] = kernels.launch_counts()
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         runs[impl] = m
     k, p = runs["kernel"], runs["plain"]
@@ -873,9 +917,7 @@ def check_training(data, dev, card, run):
             raise AssertionError(
                 f"{run} step {step}: kernel loss {a} vs plain {b} "
                 f"(rtol {TRAIN_RTOL})")
-    # host-known offsets: the typed linears take per-relation matmuls
-    want = {"seg_sum_sorted": want_seg * steps, "segment_matmul_fwd": 0,
-            "segment_matmul_dx": 0, "segment_matmul_dw": want_dw * steps}
+    want = {k: per_step.get(k, 0) * steps for k in kernels.KERNELS}
     if k["launches"] != want:
         raise AssertionError(f"{run}: kernel run launched {k['launches']},"
                              f" expected {want}")
@@ -932,11 +974,16 @@ def main() -> int:
     gd = g.to(dev)
 
     parts = partition_dp(data)
+    # rank 0's shard of each data-parallel run
+    shards = {run: s[0].to(dev) for run, (s, _) in parts.items()}
     flush = torch.empty(256 * 2**20 // 4, device=dev)
-    entries = [check_seg_sum(gd, dev, flush), check_dw(gd, dev, flush)]
-    entries += check_fwd_dx({run: shards[0] for run, (shards, _) in
-                             parts.items()}, dev, flush)
-    del flush, gd
+    entries = [
+        check_seg_sum({"compact_multiply_first": gd, MAIN: gd, **shards},
+                      dev, flush),
+        check_dw(gd, shards, dev, flush),
+        *check_fwd_dx(shards, dev, flush),
+    ]
+    del flush, gd, shards
     torch.cuda.empty_cache()
 
     launches, summaries = {}, {}

@@ -83,9 +83,13 @@
 //    seg_reduce.cu; each lane weights its columns by its head's ct value.
 //  * O > 1 (the dW of the segment matmul, K = O = 64): 2 * K * O / ((K + O)
 //    * 4) = 16 operations a byte, near the f32 ridge.  dw_tiled_kernel
-//    stages 16-row slices of a 64 x 64 (k, o) tile in shared memory and
-//    keeps a 4 x 4 register tile a thread.  It uses no tensor cores (f32
-//    operands; wgmma and TMA are later work).
+//    stages 16-row slices of a 64 x 64 (k, column) tile in shared memory
+//    and keeps a 4 x 4 register tile a thread.  With per-head x (Hx = H)
+//    a tile's columns are one head's o; with one x row for all heads (Hx
+//    = 1) they run over all H * O columns of ct at once, so x is read
+//    once for every head and H * O = 68 fills 2 tiles, not 4 of which 47
+//    of 64 columns are empty.  It uses no tensor cores (f32 operands;
+//    wgmma and TMA are later work).
 // kChunkRows = 2048 keeps each block's loop long enough to hide latency
 // and the partials small next to the inputs (1/32 of the x bytes on the
 // main path).
@@ -279,8 +283,10 @@ segment_matmul_dw_colsum_kernel(const float* __restrict__ x,
 constexpr int kTile = 64;  // k and o extent of a block's output tile
 constexpr int kStage = 16;  // rows staged in shared memory at a time
 
-// blockIdx.y enumerates (h, k tile, o tile); 16 x 16 threads each own a
-// 4 x 4 register tile (k = k0 + 4 ty + p, o = o0 + 4 tx + q).
+// blockIdx.y enumerates (head, k tile, column tile); 16 x 16 threads each
+// own a 4 x 4 register tile (k = k0 + 4 ty + p, column c = c0 + 4 tx + q).
+// A tile's columns are head h's o (Hx = H), or all of ct's h * O + o
+// (Hx = 1: one head pass, h = 0).
 __global__ void __launch_bounds__(kThreads)
 segment_matmul_dw_tiled_kernel(const float* __restrict__ x,
                                const float* __restrict__ ct,
@@ -292,19 +298,20 @@ segment_matmul_dw_tiled_kernel(const float* __restrict__ x,
   __shared__ __align__(16) float cs[kStage][kTile];
   Chunk c;
   if (!find_chunk(seg_ptrs, chunk_ptr, S, blockIdx.x, &c)) return;
-  const int nkt = (K + kTile - 1) / kTile, not_ = (O + kTile - 1) / kTile;
+  const int NC = Hx > 1 ? O : H * O;  // columns a head pass covers
+  const int nkt = (K + kTile - 1) / kTile, nct = (NC + kTile - 1) / kTile;
   int tile = blockIdx.y;
-  const int ot = tile % not_;
-  tile /= not_;
+  const int ct_ = tile % nct;
+  tile /= nct;
   const int kt = tile % nkt;
   const int h = tile / nkt;
-  const int k0 = kt * kTile, o0 = ot * kTile;
+  const int k0 = kt * kTile, c0 = ct_ * kTile;
   const int kw = K - k0 < kTile ? K - k0 : kTile;
-  const int ow = O - o0 < kTile ? O - o0 : kTile;
+  const int cw = NC - c0 < kTile ? NC - c0 : kTile;
   const int64_t x_stride = static_cast<int64_t>(Hx) * K;
   const int64_t c_stride = static_cast<int64_t>(H) * O;
-  const float* xb = x + (Hx > 1 ? h * K : 0) + k0;
-  const float* cb = ct + h * O + o0;
+  const float* xb = x + static_cast<int64_t>(h) * K + k0;  // h = 0 if Hx = 1
+  const float* cb = ct + static_cast<int64_t>(h) * O + c0;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   float acc[4][4];
@@ -320,7 +327,7 @@ segment_matmul_dw_tiled_kernel(const float* __restrict__ x,
       const int64_t i = r0 + r;
       const bool row_ok = i < c.hi;
       xs[r][col] = row_ok && col < kw ? __ldg(xb + i * x_stride + col) : 0.f;
-      cs[r][col] = row_ok && col < ow ? __ldg(cb + i * c_stride + col) : 0.f;
+      cs[r][col] = row_ok && col < cw ? __ldg(cb + i * c_stride + col) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -336,16 +343,17 @@ segment_matmul_dw_tiled_kernel(const float* __restrict__ x,
     }
     __syncthreads();
   }
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * H * K * O +
-               static_cast<int64_t>(h) * K * O;
+  // partial is (chunk, H, K, O): column c of the pass is (h + c / O, c % O)
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * H * K * O;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int k = k0 + ty * 4 + p;
-    if (k >= K) continue;
+  for (int q = 0; q < 4; ++q) {
+    const int c = c0 + tx * 4 + q;
+    if (c >= NC) continue;
+    const int64_t base = static_cast<int64_t>(h + c / O) * K * O + c % O;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int o = o0 + tx * 4 + q;
-      if (o < O) out[static_cast<int64_t>(k) * O + o] = acc[p][q];
+    for (int p = 0; p < 4; ++p) {
+      const int k = k0 + ty * 4 + p;
+      if (k < K) out[base + static_cast<int64_t>(k) * O] = acc[p][q];
     }
   }
 }
@@ -602,8 +610,11 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t chunks = max_chunks(n_rows, S);
   const int64_t NJ = static_cast<int64_t>(H) * K * O;
-  const int64_t tiles = static_cast<int64_t>(H) * ((K + kTile - 1) / kTile) *
-                        ((O + kTile - 1) / kTile);
+  // O > 1: (head pass, k tile, column tile); one head pass of H * O
+  // columns when x is shared by the heads
+  const int64_t passes = Hx > 1 ? H : 1, cols = Hx > 1 ? O : H * O;
+  const int64_t tiles = passes * ((K + kTile - 1) / kTile) *
+                        ((cols + kTile - 1) / kTile);
   if (chunks > 0x7fffffffLL || tiles > 65535) return cudaErrorInvalidValue;
 
   segment_matmul_dw_plan_kernel<<<1, kPlanThreads, 0, st>>>(seg_ptrs,

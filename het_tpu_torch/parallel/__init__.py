@@ -2,5 +2,6 @@
 the halo exchanges, ``DPGNN`` and its training step."""
 
 from .dp import (DPGNN, halo_bytes, halo_exchange,  # noqa: F401
-                 halo_gather, masked_nll, setup_rank, train_dp, train_full)
+                 halo_gather, masked_nll, setup_rank, sum_grads, train_dp,
+                 train_full)
 from .partition import PartitionInfo, partition_by_dst  # noqa: F401

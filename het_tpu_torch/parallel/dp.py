@@ -24,18 +24,18 @@ through host memory by hand; gloo copies through the host itself.
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..train.loop import train_steps
 from ..utils.misc import resolve_device
 
 __all__ = ["setup_rank", "halo_gather", "halo_exchange", "halo_bytes",
-           "DPGNN", "masked_nll", "train_dp", "train_full"]
+           "DPGNN", "masked_nll", "sum_grads", "train_dp", "train_full"]
 
 
 def setup_rank(rank: int, world: int, *, init_method: str,
@@ -191,55 +191,35 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
     return -num / sums[1], -(sums[0] / sums[1])
 
 
-def _train_loop(module: nn.Module, forward: Callable[[], torch.Tensor],
-                labels: torch.Tensor, *, steps: int, lr: float,
-                distributed: bool) -> Dict[str, List]:
-    opt = torch.optim.Adam(module.parameters(), lr=lr)
-    params = [p for p in module.parameters() if p.requires_grad]
-    on_card = labels.device.type == "cuda"
-    losses, step_ms = [], []
-    for _ in range(steps):
-        if on_card:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-        else:
-            h0 = time.perf_counter()
-        opt.zero_grad(set_to_none=False)
-        local, value = masked_nll(forward(), labels, distributed)
-        local.backward()
-        if distributed:
-            for p in params:  # fixed order: every rank sums the same way
-                if p.grad is None:  # a parameter this shard did not reach
-                    p.grad = torch.zeros_like(p)
-                dist.all_reduce(p.grad)
-        opt.step()
-        if on_card:
-            t1.record()
-            t1.synchronize()
-            ms = t0.elapsed_time(t1)
-        else:
-            ms = (time.perf_counter() - h0) * 1e3
-        losses.append(value.item())
-        step_ms.append(ms)
-    return {"loss_list": losses, "step_ms_list": step_ms,
-            "timer": "cuda_events" if on_card else "host_clock"}
+def sum_grads(module: nn.Module) -> None:
+    """Sum every parameter gradient over the ranks, in parameter order, so
+    every rank sums the same way; a parameter this shard did not reach
+    adds zeros."""
+    for p in module.parameters():
+        if not p.requires_grad:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        dist.all_reduce(p.grad)
 
 
 def train_dp(dp: DPGNN, shard, x_loc: torch.Tensor, labels_loc: torch.Tensor,
              *, steps: int, lr: float = 1e-2) -> Dict[str, List]:
     """``steps`` data-parallel training steps of ``dp`` on this rank's
     ``shard``: masked NLL (labels -1 on unlabelled and padding rows),
-    gradients summed over the ranks, Adam (``optax.adam``'s defaults, as
-    the single-process trainer).  Returns the losses and step times (CUDA
-    events on the card; ranks that share a card share its time)."""
-    return _train_loop(dp, lambda: dp(shard, x_loc), labels_loc, steps=steps,
-                       lr=lr, distributed=True)
+    gradients summed over the ranks, the single-process trainer's Adam
+    loop.  Returns the losses and step times (CUDA events on the card;
+    ranks that share a card share its time)."""
+    return train_steps(dp, lambda: masked_nll(dp(shard, x_loc), labels_loc),
+                       steps=steps, lr=lr, device=labels_loc.device,
+                       after_backward=lambda: sum_grads(dp))
 
 
 def train_full(model: nn.Module, g, x: torch.Tensor, labels: torch.Tensor, *,
                steps: int, lr: float = 1e-2) -> Dict[str, List]:
     """The same steps in one process on the unpartitioned graph: the
     reference a data-parallel run is held to."""
-    return _train_loop(model, lambda: model(g, x), labels, steps=steps,
-                       lr=lr, distributed=False)
+    return train_steps(model,
+                       lambda: masked_nll(model(g, x), labels,
+                                          distributed=False),
+                       steps=steps, lr=lr, device=labels.device)

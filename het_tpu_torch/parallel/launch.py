@@ -3,10 +3,11 @@
 :func:`spawn_ranks` starts ``world`` processes with
 ``torch.multiprocessing`` (start method ``spawn``, so a parent that has
 already touched CUDA may call it), opens their group through a
-``file://`` rendezvous in ``workdir`` and runs a list of
-:func:`run_rgat_job` jobs in each, in order.  Every rank writes its
-results to ``workdir``; a failure in any rank raises in the parent.
-Nothing here imports JAX, so a test that does may spawn these ranks.
+``file://`` rendezvous in ``workdir`` and runs a list of jobs in each, in
+order, through ``job_fn`` (:func:`run_rgat_job` unless told otherwise).
+Every rank writes its results to ``workdir``; a failure in any rank raises
+in the parent.  Nothing here imports JAX, so a test that does may spawn
+these ranks.
 
 A job is a dict:
 
@@ -15,20 +16,18 @@ A job is a dict:
 * ``x`` and ``labels``: padded global node features (f32) and labels
   (-1 where unlabelled), numpy;
 * ``model``: ``RGATModel`` keyword arguments, ``state``: its state dict;
-* ``steps``, ``lr``, ``impl`` ("kernel" or "plain");
-* ``record`` (optional): also return this rank's logits and the summed
-  parameter gradients at the initial parameters.
+* ``steps``, ``lr``, ``impl`` ("kernel" or "plain").
 
-A rank's result: the losses and step times of ``train_dp``, each kernel's
-launches over the training steps, its peak device memory, which of its
-typed linears' segmentations hold their offsets only on the device, and
-with ``record`` the logits and gradients.
+A rank's result from :func:`run_rgat_job`: the losses and step times of
+``train_dp``, each kernel's launches over the training steps, its peak
+device memory, and which of its typed linears' segmentations hold their
+offsets only on the device.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,19 +35,7 @@ import torch.multiprocessing as mp
 
 from ..models import RGATModel
 from ..ops import kernels
-from .dp import DPGNN, masked_nll, setup_rank, train_dp
-
-KERNELS = ("seg_sum_sorted", "segment_matmul_fwd", "segment_matmul_dx",
-           "segment_matmul_dw")
-
-
-def _set_launches(value: int = 0) -> None:
-    for name in KERNELS:
-        getattr(kernels, name).launches = value
-
-
-def _launches() -> Dict[str, int]:
-    return {name: getattr(kernels, name).launches for name in KERNELS}
+from .dp import DPGNN, setup_rank, train_dp
 
 
 def _device_only(shard) -> Dict[str, bool]:
@@ -61,8 +48,10 @@ def _device_only(shard) -> Dict[str, bool]:
     return {k: s.seg_ptrs_static is None for k, s in segs.items()}
 
 
-def run_rgat_job(rank: int, dev: torch.device, job: Dict) -> Dict:
-    """One job on this rank (see the module docstring)."""
+def rgat_job_inputs(rank: int, dev: torch.device, job: Dict
+                    ) -> Tuple[DPGNN, object, torch.Tensor, torch.Tensor]:
+    """This rank's ``DPGNN`` (the job's parameters), shard, local features
+    and labels, on ``dev``."""
     per = job["nodes_per_part"]
     rows = slice(rank * per, (rank + 1) * per)
     shard = job["shards"][rank].to(dev)
@@ -70,36 +59,30 @@ def run_rgat_job(rank: int, dev: torch.device, job: Dict) -> Dict:
     labels = torch.as_tensor(job["labels"][rows]).to(dev)
     model = RGATModel(**job["model"], impl=job["impl"])
     model.load_state_dict(job["state"])
-    dp = DPGNN(model.layers).to(dev).train()
+    return DPGNN(model.layers).to(dev).train(), shard, x_loc, labels
+
+
+def run_rgat_job(rank: int, dev: torch.device, job: Dict) -> Dict:
+    """One training job on this rank (see the module docstring)."""
+    dp, shard, x_loc, labels = rgat_job_inputs(rank, dev, job)
     out = {"device_only": _device_only(shard)}
-    if job.get("record"):
-        logits = dp(shard, x_loc)
-        local, value = masked_nll(logits, labels)
-        local.backward()
-        grads = {}
-        for name, p in dp.named_parameters():
-            dist.all_reduce(p.grad)
-            grads[name] = p.grad.cpu()
-        out.update(logits=logits.detach().cpu(), grads=grads,
-                   loss=value.item())
-        dp.zero_grad(set_to_none=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    _set_launches(0)
+    kernels.reset_launches()
     out.update(train_dp(dp, shard, x_loc, labels, steps=job["steps"],
                         lr=job["lr"]))
-    out["launches"] = _launches()
+    out["launches"] = kernels.launch_counts()
     out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
                           if dev.type == "cuda" else 0.0)
     return out
 
 
 def _rank_main(rank: int, world: int, init_method: str, device: str,
-               jobs: List[Dict], workdir: str) -> None:
+               jobs: List[Dict], workdir: str, job_fn: Callable) -> None:
     dev = setup_rank(rank, world, init_method=init_method, device=device)
     try:
-        results = [dict(run_rgat_job(rank, dev, job),
+        results = [dict(job_fn(rank, dev, job),
                         backend=dist.get_backend(), device=str(dev))
                    for job in jobs]
         torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
@@ -108,12 +91,16 @@ def _rank_main(rank: int, world: int, init_method: str, device: str,
 
 
 def spawn_ranks(world: int, jobs: List[Dict], *, workdir: str,
-                device: str = "cuda") -> List[List[Dict]]:
-    """Run ``jobs`` on ``world`` spawned ranks; returns ``results[rank]
-    [job]``.  ``workdir`` must exist and be private to this call."""
+                device: str = "cuda",
+                job_fn: Callable[[int, torch.device, Dict], Dict]
+                = run_rgat_job) -> List[List[Dict]]:
+    """Run ``job_fn(rank, device, job)`` for each of ``jobs`` on ``world``
+    spawned ranks; returns ``results[rank][job]``.  ``job_fn`` must be a
+    module-level function (spawn pickles it by name).  ``workdir`` must
+    exist and be private to this call."""
     init = "file://" + os.path.join(os.path.abspath(workdir), "rendezvous")
     mp.start_processes(_rank_main,
-                       args=(world, init, device, jobs, workdir),
+                       args=(world, init, device, jobs, workdir, job_fn),
                        nprocs=world, start_method="spawn", join=True)
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]

@@ -273,12 +273,16 @@ def partition_by_dst(
 
 def _drop_unshared_static(parts: List[HeteroGraph]) -> List[HeteroGraph]:
     """``seg_ptrs_static = None`` on every segmentation whose offsets
-    differ between shards.
+    differ between shards (per-shard relation sizes generally differ; only
+    totals are forced equal).
 
-    As the JAX package does it for SPMD: one program runs every shard, so
-    host-known relation offsets are only usable where all shards agree;
-    per-shard relation sizes generally differ (only totals are forced
-    equal)."""
+    The JAX package does this because one SPMD program runs every shard.
+    Here each rank runs its own program and could keep its own host
+    offsets; they are dropped for parity with het_tpu's dispatch, which
+    sends such shards' typed linears to the segment-matmul kernels
+    (forward, dX, grouped dW), so a shard reaches those kernels as there.
+    Per-relation ``torch.matmul`` on per-rank host offsets is the other
+    choice (ROADMAP.md queue 1, "Per-rank host offsets on a shard")."""
 
     def fix_seg(segs):
         if segs[0] is None or all(s.seg_ptrs_static == segs[0].seg_ptrs_static

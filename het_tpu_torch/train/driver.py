@@ -9,7 +9,6 @@ card, the host clock on the CPU.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
@@ -19,6 +18,7 @@ from ..data.loaders import Dataset, load_dataset
 from ..models import NodeEmbed, RGATModel
 from ..utils.misc import nll_loss, resolve_device
 from .config import TrainConfig
+from .loop import train_steps
 
 
 class NodeClassifier(nn.Module):
@@ -86,39 +86,20 @@ def train(
     g = data.graph.to(dev)
     train_idx = torch.as_tensor(data.train_idx, device=dev).long()
     labels = torch.as_tensor(data.labels, device=dev).long()[train_idx]
-    opt = torch.optim.Adam(net.parameters(), lr=cfg.lr)
     drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
 
-    on_card = dev.type == "cuda"
-    losses, step_ms = [], []
-    for step in range(cfg.num_epochs):
-        if on_card:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-        else:
-            h0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        logits = net(g, generator=drop_gen)
-        loss = nll_loss(logits[train_idx], labels)
-        loss.backward()
-        opt.step()
-        if on_card:
-            t1.record()
-            t1.synchronize()
-            ms = t0.elapsed_time(t1)
-        else:
-            ms = (time.perf_counter() - h0) * 1e3
-        losses.append(loss.detach().item())
-        step_ms.append(ms)
-        log(f"step {step} loss {losses[-1]:.6f} step_ms {ms:.3f}")
+    def step_loss():
+        loss = nll_loss(net(g, generator=drop_gen)[train_idx], labels)
+        return loss, loss
+
+    steps = train_steps(net, step_loss, steps=cfg.num_epochs, lr=cfg.lr,
+                        device=dev, log=log)
     return {
         "dataset": data.name,
         "model": cfg.model,
-        "device": (torch.cuda.get_device_name(dev) if on_card else "cpu"),
-        "timer": "cuda_events" if on_card else "host_clock",
-        "loss_list": losses,
-        "step_ms_list": step_ms,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        **steps,
         "num_nodes": data.graph.num_nodes,
         "num_edges": data.graph.num_edges,
         "num_rels": data.graph.num_rels,

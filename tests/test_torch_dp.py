@@ -26,6 +26,7 @@ from het_tpu_torch.graph import build_heterograph as t_build
 from het_tpu_torch.models import RGATModel, dp_params_from_jax
 from het_tpu_torch.parallel import partition_by_dst, train_full
 from het_tpu_torch.parallel.launch import spawn_ranks
+from tests.test_torch_dp_worker import record_rgat_job
 
 VAL = dict(rtol=1e-4, atol=2e-4)
 GRAD = dict(rtol=5e-3, atol=2e-4)
@@ -123,9 +124,10 @@ def runs(tmp_path_factory):
                          x=x_pad, labels=labels_pad,
                          model=_model_kw(r, branch),
                          state=dp_params_from_jax(refs[branch][0]),
-                         steps=STEPS, lr=LR, impl="kernel", record=True))
+                         steps=STEPS, lr=LR, impl="kernel"))
     workdir = tmp_path_factory.mktemp("dp_ranks")
-    results = spawn_ranks(P, jobs, workdir=str(workdir), device="cpu")
+    results = spawn_ranks(P, jobs, workdir=str(workdir), device="cpu",
+                          job_fn=record_rgat_job)
     out = {}
     for i, case in enumerate(CASES):
         out[case] = [results[rank][i] for rank in range(P)]

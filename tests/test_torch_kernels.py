@@ -92,6 +92,8 @@ def _segments(sizes, tile):
     ((5000, 0, 3000, 17), 2, 1, 8, 1),  # head-broadcast x
     ((4100, 0, 70, 9000), 1, 1, 64, 64),  # segment-matmul dW
     ((4100, 0, 70, 9000), 2, 2, 70, 5),  # ragged k and o tiles
+    ((4100, 0, 70, 9000), 4, 1, 64, 17),  # shared x: 68 columns, 2 tiles
+    ((5000, 0, 3000, 17), 3, 1, 70, 30),  # shared x, heads across tiles
     ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
     ((300,), 1, 1, 1, 1),  # one segment, K = O = 1
     ((40, 7), 1, 1, 1, 65),  # K = 1, O past one tile
