@@ -10,25 +10,40 @@ Phases, each of which fails the run:
    source, all at once);
 3. each kernel against its plain PyTorch version, timed with CUDA events
    beside its bound and a PyTorch yardstick, on the synthetic ogbn-mag
-   stand-in at scale 0.1:
-   * ``seg_sum_sorted`` at every shape the compact multiply-first and the
-     plain RGAT steps give it, on one card and on rank 0's shard of each
-     data-parallel run, plus edge cases;
-   * ``segment_matmul_dw`` at every shape the plain RGAT and the compact
-     steps give it, and the data-parallel runs give rank 0's shard, at the
-     general segment-matmul shapes (Hx = 1, K = O = 64, S = 4 and S = 535,
-     about 1e6 rows), plus edge cases, with a control that a dW from
-     inputs rounded to TF32 fails the tolerance;
+   stand-in at scale 0.1 (dual- and union-list compact) and 0.2 (the
+   packed run):
+   * ``seg_sum_sorted`` at every shape the compact multiply-first, the
+     packed, the union and the plain RGAT steps give it, on one card and
+     on rank 0's shard of each data-parallel run, plus edge cases;
+   * ``seg_max_sorted`` bit for bit at every shape the stable="max" steps
+     give it (packed at 0.2, plain at 0.1), plus edge cases;
+   * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
+     the union steps give it, and the data-parallel runs give rank 0's
+     shard, at the general segment-matmul shapes (Hx = 1, K = O = 64, S =
+     4 and S = 535, about 1e6 rows), plus edge cases, with a control that
+     a dW from inputs rounded to TF32 fails the tolerance;
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
      data-parallel runs give rank 0's shard, at the general shapes (S =
      535: W is 8.8 MB) and edge cases, with the same TF32 control;
+   * ``force_rowmajor`` bit for bit on the packed run's ``fe[..., 1:]``
+     view, a transposed view and R = 0 (no path calls it);
+   * compact multiply-first's fused op in its split and its packed
+     operand form on the same inputs, forward and backward, at each
+     layer's shapes of the compact multiply-first (0.1) and the packed
+     (0.2) runs: the two agree, and their times and memory are printed;
 4. training runs of the 2-layer RGAT (heads 4, in 64, hidden 64, 8
-   classes, clip softmax, f32, TF32 off, dropout 0), each once through the
-   kernels and once through their plain versions from the same seeded
-   parameters: five steps of the compact multiply-first and of the plain
-   (per-edge) branch, with finite losses that fall, per-step agreement and
-   every kernel's launch count; two steps each of the plain multiply-first
-   and the compact branch, with agreement and launch counts;
+   classes, f32, TF32 off, dropout 0), each once through the kernels and
+   once through their plain versions from the same seeded parameters,
+   with finite losses, per-step agreement and every kernel's launch
+   count: five steps of the compact multiply-first and the plain
+   (per-edge) branch (clip softmax), and of this slice's path, compact
+   multiply-first with stable="max" at scale 0.2 (losses that fall;
+   every dual-list compact multiply-first run takes the packed form,
+   asserted); two steps each of the
+   plain multiply-first, the compact, both union-list compact branches
+   and plain stable="max"; then the slice's path at the published size
+   (scale 1.0, 21.1M edges), three steps through the kernels, with its
+   step time, edges/s and peak device memory;
 5. data-parallel training: the graph split into P = 2 destination-range
    shards (balanced on edges), two ranks spawned as processes on cuda:0
    over gloo, five steps of compact multiply-first (halo "auto") and two
@@ -59,24 +74,59 @@ TOL_RTOL = 1e-5  # f32 sums in another order
 # to TF32 (10-bit mantissa) do not
 DW_TOL = 1e-6
 TRAIN_RTOL = 1e-4
-# training runs: name -> (compact, multiply_first, steps, launches a step
-# of each kernel; the ones not named launch none).  Per layer: the compact
-# branches reduce 5 times (forward aggregation, the (dst, rel) and the
-# src-compact backward reductions, two compact-gather backwards), the
-# plain ones 3 times (forward aggregation, two edge-gather backwards; the
-# per-edge fused backward is gathers only); every branch without
-# multiply-first takes two attention-vector dW a layer.  Host-known
-# offsets: the typed linears take per-relation matmuls.
+SCALE = 0.1  # synthetic ogbn-mag at the reference's ogbn_mag_0.1 size
+# the slice's packed run: the smallest tenth whose source compact rows
+# (1,348,864) pass het_tpu's packed gate of 1M rows (the port takes the
+# packed form at every size)
+PACKED_SCALE = 0.2
+FULL_SCALE = 1.0  # the published size: 21,111,007 edges
+FULL_STEPS = 3
+
+
+def _run(compact, multiply_first, steps, launches, *, union=False,
+         stable="clip", scale=SCALE):
+    return dict(compact=compact, multiply_first=multiply_first, steps=steps,
+                launches=launches, union=union, stable=stable, scale=scale)
+
+
+# training runs: name -> the branch, its softmax, its graph's scale, its
+# steps and the launches a step of each kernel (the ones not named launch
+# none).  Per layer: the dual-list compact branches reduce 5 times
+# (forward aggregation, the (dst, rel) and the src-compact backward
+# reductions, two compact-gather backwards; the packed form the same),
+# the union ones 4 times (one compact gather: one projection serves both
+# sides), the plain ones 3 times (forward aggregation, two edge-gather
+# backwards; the per-edge fused backward is gathers only); every branch
+# without multiply-first takes two attention-vector dW a layer, and
+# stable="max" one destination max a layer in the forward (the backward
+# reuses it).  Host-known offsets: the typed linears take per-relation
+# matmuls.
 RUNS = {
-    "compact_multiply_first": (True, True, STEPS, dict(seg_sum_sorted=10)),
-    "plain": (False, False, STEPS, dict(seg_sum_sorted=6,
-                                        segment_matmul_dw=4)),
-    "plain_multiply_first": (False, True, SHORT_STEPS,
-                             dict(seg_sum_sorted=6)),
-    "compact": (True, False, SHORT_STEPS, dict(seg_sum_sorted=10,
-                                               segment_matmul_dw=4)),
+    "compact_multiply_first": _run(True, True, STEPS,
+                                   dict(seg_sum_sorted=10)),
+    "plain": _run(False, False, STEPS, dict(seg_sum_sorted=6,
+                                            segment_matmul_dw=4)),
+    "plain_multiply_first": _run(False, True, SHORT_STEPS,
+                                 dict(seg_sum_sorted=6)),
+    "compact": _run(True, False, SHORT_STEPS, dict(seg_sum_sorted=10,
+                                                   segment_matmul_dw=4)),
+    "compact_multiply_first_packed_max": _run(
+        True, True, STEPS, dict(seg_sum_sorted=10, seg_max_sorted=2),
+        stable="max", scale=PACKED_SCALE),
+    "union_compact_multiply_first": _run(True, True, SHORT_STEPS,
+                                         dict(seg_sum_sorted=8), union=True),
+    "union_compact": _run(True, False, SHORT_STEPS, dict(
+        seg_sum_sorted=8, segment_matmul_dw=4), union=True),
+    "plain_max": _run(False, False, SHORT_STEPS, dict(
+        seg_sum_sorted=6, segment_matmul_dw=4, seg_max_sorted=2),
+        stable="max"),
 }
-MAIN = "plain"  # the single-card path whose launches the first two kernels report
+# the single-card plain RGAT path, whose launches the dW reports
+MAIN = "plain"
+# this slice's path (compact multiply-first, packed, stable="max"), whose
+# launches the segment sum and the segment max report
+SLICE_MAIN = "compact_multiply_first_packed_max"
+FULL = "full_scale"  # the slice's path at FULL_SCALE, kernels only
 # segment_matmul_fwd / _dx: |kernel - plain| <= MM_TOL * sum |x| |W| per
 # output (the plain version on absolute values); TF32 inputs fail it
 MM_TOL = 1e-5
@@ -104,7 +154,11 @@ DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
 
 def _per_step(run):
     """Each kernel's launches a step (a rank) of a training run."""
-    return (RUNS[run][3] if run in RUNS else DP_RUNS[run][4])
+    return (RUNS[run]["launches"] if run in RUNS else DP_RUNS[run][4])
+
+
+def _is_compact(run):
+    return RUNS[run]["compact"] if run in RUNS else DP_RUNS[run][0]
 
 
 def _check_shape_count(kernel, shapes_per_run):
@@ -159,9 +213,11 @@ def _dims():
 def _seg_sum_shapes(g, compact, first_input_grad):
     """[(label, rows of vals, C, row_ptr, perm)] of every seg_sum_sorted
     launch of one training step of the compact branches (the reductions
-    of both) or the plain ones on ``g``.  Layer 0's gather backwards run
-    only where its input needs a gradient: the learned embeddings of a
-    single-card run, not the fixed features of a data-parallel one."""
+    of both, and of the packed form, whose [draw | dfeat] is as wide) or
+    the plain ones on ``g``.  Layer 0's gather backwards run only where
+    its input needs a gradient: the learned embeddings of a single-card
+    run, not the fixed features of a data-parallel one.  A union-list
+    graph has one compact gather a layer (one projection)."""
     S, D = g.compact_src, g.compact_dst
     E = g.edge_rel_seg
     EP = g.num_padded_edges
@@ -180,12 +236,13 @@ def _seg_sum_shapes(g, compact, first_input_grad):
                  S.edge_row_ptr, S.edge_sort_perm),
             ]
             if gathers:
-                shapes += [
-                    (f"l{layer} bwd src gather", S.seg.n_rows, dims[layer],
-                     S.node_row_ptr, S.node_sort_perm),
-                    (f"l{layer} bwd dst gather", D.seg.n_rows, dims[layer],
-                     D.node_row_ptr, D.node_sort_perm),
-                ]
+                shapes.append((f"l{layer} bwd src gather", S.seg.n_rows,
+                               dims[layer], S.node_row_ptr,
+                               S.node_sort_perm))
+            if gathers and not g.compact_shared:
+                shapes.append((f"l{layer} bwd dst gather", D.seg.n_rows,
+                               dims[layer], D.node_row_ptr,
+                               D.node_sort_perm))
         elif gathers:
             src_perm = E.inv.index_select(0, g.out_perm)  # rows -> src order
             shapes += [
@@ -233,11 +290,11 @@ def _compare_seg_sum(vals, ptr, perm, label):
 
 
 def check_seg_sum(graphs, dev, flush):
-    """Kernel against plain at every shape of a step of each 5-step
-    single-card run and of each data-parallel run on rank 0's shard
-    (``graphs``: run -> graph on the card), and at the edge cases;
-    per-shape times.  Returns the kernel's JSON entry: per-step totals of
-    the single-card main path, and of every run under ``per_run``."""
+    """Kernel against plain at every shape of a step of each run in
+    ``graphs`` (run -> graph on the card; rank 0's shard for a
+    data-parallel run), and at the edge cases; per-shape times.  Returns
+    the kernel's JSON entry: per-step totals of the slice's path, and of
+    every run under ``per_run``."""
     import torch
     from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
 
@@ -251,8 +308,7 @@ def check_seg_sum(graphs, dev, flush):
         _compare_seg_sum(vals, ptr, perm, label)
         print(f"seg_sum edge case ok: {label}")
 
-    runs = {run: _seg_sum_shapes(g, (RUNS[run] if run in RUNS
-                                     else DP_RUNS[run])[0], run in RUNS)
+    runs = {run: _seg_sum_shapes(g, _is_compact(run), run in RUNS)
             for run, g in graphs.items()}
     _check_shape_count("seg_sum_sorted",
                        {run: len(shapes) for run, shapes in runs.items()})
@@ -299,7 +355,7 @@ def check_seg_sum(graphs, dev, flush):
                 total[key] += v
         print(f"[{run}] per-step totals (ms):", json.dumps(total))
         totals[run] = total
-    t = totals[MAIN]
+    t = totals[SLICE_MAIN]
     return {
         "name": "seg_sum_sorted",
         "route": "cuda",
@@ -316,6 +372,292 @@ def check_seg_sum(graphs, dev, flush):
     }
 
 
+# ------------------------------------------------------------ seg_max_sorted
+
+
+def _seg_max_shapes(g):
+    """[(label, rows of vals, C, row_ptr)] of every seg_max_sorted launch
+    of a step under stable="max": the destination max of act(raw) over
+    in_row_ptr, once a layer in the forward, C = heads."""
+    return [(f"l{layer} fwd dst max act(raw)", g.num_padded_edges, HEADS,
+             g.in_row_ptr) for layer in range(LAYERS)]
+
+
+def _seg_max_edge_cases(dev):
+    import torch
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    return [
+        ("empty segments", 40, 4, torch.tensor([0, 0, 5, 5, 12, 30, 30],
+                                                **i32), "normal"),
+        ("single-edge segments", 40, 4, torch.tensor([3, 4, 4, 5, 40],
+                                                      **i32), "normal"),
+        ("all negative", 40, 4, torch.tensor([0, 7, 7, 40], **i32),
+         "negative"),
+        ("+-inf and NaN", 400, 4, torch.arange(0, 401, 20, **i32), "inf"),
+        ("C=1", 40, 1, torch.tensor([0, 9, 9, 40], **i32), "normal"),
+        ("C=8", 40, 8, torch.tensor([0, 9, 9, 40], **i32), "normal"),
+        ("n=0", 40, 4, torch.tensor([7], **i32), "normal"),
+    ]
+
+
+def _max_values(rows, C, kind, dev, gen):
+    import torch
+
+    vals = torch.randn(rows, C, device=dev, generator=gen)
+    if kind == "negative":
+        vals = -vals.abs() - 1.0
+    elif kind == "inf":
+        hit = torch.rand(rows, C, device=dev, generator=gen)
+        vals[hit < 0.05] = float("inf")
+        vals[hit > 0.9] = float("-inf")
+        vals[(hit > 0.5) & (hit < 0.51)] = float("nan")
+    return vals
+
+
+def _compare_exact(got, want, label):
+    """Raise unless ``got`` equals ``want`` bit for bit (torch.equal);
+    returns the largest |got - want| (0 where the two are equal, inf
+    included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = None
+    if got.shape == want.shape:
+        diff = torch.where(got == want, 0.0, (got - want).abs())
+        diff = diff.max().item() if diff.numel() else 0.0
+    if diff is None or not torch.equal(got, want):
+        raise AssertionError(f"{label}: kernel differs from plain (shape "
+                             f"{tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"max |diff| {diff})")
+    return diff
+
+
+def check_seg_max(graphs, dev, flush):
+    """Kernel against plain, bit for bit, at every shape of a step of the
+    stable="max" runs (``graphs``: run -> graph on the card) and at the
+    edge cases; per-shape times beside the bytes bound, the plain version
+    and ``torch.segment_reduce(..., "max")``.  Returns the kernel's JSON
+    entry: per-step totals of the slice's path, and of every run under
+    ``per_run``."""
+    import torch
+    from het_tpu_torch.ops.kernels import seg_max_sorted, seg_max_sorted_plain
+
+    print("seg_max_sorted vs plain: bit for bit (torch.equal)")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    max_err = 0.0
+    for label, rows, C, ptr, kind in _seg_max_edge_cases(dev):
+        vals = _max_values(rows, C, kind, dev, gen)
+        max_err = max(max_err, _compare_exact(
+            seg_max_sorted(vals, ptr), seg_max_sorted_plain(vals, ptr),
+            label))
+        print(f"seg_max edge case ok: {label}")
+    runs = {run: _seg_max_shapes(g) for run, g in graphs.items()}
+    _check_shape_count("seg_max_sorted",
+                       {run: len(shapes) for run, shapes in runs.items()})
+    totals = {}
+    for run, shapes in runs.items():
+        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                     bytes_ms=0.0, ops_ms=0.0)
+        print(f"[{run}] shape | n | rows read | C | kernel ms | bound ms | "
+              "plain ms | segment_reduce ms")
+        for label, rows, C, ptr in shapes:
+            vals = torch.randn(rows, C, device=dev, generator=gen)
+            max_err = max(max_err, _compare_exact(
+                seg_max_sorted(vals, ptr), seg_max_sorted_plain(vals, ptr),
+                label))
+            n = ptr.numel() - 1
+            lo, hi = int(ptr[0]), int(ptr[-1])
+            read = hi - lo
+            nbytes = read * C * 4 + (n + 1) * 4 + n * C * 4
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            ops_s = read * C / F32_FLOP_PER_S
+            bound = max(bytes_s, ops_s)
+            ms = _time_ms(lambda: seg_max_sorted(vals, ptr), 20, flush)
+            plain = _time_ms(lambda: seg_max_sorted_plain(vals, ptr), 5,
+                             flush)
+            lengths = (ptr[1:] - ptr[:-1]).long()
+            window = vals[lo:hi]
+
+            def library():
+                # the yardstick: one PyTorch segment max over the rows the
+                # kernel reads (the port never calls it); empty segments
+                # come out as -inf there, mapped to 0 only for the check
+                return torch.segment_reduce(window, "max", lengths=lengths)
+
+            lib_out = library()
+            torch.testing.assert_close(
+                torch.where(torch.isfinite(lib_out), lib_out, 0.0),
+                seg_max_sorted_plain(vals, ptr), rtol=0, atol=0)
+            lib = _time_ms(library, 5, flush)
+            print(f"{label} | {n} | {read} | {C} | {ms:.4f} | "
+                  f"{bound * 1e3:.4f} | {plain:.4f} | {lib:.4f}")
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("bound_ms", bound * 1e3), ("library_ms", lib),
+                           ("bytes_ms", bytes_s * 1e3),
+                           ("ops_ms", ops_s * 1e3)):
+                total[key] += v
+        print(f"[{run}] seg_max_sorted per-step totals (ms):",
+              json.dumps(total))
+        totals[run] = total
+    t = totals[SLICE_MAIN]
+    return {
+        "name": "seg_max_sorted",
+        "route": "cuda",
+        "source": "het_tpu_torch/csrc/seg_reduce.cu",
+        "replaces": "het_tpu/ops/pallas/seg_reduce.py:284",
+        "launches": None,  # filled from the training run
+        "max_abs_err": max_err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+        "library_ms": t["library_ms"],
+        "per_run": totals,
+    }
+
+
+# ------------------------------------------------------------ force_rowmajor
+
+
+def check_force_rowmajor(g, dev, flush):
+    """The row copy against plain, bit for bit, on the feature lanes
+    ``fe[..., 1:]`` of the packed run's multiply-first projection (``g``
+    that run's graph on the card: (UCs, heads, 1 + D) at layer 0), a
+    transposed view and R = 0; times beside the bytes bound, the plain
+    version and ``.contiguous()``.  No path calls it (as in het_tpu), so
+    its entry reports one call at the fe shape."""
+    import torch
+    from het_tpu_torch.ops.kernels import force_rowmajor, force_rowmajor_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    D = HIDDEN // HEADS
+    UC = g.compact_src.seg.n_rows
+    fe = torch.randn(UC, HEADS, 1 + D, device=dev, generator=gen)
+    cases = [
+        (f"fe[..., 1:] ({UC}, {HEADS}, {D}) of ({UC}, {HEADS}, {1 + D})",
+         fe[..., 1:]),
+        ("transposed (4096, 68)",
+         torch.randn(68, 4096, device=dev, generator=gen).t()),
+        ("R=0", torch.randn(0, 64, device=dev)),
+    ]
+    print("force_rowmajor vs plain: bit for bit (torch.equal)")
+    print("view | elements | kernel ms | bound ms | plain ms | "
+          ".contiguous() ms")
+    entry = None
+    max_err = 0.0
+    for label, x in cases:
+        max_err = max(max_err, _compare_exact(
+            force_rowmajor(x), force_rowmajor_plain(x), label))
+        if x.numel() == 0:
+            print(f"{label} | 0 | ok")
+            continue
+        nbytes = 2 * x.numel() * 4  # each element read once, written once
+        bound = nbytes / HBM_BYTES_PER_S
+        ms = _time_ms(lambda: force_rowmajor(x), 20, flush)
+        plain = _time_ms(lambda: force_rowmajor_plain(x), 5, flush)
+        lib = _time_ms(lambda: x.contiguous(), 5, flush)
+        print(f"{label} | {x.numel()} | {ms:.4f} | {bound * 1e3:.4f} | "
+              f"{plain:.4f} | {lib:.4f}")
+        if entry is None:
+            entry = {
+                "name": "force_rowmajor",
+                "route": "cuda",
+                "source": "het_tpu_torch/csrc/seg_reduce.cu",
+                "replaces": "het_tpu/ops/pallas/seg_reduce.py:825",
+                "launches": None,  # filled: no path calls it
+                "max_abs_err": None,  # over every case, below
+                "ms": ms,
+                "plain_ms": plain,
+                "bound_ms": bound * 1e3,
+                "bound_by": "bytes",
+                "library_ms": lib,
+                "shape": label,
+            }
+    del fe
+    entry["max_abs_err"] = max_err
+    return entry
+
+
+# ------------------------------------------------------------ fused op forms
+
+
+def compare_fused_forms(graphs, dev, flush):
+    """Compact multiply-first's fused softmax aggregation in both operand
+    forms on the same inputs: the split op on the views ``fe[..., 1:]`` and
+    ``fe[..., 0]`` of the projection (het_tpu's form below 1M source
+    compact rows) and the packed op on ``fe`` itself (the port's form),
+    forward and backward to the gradients of ``fe`` and ``er`` through the
+    kernels, at each layer's shapes of the runs in ``graphs`` (run ->
+    graph on the card) with the run's softmax.  The two must agree within
+    TOL_RTOL; each form's ms (mean of two medians, timed split, packed,
+    packed, split) and its peak device memory above the inputs are
+    printed and returned."""
+    import torch
+    from het_tpu_torch import ops
+    from het_tpu_torch.models.rgat import LEAKY_RELU_SLOPE as slope
+
+    forms = {
+        "split": lambda g, fe, er, st: ops.relational_fused_gat_compact(
+            g, fe[..., 1:], fe[..., 0], er, slope, stable=st),
+        "packed": lambda g, fe, er, st:
+            ops.relational_fused_gat_compact_packed(g, fe, er, slope,
+                                                    stable=st),
+    }
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dims = _dims()
+    print("compact multiply-first fused op, split vs packed form (forward "
+          f"+ backward to fe and er; agreement rtol {TOL_RTOL}, atol "
+          f"{TOL_RTOL} * max|packed|)")
+    print("run | layer | fe shape | split ms | packed ms | split peak MB | "
+          "packed peak MB")
+    result = {}
+    for run, g in graphs.items():
+        stable = RUNS[run]["stable"]
+        total = dict(split_ms=0.0, packed_ms=0.0, split_peak_mb=0.0,
+                     packed_peak_mb=0.0)
+        for layer in range(LAYERS):
+            D = dims[layer + 1] // HEADS
+            shape = (g.compact_src.seg.n_rows, HEADS, 1 + D)
+            fe = torch.randn(shape, device=dev, generator=gen)
+            er = torch.randn(g.compact_dst.seg.n_rows, HEADS, device=dev,
+                             generator=gen)
+            ct = torch.randn(g.num_nodes, HEADS, D, device=dev,
+                             generator=gen)
+            fe.requires_grad_()
+            er.requires_grad_()
+            got, row = {}, {}
+            for name in ("split", "packed", "packed", "split"):
+                def step(form=forms[name]):
+                    out = form(g, fe, er, stable)
+                    return (out, *torch.autograd.grad(out, (fe, er), ct))
+
+                if name not in got:
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    got[name] = step()
+                    row[f"{name}_peak_mb"] = (
+                        torch.cuda.max_memory_allocated(dev) - base) / 2**20
+                row[f"{name}_ms"] = (row.get(f"{name}_ms", 0.0)
+                                     + _time_ms(step, 10, flush) / 2)
+            for what, a, b in zip(("out", "d_fe", "d_er"), got["split"],
+                                  got["packed"]):
+                scale = b.abs().max().item()
+                torch.testing.assert_close(
+                    a, b, rtol=TOL_RTOL, atol=TOL_RTOL * max(scale, 1e-30),
+                    msg=lambda m, w=what: f"{run} l{layer} {w}: {m}")
+            print(f"{run} | {layer} | {shape} | {row['split_ms']:.4f} | "
+                  f"{row['packed_ms']:.4f} | {row['split_peak_mb']:.1f} | "
+                  f"{row['packed_peak_mb']:.1f}")
+            for key in total:
+                total[key] += row[key]
+            del got, fe, er, ct
+        result[run] = total
+    print("fused op forms, per-step totals:", json.dumps(result))
+    return result
+
+
 # --------------------------------------------------------- segment_matmul_dw
 
 
@@ -327,12 +669,21 @@ def _segments(sizes, tile, dev):
     return build_segments(seg_of_row, len(sizes), tile).to(dev)
 
 
-def _dw_shapes(g, shards, dev):
-    """(label, run or None, launches per step, seg, H, Hx, K, O, zero ct
-    on invalid rows): the attention-vector dW of the plain RGAT step (two a
-    layer over the relation-sorted edge rows) and of the compact step (per
-    layer, attn_l over the source and attn_r over the destination compact
-    rows); on rank 0's shard, whose offsets live only on the device, the
+def _runs_of(run):
+    """The runs a shape is listed for: None, one name or a tuple."""
+    if run is None:
+        return ()
+    return run if isinstance(run, tuple) else (run,)
+
+
+def _dw_shapes(g, gu, shards, dev):
+    """(label, run(s) or None, launches per step, seg, H, Hx, K, O, zero
+    ct on invalid rows): the attention-vector dW of the plain RGAT steps
+    (two a layer over the relation-sorted edge rows), of the compact step
+    (per layer, attn_l over the source and attn_r over the destination
+    compact rows) and of the union-compact step (both over the shared
+    union rows of ``gu``); on rank 0's shard, whose offsets live only on
+    the device, the
     typed-linear dWs of both data-parallel runs and the plain one's
     attention-vector dWs; the general segment-matmul dW and edge cases."""
     import numpy as np
@@ -348,12 +699,15 @@ def _dw_shapes(g, shards, dev):
     for layer in range(LAYERS):
         K = dims[layer + 1] // HEADS
         shapes += [
-            (f"l{layer} attn_l/attn_r dW, edge rows", MAIN, 2, E, HEADS,
-             HEADS, K, 1, True),
+            (f"l{layer} attn_l/attn_r dW, edge rows", (MAIN, "plain_max"),
+             2, E, HEADS, HEADS, K, 1, True),
             (f"l{layer} attn_l dW, src compact rows", "compact", 1,
              g.compact_src.seg, HEADS, HEADS, K, 1, True),
             (f"l{layer} attn_r dW, dst compact rows", "compact", 1,
              g.compact_dst.seg, HEADS, HEADS, K, 1, True),
+            (f"l{layer} attn_l/attn_r dW, union compact rows",
+             "union_compact", 2, gu.compact_src.seg, HEADS, HEADS, K, 1,
+             True),
         ]
     for layer in range(LAYERS):
         K, D = dims[layer], dims[layer + 1] // HEADS
@@ -391,7 +745,7 @@ def _dw_shapes(g, shards, dev):
     ]
     assert g.num_rels == E.n_segments
     for shape in shapes:
-        if shape[1] in DP_RUNS:
+        if any(run in DP_RUNS for run in _runs_of(shape[1])):
             assert shape[3].seg_ptrs_static is None, shape[0]
     return shapes
 
@@ -415,10 +769,10 @@ def _worst_share(diff, limit):
     return share.max().item() if share.numel() else 0.0
 
 
-def check_dw(g, shards, dev, flush):
+def check_dw(g, gu, shards, dev, flush):
     """segment_matmul_dw against its plain version at every shape (``g``
-    the single-card graph, ``shards`` rank 0's shard of each data-parallel
-    run, both on the card), within
+    the single-card graph, ``gu`` its union-list form, ``shards`` rank 0's
+    shard of each data-parallel run, all on the card), within
     |kernel - plain| <= DW_TOL * sum |x| |ct| (the plain version on
     absolute values), and a control: the plain version on inputs rounded to
     TF32 must fail that limit at every shape that has rows, so the check
@@ -438,11 +792,11 @@ def check_dw(g, shards, dev, flush):
     print("shape | run | S | rows | H | Hx | K | O | kernel share | TF32 "
           "control share | kernel ms | bound ms | plain ms | per-relation "
           "torch.matmul ms")
-    shapes = _dw_shapes(g, shards, dev)
+    shapes = _dw_shapes(g, gu, shards, dev)
     counts = dict.fromkeys(list(RUNS) + list(DP_RUNS), 0)
     for shape in shapes:
-        if shape[1] is not None:
-            counts[shape[1]] += shape[2]
+        for run in _runs_of(shape[1]):
+            counts[run] += shape[2]
     _check_shape_count("segment_matmul_dw", counts)
     for label, run, per_step, seg, H, Hx, K, O, mask in shapes:
         S, n = seg.n_segments, seg.n_rows
@@ -509,15 +863,15 @@ def check_dw(g, shards, dev, flush):
               f"{share:.4g} | {control:.4g} | {ms:.4f} | {bound * 1e3:.4f} "
               f"({'bytes' if bytes_s >= ops_s else 'operations'}) | "
               f"{plain:.4f} | {yard:.4f}")
-        if run is None:
-            continue
-        total = totals.setdefault(run, dict(
-            ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
-            bytes_ms=0.0, ops_ms=0.0))
-        for key, v in (("ms", ms), ("plain_ms", plain),
-                       ("bound_ms", bound * 1e3), ("yardstick_ms", yard),
-                       ("bytes_ms", bytes_s * 1e3), ("ops_ms", ops_s * 1e3)):
-            total[key] += per_step * v
+        for r in _runs_of(run):
+            total = totals.setdefault(r, dict(
+                ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
+                bytes_ms=0.0, ops_ms=0.0))
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("bound_ms", bound * 1e3), ("yardstick_ms", yard),
+                           ("bytes_ms", bytes_s * 1e3),
+                           ("ops_ms", ops_s * 1e3)):
+                total[key] += per_step * v
     for run, total in totals.items():
         print(f"[{run}] segment_matmul_dw per-step totals (ms):",
               json.dumps(total))
@@ -880,38 +1234,84 @@ def _initial_state(net, seed=0):
     return state
 
 
+class _PackedCalls:
+    """Counts the model's calls of the packed-form fused op while in its
+    ``with`` block, so that a run can show which form it took."""
+
+    def __enter__(self):
+        from het_tpu_torch import ops
+
+        self.ops, self.orig, self.calls = ops, \
+            ops.relational_fused_gat_compact_packed, 0
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.orig(*args, **kw)
+
+        ops.relational_fused_gat_compact_packed = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.relational_fused_gat_compact_packed = self.orig
+
+
+def _config(r, dev, steps):
+    """The trainer's configuration of run ``r`` (a ``RUNS`` value)."""
+    from het_tpu_torch.train import TrainConfig
+
+    return TrainConfig(
+        model="RGAT", dataset="mag", dataset_scale=r["scale"],
+        n_infeat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+        num_heads=HEADS, num_layers=LAYERS, compact=r["compact"],
+        compact_union=r["union"], multiply_first=r["multiply_first"],
+        dropout=0.0, stable_softmax=r["stable"], num_epochs=steps,
+        device=str(dev),
+    )
+
+
+def _check_losses(run, impl, losses, steps, falling):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{run} {impl}: losses {losses}")
+    if falling and not losses[-1] < losses[0]:
+        raise AssertionError(f"{run} {impl}: loss did not fall: {losses}")
+
+
+def _check_packed(run, r, calls, steps):
+    """Dual-list compact multiply-first (``r`` a ``RUNS`` value) took the
+    packed form on every layer of every step; any other branch never
+    took it."""
+    packed = r["compact"] and r["multiply_first"] and not r["union"]
+    want = LAYERS * steps if packed else 0
+    if calls != want:
+        raise AssertionError(f"{run}: the packed form was taken {calls} "
+                             f"times, expected {want}")
+
+
 def check_training(data, dev, card, run):
     """One ``RUNS`` entry through the kernels and through the plain
     versions from the same parameters.  Returns the kernel run's launches
     of each kernel and the summary printed."""
     import torch
     from het_tpu_torch.ops import kernels
-    from het_tpu_torch.train import TrainConfig, build_model, train
+    from het_tpu_torch.train import build_model, train
 
-    compact, multiply_first, steps, per_step = RUNS[run]
-    cfg = TrainConfig(
-        model="RGAT", dataset="mag", dataset_scale=0.1, n_infeat=IN_FEAT,
-        hidden=HIDDEN, num_classes=CLASSES, num_heads=HEADS,
-        num_layers=LAYERS, compact=compact, multiply_first=multiply_first,
-        dropout=0.0, stable_softmax="clip", num_epochs=steps, device=str(dev),
-    )
+    steps, per_step = RUNS[run]["steps"], RUNS[run]["launches"]
+    cfg = _config(RUNS[run], dev, steps)
     state = _initial_state(build_model(cfg, data))
     runs = {}
     for impl in ("kernel", "plain"):
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
-        m = train(cfg, data, state=state, impl=impl,
-                  log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
+        with _PackedCalls() as packed:
+            m = train(cfg, data, state=state, impl=impl,
+                      log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
         m["launches"] = kernels.launch_counts()
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        _check_packed(run, RUNS[run], packed.calls, steps)
         runs[impl] = m
     k, p = runs["kernel"], runs["plain"]
     for impl, m in runs.items():
-        losses = m["loss_list"]
-        if len(losses) != steps or not all(map(math.isfinite, losses)):
-            raise AssertionError(f"{run} {impl}: losses {losses}")
-        if steps == STEPS and not losses[-1] < losses[0]:
-            raise AssertionError(f"{run} {impl}: loss did not fall: {losses}")
+        _check_losses(run, impl, m["loss_list"], steps, steps == STEPS)
     for step, (a, b) in enumerate(zip(k["loss_list"], p["loss_list"])):
         if abs(a - b) > TRAIN_RTOL * abs(b):
             raise AssertionError(
@@ -935,6 +1335,49 @@ def check_training(data, dev, card, run):
         }
     print(f"training {run} ({card}):", json.dumps(summary))
     return k["launches"], summary
+
+
+def check_full_scale(dev, card):
+    """The slice's path (compact multiply-first, packed, stable="max") on
+    synthetic ogbn-mag at FULL_SCALE, FULL_STEPS steps through the kernels
+    only: finite losses, the last below the first, the packed form and
+    the slice's launches a step; prints the step time, edges/s and the
+    peak device memory.  Returns the launches."""
+    import gc
+
+    import torch
+    from het_tpu_torch.data.loaders import load_dataset
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    data = load_dataset("mag", scale=FULL_SCALE, num_classes=CLASSES,
+                        seed=0, data_roots=())
+    print(f"[{FULL}] graph built in {time.perf_counter() - t0:.1f} s: "
+          f"{data.graph.describe()}")
+    cfg = _config(dict(RUNS[SLICE_MAIN], scale=FULL_SCALE), dev, FULL_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    with _PackedCalls() as packed:
+        m = train(cfg, data, log=lambda s: print(f"[{FULL} kernel] {s}"))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    _check_packed(FULL, RUNS[SLICE_MAIN], packed.calls, FULL_STEPS)
+    _check_losses(FULL, "kernel", m["loss_list"], FULL_STEPS, True)
+    per_step = RUNS[SLICE_MAIN]["launches"]
+    want = {k: per_step.get(k, 0) * FULL_STEPS for k in kernels.KERNELS}
+    if launches != want:
+        raise AssertionError(f"{FULL}: launched {launches}, expected {want}")
+    E = data.graph.num_edges
+    warm = statistics.median(m["step_ms_list"][1:])
+    print(f"training {FULL} ({card}):", json.dumps({
+        "edges": E, "losses": m["loss_list"], "step_ms": m["step_ms_list"],
+        "median_warm_step_ms": warm, "edges_per_s": E / (warm / 1e3),
+        "launches": launches, "peak_mem_gb": peak}))
+    del data, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -962,46 +1405,64 @@ def main() -> int:
         print(log)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    data = load_dataset("mag", scale=0.1, num_classes=CLASSES, seed=0,
-                        data_roots=())  # the synthetic stand-in
-    g = data.graph
-    print(f"graph built in {time.perf_counter() - t0:.1f} s: "
-          f"{g.describe()}, compact rows src {g.compact_src.seg.n_rows} "
-          f"dst {g.compact_dst.seg.n_rows}, (dst, rel) runs "
-          f"{g.compact_dst.canon_ptr.numel() - 1}, relation-sorted edge "
-          f"rows {g.edge_rel_seg.n_rows} {g.edge_rel_seg.seg_ptrs_static}")
-    gd = g.to(dev)
+    # the synthetic stand-in at each (scale, union-list) the runs take
+    datasets = {}
+    for key in sorted({(r["scale"], r["union"]) for r in RUNS.values()}):
+        t0 = time.perf_counter()
+        datasets[key] = load_dataset("mag", scale=key[0], num_classes=CLASSES,
+                                     seed=0, compact_union=key[1],
+                                     data_roots=())
+        g = datasets[key].graph
+        print(f"graph (scale {key[0]}, union {key[1]}) built in "
+              f"{time.perf_counter() - t0:.1f} s: {g.describe()}, (dst, rel) "
+              f"runs {g.compact_dst.canon_ptr.numel() - 1}, relation-sorted "
+              f"edge rows {g.edge_rel_seg.n_rows} "
+              f"{g.edge_rel_seg.seg_ptrs_static}")
+    data = datasets[(SCALE, False)]
+    gd = data.graph.to(dev)
+    gu = datasets[(SCALE, True)].graph.to(dev)
+    gp = datasets[(PACKED_SCALE, False)].graph.to(dev)
 
     parts = partition_dp(data)
     # rank 0's shard of each data-parallel run
     shards = {run: s[0].to(dev) for run, (s, _) in parts.items()}
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     entries = [
-        check_seg_sum({"compact_multiply_first": gd, MAIN: gd, **shards},
-                      dev, flush),
-        check_dw(gd, shards, dev, flush),
+        check_seg_sum({"compact_multiply_first": gd, MAIN: gd,
+                       SLICE_MAIN: gp, "union_compact_multiply_first": gu,
+                       **shards}, dev, flush),
+        check_seg_max({SLICE_MAIN: gp, "plain_max": gd}, dev, flush),
+        check_dw(gd, gu, shards, dev, flush),
         *check_fwd_dx(shards, dev, flush),
+        check_force_rowmajor(gp, dev, flush),
     ]
-    del flush, gd, shards
+    compare_fused_forms({"compact_multiply_first": gd, SLICE_MAIN: gp}, dev,
+                        flush)
+    del flush, gd, gu, gp, shards
     torch.cuda.empty_cache()
 
     launches, summaries = {}, {}
-    for run in RUNS:
-        launches[run], summaries[run] = check_training(data, dev, card, run)
+    for run, r in RUNS.items():
+        launches[run], summaries[run] = check_training(
+            datasets[(r["scale"], r["union"])], dev, card, run)
     ratio = (summaries[MAIN]["kernel"]["median_warm_step_ms"]
              / summaries["compact_multiply_first"]["kernel"]
              ["median_warm_step_ms"])
     print(f"plain / compact multiply-first step time, kernels ({card}): "
           f"{ratio:.3f}")
+    for key in list(datasets):  # host memory for the full-scale graph
+        if key != (SCALE, False):
+            del datasets[key]
+    launches[FULL] = check_full_scale(dev, card)
     launches.update(check_dp(data, parts, dev, card))
     for entry in entries:
         kernel = entry["name"]
-        # each kernel's launches on its own main path: the single-card
-        # plain RGAT for the segment sum and the dW, the data-parallel run
-        # for the forward and dX, whose only caller is a shard
-        main = (DP_MAIN if kernel in ("segment_matmul_fwd",
-                                      "segment_matmul_dx") else MAIN)
+        # each kernel's launches on its own main path: this slice's path
+        # for the segment sum and max, the single-card plain RGAT for
+        # the dW, the data-parallel run for the forward and dX, whose only
+        # caller is a shard; no path calls the row copy (nor does het_tpu)
+        main = {"segment_matmul_fwd": DP_MAIN, "segment_matmul_dx": DP_MAIN,
+                "segment_matmul_dw": MAIN}.get(kernel, SLICE_MAIN)
         entry["launches"] = launches[main][kernel]
         entry["launches_by_run"] = {r: counts[kernel]
                                     for r, counts in launches.items()}

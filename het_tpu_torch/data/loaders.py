@@ -74,6 +74,7 @@ def _synthetic(
     seed: int = 0,
     tile: int = 128,
     build_compact: bool = True,
+    compact_union: bool = False,
 ) -> Dataset:
     n, e, r = SYNTH_SCALES[name]
     n, e = max(int(n * scale), 64), max(int(e * scale), 256)
@@ -89,7 +90,8 @@ def _synthetic(
     rw /= rw.sum()
     rel = rng.choice(r, size=e, p=rw)
     g = build_heterograph(src, dst, rel, n, r, tile=tile,
-                          build_compact=build_compact)
+                          build_compact=build_compact,
+                          compact_union=compact_union)
     labels = _planted_labels(g, num_classes, seed)
     idx = rng.permutation(n)
     split = int(0.8 * n)
@@ -105,7 +107,8 @@ def _synthetic(
 
 
 def load_npy_shards(root: str, *, tile: int = 128,
-                    build_compact: bool = True) -> Optional[HeteroGraph]:
+                    build_compact: bool = True,
+                    compact_union: bool = False) -> Optional[HeteroGraph]:
     """Load a directory of per-relation ``(2, E)`` COO ``.npy`` shards,
     one relation per file in sorted file-name order."""
     files = sorted(glob.glob(os.path.join(root, "*_coo_*.npy"))) or sorted(
@@ -126,7 +129,8 @@ def load_npy_shards(root: str, *, tile: int = 128,
     num_nodes = int(max(src.max(), dst.max())) + 1
     return build_heterograph(src, dst, rel, num_nodes, len(files),
                              rel_names=names, tile=tile,
-                             build_compact=build_compact)
+                             build_compact=build_compact,
+                             compact_union=compact_union)
 
 
 def load_dataset(
@@ -137,6 +141,7 @@ def load_dataset(
     seed: int = 0,
     tile: int = 128,
     build_compact: bool = True,
+    compact_union: bool = False,
     data_roots: Sequence[str] = (),
 ) -> Dataset:
     """Load ``name`` from COO shards under one of ``data_roots`` (with
@@ -148,7 +153,8 @@ def load_dataset(
                      os.path.join(root, f"{name}_0.1")):
             if not os.path.isdir(cand):
                 continue
-            g = load_npy_shards(cand, tile=tile, build_compact=build_compact)
+            g = load_npy_shards(cand, tile=tile, build_compact=build_compact,
+                                compact_union=compact_union)
             if g is None:
                 continue
             rng = np.random.default_rng(seed)
@@ -169,4 +175,5 @@ def load_dataset(
             f"unknown dataset {name!r}; known: {sorted(SYNTH_SCALES)}"
         )
     return _synthetic(name, scale=scale, num_classes=num_classes, seed=seed,
-                      tile=tile, build_compact=build_compact)
+                      tile=tile, build_compact=build_compact,
+                      compact_union=compact_union)

@@ -100,22 +100,37 @@ def _build_compact(rel: np.ndarray, node: np.ndarray, num_nodes: int,
     its gradient is exactly zero.  ``force_rows`` is
     :func:`build_segments`'."""
     pair_rel, pair_node, inverse = unique_pairs(rel, node, num_nodes)
-    E = int(rel.shape[0])
-    pair_rel = pair_rel.astype(np.int64)
-    pair_node = pair_node.astype(np.int64)
-    if force_pairs is not None:
-        extra = force_pairs - int(pair_rel.shape[0])
-        if extra < 0:
-            raise ValueError(f"force_pairs={force_pairs} is below the "
-                             f"{pair_rel.shape[0]} pairs")
-        pair_rel = np.concatenate(
-            [pair_rel, np.full(extra, num_rels - 1, dtype=np.int64)])
-        pair_node = np.concatenate(
-            [pair_node, np.full(extra, num_nodes, dtype=np.int64)])
-    seg = build_segments(pair_rel, num_rels, tile, force_rows=force_rows)
+    return _compact_from_pairs(pair_rel, pair_node, inverse,
+                               int(rel.shape[0]), num_nodes, num_rels, tile,
+                               num_padded_edges, force_rows, force_pairs)
+
+
+def _compact_from_pairs(pair_rel, pair_node, inverse, E: int,
+                        num_nodes: int, num_rels: int, tile: int,
+                        num_padded_edges: int, force_rows: Optional[int],
+                        force_pairs: Optional[int],
+                        seg: Optional[Segments] = None,
+                        node_ids: Optional[np.ndarray] = None
+                        ) -> CompactInfo:
+    """Segment and pad the unique pairs, unless a shared ``seg`` and its
+    ``node_ids`` are given (the union-list build), and attach the edge
+    map and the sorted segmentations."""
+    if seg is None:
+        pair_rel = pair_rel.astype(np.int64)
+        pair_node = pair_node.astype(np.int64)
+        if force_pairs is not None:
+            extra = force_pairs - int(pair_rel.shape[0])
+            if extra < 0:
+                raise ValueError(f"force_pairs={force_pairs} is below the "
+                                 f"{pair_rel.shape[0]} pairs")
+            pair_rel = np.concatenate(
+                [pair_rel, np.full(extra, num_rels - 1, dtype=np.int64)])
+            pair_node = np.concatenate(
+                [pair_node, np.full(extra, num_nodes, dtype=np.int64)])
+        seg = build_segments(pair_rel, num_rels, tile, force_rows=force_rows)
+        node_ids = np.zeros(seg.n_rows, dtype=np.int64)
+        node_ids[seg.inv.numpy()] = pair_node
     inv = seg.inv.numpy()
-    node_ids = np.zeros(seg.n_rows, dtype=np.int64)
-    node_ids[inv] = pair_node
     # canonical edge -> padded compact row; padding edges map to row 0
     edge_map = np.zeros(num_padded_edges, dtype=np.int64)
     edge_map[:E] = inv[inverse]
@@ -145,6 +160,30 @@ def _build_compact(rel: np.ndarray, node: np.ndarray, num_nodes: int,
         node_sort_perm=_i32(node_sort_perm),
         node_row_ptr=_i32(node_row_ptr),
     )
+
+
+def _build_compact_union(rel: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                         num_nodes: int, num_rels: int, tile: int,
+                         num_padded_edges: int,
+                         force_rows: Optional[int] = None,
+                         force_pairs: Optional[int] = None):
+    """Union-list compact rows (the reference's default ``Enabled``
+    kind): one unique (relation, node) row space over the sources and the
+    destinations together, returned as a (source view, destination view)
+    pair over the same padded rows.  One projection a union row then
+    serves both attention sides.  Needs one node space."""
+    E = int(rel.shape[0])
+    pair_rel, pair_node, inverse = unique_pairs(
+        np.concatenate([rel, rel]), np.concatenate([src, dst]), num_nodes)
+    info_src = _compact_from_pairs(pair_rel, pair_node, inverse[:E], E,
+                                   num_nodes, num_rels, tile,
+                                   num_padded_edges, force_rows, force_pairs)
+    info_dst = _compact_from_pairs(None, None, inverse[E:], E, num_nodes,
+                                   num_rels, tile, num_padded_edges, None,
+                                   None, seg=info_src.seg,
+                                   node_ids=info_src.node_ids.numpy()
+                                   .astype(np.int64))
+    return info_src, info_dst
 
 
 def _canonical_runs(c_dst: np.ndarray, c_rel: np.ndarray,
@@ -217,12 +256,10 @@ def build_heterograph(
     source rows when it differs from ``num_nodes`` (a shard of a
     partitioned graph); padding edges then take ``src = src_space``.
     ``force_sizes`` pads the sizes a partitioned graph's shards must share
-    (keys as ``het_tpu_torch.parallel.partition._force_size_keys``)."""
-    if compact_union:
-        raise NotImplementedError(
-            "union-list compact (compact_union) is not ported yet; "
-            "see ROADMAP.md, 'The rest of RGAT: the union-compact branch'"
-        )
+    (keys as ``het_tpu_torch.parallel.partition._force_size_keys``).
+    ``compact_union`` builds the union-list compact kind: ``compact_src``
+    and ``compact_dst`` are two views of one row space
+    (``compact_shared``)."""
     src = np.asarray(src).astype(np.int64).ravel()
     dst = np.asarray(dst).astype(np.int64).ravel()
     rel = np.asarray(rel).astype(np.int64).ravel()
@@ -281,7 +318,16 @@ def build_heterograph(
         num_nodes, ntype_offsets, node_ntype, tile, force.get("ntype_rows"))
 
     compact_src = compact_dst = None
-    if build_compact:
+    if build_compact and compact_union:
+        if src_space != num_nodes:
+            raise ValueError("union-list compact needs one node space; the "
+                             "shards of a partitioned graph use the "
+                             "dual-list kind")
+        compact_src, compact_dst = _build_compact_union(
+            c_rel, c_src, c_dst, num_nodes, num_rels, tile, EP,
+            force_rows=force.get("compact_src_rows"),
+            force_pairs=force.get("compact_src_pairs"))
+    elif build_compact:
         compact_src = _build_compact(
             c_rel, c_src, src_space, num_rels, tile, EP,
             force_rows=force.get("compact_src_rows"),
@@ -290,6 +336,7 @@ def build_heterograph(
             c_rel, c_dst, num_nodes, num_rels, tile, EP,
             force_rows=force.get("compact_dst_rows"),
             force_pairs=force.get("compact_dst_pairs"))
+    if build_compact:
         canon_ptr, canon_to_row = _canonical_runs(c_dst, c_rel, compact_dst)
         compact_dst = dataclasses.replace(compact_dst, canon_ptr=canon_ptr,
                                           canon_to_row=canon_to_row)
@@ -318,4 +365,5 @@ def build_heterograph(
         in_deg=_i32(in_deg),
         out_deg=_i32(out_deg),
         num_src_space=0 if src_space == num_nodes else int(src_space),
+        compact_shared=bool(build_compact and compact_union),
     )

@@ -131,7 +131,10 @@ class HeteroGraph:
     # (n_parts, B_off); both local row ids, None without the exchange
     halo_self_idx: Optional[torch.Tensor] = None
     halo_send_idx: Optional[torch.Tensor] = None
-    # True only for the union-list compact kind, which is not built yet
+    # True when compact_src and compact_dst are two views of one union-list
+    # row space (unique (relation, node) over sources and destinations
+    # together, the reference's default compact kind): one projection a
+    # row serves both attention sides.  False: independent per-side lists
     compact_shared: bool = False
 
     @property
@@ -142,9 +145,29 @@ class HeteroGraph:
     def to(self, device) -> "HeteroGraph":
         return _to(self, device)
 
+    def compact_duplication(self, side: str = "src") -> Optional[float]:
+        """Edges per unique (relation, node) row of one side: the factor
+        compaction divides that side's typed-linear work by.  A union-list
+        row space counts both sides' pairs, so there each side counts the
+        rows its edges reference.  None without compact rows."""
+        info = self.compact_src if side == "src" else self.compact_dst
+        if info is None:
+            return None
+        if self.compact_shared:
+            rows = int(torch.unique(info.edge_map[:self.num_edges]).numel())
+        else:
+            rows = info.seg.n_src
+        return self.num_edges / max(rows, 1)
+
     def describe(self) -> str:
-        return (
-            f"HeteroGraph(nodes={self.num_nodes}, edges={self.num_edges}"
-            f" (padded {self.num_padded_edges}), rels={self.num_rels},"
-            f" ntypes={self.num_ntypes})"
-        )
+        text = (f"HeteroGraph(nodes={self.num_nodes}, edges={self.num_edges}"
+                f" (padded {self.num_padded_edges}), rels={self.num_rels},"
+                f" ntypes={self.num_ntypes}")
+        if self.compact_src is not None:
+            kind = "union" if self.compact_shared else "dual"
+            text += (f", {kind}-list compact rows src "
+                     f"{self.compact_src.seg.n_rows} dst "
+                     f"{self.compact_dst.seg.n_rows}, duplication src "
+                     f"{self.compact_duplication('src'):.3f} dst "
+                     f"{self.compact_duplication('dst'):.3f}")
+        return text + ")"

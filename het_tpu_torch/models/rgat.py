@@ -2,7 +2,8 @@
 
 Counterpart of ``het_tpu/models/rgat.py`` with the same parameter names
 and shapes: ``conv_weights`` (R, H, in, D), ``attn_l``/``attn_r``
-(R, H, D), ``h_bias`` (out,).  Ported are the four dual-list branches:
+(R, H, D), ``h_bias`` (out,), and every branch het_tpu has.  The four
+dual-list ones:
 
 * plain (per edge): ``edge_typed_linear`` projects each edge's source and
   destination rows, ``edge_rel_inner`` takes the attention logits, and
@@ -13,11 +14,20 @@ and shapes: ``conv_weights`` (R, H, in, D), ``attn_l``/``attn_r``
   side, logits by ``segment_rel_inner`` on those rows;
 * compact multiply-first (the reference's
   ``--compact_as_of_node_flag --multiply_among_weights_first_flag`` run):
-  both the features and the logits on compact rows from one matmul.
+  both the features and the logits on compact rows from one matmul, whose
+  packed per-head ``[el | feat]`` output goes into the fused op as one
+  buffer (the packed form).  het_tpu takes that form only from 1M source
+  compact rows on (each narrow array costs a TPU a 128-lane row) and two
+  split views below; on the card the packed form copies less at every
+  size, so the port takes it always.
 
-The union-compact branch, the packed branch (>= ``PACKED_COMPACT_ROWS``
-source compact rows, multiply-first) and ``stable="max"`` raise
-``NotImplementedError`` naming their ROADMAP item.
+On a union-list graph (``g.compact_shared``) the two sides share one
+compact row space, so one projection serves both: with multiply-first the
+matmul's columns are ``[W.a_l | W | W.a_r]`` and ``er`` is its last lane;
+without it, ``el`` and ``er`` are two inner products over the same rows.
+
+``stable_softmax`` is False/"raw" (the reference's raw ``exp``), "clip"
+or "max" (the exact max-subtracted softmax) in every branch.
 """
 
 from __future__ import annotations
@@ -30,9 +40,6 @@ from torch import nn
 
 from .. import ops
 
-# compact-row count from which the JAX package switches to the packed
-# operand form of the fused op (not ported yet)
-PACKED_COMPACT_ROWS = 1_000_000
 LEAKY_RELU_SLOPE = 0.2
 
 
@@ -117,10 +124,7 @@ class RGATLayer(nn.Module):
 
     def _compact(self, g, x, x_dst):
         if g.compact_shared:
-            raise NotImplementedError(
-                "union-list compact RGAT is not ported yet (ROADMAP.md, "
-                "'The rest of RGAT: the union-compact branch')"
-            )
+            return self._compact_union(g, x)
         impl, slope, stable = self.impl, LEAKY_RELU_SLOPE, self.stable_softmax
         conv_w = self.conv_weights
         if not self.multiply_first:
@@ -133,20 +137,34 @@ class RGATLayer(nn.Module):
                                          g.compact_dst.seg, impl=impl)
             return ops.relational_fused_gat_compact(
                 g, feat_c, el_c, er_c, slope, stable=stable, impl=impl)
-        if g.compact_src.seg.n_rows >= PACKED_COMPACT_ROWS:
-            raise NotImplementedError(
-                f"{g.compact_src.seg.n_rows} source compact rows take the "
-                "packed-operand fused op, which is not ported yet "
-                "(ROADMAP.md, 'The rest of RGAT: the packed branch')"
-            )
         wa_l, wa_r = self._weights_times_attn()
         w_cat = torch.cat([wa_l[..., None], conv_w], dim=-1)  # (R,H,K,1+D)
         fe = ops.compact_typed_linear(g, x, w_cat, "src", impl=impl)
         er_c = ops.compact_typed_linear(g, x_dst, wa_r[..., None], "dst",
                                         impl=impl)[..., 0]
+        return ops.relational_fused_gat_compact_packed(
+            g, fe, er_c, slope, stable=stable, impl=impl)
+
+    def _compact_union(self, g, x):
+        """Both attention sides from one projection of the shared union
+        rows (``g.compact_src`` and ``g.compact_dst`` index the same
+        rows, so ``x`` serves both; a union graph has one node space)."""
+        impl, slope, stable = self.impl, LEAKY_RELU_SLOPE, self.stable_softmax
+        conv_w = self.conv_weights
+        seg = g.compact_src.seg
+        if self.multiply_first:
+            wa_l, wa_r = self._weights_times_attn()
+            w_cat = torch.cat([wa_l[..., None], conv_w, wa_r[..., None]],
+                              dim=-1)  # (R, H, K, 1+D+1)
+            fe = ops.compact_typed_linear(g, x, w_cat, "src", impl=impl)
+            return ops.relational_fused_gat_compact(
+                g, fe[..., 1:-1], fe[..., 0], fe[..., -1], slope,
+                stable=stable, impl=impl)
+        feat_c = ops.compact_typed_linear(g, x, conv_w, "src", impl=impl)
+        el_c = ops.segment_rel_inner(feat_c, self.attn_l, seg, impl=impl)
+        er_c = ops.segment_rel_inner(feat_c, self.attn_r, seg, impl=impl)
         return ops.relational_fused_gat_compact(
-            g, fe[..., 1:], fe[..., 0], er_c, slope, stable=stable,
-            impl=impl)
+            g, feat_c, el_c, er_c, slope, stable=stable, impl=impl)
 
     def _plain(self, g, x, x_dst):
         impl, slope, stable = self.impl, LEAKY_RELU_SLOPE, self.stable_softmax

@@ -15,8 +15,22 @@ with rowS/rowD the source/destination ``edge_map``s and ``act`` a leaky
 ReLU followed by an optional clip.  Inputs stay on compact rows; per-edge
 tensors exist only between a gather and the sorted segment sum.  The
 forward keeps no per-edge tensor for the backward: it saves
-``(feat_c, el_c, er_c, s, out)`` and the backward recomputes the edge
-terms from compact-row gathers.
+``(feat_c, el_c, er_c, s, out)`` (and the max ``m`` below) and the
+backward recomputes the edge terms from compact-row gathers.
+
+:class:`CompactFusedGATPacked` is the counterpart of
+``_make_compact_fused_packed_op``: the same function with the source
+operand the packed output of the multiply-first projection, per-head lanes
+``[el | feat]`` in one ``(UCs, H*(1+D))`` buffer, whose gradient leaves
+the source-side reduce already in that layout.
+
+The softmax is a raw ``exp`` by default (the reference's), or clipped
+(``stable="clip"``, logits clamped to +-``CLIP_LOGIT``), or exact
+(``stable="max"``): ``z = exp(act(raw) - m[dst])`` with ``m`` the
+destination max of ``act(raw)`` (``seg_max_sorted`` over ``in_row_ptr``),
+saved for the backward.  The max carries no gradient (softmax is
+shift-invariant, and the JAX package stops it), so the backward formula
+is the same in every mode.
 
 Backward, with ``s`` the softmax denominators:
 
@@ -37,7 +51,10 @@ from typing import Optional
 import torch
 
 from .common import gather_dst, gather_nodes, safe_div, take_rows
-from .kernels import seg_sum_sorted
+from .kernels import seg_max_sorted, seg_sum_sorted
+
+CLIP_LOGIT = 60.0  # exp(60) ~ 1e26: far from f32 overflow, keeps order
+STABLE_MODES = ("raw", "clip", "max")
 
 
 def _act_apply(raw, slope: float, clip: Optional[float]):
@@ -57,111 +74,142 @@ def _act_deriv(raw, slope: float, clip: Optional[float]):
     return d
 
 
-def _edge_terms(el_feat_c, er_c, infoS, infoD, H, slope, clip):
-    """Per-edge z = exp(act(raw)), act'(raw) and feat in canonical order,
-    from one source-row gather of [el | feat] and one destination-row
-    gather of er."""
+def _clip(stable: str) -> Optional[float]:
+    return CLIP_LOGIT if stable == "clip" else None
+
+
+def _softmax_num(g, raw, slope: float, stable: str, impl: str):
+    """Forward: ``z`` (EP, H) and the destination max ``m`` (N, H), None
+    unless ``stable == "max"``.  Padding edges lie past ``in_row_ptr``'s
+    end, so the max never reads them."""
+    a = _act_apply(raw, slope, _clip(stable))
+    if stable != "max":
+        return torch.exp(a), None
+    m = seg_max_sorted(a, g.in_row_ptr, impl=impl)
+    return torch.exp(a - gather_dst(g, m)), m
+
+
+def _softmax_terms(raw, slope: float, stable: str, m_e):
+    """Backward: ``z`` and ``act'(raw)`` per edge, with ``m_e`` the
+    gathered destination max under ``stable == "max"``."""
+    clip = _clip(stable)
+    a = _act_apply(raw, slope, clip)
+    if m_e is not None:
+        a = a - m_e
+    return torch.exp(a), _act_deriv(raw, slope, clip)
+
+
+def _ct_pack(g, ct, s, out, m):
+    """One destination gather (monotone in canonical order) of everything
+    the backward reads per edge: ``ct`` (HD lanes), ``s``, ``<out, ct>``
+    per head and, under ``stable="max"``, ``m`` (H lanes each).  Zero on
+    padding edges.  Returns ``(ctd, s_d, t2d, m_d)``."""
+    H = s.shape[1]
+    HD = ct.shape[1] * ct.shape[2]
+    t2 = (out * ct).sum(-1)  # (N, H)
+    parts = [ct.reshape(-1, HD), s, t2] + ([m] if m is not None else [])
+    cpe = gather_dst(g, torch.cat(parts, dim=1))
+    m_d = cpe[:, HD + 2 * H:] if m is not None else None
+    return (cpe[:, :HD], cpe[:, HD:HD + H], cpe[:, HD + H:HD + 2 * H],
+            m_d)
+
+
+def _compact_raw(el_feat_c, er_c, infoS, infoD, H):
+    """Per-edge logits ``raw`` and features in canonical order, from one
+    source-row gather of [el | feat] and one destination-row gather of
+    er."""
     ge = take_rows(el_feat_c, infoS.edge_map)
-    raw = ge[:, :H] + take_rows(er_c, infoD.edge_map)
-    z = torch.exp(_act_apply(raw, slope, clip))
-    return z, _act_deriv(raw, slope, clip), ge[:, H:]
+    return ge[:, :H] + take_rows(er_c, infoD.edge_map), ge[:, H:]
 
 
 class FusedGAT(torch.autograd.Function):
-    """``forward(feat2d (EP, H*D), raw (EP, H), g, slope, clip, impl) ->
+    """``forward(feat2d (EP, H*D), raw (EP, H), g, slope, stable, impl) ->
     (N, H, D)`` with ``raw = el + er`` per canonical edge.  The forward
-    saves ``(feat2d, raw, s, out)``; the backward is the one in the module
-    docstring with per-edge inputs: ``dfeat`` and ``draw`` in canonical
-    order, zero on padding edges (their ``dst`` gathers a zero row)."""
+    saves ``(feat2d, raw, s, out, m)``; the backward is the one in the
+    module docstring with per-edge inputs: ``dfeat`` and ``draw`` in
+    canonical order, zero on padding edges (their ``dst`` gathers a zero
+    row)."""
 
     @staticmethod
-    def forward(ctx, feat2d, raw, g, slope: float, clip: Optional[float],
-                impl: str):
+    def forward(ctx, feat2d, raw, g, slope: float, stable: str, impl: str):
         H = raw.shape[1]
         D = feat2d.shape[1] // H
-        z = torch.exp(_act_apply(raw.float(), slope, clip))
-        # padding edges give finite z and lie past in_row_ptr's end
+        # padding edges lie past in_row_ptr's end: never reduced
+        z, m = _softmax_num(g, raw.float(), slope, stable, impl)
         payload = torch.cat([z, z.repeat_interleave(D, 1) * feat2d.float()],
                             dim=1)
         agg = seg_sum_sorted(payload, g.in_row_ptr, impl=impl)
         s, num = agg[:, :H], agg[:, H:]
         out = safe_div(num.view(-1, H, D), s[..., None])
-        ctx.save_for_backward(feat2d, raw, s, out)
-        ctx.g, ctx.slope, ctx.clip = g, slope, clip
+        ctx.save_for_backward(feat2d, raw, s, out, m)
+        ctx.g, ctx.slope, ctx.stable = g, slope, stable
         return out.to(feat2d.dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        feat2d, raw, s, out = ctx.saved_tensors
-        g, slope, clip = ctx.g, ctx.slope, ctx.clip
+        feat2d, raw, s, out, m = ctx.saved_tensors
         H = raw.shape[1]
-        HD = feat2d.shape[1]
-        D = HD // H
-        raw32 = raw.float()
-        z = torch.exp(_act_apply(raw32, slope, clip))
-        ct = ct.float()
-        t2 = (out * ct).sum(-1)  # (N, H)
-        # one dst gather (monotone in canonical order) serves ct, s and t2
-        cpe = gather_dst(g, torch.cat([ct.reshape(-1, HD), s, t2], dim=1))
-        ctd = cpe[:, :HD]
-        alpha = safe_div(z, cpe[:, HD:HD + H])
+        D = feat2d.shape[1] // H
+        ctd, s_d, t2d, m_d = _ct_pack(ctx.g, ct.float(), s, out, m)
+        z, actd = _softmax_terms(raw.float(), ctx.slope, ctx.stable, m_d)
+        alpha = safe_div(z, s_d)
         t1 = (feat2d.float() * ctd).view(-1, H, D).sum(-1)
-        draw = alpha * (t1 - cpe[:, HD + H:]) * _act_deriv(raw32, slope,
-                                                           clip)
+        draw = alpha * (t1 - t2d) * actd
         dfeat = alpha.repeat_interleave(D, 1) * ctd
         return (dfeat.to(feat2d.dtype), draw.to(raw.dtype),
                 None, None, None, None)
 
 
+def _d_er(infoD, draw, impl: str):
+    """d_er on destination compact rows: ``draw`` summed over the
+    canonical (dst, rel) runs, contiguous in canonical order; padding
+    compact rows map to the sentinel run (a zero row)."""
+    red_d = seg_sum_sorted(draw, infoD.canon_ptr, impl=impl)
+    return gather_nodes(red_d, infoD.canon_to_row)
+
+
 class CompactFusedGAT(torch.autograd.Function):
     """``forward(feat_c2d (UCs, H*D), el_c (UCs, H), er_c (UCd, H), g,
-    slope, clip, impl) -> (N, H, D)``; ``impl`` picks the segment sum's
-    kernel or its plain version on the card."""
+    slope, stable, impl) -> (N, H, D)``; ``impl`` picks the kernels or
+    their plain versions on the card."""
 
     @staticmethod
-    def forward(ctx, feat_c2d, el_c, er_c, g, slope: float,
-                clip: Optional[float], impl: str):
+    def forward(ctx, feat_c2d, el_c, er_c, g, slope: float, stable: str,
+                impl: str):
         H = el_c.shape[1]
         HD = feat_c2d.shape[1]
         D = HD // H
         el_feat_c = torch.cat([el_c, feat_c2d], dim=1).float()
-        z, _, feat_e = _edge_terms(el_feat_c, er_c.float(), g.compact_src,
-                                   g.compact_dst, H, slope, clip)
+        raw, feat_e = _compact_raw(el_feat_c, er_c.float(), g.compact_src,
+                                   g.compact_dst, H)
+        z, m = _softmax_num(g, raw, slope, stable, impl)
         # (EP, H) -> (EP, H*D) head-major
         payload = torch.cat([z, z.repeat_interleave(D, 1) * feat_e], dim=1)
         agg = seg_sum_sorted(payload, g.in_row_ptr, impl=impl)
         s, num = agg[:, :H], agg[:, H:]
         out = safe_div(num.view(-1, H, D), s[..., None])
-        ctx.save_for_backward(feat_c2d, el_c, er_c, s, out)
-        ctx.g, ctx.slope, ctx.clip, ctx.impl = g, slope, clip, impl
+        ctx.save_for_backward(feat_c2d, el_c, er_c, s, out, m)
+        ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
         return out.to(feat_c2d.dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        feat_c2d, el_c, er_c, s, out = ctx.saved_tensors
-        g, slope, clip, impl = ctx.g, ctx.slope, ctx.clip, ctx.impl
+        feat_c2d, el_c, er_c, s, out, m = ctx.saved_tensors
+        g, impl = ctx.g, ctx.impl
         infoS, infoD = g.compact_src, g.compact_dst
         H = el_c.shape[1]
         HD = feat_c2d.shape[1]
         D = HD // H
-        ct = ct.float()
-        t2 = (out * ct).sum(-1)  # (N, H)
-        ctpack = torch.cat([ct.reshape(-1, HD), s, t2], dim=1)
-
+        ctd, s_d, t2d, m_d = _ct_pack(g, ct.float(), s, out, m)
         el_feat_c = torch.cat([el_c, feat_c2d], dim=1).float()
-        z, actd, feat_e = _edge_terms(el_feat_c, er_c.float(), infoS, infoD,
-                                      H, slope, clip)
-        cpe = gather_dst(g, ctpack)  # zero rows on padding edges
-        ctd = cpe[:, :HD]
-        alpha = safe_div(z, cpe[:, HD:HD + H])
+        raw, feat_e = _compact_raw(el_feat_c, er_c.float(), infoS, infoD, H)
+        z, actd = _softmax_terms(raw, ctx.slope, ctx.stable, m_d)
+        alpha = safe_div(z, s_d)
         t1 = (feat_e * ctd).view(-1, H, D).sum(-1)
-        draw = alpha * (t1 - cpe[:, HD + H:]) * actd
+        draw = alpha * (t1 - t2d) * actd
         dfeat = alpha.repeat_interleave(D, 1) * ctd
 
-        # destination side: (dst, rel) runs are contiguous in canonical
-        # order; padding compact rows map to the sentinel run (zero row)
-        red_d = seg_sum_sorted(draw, infoD.canon_ptr, impl=impl)
-        d_er_c = gather_nodes(red_d, infoD.canon_to_row)
+        d_er_c = _d_er(infoD, draw, impl)
         # source side: the canonical payload read in compact-row order
         red_s = seg_sum_sorted(torch.cat([draw, dfeat], dim=1),
                                infoS.edge_row_ptr, infoS.edge_sort_perm,
@@ -169,3 +217,58 @@ class CompactFusedGAT(torch.autograd.Function):
         return (red_s[:, H:].to(feat_c2d.dtype),
                 red_s[:, :H].to(el_c.dtype),
                 d_er_c.to(er_c.dtype), None, None, None, None)
+
+
+class CompactFusedGATPacked(torch.autograd.Function):
+    """``forward(fe2d (UCs, H*(1+D)), er_c (UCd, H), g, slope, stable,
+    impl) -> (N, H, D)`` with per-head lanes ``[el | feat]`` in ``fe2d``.
+    The backward's source-side payload is built in the same per-head
+    ``[draw | dfeat]`` layout, so one segment sum through
+    ``edge_sort_perm`` returns ``d_fe`` as it is; the destination
+    (dst, rel)-run reduce takes only the ``draw`` lanes.  Five segment
+    sums a layer with the compact gathers, as the split op."""
+
+    @staticmethod
+    def _edge_rows(fe2d, er_c, g, H):
+        """Per-edge ``raw`` (EP, H) and the gathered rows (EP, H, 1+D)."""
+        ge = take_rows(fe2d, g.compact_src.edge_map).float()
+        ge = ge.view(ge.shape[0], H, -1)
+        raw = ge[..., 0] + take_rows(er_c, g.compact_dst.edge_map).float()
+        return raw, ge
+
+    @staticmethod
+    def forward(ctx, fe2d, er_c, g, slope: float, stable: str, impl: str):
+        H = er_c.shape[1]
+        raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
+        D = ge.shape[2] - 1
+        z, m = _softmax_num(g, raw, slope, stable, impl)
+        zf = (z[..., None] * ge[..., 1:]).reshape(-1, H * D)
+        agg = seg_sum_sorted(torch.cat([z, zf], dim=1), g.in_row_ptr,
+                             impl=impl)
+        s, num = agg[:, :H], agg[:, H:]
+        out = safe_div(num.view(-1, H, D), s[..., None])
+        ctx.save_for_backward(fe2d, er_c, s, out, m)
+        ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
+        return out.to(fe2d.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        fe2d, er_c, s, out, m = ctx.saved_tensors
+        g, impl = ctx.g, ctx.impl
+        H = er_c.shape[1]
+        raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
+        D = ge.shape[2] - 1
+        ctd, s_d, t2d, m_d = _ct_pack(g, ct.float(), s, out, m)
+        ctd3 = ctd.view(-1, H, D)
+        z, actd = _softmax_terms(raw, ctx.slope, ctx.stable, m_d)
+        alpha = safe_div(z, s_d)
+        t1 = (ge[..., 1:] * ctd3).sum(-1)
+        draw = alpha * (t1 - t2d) * actd  # (EP, H)
+        pay = torch.cat([draw[..., None], alpha[..., None] * ctd3],
+                        dim=2).view(-1, H * (1 + D))
+        infoS = g.compact_src
+        d_fe = seg_sum_sorted(pay, infoS.edge_row_ptr, infoS.edge_sort_perm,
+                              impl=impl)
+        d_er_c = _d_er(g.compact_dst, draw, impl)
+        return (d_fe.to(fe2d.dtype), d_er_c.to(er_c.dtype),
+                None, None, None, None)

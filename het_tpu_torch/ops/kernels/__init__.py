@@ -2,15 +2,18 @@
 
 from typing import Dict
 
-from .seg_reduce import seg_sum_sorted, seg_sum_sorted_plain  # noqa: F401
+from .seg_reduce import (force_rowmajor,  # noqa: F401
+                         force_rowmajor_plain, seg_max_sorted,
+                         seg_max_sorted_plain, seg_sum_sorted,
+                         seg_sum_sorted_plain)
 from .segment_mm import (segment_matmul_dw,  # noqa: F401
                          segment_matmul_dw_plain, segment_matmul_dx,
                          segment_matmul_dx_plain, segment_matmul_fwd,
                          segment_matmul_fwd_plain)
 
 # every kernel wrapper, each with a ``launches`` count of its CUDA launches
-KERNELS = ("seg_sum_sorted", "segment_matmul_fwd", "segment_matmul_dx",
-           "segment_matmul_dw")
+KERNELS = ("seg_sum_sorted", "seg_max_sorted", "segment_matmul_fwd",
+           "segment_matmul_dx", "segment_matmul_dw", "force_rowmajor")
 
 
 def reset_launches() -> None:

@@ -1,12 +1,23 @@
-"""Sorted segment sum: the hand-written CUDA kernel and its plain version.
+"""Sorted segment reductions and a row copy: the hand-written CUDA kernels
+and their plain versions.
 
-    out[r] = sum_{e in [row_ptr[r], row_ptr[r+1])} vals[perm[e] if perm else e]
+* :func:`seg_sum_sorted`, counterpart of
+  ``het_tpu/ops/pallas/seg_reduce.py::_seg_sum_wl`` (reached there through
+  ``seg_sum_sorted_packed``)::
 
-Counterpart of ``het_tpu/ops/pallas/seg_reduce.py::_seg_sum_wl`` (reached
-there through ``seg_sum_sorted_packed``).  Rows of ``vals`` outside
-``[row_ptr[0], row_ptr[n])`` (through ``perm`` when given) are never read,
-which is how padding edges and padding compact rows drop out.  The kernel
-is ``csrc/seg_reduce.cu``; its header says what bounds it and how.
+      out[r] = sum_{e in [row_ptr[r], row_ptr[r+1])} vals[perm[e] if perm else e]
+
+* :func:`seg_max_sorted`, counterpart of ``seg_max_dst_pallas_raw``: the
+  same walk with max, 0 where the max is not finite (an empty segment);
+  the destination max of the exact max-subtracted edge softmax;
+* :func:`force_rowmajor`, counterpart of ``force_rowmajor``: a strided
+  view copied into a contiguous tensor.  het_tpu has no caller for it, and
+  neither has the port.
+
+Rows of ``vals`` outside ``[row_ptr[0], row_ptr[n])`` (through ``perm``
+when given) are never read, which is how padding edges and padding
+compact rows drop out.  The kernels are ``csrc/seg_reduce.cu``; its
+header says what bounds them and how.
 
 The device of ``vals`` picks the implementation (``_dispatch.takes_plain``):
 a CUDA tensor launches the kernel (or raises), a CPU tensor takes
@@ -17,6 +28,7 @@ version on the card as well; nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -40,6 +52,32 @@ def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
     out = torch.zeros(n, vals.shape[1], dtype=torch.float32,
                       device=vals.device)
     return out.index_add_(0, seg, vals.index_select(0, idx).float())
+
+
+def seg_max_sorted_plain(vals: torch.Tensor,
+                         row_ptr: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: segment ids by ``repeat_interleave``, then
+    ``scatter_reduce_`` ("amax") into -inf, non-finite results to 0.  A
+    NaN is read as +inf, which ends at 0 just the same, so the result does
+    not rest on how the scatter's max treats NaN on either device."""
+    n = row_ptr.numel() - 1
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    seg = torch.repeat_interleave(
+        torch.arange(n, device=vals.device), counts, output_size=hi - lo
+    )
+    C = vals.shape[1]
+    out = torch.full((n, C), float("-inf"), dtype=torch.float32,
+                     device=vals.device)
+    v = vals[lo:hi].float()
+    v = torch.where(torch.isnan(v), float("inf"), v)
+    out.scatter_reduce_(0, seg[:, None].expand(-1, C), v, "amax")
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def force_rowmajor_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: a contiguous copy."""
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _check(vals, row_ptr, perm):
@@ -79,6 +117,45 @@ def _seg_sum_sorted_cuda(vals, row_ptr, perm):
     return out
 
 
+def _seg_max_sorted_cuda(vals, row_ptr):
+    fn = _dispatch.bind("seg_reduce", "het_seg_max_sorted_f32", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p])
+    n = row_ptr.numel() - 1
+    C = vals.shape[1]
+    out = torch.empty(n, C, dtype=torch.float32, device=vals.device)
+    if n == 0 or C == 0:
+        return out
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = fn(vals.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, C,
+                 stream)
+    _dispatch.check_launch("seg_reduce", err, "seg_max_sorted")
+    seg_max_sorted.launches += 1
+    return out
+
+
+def _force_rowmajor_cuda(x):
+    fn = _dispatch.bind("seg_reduce", "het_strided_copy_f32", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p])
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    if x.dim() == 2:
+        (R, B), (s0, s2) = x.shape, x.stride()
+        A, s1 = 1, 0
+    else:
+        (R, A, B), (s0, s1, s2) = x.shape, x.stride()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), R, A, B, s0, s1, s2, stream)
+    _dispatch.check_launch("seg_reduce", err, "force_rowmajor")
+    force_rowmajor.launches += 1
+    return out
+
+
 def seg_sum_sorted(vals: torch.Tensor, row_ptr: torch.Tensor,
                    perm: Optional[torch.Tensor] = None, *,
                    impl: str = "kernel") -> torch.Tensor:
@@ -94,3 +171,37 @@ def seg_sum_sorted(vals: torch.Tensor, row_ptr: torch.Tensor,
 
 # launches of the CUDA kernel since the count was last set to 0
 seg_sum_sorted.launches = 0
+
+
+def seg_max_sorted(vals: torch.Tensor, row_ptr: torch.Tensor, *,
+                   impl: str = "kernel") -> torch.Tensor:
+    """Column-wise max of rows of ``vals`` (rows, C) f32 over the sorted
+    segmentation ``row_ptr`` (n + 1,) int32; 0 where a segment's max is
+    not finite (empty, +-inf or NaN).  Returns (n, C) f32, equal to the
+    plain version bit for bit."""
+    plain = _dispatch.takes_plain(vals, impl, "seg_max_sorted")
+    _check(vals, row_ptr, None)
+    if plain:
+        return seg_max_sorted_plain(vals, row_ptr)
+    return _seg_max_sorted_cuda(vals, row_ptr)
+
+
+seg_max_sorted.launches = 0
+
+
+def force_rowmajor(x: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+    """``x`` (R, W) or (R, A, B) f32 of any strides, copied into a
+    contiguous tensor of the same shape."""
+    plain = _dispatch.takes_plain(x, impl, "force_rowmajor")
+    if x.dtype != torch.float32 or x.dim() not in (2, 3):
+        raise TypeError(f"x must be 2-D or 3-D float32, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if math.prod(x.shape[1:]) >= 2**31:
+        raise ValueError(f"rows of {tuple(x.shape[1:])} elements are too "
+                         "wide for the kernel's int32 columns")
+    if plain:
+        return force_rowmajor_plain(x)
+    return _force_rowmajor_cuda(x)
+
+
+force_rowmajor.launches = 0

@@ -1,29 +1,31 @@
 """Relational fused GAT aggregation, per edge and over compact rows.
 
-Counterparts of ``het_tpu/ops/spmm.py::relational_fused_gat`` and
-``::relational_fused_gat_compact``.  The edge softmax is a raw ``exp``
-with no max subtraction, as in the reference; ``stable="clip"`` clamps
-logits to +-``CLIP_LOGIT`` after the activation, which bounds the
-exponent without an extra pass.  ``stable="max"`` (the exact
-max-subtracted softmax) is not ported yet.
+Counterparts of ``het_tpu/ops/spmm.py::relational_fused_gat``,
+``::relational_fused_gat_compact`` and
+``::relational_fused_gat_compact_packed``.  The edge softmax is a raw
+``exp`` with no max subtraction by default, as in the reference
+(``stable=False`` or ``"raw"``); ``stable="clip"`` clamps logits to
++-``CLIP_LOGIT`` after the activation, which bounds the exponent without
+an extra pass; ``stable="max"`` (or ``True``) is the exact
+max-subtracted softmax, whose destination max is one ``seg_max_sorted``
+launch in the forward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .fused_agg import CompactFusedGAT, FusedGAT
+from .fused_agg import (CLIP_LOGIT, STABLE_MODES,  # noqa: F401
+                        CompactFusedGAT, CompactFusedGATPacked, FusedGAT)
 
-CLIP_LOGIT = 60.0  # exp(60) ~ 1e26: far from f32 overflow, keeps order
 
-
-def _clip(stable):
-    if stable not in (False, "raw", "clip"):
-        raise NotImplementedError(
-            f"stable={stable!r} needs the exact max-subtracted softmax and "
-            "its segment max (ROADMAP.md, 'The rest of RGAT: stable=max')"
-        )
-    return CLIP_LOGIT if stable == "clip" else None
+def _mode(stable) -> str:
+    """The softmax mode of a ``stable`` argument, as het_tpu reads it."""
+    mode = {False: "raw", True: "max"}.get(stable, stable)
+    if mode not in STABLE_MODES:
+        raise ValueError(f"stable must be False, True or one of "
+                         f"{STABLE_MODES}, got {stable!r}")
+    return mode
 
 
 def relational_fused_gat(
@@ -39,10 +41,9 @@ def relational_fused_gat(
     """Edge softmax of ``leaky_relu(el + er)`` over each destination's
     incoming edges, weighting ``feat_src_e``: feat_src_e (EP, H, D) and
     el_e/er_e (EP, H) in canonical edge order -> (N, H, D)."""
-    clip = _clip(stable)
     EP, H, D = feat_src_e.shape
     return FusedGAT.apply(feat_src_e.reshape(EP, H * D), el_e + er_e, g,
-                          float(slope), clip, impl)
+                          float(slope), _mode(stable), impl)
 
 
 def relational_fused_gat_compact(
@@ -57,7 +58,23 @@ def relational_fused_gat_compact(
 ) -> torch.Tensor:
     """feat_c (UCs, H, D) and el_c (UCs, H) on source compact rows, er_c
     (UCd, H) on destination compact rows -> (N, H, D)."""
-    clip = _clip(stable)
     UC, H, D = feat_c.shape
     return CompactFusedGAT.apply(feat_c.reshape(UC, H * D), el_c, er_c, g,
-                                 float(slope), clip, impl)
+                                 float(slope), _mode(stable), impl)
+
+
+def relational_fused_gat_compact_packed(
+    g,
+    fe: torch.Tensor,
+    er_c: torch.Tensor,
+    slope: float,
+    *,
+    stable=False,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """The compact op over the packed multiply-first projection: fe
+    (UCs, H, 1+D) with per-head lanes ``[el | feat]``, er_c (UCd, H) ->
+    (N, H, D).  One buffer in, its gradient out in the same layout."""
+    UC, H, D1 = fe.shape
+    return CompactFusedGATPacked.apply(fe.reshape(UC, H * D1), er_c, g,
+                                       float(slope), _mode(stable), impl)

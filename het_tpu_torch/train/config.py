@@ -1,8 +1,8 @@
 """Trainer configuration with the reference's flag spellings.
 
 The subset of ``het_tpu/train/config.py`` that the port runs so far, plus
-``--device``.  Values the port does not support yet raise when the
-trainer builds the model or the graph, naming their ROADMAP item.
+``--device``.  A model the port does not support yet raises when the
+trainer builds it, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,9 +25,13 @@ class TrainConfig:
     num_epochs: int = 10  # training steps (full-graph: one step an epoch)
     dropout: float = 0.5
     compact: bool = False  # --compact_as_of_node_flag
+    # --compact_union_flag: union-list compact rows (the reference's
+    # default Enabled kind: unique (rel, node) over sources and
+    # destinations, shared by both attention sides); False: dual-list
+    compact_union: bool = False
     multiply_first: bool = False  # --multiply_among_weights_first_flag
-    # edge-softmax overflow protection: "clip" (clamp logits to +-60) or
-    # "raw" (reference parity); "max" is not ported yet
+    # edge-softmax overflow protection: "clip" (clamp logits to +-60),
+    # "max" (the exact max-subtracted softmax) or "raw" (reference parity)
     stable_softmax: str = "clip"
     dataset_scale: float = 1.0  # synthetic stand-in scale (1.0 = published)
     seed: int = 0
@@ -48,6 +52,10 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--compact_as_of_node_flag", action="store_true",
                    dest="compact")
+    p.add_argument("--compact_union_flag", action="store_true",
+                   dest="compact_union",
+                   help="union-list compact rows shared by both attention "
+                        "sides (reference CompactAsOfNodeKind::Enabled)")
     p.add_argument("--multiply_among_weights_first_flag",
                    action="store_true", dest="multiply_first")
     p.add_argument("--stable_softmax", type=str, default="clip",

@@ -75,7 +75,8 @@ def train(
     if data is None:
         data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
                             num_classes=cfg.num_classes, seed=cfg.seed,
-                            build_compact=cfg.compact)
+                            build_compact=cfg.compact,
+                            compact_union=cfg.compact_union)
     net = build_model(cfg, data, impl=impl,
                       generator=torch.Generator().manual_seed(cfg.seed))
     if state is not None:
@@ -104,6 +105,7 @@ def train(
         "num_edges": data.graph.num_edges,
         "num_rels": data.graph.num_rels,
         "flags": {"compact": cfg.compact,
+                  "compact_union": cfg.compact_union,
                   "multiply_first": cfg.multiply_first,
                   "stable_softmax": cfg.stable_softmax,
                   "impl": impl},

@@ -2,7 +2,8 @@
 
     python -m het_tpu_torch.utils.profile_step --model RGAT -d mag \\
         --dataset_scale 0.1 --num_heads 4 --num_layers 2 \\
-        [--compact_as_of_node_flag] [--multiply_among_weights_first_flag]
+        [--compact_as_of_node_flag] [--multiply_among_weights_first_flag] \\
+        [--compact_union_flag] [--stable_softmax max]
 
 Takes the trainer's flags, runs six steps and traces steps 3-5 with
 ``torch.profiler`` (the trainer's per-step log call advances the
@@ -27,8 +28,11 @@ STEPS, WAIT, WARMUP, ACTIVE = 6, 1, 1, 3
 TOP = 30  # kernels listed by name
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
-    ("seg_sum_sorted", "seg_sum_sorted (port kernel)"),
+    ("SumOp", "seg_sum_sorted (port kernel)"),
+    ("MaxOp", "seg_max_sorted (port kernel)"),
+    ("strided_copy", "force_rowmajor (port kernel)"),
     ("segment_matmul_dw", "segment_matmul_dw (port kernel)"),
+    ("segment_matmul_rows", "segment_matmul_fwd / _dx (port kernels)"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("splitKreduce", "matmul"),
     ("index", "gather / index"), ("gather", "gather / index"),
     ("Cat", "concatenate"),

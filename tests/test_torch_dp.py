@@ -3,9 +3,11 @@ against het_tpu's single-chip ``RGATModel`` on the unpartitioned graph,
 with the same parameters (``DPGNN.init``'s, carried by
 ``dp_params_from_jax``), the same features and the same masked NLL: the
 logits of every real node (through ``info.relabel``) and every summed
-parameter gradient, in the four ported branches, with the halo gathered
-and exchanged at the boundary; and three data-parallel Adam steps
-against the port's single-process run.  This is the comparison
+parameter gradient, in the four dual-list branches (compact
+multiply-first in the port's packed form, het_tpu's split one) and two
+with the exact max softmax, with the halo gathered and exchanged at the
+boundary; and three data-parallel Adam steps against the port's
+single-process run.  This is the comparison
 ``tests/test_parallel.py`` makes for het_tpu's own data parallelism.
 Tolerances: forward rtol 1e-4 / atol 2e-4, gradients rtol 5e-3 / atol
 2e-4, losses rtol 1e-4 (the repo's backend-parity ones)."""
@@ -31,11 +33,14 @@ from tests.test_torch_dp_worker import record_rgat_job
 VAL = dict(rtol=1e-4, atol=2e-4)
 GRAD = dict(rtol=5e-3, atol=2e-4)
 IN, HID, CLS, HEADS, LR, STEPS, P = 12, 8, 4, 2, 1e-2, 3, 2
+# branch -> (compact, multiply_first, stable_softmax)
 BRANCHES = {
-    "plain": (False, False),
-    "plain_multiply_first": (False, True),
-    "compact": (True, False),
-    "compact_multiply_first": (True, True),
+    "plain": (False, False, "clip"),
+    "plain_multiply_first": (False, True, "clip"),
+    "compact": (True, False, "clip"),
+    "compact_multiply_first": (True, True, "clip"),
+    "plain_max": (False, False, "max"),
+    "compact_multiply_first_max": (True, True, "max"),
 }
 HALOS = ("gather", "boundary")
 CASES = [(b, h) for b in BRANCHES for h in HALOS]
@@ -53,20 +58,20 @@ def _problem():
 
 
 def _model_kw(r, branch):
-    compact, multiply_first = BRANCHES[branch]
+    compact, multiply_first, stable = BRANCHES[branch]
     return dict(in_feat=IN, hidden=HID, num_classes=CLS, num_rels=r,
                 num_heads=HEADS, num_layers=2, compact=compact,
                 multiply_first=multiply_first, dropout=0.0,
-                stable_softmax="clip")
+                stable_softmax=stable)
 
 
 def _jax_params(branch, jsg, x_pad, r):
     """het_tpu's ``DPGNN.init`` on its own partition, with non-zero
     biases."""
-    compact, multiply_first = BRANCHES[branch]
+    compact, multiply_first, stable = BRANCHES[branch]
     kw = dict(num_rels=r, num_heads=HEADS, compact=compact,
               multiply_first=multiply_first, dropout=0.0,
-              stable_softmax="clip")
+              stable_softmax=stable)
     layers = [JRGATLayer(in_feat=IN, out_feat=HID, activation=jax.nn.relu,
                          **kw),
               JRGATLayer(in_feat=HID, out_feat=CLS, **kw)]

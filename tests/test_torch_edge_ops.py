@@ -1,6 +1,6 @@
 """The port's per-edge ops against het_tpu's pallas backend (interpret mode
 on the CPU): ``edge_typed_linear`` (both sides), ``edge_rel_inner`` and
-``relational_fused_gat`` (raw and clip), forward and every input
+``relational_fused_gat`` (raw, clip and max), forward and every input
 gradient, from the same numpy inputs.  Tolerances are the repo's
 backend-parity ones: forward rtol 1e-4 / atol 2e-4, gradients rtol 5e-3 /
 atol 2e-4."""
@@ -11,7 +11,7 @@ import torch
 
 from het_tpu import ops as jops
 from het_tpu_torch import ops as tops
-from tests.test_torch_ops import _check, _graphs
+from tests.test_torch_ops import STABLE_CASES, _check, _graphs, logits
 
 
 @pytest.fixture
@@ -62,27 +62,15 @@ def test_edge_rel_inner(pallas_backend):
     )
 
 
-@pytest.mark.parametrize("stable,logit", [
-    (False, "normal"),
-    ("clip", "normal"),
-    ("clip", "past_clip"),  # many logits beyond +-60: zero act' there
-    ("raw", "past_clip"),  # beyond 60 but inside f32's exp range
-])
+@pytest.mark.parametrize("stable,logit", STABLE_CASES)
 def test_relational_fused_gat(pallas_backend, stable, logit):
     jg, tg = _graphs(4)
     rng = np.random.default_rng(7)
-    H, D, EP = 2, 6, jg.num_padded_edges
+    H, D, EP, E = 2, 6, jg.num_padded_edges, jg.num_edges
     feat_e = rng.standard_normal((EP, H, D)).astype(np.float32)
-    if logit == "normal":
-        el = rng.standard_normal((EP, H)) * 0.3
-        er = rng.standard_normal((EP, H)) * 0.3
-    elif stable == "clip":
-        el = rng.standard_normal((EP, H)) * 60.0
-        er = rng.standard_normal((EP, H)) * 30.0
-    else:
-        el = rng.uniform(55.0, 75.0, (EP, H))
-        er = rng.uniform(-5.0, 5.0, (EP, H))
-    el, er = el.astype(np.float32), er.astype(np.float32)
+    el, er = logits(rng, stable, logit, EP, EP, H)
+    if logit == "past_exp":  # padding edges carry zeros, as in the model
+        el[E:], er[E:] = 0.0, 0.0
     proj = rng.standard_normal((jg.num_nodes, H, D)).astype(np.float32)
     _check(
         lambda f, l, r: jops.relational_fused_gat(jg, f, l, r, 0.2,
@@ -93,10 +81,26 @@ def test_relational_fused_gat(pallas_backend, stable, logit):
     )
 
 
-def test_relational_fused_gat_stable_max_not_ported():
-    _, tg = _graphs(0)
-    EP = tg.num_padded_edges
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.relational_fused_gat(tg, torch.zeros(EP, 1, 2),
-                                  torch.zeros(EP, 1), torch.zeros(EP, 1),
-                                  0.2, stable="max")
+
+def test_stable_max_is_shift_invariant_and_exact():
+    """Under ``stable="max"`` a constant added to every logit of a
+    destination leaves the output unchanged, also where the raw ``exp``
+    overflows; ``"raw"`` matches it wherever it does not overflow."""
+    _, tg = _graphs(4)
+    gen = torch.Generator().manual_seed(3)
+    EP, E = tg.num_padded_edges, tg.num_edges
+    feat = torch.randn(EP, 2, 4, generator=gen)
+    el = torch.rand(EP, 2, generator=gen)  # leaky_relu is x on x >= 0
+    er = torch.zeros(EP, 2)
+    base = tops.relational_fused_gat(tg, feat, el, er, 0.2, stable="max")
+    torch.testing.assert_close(
+        tops.relational_fused_gat(tg, feat, el, er, 0.2, stable="raw"),
+        base, rtol=1e-5, atol=1e-6)
+    shift = torch.zeros(EP, 2)
+    shift[:E] = 200.0
+    out = tops.relational_fused_gat(tg, feat, el + shift, er, 0.2,
+                                    stable="max")
+    torch.testing.assert_close(out, base, rtol=1e-4, atol=1e-5)
+    assert torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="stable"):
+        tops.relational_fused_gat(tg, feat, el, er, 0.2, stable="exact")

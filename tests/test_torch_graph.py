@@ -73,9 +73,53 @@ def test_padding_invariants():
     assert int(g.compact_dst.canon_ptr[-1]) == E
 
 
-def test_union_compact_raises():
-    from het_tpu_torch.graph import build_heterograph
+def _coo(seed, n=48, e=400, r=4):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, e), rng.integers(0, n, e),
+            rng.integers(0, r, e), n, r)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_heterograph(np.array([0]), np.array([1]), np.array([0]), 2,
-                          compact_union=True)
+
+@pytest.mark.parametrize("forced", [False, True])
+def test_union_compact_matches(forced):
+    """Union-list compact rows equal het_tpu's field for field: one
+    unique (relation, node) row space over sources and destinations, the
+    destination view sharing the source view's segments and node ids."""
+    from het_tpu.graph import build_heterograph as j_build
+    from het_tpu_torch.graph import build_heterograph as t_build
+
+    src, dst, rel, n, r = _coo(7)
+    kw = dict(tile=8, compact_union=True)
+    if forced:  # padded sizes, as a caller fixing shapes passes them
+        kw["force_sizes"] = {"compact_src_rows": 512,
+                             "compact_src_pairs": 440}
+    t = t_build(src, dst, rel, n, r, **kw)
+    j = j_build(src, dst, rel, n, r, **kw)
+    _assert_same(t, j, "union")
+    assert t.compact_shared and t.compact_dst.seg is t.compact_src.seg
+    assert (t.compact_dst.node_ids == t.compact_src.node_ids).all()
+    for side in ("src", "dst"):
+        assert t.compact_duplication(side) == j.compact_duplication(side)
+    assert "union-list compact" in t.describe()
+
+
+def test_union_compact_needs_one_node_space():
+    """As in het_tpu, a shard's separate source space takes the dual-list
+    kind only."""
+    from het_tpu.graph import build_heterograph as j_build
+    from het_tpu_torch.graph import build_heterograph as t_build
+
+    src, dst, rel, n, r = _coo(8)
+    with pytest.raises(ValueError, match="one node space"):
+        t_build(src, dst, rel, n, r, tile=8, compact_union=True,
+                src_space=n + 8)
+    with pytest.raises(AssertionError):
+        j_build(src, dst, rel, n, r, tile=8, compact_union=True,
+                src_space=n + 8)
+
+
+@pytest.mark.parametrize("union", [False, True])
+def test_synthetic_mag_union_matches(union):
+    t = tl._synthetic("mag", scale=0.002, seed=2, compact_union=union)
+    j = jl._synthetic("mag", scale=0.002, seed=2, compact_union=union)
+    _assert_same(t.graph, j.graph, "mag")
+    assert t.graph.compact_shared == union

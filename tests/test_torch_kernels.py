@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from het_tpu_torch.graph import random_heterograph
-from het_tpu_torch.ops.kernels import (seg_sum_sorted, seg_sum_sorted_plain,
+from het_tpu_torch.ops.kernels import (force_rowmajor, force_rowmajor_plain,
+                                       seg_max_sorted, seg_max_sorted_plain,
+                                       seg_sum_sorted, seg_sum_sorted_plain,
                                        segment_matmul_dw,
                                        segment_matmul_dw_plain,
                                        segment_matmul_dx,
@@ -176,3 +178,62 @@ def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
         if scale.any():
             tf32 = plain(_tf32(a), _tf32(w), seg, *extra)
             assert not ((tf32 - want).abs() <= MM_TOL * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 3, 4, 8, 68])
+@pytest.mark.parametrize("values", ["normal", "negative", "inf_nan"])
+def test_seg_max_kernel_equals_plain(cuda, C, values):
+    """Bit for bit: max is exact.  Destination segments of a hub-heavy
+    graph, plus the run segments; empty segments, +-inf and NaN give 0."""
+    g = random_heterograph(num_nodes=300, num_edges=5000, num_rels=4,
+                           power_law=True).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    vals = torch.randn(g.num_padded_edges, C, device=cuda, generator=gen)
+    if values == "negative":
+        vals = -vals.abs() - 1.0
+    elif values == "inf_nan":
+        hit = torch.rand(vals.shape, device=cuda, generator=gen)
+        vals[hit < 0.03] = float("inf")
+        vals[hit > 0.95] = float("-inf")
+        vals[(hit > 0.5) & (hit < 0.505)] = float("nan")
+    for ptr in (g.in_row_ptr, g.compact_dst.canon_ptr):
+        seg_max_sorted.launches = 0
+        got = seg_max_sorted(vals, ptr)
+        torch.cuda.synchronize()
+        assert seg_max_sorted.launches == 1
+        assert torch.equal(got, seg_max_sorted_plain(vals, ptr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ptr", [[0, 0, 5, 5, 12, 30, 30], [3, 4, 4, 5, 40],
+                                 [9, 9, 9], [7]])
+def test_seg_max_kernel_edge_cases(cuda, ptr):
+    vals = torch.randn(40, 4, device=cuda)
+    ptr = torch.tensor(ptr, dtype=torch.int32, device=cuda)
+    got = seg_max_sorted(vals, ptr)
+    torch.cuda.synchronize()
+    assert got.shape == (ptr.numel() - 1, 4)
+    assert torch.equal(got, seg_max_sorted_plain(vals, ptr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["fe_lanes", "transposed", "contiguous",
+                                  "column_slice", "empty"])
+def test_force_rowmajor_kernel_equals_plain(cuda, view):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    if view == "fe_lanes":  # the feature lanes of a packed (UC, H, 1+D)
+        x = torch.randn(3001, 4, 17, device=cuda, generator=gen)[..., 1:]
+    elif view == "transposed":
+        x = torch.randn(68, 4001, device=cuda, generator=gen).t()
+    elif view == "contiguous":
+        x = torch.randn(2000, 33, device=cuda, generator=gen)
+    elif view == "column_slice":
+        x = torch.randn(999, 70, device=cuda, generator=gen)[:, 3:67]
+    else:
+        x = torch.randn(0, 16, device=cuda)
+    force_rowmajor.launches = 0
+    got = force_rowmajor(x)
+    torch.cuda.synchronize()
+    assert force_rowmajor.launches == (1 if x.numel() else 0)
+    assert got.is_contiguous() and torch.equal(got, force_rowmajor_plain(x))

@@ -1,10 +1,14 @@
 """The port's 2-layer RGAT against het_tpu's (pallas backend, interpret
 mode on the CPU) with the same parameters, carried by ``params_from_jax``,
-in each of the four dual-list branches (plain or compact, with or without
-multiply-first): logits, every parameter gradient, and three Adam steps
-against ``jax.value_and_grad`` + ``optax.adam``.  Tolerances: values rtol
-1e-4 / atol 2e-4, gradients rtol 5e-3 / atol 2e-4 (the repo's
-backend-parity ones)."""
+in every branch het_tpu has: the four dual-list ones (plain or compact,
+with or without multiply-first), union-list compact with and without
+multiply-first, compact multiply-first against both of het_tpu's operand
+forms (the split one and the packed one, which the port always takes:
+het_tpu's row gate ``PACKED_COMPACT_ROWS`` set low in its ``rgat`` module
+for the ``packed`` branches), and the exact max softmax: logits, every parameter gradient, and three Adam
+steps against ``jax.value_and_grad`` + ``optax.adam``; single layers too.
+Tolerances: values rtol 1e-4 / atol 2e-4, gradients rtol 5e-3 / atol
+2e-4 (the repo's backend-parity ones)."""
 
 import dataclasses
 
@@ -16,10 +20,14 @@ import pytest
 import torch
 
 from het_tpu import ops as jops
+from het_tpu.graph import build_heterograph as j_build_heterograph
 from het_tpu.graph import random_heterograph as j_random_heterograph
 from het_tpu.models import NodeEmbed as JNodeEmbed
+from het_tpu.models import RGATLayer as JRGATLayer
 from het_tpu.models import RGATModel as JRGATModel
+from het_tpu.models import rgat as j_rgat
 from het_tpu.utils.misc import nll_loss as j_nll_loss
+from het_tpu_torch.graph import build_heterograph as t_build_heterograph
 from het_tpu_torch.graph import random_heterograph as t_random_heterograph
 from het_tpu_torch.models import NodeEmbed, RGATLayer, RGATModel
 from het_tpu_torch.models import params_from_jax
@@ -30,13 +38,27 @@ from het_tpu_torch.utils.misc import nll_loss
 VAL = dict(rtol=1e-4, atol=2e-4)
 GRAD = dict(rtol=5e-3, atol=2e-4)
 IN, HID, CLS, HEADS, LR = 12, 8, 4, 2, 1e-2
-# branch -> (compact, multiply_first)
+# branch -> (compact, multiply_first, union-list graph, het_tpu in its
+# packed form, stable_softmax)
 BRANCHES = {
-    "plain": (False, False),
-    "plain_multiply_first": (False, True),
-    "compact": (True, False),
-    "compact_multiply_first": (True, True),
+    "plain": (False, False, False, False, "clip"),
+    "plain_multiply_first": (False, True, False, False, "clip"),
+    "compact": (True, False, False, False, "clip"),
+    "compact_multiply_first": (True, True, False, False, "clip"),
+    "union": (True, False, True, False, "clip"),
+    "union_multiply_first": (True, True, True, False, "clip"),
+    "packed": (True, True, False, True, "clip"),
+    "plain_max": (False, False, False, False, "max"),
+    "packed_max": (True, True, False, True, "max"),
+    "union_multiply_first_max": (True, True, True, False, "max"),
 }
+
+
+def _packed_gate(monkeypatch, branch):
+    """het_tpu takes its packed form from one source compact row on where
+    the branch asks for it (its gate is 1M rows)."""
+    if BRANCHES[branch][3]:
+        monkeypatch.setattr(j_rgat, "PACKED_COMPACT_ROWS", 1)
 
 
 @pytest.fixture
@@ -52,15 +74,25 @@ def graphs():
     return j_random_heterograph(**kw), t_random_heterograph(**kw)
 
 
+@pytest.fixture(scope="module")
+def union_graphs(graphs):
+    """The same edges with union-list compact rows, in both packages."""
+    tg = graphs[1]
+    coo = [t[:tg.num_edges].numpy() for t in (tg.src, tg.dst, tg.rel)]
+    kw = dict(tile=8, compact_union=True)
+    return (j_build_heterograph(*coo, tg.num_nodes, tg.num_rels, **kw),
+            t_build_heterograph(*coo, tg.num_nodes, tg.num_rels, **kw))
+
+
 @pytest.fixture(scope="module", params=list(BRANCHES))
-def setup(request, graphs):
-    jg, tg = graphs
-    compact, multiply_first = BRANCHES[request.param]
+def setup(request, graphs, union_graphs):
+    compact, multiply_first, union, _, stable = BRANCHES[request.param]
+    jg, tg = union_graphs if union else graphs
     rng = np.random.default_rng(3)
     jmodel = JRGATModel(in_feat=IN, hidden=HID, num_classes=CLS,
                         num_rels=jg.num_rels, num_heads=HEADS, num_layers=2,
                         compact=compact, multiply_first=multiply_first,
-                        dropout=0.0, stable_softmax="clip")
+                        dropout=0.0, stable_softmax=stable)
     jembed = JNodeEmbed(num_nodes=jg.num_nodes, embed_dim=IN)
     e_params = jembed.init(jax.random.PRNGKey(1))
     prev = jops.get_backend()
@@ -88,12 +120,12 @@ def _j_loss(jg, jmodel, jembed, labels, train_idx):
 
 
 def _t_net(tg, tree, branch):
-    compact, multiply_first = BRANCHES[branch]
+    compact, multiply_first, _, _, stable = BRANCHES[branch]
     net = NodeClassifier(
         NodeEmbed(tg.num_nodes, IN),
         RGATModel(IN, HID, CLS, tg.num_rels, HEADS, 2, compact=compact,
                   multiply_first=multiply_first, dropout=0.0,
-                  stable_softmax="clip"),
+                  stable_softmax=stable),
     )
     net.load_state_dict(params_from_jax(tree))
     return net.train()
@@ -107,8 +139,9 @@ def _j_leaf(tree, name):
     return tree["model"]["params"][f"RGATLayer_{i}"][leaf]
 
 
-def test_forward_and_grads(pallas_backend, setup):
+def test_forward_and_grads(pallas_backend, setup, monkeypatch):
     jg, tg, jfn, tree, labels, train_idx, branch = setup
+    _packed_gate(monkeypatch, branch)
     net = _t_net(tg, tree, branch)
     logits = net(tg)
     (jv, jlogits), jgrad = jfn(tree)
@@ -126,8 +159,9 @@ def test_forward_and_grads(pallas_backend, setup):
                                    err_msg=name, **GRAD)
 
 
-def test_three_adam_steps(pallas_backend, setup):
+def test_three_adam_steps(pallas_backend, setup, monkeypatch):
     jg, tg, loss_fn, tree, labels, train_idx, branch = setup
+    _packed_gate(monkeypatch, branch)
     tx = optax.adam(LR)
     params = jax.tree.map(jnp.asarray, tree)
     opt_state = tx.init(params)
@@ -158,11 +192,13 @@ def test_three_adam_steps(pallas_backend, setup):
 
 
 @pytest.mark.parametrize("branch", list(BRANCHES))
-def test_cpu_training_run(branch):
-    compact, multiply_first = BRANCHES[branch]
+def test_cpu_training_run(branch, monkeypatch):
+    compact, multiply_first, union, _, stable = BRANCHES[branch]
+    _packed_gate(monkeypatch, branch)
     cfg = TrainConfig(model="RGAT", dataset="mag", dataset_scale=0.002,
                       n_infeat=16, hidden=16, num_heads=2, num_layers=2,
-                      compact=compact, multiply_first=multiply_first,
+                      compact=compact, compact_union=union,
+                      multiply_first=multiply_first, stable_softmax=stable,
                       num_epochs=3, device="cpu")
     logs = []
     m1 = train(cfg, log=logs.append)
@@ -176,35 +212,81 @@ def test_cpu_training_run(branch):
     assert m3["loss_list"][-1] < m3["loss_list"][0]
 
 
-@pytest.mark.parametrize("kw", [
-    dict(compact=False, multiply_first=False),
-    dict(compact=True, multiply_first=True),
+@pytest.mark.parametrize("branch", [
+    "plain_max", "union", "union_multiply_first", "packed", "packed_max",
+    "union_multiply_first_max",
 ])
-def test_unported_branches_raise(graphs, kw):
-    """``stable="max"`` raises on the plain and the compact path."""
-    tg = graphs[1]
-    layer = RGATLayer(IN, HID, tg.num_rels, HEADS, stable_softmax="max",
-                      **kw)
-    with pytest.raises(NotImplementedError, match="stable=max"):
-        layer(tg, torch.zeros(tg.num_nodes, IN))
+def test_layer_matches_het_tpu(pallas_backend, graphs, union_graphs,
+                               monkeypatch, branch):
+    """One RGAT layer (no activation, dropout 0) of each branch this slice
+    ports, against het_tpu's layer with the same parameters: output and
+    the gradients of the input and of every parameter."""
+    compact, multiply_first, union, _, stable = BRANCHES[branch]
+    jg, tg = union_graphs if union else graphs
+    _packed_gate(monkeypatch, branch)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((tg.num_nodes, IN)).astype(np.float32)
+    proj = rng.standard_normal((tg.num_nodes, HID)).astype(np.float32)
+    jlayer = JRGATLayer(IN, HID, jg.num_rels, HEADS, compact=compact,
+                        multiply_first=multiply_first, dropout=0.0,
+                        stable_softmax=stable)
+    prev = jops.get_backend()
+    jops.set_backend("xla")  # init needs shapes only: skip interpret mode
+    params = jlayer.init(jax.random.PRNGKey(4), jg, jnp.asarray(x))
+    jops.set_backend(prev)
+    params = jax.tree.map(np.asarray, params)
+    params["params"]["h_bias"] = rng.standard_normal(HID).astype(np.float32)
+
+    def j_loss(p, xx):
+        return jnp.sum(jlayer.apply(p, jg, xx) * proj)
+
+    jv, (jgp, jgx) = jax.value_and_grad(j_loss, argnums=(0, 1))(
+        params, jnp.asarray(x))
+    layer = RGATLayer(IN, HID, tg.num_rels, HEADS, compact=compact,
+                      multiply_first=multiply_first, dropout=0.0,
+                      stable_softmax=stable)
+    layer.load_state_dict({k: torch.tensor(v)
+                           for k, v in params["params"].items()})
+    tx = torch.from_numpy(x).requires_grad_()
+    tv = (layer(tg, tx) * torch.from_numpy(proj)).sum()
+    tv.backward()
+    np.testing.assert_allclose(tv.item(), float(jv), **VAL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **GRAD)
+    for name, p in layer.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(),
+                                   np.asarray(jgp["params"][name]),
+                                   err_msg=name, **GRAD)
 
 
-@pytest.mark.parametrize("graph_change,match", [
-    ("union", "union"),
-    ("packed", "packed"),
-])
-def test_unported_graph_branches_raise(graphs, graph_change, match):
-    tg = graphs[1]
-    if graph_change == "union":
-        tg = dataclasses.replace(tg, compact_shared=True)
-    else:
-        seg = dataclasses.replace(tg.compact_src.seg, n_rows=1_000_000)
-        tg = dataclasses.replace(
-            tg, compact_src=dataclasses.replace(tg.compact_src, seg=seg))
-    layer = RGATLayer(IN, HID, tg.num_rels, HEADS, compact=True,
-                      multiply_first=True)
-    with pytest.raises(NotImplementedError, match=match):
-        layer(tg, torch.zeros(tg.num_nodes, IN))
+@pytest.mark.parametrize("branch", [
+    "compact", "compact_multiply_first", "union", "union_multiply_first"])
+def test_compact_multiply_first_takes_the_packed_op(graphs, union_graphs,
+                                                    monkeypatch, branch):
+    """Dual-list compact multiply-first takes the packed op at any size;
+    the other compact branches take the split one."""
+    from het_tpu_torch import ops
+
+    compact, multiply_first, union, _, _ = BRANCHES[branch]
+    tg = (union_graphs if union else graphs)[1]
+    calls = []
+
+    def counted(name):
+        fn = getattr(ops, name)
+
+        def call(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return call
+
+    for name in ("relational_fused_gat_compact",
+                 "relational_fused_gat_compact_packed"):
+        monkeypatch.setattr(ops, name, counted(name))
+    layer = RGATLayer(IN, HID, tg.num_rels, HEADS, compact=compact,
+                      multiply_first=multiply_first, dropout=0.0)
+    layer(tg, torch.randn(tg.num_nodes, IN))
+    packed = multiply_first and not union
+    assert calls == ["relational_fused_gat_compact"
+                     + ("_packed" if packed else "")]
 
 
 def test_plain_path_needs_no_compact_indices(graphs):

@@ -3,6 +3,7 @@ points run on the GPU unless told otherwise, and the CPU path launches no
 kernel."""
 
 import ast
+import math
 import os
 
 import pytest
@@ -100,27 +101,44 @@ def test_kernel_wrappers_raise_on_unknown_impl():
                           impl="auto")
 
 
-def test_unported_branches_name_their_roadmap_item():
-    """Union-list compact and ``stable="max"`` raise, naming the ROADMAP
-    item that ports them."""
-    import numpy as np
-    from het_tpu_torch.graph import build_heterograph
-    from het_tpu_torch.train import TrainConfig, train
+@pytest.mark.parametrize("flags", [
+    ["--compact_as_of_node_flag", "--compact_union_flag",
+     "--multiply_among_weights_first_flag"],
+    ["--compact_as_of_node_flag", "--compact_union_flag",
+     "--stable_softmax", "max"],
+    ["--stable_softmax", "max"],
+    ["--compact_as_of_node_flag", "--multiply_among_weights_first_flag",
+     "--stable_softmax", "max"],
+])
+def test_union_and_max_train_through_the_cli(monkeypatch, capsys, flags):
+    """``--compact_union_flag`` and ``--stable_softmax max`` train through
+    ``python -m het_tpu_torch.train`` (on the CPU here); no RGAT branch and
+    no softmax mode raises ``NotImplementedError`` any more."""
+    import json
+    import sys
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, 'The rest of RGAT: the "
-                             "union-compact branch'"):
-        build_heterograph(np.array([0]), np.array([1]), np.array([0]), 2,
-                          compact_union=True)
-    for compact in (False, True):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, 'The rest of RGAT: "
-                                 "stable=max'"):
-            train(TrainConfig(model="RGAT", dataset="aifb",
-                              dataset_scale=0.01, num_heads=2, num_layers=1,
-                              compact=compact, multiply_first=True,
-                              stable_softmax="max", num_epochs=1,
-                              device="cpu"), log=lambda s: None)
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train.__main__ import main
+
+    kernels.reset_launches()
+    monkeypatch.setattr(sys, "argv", [
+        "het_tpu_torch.train", "--model", "RGAT", "-d", "mag",
+        "--dataset_scale", "0.002", "--num_heads", "2", "--num_layers", "2",
+        "--n_infeat", "8", "--hidden", "8", "-e", "2", "--device", "cpu",
+        *flags])
+    main()
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(metrics["loss_list"]) == 2
+    assert all(map(math.isfinite, metrics["loss_list"]))
+    assert metrics["flags"]["compact_union"] == ("--compact_union_flag"
+                                                 in flags)
+    assert metrics["flags"]["stable_softmax"] == (
+        "max" if "max" in flags else "clip")
+    assert not any(kernels.launch_counts().values())
+    for rel in ("models/rgat.py", "ops/spmm.py", "ops/fused_agg.py",
+                "graph/build.py"):
+        with open(os.path.join(ROOT, "het_tpu_torch", rel)) as f:
+            assert "NotImplementedError" not in f.read(), rel
 
 
 def test_unported_model_raises():

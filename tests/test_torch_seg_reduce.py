@@ -1,7 +1,11 @@
 """The port's sorted segment sum (plain version, which is what a CPU
 tensor runs) against het_tpu's ``seg_sum_sorted_packed`` (Pallas,
 interpret mode) and a numpy loop, on every segmentation the RGAT training
-step reduces over.  Tolerance 1e-5: f32 sums in a different order."""
+step reduces over.  Tolerance 1e-5: f32 sums in a different order.
+
+The segment max against het_tpu's ``seg_max_dst_pallas_raw`` (interpret
+mode) and ``_segment_max_dst`` (XLA), and the row copy against
+``force_rowmajor`` (interpret mode): both exactly, max being exact."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,9 +14,14 @@ import torch
 
 from het_tpu.graph import random_heterograph as j_random_heterograph
 from het_tpu.graph.build import build_tile_tables
-from het_tpu.ops.pallas.seg_reduce import seg_sum_sorted_packed
+from het_tpu.ops.pallas.seg_reduce import (force_rowmajor as j_rowmajor,
+                                           seg_max_dst_pallas_raw,
+                                           seg_sum_sorted_packed)
+from het_tpu.ops.spmm import _segment_max_dst
 from het_tpu_torch.graph import random_heterograph as t_random_heterograph
-from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
+from het_tpu_torch.ops.kernels import (force_rowmajor, force_rowmajor_plain,
+                                       seg_max_sorted, seg_max_sorted_plain,
+                                       seg_sum_sorted, seg_sum_sorted_plain)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -132,3 +141,106 @@ def test_wrapper_rejects_bad_arguments(bad):
         kw["impl"] = "fast"
     with pytest.raises((TypeError, ValueError)):
         seg_sum_sorted(vals, ptr, **kw)
+
+
+def _max_loop(vals, ptr):
+    """Column max per segment, 0 where it is not finite."""
+    n = len(ptr) - 1
+    out = np.zeros((n, vals.shape[1]), np.float32)
+    for r in range(n):
+        if ptr[r + 1] > ptr[r]:
+            m = vals[ptr[r]:ptr[r + 1]].max(0)
+            out[r] = np.where(np.isfinite(m), m, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("C", [1, 4, 8])
+@pytest.mark.parametrize("values", ["normal", "negative", "inf"])
+def test_seg_max_matches_pallas_and_xla(C, values):
+    """Destination max over ``in_row_ptr`` on a hub-heavy graph, with the
+    padding edges masked to -inf for het_tpu's kernels (the port's never
+    reads them), as ``tests/test_pallas_seg_reduce.py`` runs them."""
+    kw = dict(num_nodes=50, num_edges=600, num_rels=4, seed=C, tile=8,
+              power_law=True)
+    jg, tg = j_random_heterograph(**kw), t_random_heterograph(**kw)
+    rng = np.random.default_rng(C)
+    vals = rng.standard_normal((jg.num_padded_edges, C)).astype(np.float32)
+    if values == "negative":
+        vals = -np.abs(vals) - 1.0
+    elif values == "inf":
+        hit = rng.random(vals.shape)
+        vals[hit < 0.05] = np.inf
+        vals[hit > 0.9] = -np.inf
+    masked = np.where(np.asarray(jg.edge_valid)[:, None], vals, -np.inf)
+    got = seg_max_sorted(torch.from_numpy(vals), tg.in_row_ptr)
+    assert got.shape == (jg.num_nodes, C) and got.dtype == torch.float32
+    pallas = seg_max_dst_pallas_raw(jg, jnp.asarray(masked), interpret=True,
+                                    nb=16, chunk=128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    xla = _segment_max_dst(jg, jnp.asarray(masked))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
+    np.testing.assert_array_equal(got.numpy(),
+                                  _max_loop(vals, tg.in_row_ptr.numpy()))
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "single_edge", "nan",
+                                  "n0", "all_empty"])
+def test_seg_max_edge_cases(case):
+    rng = np.random.default_rng(11)
+    vals = rng.standard_normal((40, 3)).astype(np.float32)
+    ptr = {"empty_rows": [0, 0, 5, 5, 12, 30, 30],
+           "single_edge": [3, 4, 4, 5, 40],
+           "nan": [0, 6, 20, 40],
+           "n0": [7],
+           "all_empty": [9, 9, 9]}[case]
+    if case == "nan":  # a NaN met is kept, then mapped to 0
+        vals[2, 1] = np.nan
+    ptr = np.asarray(ptr, np.int32)
+    got = seg_max_sorted(torch.from_numpy(vals), torch.from_numpy(ptr))
+    assert got.shape == (len(ptr) - 1, 3)
+    want = _max_loop(vals, ptr)
+    if case == "nan":
+        assert want[0, 1] == 0.0 and got[0, 1] == 0.0
+    np.testing.assert_array_equal(got.numpy(), want)
+    torch.testing.assert_close(got, seg_max_sorted_plain(
+        torch.from_numpy(vals), torch.from_numpy(ptr)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("view", ["fe_lanes", "transposed", "contiguous",
+                                  "column_slice"])
+def test_force_rowmajor_matches_pallas(view):
+    """The copy of a strided view equals het_tpu's ``force_rowmajor`` on
+    the same values (which takes them row-major, as a JAX array is)."""
+    gen = torch.Generator().manual_seed(5)
+    if view == "fe_lanes":  # the per-head feature lanes of a packed fe
+        x = torch.randn(37, 4, 17, generator=gen)[..., 1:]
+    elif view == "transposed":
+        x = torch.randn(68, 45, generator=gen).t()
+    elif view == "contiguous":
+        x = torch.randn(50, 12, generator=gen)
+    else:
+        x = torch.randn(29, 70, generator=gen)[:, 3:67]
+    got = force_rowmajor(x)
+    assert got.is_contiguous() and got.shape == x.shape
+    assert torch.equal(got, force_rowmajor_plain(x))
+    flat = x.reshape(x.shape[0], -1).numpy()
+    want = j_rowmajor(jnp.asarray(flat), interpret=True)
+    np.testing.assert_array_equal(got.reshape(x.shape[0], -1).numpy(),
+                                  np.asarray(want))
+
+
+def test_max_and_copy_plain_on_the_cpu_launch_nothing():
+    vals = torch.randn(10, 4)
+    ptr = torch.tensor([0, 3, 10], dtype=torch.int32)
+    seg_max_sorted.launches = force_rowmajor.launches = 0
+    assert torch.equal(seg_max_sorted(vals, ptr),
+                       seg_max_sorted(vals, ptr, impl="plain"))
+    empty = force_rowmajor(torch.zeros(0, 5))
+    assert empty.shape == (0, 5)
+    assert seg_max_sorted.launches == force_rowmajor.launches == 0
+    with pytest.raises(TypeError):
+        force_rowmajor(torch.zeros(3, 4, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        force_rowmajor(torch.zeros(3))
+    with pytest.raises((TypeError, ValueError)):
+        seg_max_sorted(vals.double(), ptr)
