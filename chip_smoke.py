@@ -14,9 +14,13 @@ Phases, each of which fails the run:
    packed run):
    * ``seg_sum_sorted`` at every shape the compact multiply-first, the
      packed, the union and the plain RGAT steps give it, on one card and
-     on rank 0's shard of each data-parallel run, plus edge cases;
+     on rank 0's shard of each data-parallel run (the boundary halo's
+     exchange backward included), plus edge cases, among them a hub row
+     of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
+     without perm, each launched twice and compared bit for bit;
    * ``seg_max_sorted`` bit for bit at every shape the stable="max" steps
-     give it (packed at 0.2, plain at 0.1), plus edge cases;
+     give it (packed at 0.2, plain at 0.1), plus edge cases, among them a
+     hub row with a NaN and a +inf in different workers' chunks;
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
      the union steps give it, and the data-parallel runs give rank 0's
      shard, at the general segment-matmul shapes (Hx = 1, K = O = 64, S =
@@ -35,7 +39,8 @@ Phases, each of which fails the run:
    classes, f32, TF32 off, dropout 0), each once through the kernels and
    once through their plain versions from the same seeded parameters,
    with finite losses, per-step agreement and every kernel's launch
-   count: five steps of the compact multiply-first and the plain
+   count (the trainer's ``WARMUP`` untimed steps counted with the timed
+   ones): five timed steps of the compact multiply-first and the plain
    (per-edge) branch (clip softmax), and of this slice's path, compact
    multiply-first with stable="max" at scale 0.2 (losses that fall;
    every dual-list compact multiply-first run takes the packed form,
@@ -43,7 +48,9 @@ Phases, each of which fails the run:
    plain multiply-first, the compact, both union-list compact branches
    and plain stable="max"; then the slice's path at the published size
    (scale 1.0, 21.1M edges), three steps through the kernels, with its
-   step time, edges/s and peak device memory;
+   step time, edges/s and peak device memory, after the segment sum and
+   max at every shape of its step, against their plain versions and
+   timed beside their bounds;
 5. data-parallel training: the graph split into P = 2 destination-range
    shards (balanced on edges), two ranks spawned as processes on cuda:0
    over gloo, five steps of compact multiply-first (halo "auto") and two
@@ -66,6 +73,10 @@ import time
 # the training configuration (het_tpu's widths, 2 layers)
 HEADS, IN_FEAT, HIDDEN, CLASSES, LAYERS = 4, 64, 64, 8, 2
 STEPS, SHORT_STEPS = 5, 2
+# the trainer's untimed Adam steps before the timed ones (het_tpu's
+# warm-up; its default is 5): a training run launches every kernel
+# (WARMUP + steps) times its launches a step
+WARMUP = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TOL_RTOL = 1e-5  # f32 sums in another order
@@ -139,14 +150,15 @@ MM_TOL = 1e-5
 # adds two attention-vector dWs.  Segment sums: the compact branches 3 in
 # layer 0 (the two compact-gather backwards need an input gradient) and 5
 # in layer 1; the plain branch 1 in layer 0 (the edge-gather backwards
-# need one too) and 3 in layer 1.
+# need one too) and 3 in layer 1, plus, with the boundary halo, one for
+# layer 1's exchange backward (layer 0 exchanges the fixed features).
 P = 2
 DP_RUNS = {
     "dp_compact_multiply_first": (True, True, STEPS, "auto", dict(
         seg_sum_sorted=8, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=4)),
     "dp_plain": (False, False, SHORT_STEPS, "boundary", dict(
-        seg_sum_sorted=4, segment_matmul_fwd=4, segment_matmul_dx=2,
+        seg_sum_sorted=5, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=8)),
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
@@ -217,7 +229,9 @@ def _seg_sum_shapes(g, compact, first_input_grad):
     the plain ones on ``g``.  Layer 0's gather backwards run only where
     its input needs a gradient: the learned embeddings of a single-card
     run, not the fixed features of a data-parallel one.  A union-list
-    graph has one compact gather a layer (one projection)."""
+    graph has one compact gather a layer (one projection).  A shard with
+    the boundary halo adds the exchange's backward where the layer's input
+    needs a gradient."""
     S, D = g.compact_src, g.compact_dst
     E = g.edge_rel_seg
     EP = g.num_padded_edges
@@ -251,7 +265,23 @@ def _seg_sum_shapes(g, compact, first_input_grad):
                 (f"l{layer} bwd dst edge gather", E.n_rows, dims[layer],
                  g.in_row_ptr, E.inv),
             ]
+        if gathers and g.halo_back_ptr is not None:
+            shapes.append((f"l{layer} bwd halo exchange",
+                           g.halo_back_perm.numel(), dims[layer],
+                           g.halo_back_ptr, g.halo_back_perm))
     return shapes
+
+
+def _hub_ptr(dev, hub=100_000, short=20_000, at=1, seed=0):
+    """A row pointer with one hub row (row ``at``, ``hub`` edges) among
+    ``short`` rows of 1-3 edges, starting at 7 (nonzero ptr[0])."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, 4, (short,), generator=gen)
+    lengths[at] = hub
+    ptr = torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)])
+    return (ptr + 7).to(torch.int32).to(dev)
 
 
 def _seg_sum_edge_cases(dev):
@@ -259,6 +289,9 @@ def _seg_sum_edge_cases(dev):
 
     i32 = dict(dtype=torch.int32, device=dev)
     perm = torch.randperm(40, device=dev).to(torch.int32)
+    hub = _hub_ptr(dev)
+    rows = int(hub[-1]) + 11
+    hub_perm = torch.randperm(rows, device=dev).to(torch.int32)
     return [
         ("empty segments", 40, 12, torch.tensor([0, 0, 5, 5, 12, 30, 30],
                                                 **i32), None),
@@ -268,7 +301,9 @@ def _seg_sum_edge_cases(dev):
         ("C=3 scalar loads", 40, 3, torch.tensor([0, 9, 40], **i32), None),
         ("perm, padding past ptr[n]", 40, 4,
          torch.tensor([0, 4, 9, 20], **i32), perm),
-    ]
+    ] + [(f"hub row of 100000 among 1-3 edge rows, C={C}"
+          + (", perm" if p is not None else ""), rows, C, hub, p)
+         for C in (4, 12, 68) for p in (None, hub_perm)]
 
 
 def _compare_seg_sum(vals, ptr, perm, label):
@@ -289,23 +324,91 @@ def _compare_seg_sum(vals, ptr, perm, label):
     return (got - want).abs().max().item() if want.numel() else 0.0
 
 
-def check_seg_sum(graphs, dev, flush):
-    """Kernel against plain at every shape of a step of each run in
-    ``graphs`` (run -> graph on the card; rank 0's shard for a
-    data-parallel run), and at the edge cases; per-shape times.  Returns
-    the kernel's JSON entry: per-step totals of the slice's path, and of
-    every run under ``per_run``."""
+def _entry_totals(totals, run):
+    t = totals[run]
+    return dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by="bytes" if t["bytes_ms"] >= t["ops_ms"]
+                else "operations", library_ms=t["library_ms"])
+
+
+def seg_sum_run_table(run, shapes, dev, flush, gen):
+    """Kernel against plain, timed beside its bound, the plain version and
+    ``torch.segment_reduce``, at each of ``shapes`` (``_seg_sum_shapes``)
+    of one run.  Returns the per-step totals and the largest |error|."""
     import torch
     from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
 
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 bytes_ms=0.0, ops_ms=0.0)
+    max_err = 0.0
+    print(f"[{run}] shape | n | rows read | C | perm | kernel ms | "
+          "bound ms | plain ms | segment_reduce ms")
+    for label, rows, C, ptr, perm in shapes:
+        vals = torch.randn(rows, C, device=dev, generator=gen)
+        max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label))
+        n = ptr.numel() - 1
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        read = hi - lo
+        nbytes = (read * C * 4 + (4 * read if perm is not None else 0)
+                  + (n + 1) * 4 + n * C * 4)
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = read * C / F32_FLOP_PER_S
+        bound = max(bytes_s, ops_s)
+        ms = _time_ms(lambda: seg_sum_sorted(vals, ptr, perm), 20, flush)
+        plain = _time_ms(lambda: seg_sum_sorted_plain(vals, ptr, perm), 5,
+                         flush)
+        off64 = ptr.long()
+        idx = (perm[lo:hi].long() if perm is not None
+               else torch.arange(lo, hi, device=dev))
+
+        def library():
+            # the yardstick: one PyTorch segment reduction over the rows
+            # the kernel reads (the port never calls it)
+            return torch.segment_reduce(vals[idx], "sum", offsets=off64 - lo)
+
+        # the yardstick computes the same sums (f32 in its own order; a
+        # row such as a halo's padding row gathers thousands of terms)
+        want = seg_sum_sorted_plain(vals, ptr, perm)
+        torch.testing.assert_close(
+            library(), want, rtol=1e-4,
+            atol=1e-4 * max(want.abs().max().item(), 1e-30))
+        del want
+        lib = _time_ms(library, 5, flush)
+        print(f"{label} | {n} | {read} | {C} | {perm is not None} | "
+              f"{ms:.4f} | {bound * 1e3:.4f} | {plain:.4f} | {lib:.4f}")
+        for key, v in (("ms", ms), ("plain_ms", plain),
+                       ("bound_ms", bound * 1e3), ("library_ms", lib),
+                       ("bytes_ms", bytes_s * 1e3), ("ops_ms", ops_s * 1e3)):
+            total[key] += v
+        del vals, idx
+    print(f"[{run}] per-step totals (ms):", json.dumps(total))
+    return total, max_err
+
+
+def check_seg_sum(graphs, dev, flush):
+    """Kernel against plain at every shape of a step of each run in
+    ``graphs`` (run -> graph on the card; rank 0's shard for a
+    data-parallel run), and at the edge cases (each also launched twice,
+    bit for bit); per-shape times.  Returns the kernel's JSON entry:
+    per-step totals of the slice's path, and of every run under
+    ``per_run``."""
+    import torch
+    from het_tpu_torch.ops.kernels import seg_sum_sorted
+
     print(f"seg_sum_sorted vs plain tolerance: rtol {TOL_RTOL}, "
-          f"atol {TOL_RTOL} * max|plain|")
+          f"atol {TOL_RTOL} * max|plain|; edge cases twice, bit for bit")
     gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
     for label, rows, C, ptr, perm in _seg_sum_edge_cases(dev):
         vals = torch.randn(rows, C, device=dev, generator=gen)
-        if perm is not None:  # rows past ptr[n] must never be read
-            vals[perm[int(ptr[-1]):].long()] = float("nan")
-        _compare_seg_sum(vals, ptr, perm, label)
+        # rows outside [ptr[0], ptr[n]) must never be read
+        order = (perm.long() if perm is not None
+                 else torch.arange(rows, device=dev))
+        vals[order[:int(ptr[0])]] = float("nan")
+        vals[order[int(ptr[-1]):]] = float("nan")
+        max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label))
+        _compare_exact(seg_sum_sorted(vals, ptr, perm),
+                       seg_sum_sorted(vals, ptr, perm), f"{label} (repeat)")
         print(f"seg_sum edge case ok: {label}")
 
     runs = {run: _seg_sum_shapes(g, _is_compact(run), run in RUNS)
@@ -313,49 +416,9 @@ def check_seg_sum(graphs, dev, flush):
     _check_shape_count("seg_sum_sorted",
                        {run: len(shapes) for run, shapes in runs.items()})
     totals = {}
-    max_err = 0.0
     for run, shapes in runs.items():
-        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                     bytes_ms=0.0, ops_ms=0.0)
-        print(f"[{run}] shape | n | rows read | C | perm | kernel ms | "
-              "bound ms | plain ms | segment_reduce ms")
-        for label, rows, C, ptr, perm in shapes:
-            vals = torch.randn(rows, C, device=dev, generator=gen)
-            max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label))
-            n = ptr.numel() - 1
-            lo, hi = int(ptr[0]), int(ptr[-1])
-            read = hi - lo
-            nbytes = (read * C * 4 + (4 * read if perm is not None else 0)
-                      + (n + 1) * 4 + n * C * 4)
-            bytes_s = nbytes / HBM_BYTES_PER_S
-            ops_s = read * C / F32_FLOP_PER_S
-            bound = max(bytes_s, ops_s)
-            ms = _time_ms(lambda: seg_sum_sorted(vals, ptr, perm), 20, flush)
-            plain = _time_ms(lambda: seg_sum_sorted_plain(vals, ptr, perm), 5,
-                             flush)
-            off64 = ptr.long()
-            idx = (perm[lo:hi].long() if perm is not None
-                   else torch.arange(lo, hi, device=dev))
-
-            def library():
-                # the yardstick: one PyTorch segment reduction over the
-                # rows the kernel reads (the port never calls it)
-                return torch.segment_reduce(vals[idx], "sum",
-                                            offsets=off64 - lo)
-
-            torch.testing.assert_close(library(), seg_sum_sorted_plain(
-                vals, ptr, perm), rtol=1e-4, atol=1e-4)
-            lib = _time_ms(library, 5, flush)
-            print(f"{label} | {n} | {read} | {C} | {perm is not None} | "
-                  f"{ms:.4f} | {bound * 1e3:.4f} | {plain:.4f} | {lib:.4f}")
-            for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("bound_ms", bound * 1e3), ("library_ms", lib),
-                           ("bytes_ms", bytes_s * 1e3),
-                           ("ops_ms", ops_s * 1e3)):
-                total[key] += v
-        print(f"[{run}] per-step totals (ms):", json.dumps(total))
-        totals[run] = total
-    t = totals[SLICE_MAIN]
+        totals[run], err = seg_sum_run_table(run, shapes, dev, flush, gen)
+        max_err = max(max_err, err)
     return {
         "name": "seg_sum_sorted",
         "route": "cuda",
@@ -363,11 +426,7 @@ def check_seg_sum(graphs, dev, flush):
         "replaces": "het_tpu/ops/pallas/seg_reduce.py:360",
         "launches": None,  # filled from the training run
         "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-        "library_ms": t["library_ms"],
+        **_entry_totals(totals, SLICE_MAIN),
         "per_run": totals,
     }
 
@@ -387,6 +446,7 @@ def _seg_max_edge_cases(dev):
     import torch
 
     i32 = dict(dtype=torch.int32, device=dev)
+    hub = _hub_ptr(dev, seed=1)
     return [
         ("empty segments", 40, 4, torch.tensor([0, 0, 5, 5, 12, 30, 30],
                                                 **i32), "normal"),
@@ -398,10 +458,12 @@ def _seg_max_edge_cases(dev):
         ("C=1", 40, 1, torch.tensor([0, 9, 9, 40], **i32), "normal"),
         ("C=8", 40, 8, torch.tensor([0, 9, 9, 40], **i32), "normal"),
         ("n=0", 40, 4, torch.tensor([7], **i32), "normal"),
+        ("hub row of 100000, NaN and +inf in other workers' chunks",
+         int(hub[-1]) + 11, 4, hub, "hub"),
     ]
 
 
-def _max_values(rows, C, kind, dev, gen):
+def _max_values(rows, C, kind, dev, gen, ptr):
     import torch
 
     vals = torch.randn(rows, C, device=dev, generator=gen)
@@ -412,6 +474,13 @@ def _max_values(rows, C, kind, dev, gen):
         vals[hit < 0.05] = float("inf")
         vals[hit > 0.9] = float("-inf")
         vals[(hit > 0.5) & (hit < 0.51)] = float("nan")
+    elif kind == "hub":  # row 1 of ``_hub_ptr`` is the hub
+        h = int(ptr[1])
+        vals[h + 1000, 0] = float("nan")
+        vals[h + 90_000, C - 1] = float("inf")
+        vals[h + 50_000, 1] = float("-inf")
+        vals[:int(ptr[0])] = float("nan")  # never read
+        vals[int(ptr[-1]):] = float("nan")
     return vals
 
 
@@ -433,12 +502,63 @@ def _compare_exact(got, want, label):
     return diff
 
 
+def seg_max_run_table(run, shapes, dev, flush, gen):
+    """Kernel against plain, bit for bit, timed beside its bound, the
+    plain version and ``torch.segment_reduce(..., "max")``, at each of
+    ``shapes`` (``_seg_max_shapes``) of one run.  Returns the per-step
+    totals and the largest |error| (0)."""
+    import torch
+    from het_tpu_torch.ops.kernels import seg_max_sorted, seg_max_sorted_plain
+
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 bytes_ms=0.0, ops_ms=0.0)
+    max_err = 0.0
+    print(f"[{run}] shape | n | rows read | C | kernel ms | bound ms | "
+          "plain ms | segment_reduce ms")
+    for label, rows, C, ptr in shapes:
+        vals = torch.randn(rows, C, device=dev, generator=gen)
+        max_err = max(max_err, _compare_exact(
+            seg_max_sorted(vals, ptr), seg_max_sorted_plain(vals, ptr),
+            label))
+        n = ptr.numel() - 1
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        read = hi - lo
+        nbytes = read * C * 4 + (n + 1) * 4 + n * C * 4
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = read * C / F32_FLOP_PER_S
+        bound = max(bytes_s, ops_s)
+        ms = _time_ms(lambda: seg_max_sorted(vals, ptr), 20, flush)
+        plain = _time_ms(lambda: seg_max_sorted_plain(vals, ptr), 5, flush)
+        lengths = (ptr[1:] - ptr[:-1]).long()
+        window = vals[lo:hi]
+
+        def library():
+            # the yardstick: one PyTorch segment max over the rows the
+            # kernel reads (the port never calls it); empty segments
+            # come out as -inf there, mapped to 0 only for the check
+            return torch.segment_reduce(window, "max", lengths=lengths)
+
+        lib_out = library()
+        torch.testing.assert_close(
+            torch.where(torch.isfinite(lib_out), lib_out, 0.0),
+            seg_max_sorted_plain(vals, ptr), rtol=0, atol=0)
+        lib = _time_ms(library, 5, flush)
+        print(f"{label} | {n} | {read} | {C} | {ms:.4f} | "
+              f"{bound * 1e3:.4f} | {plain:.4f} | {lib:.4f}")
+        for key, v in (("ms", ms), ("plain_ms", plain),
+                       ("bound_ms", bound * 1e3), ("library_ms", lib),
+                       ("bytes_ms", bytes_s * 1e3), ("ops_ms", ops_s * 1e3)):
+            total[key] += v
+        del vals, window, lib_out
+    print(f"[{run}] seg_max_sorted per-step totals (ms):", json.dumps(total))
+    return total, max_err
+
+
 def check_seg_max(graphs, dev, flush):
     """Kernel against plain, bit for bit, at every shape of a step of the
     stable="max" runs (``graphs``: run -> graph on the card) and at the
-    edge cases; per-shape times beside the bytes bound, the plain version
-    and ``torch.segment_reduce(..., "max")``.  Returns the kernel's JSON
-    entry: per-step totals of the slice's path, and of every run under
+    edge cases; per-shape times.  Returns the kernel's JSON entry:
+    per-step totals of the slice's path, and of every run under
     ``per_run``."""
     import torch
     from het_tpu_torch.ops.kernels import seg_max_sorted, seg_max_sorted_plain
@@ -447,7 +567,7 @@ def check_seg_max(graphs, dev, flush):
     gen = torch.Generator(device=dev).manual_seed(4)
     max_err = 0.0
     for label, rows, C, ptr, kind in _seg_max_edge_cases(dev):
-        vals = _max_values(rows, C, kind, dev, gen)
+        vals = _max_values(rows, C, kind, dev, gen, ptr)
         max_err = max(max_err, _compare_exact(
             seg_max_sorted(vals, ptr), seg_max_sorted_plain(vals, ptr),
             label))
@@ -457,50 +577,8 @@ def check_seg_max(graphs, dev, flush):
                        {run: len(shapes) for run, shapes in runs.items()})
     totals = {}
     for run, shapes in runs.items():
-        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                     bytes_ms=0.0, ops_ms=0.0)
-        print(f"[{run}] shape | n | rows read | C | kernel ms | bound ms | "
-              "plain ms | segment_reduce ms")
-        for label, rows, C, ptr in shapes:
-            vals = torch.randn(rows, C, device=dev, generator=gen)
-            max_err = max(max_err, _compare_exact(
-                seg_max_sorted(vals, ptr), seg_max_sorted_plain(vals, ptr),
-                label))
-            n = ptr.numel() - 1
-            lo, hi = int(ptr[0]), int(ptr[-1])
-            read = hi - lo
-            nbytes = read * C * 4 + (n + 1) * 4 + n * C * 4
-            bytes_s = nbytes / HBM_BYTES_PER_S
-            ops_s = read * C / F32_FLOP_PER_S
-            bound = max(bytes_s, ops_s)
-            ms = _time_ms(lambda: seg_max_sorted(vals, ptr), 20, flush)
-            plain = _time_ms(lambda: seg_max_sorted_plain(vals, ptr), 5,
-                             flush)
-            lengths = (ptr[1:] - ptr[:-1]).long()
-            window = vals[lo:hi]
-
-            def library():
-                # the yardstick: one PyTorch segment max over the rows the
-                # kernel reads (the port never calls it); empty segments
-                # come out as -inf there, mapped to 0 only for the check
-                return torch.segment_reduce(window, "max", lengths=lengths)
-
-            lib_out = library()
-            torch.testing.assert_close(
-                torch.where(torch.isfinite(lib_out), lib_out, 0.0),
-                seg_max_sorted_plain(vals, ptr), rtol=0, atol=0)
-            lib = _time_ms(library, 5, flush)
-            print(f"{label} | {n} | {read} | {C} | {ms:.4f} | "
-                  f"{bound * 1e3:.4f} | {plain:.4f} | {lib:.4f}")
-            for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("bound_ms", bound * 1e3), ("library_ms", lib),
-                           ("bytes_ms", bytes_s * 1e3),
-                           ("ops_ms", ops_s * 1e3)):
-                total[key] += v
-        print(f"[{run}] seg_max_sorted per-step totals (ms):",
-              json.dumps(total))
-        totals[run] = total
-    t = totals[SLICE_MAIN]
+        totals[run], err = seg_max_run_table(run, shapes, dev, flush, gen)
+        max_err = max(max_err, err)
     return {
         "name": "seg_max_sorted",
         "route": "cuda",
@@ -508,11 +586,7 @@ def check_seg_max(graphs, dev, flush):
         "replaces": "het_tpu/ops/pallas/seg_reduce.py:284",
         "launches": None,  # filled from the training run
         "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-        "library_ms": t["library_ms"],
+        **_entry_totals(totals, SLICE_MAIN),
         "per_run": totals,
     }
 
@@ -1256,7 +1330,8 @@ class _PackedCalls:
 
 
 def _config(r, dev, steps):
-    """The trainer's configuration of run ``r`` (a ``RUNS`` value)."""
+    """The trainer's configuration of run ``r`` (a ``RUNS`` value):
+    ``WARMUP`` untimed steps, then ``steps`` timed ones."""
     from het_tpu_torch.train import TrainConfig
 
     return TrainConfig(
@@ -1265,7 +1340,7 @@ def _config(r, dev, steps):
         num_heads=HEADS, num_layers=LAYERS, compact=r["compact"],
         compact_union=r["union"], multiply_first=r["multiply_first"],
         dropout=0.0, stable_softmax=r["stable"], num_epochs=steps,
-        device=str(dev),
+        warmup_epochs=WARMUP, device=str(dev),
     )
 
 
@@ -1278,8 +1353,8 @@ def _check_losses(run, impl, losses, steps, falling):
 
 def _check_packed(run, r, calls, steps):
     """Dual-list compact multiply-first (``r`` a ``RUNS`` value) took the
-    packed form on every layer of every step; any other branch never
-    took it."""
+    packed form on every layer of every step (``steps`` counting the
+    warm-up); any other branch never took it."""
     packed = r["compact"] and r["multiply_first"] and not r["union"]
     want = LAYERS * steps if packed else 0
     if calls != want:
@@ -1307,7 +1382,7 @@ def check_training(data, dev, card, run):
                       log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
         m["launches"] = kernels.launch_counts()
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        _check_packed(run, RUNS[run], packed.calls, steps)
+        _check_packed(run, RUNS[run], packed.calls, WARMUP + steps)
         runs[impl] = m
     k, p = runs["kernel"], runs["plain"]
     for impl, m in runs.items():
@@ -1317,7 +1392,8 @@ def check_training(data, dev, card, run):
             raise AssertionError(
                 f"{run} step {step}: kernel loss {a} vs plain {b} "
                 f"(rtol {TRAIN_RTOL})")
-    want = {k: per_step.get(k, 0) * steps for k in kernels.KERNELS}
+    want = {k: per_step.get(k, 0) * (WARMUP + steps)
+            for k in kernels.KERNELS}
     if k["launches"] != want:
         raise AssertionError(f"{run}: kernel run launched {k['launches']},"
                              f" expected {want}")
@@ -1342,7 +1418,9 @@ def check_full_scale(dev, card):
     synthetic ogbn-mag at FULL_SCALE, FULL_STEPS steps through the kernels
     only: finite losses, the last below the first, the packed form and
     the slice's launches a step; prints the step time, edges/s and the
-    peak device memory.  Returns the launches."""
+    peak device memory.  First the segment sum and max at every shape of
+    a step there, each against its plain version, timed beside its bound.
+    Returns the launches and those two per-step totals."""
     import gc
 
     import torch
@@ -1355,6 +1433,17 @@ def check_full_scale(dev, card):
                         seed=0, data_roots=())
     print(f"[{FULL}] graph built in {time.perf_counter() - t0:.1f} s: "
           f"{data.graph.describe()}")
+    g = data.graph.to(dev)
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    totals = {
+        "seg_sum_sorted": seg_sum_run_table(
+            FULL, _seg_sum_shapes(g, True, True), dev, flush, gen)[0],
+        "seg_max_sorted": seg_max_run_table(
+            FULL, _seg_max_shapes(g), dev, flush, gen)[0],
+    }
+    del g, flush
+    torch.cuda.empty_cache()
     cfg = _config(dict(RUNS[SLICE_MAIN], scale=FULL_SCALE), dev, FULL_STEPS)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
@@ -1362,10 +1451,11 @@ def check_full_scale(dev, card):
         m = train(cfg, data, log=lambda s: print(f"[{FULL} kernel] {s}"))
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    _check_packed(FULL, RUNS[SLICE_MAIN], packed.calls, FULL_STEPS)
+    _check_packed(FULL, RUNS[SLICE_MAIN], packed.calls, WARMUP + FULL_STEPS)
     _check_losses(FULL, "kernel", m["loss_list"], FULL_STEPS, True)
     per_step = RUNS[SLICE_MAIN]["launches"]
-    want = {k: per_step.get(k, 0) * FULL_STEPS for k in kernels.KERNELS}
+    want = {k: per_step.get(k, 0) * (WARMUP + FULL_STEPS)
+            for k in kernels.KERNELS}
     if launches != want:
         raise AssertionError(f"{FULL}: launched {launches}, expected {want}")
     E = data.graph.num_edges
@@ -1377,7 +1467,7 @@ def check_full_scale(dev, card):
     del data, m
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, totals
 
 
 def main() -> int:
@@ -1453,10 +1543,12 @@ def main() -> int:
     for key in list(datasets):  # host memory for the full-scale graph
         if key != (SCALE, False):
             del datasets[key]
-    launches[FULL] = check_full_scale(dev, card)
+    launches[FULL], full_totals = check_full_scale(dev, card)
     launches.update(check_dp(data, parts, dev, card))
     for entry in entries:
         kernel = entry["name"]
+        if kernel in full_totals:
+            entry["per_run"][FULL] = full_totals[kernel]
         # each kernel's launches on its own main path: this slice's path
         # for the segment sum and max, the single-card plain RGAT for
         # the dW, the data-parallel run for the forward and dX, whose only

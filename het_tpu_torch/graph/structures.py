@@ -131,6 +131,12 @@ class HeteroGraph:
     # (n_parts, B_off); both local row ids, None without the exchange
     halo_self_idx: Optional[torch.Tensor] = None
     halo_send_idx: Optional[torch.Tensor] = None
+    # port only: the exchange's backward as one sorted segment sum of the
+    # buffer's cotangent rows [own | returned from each peer] into the
+    # local rows: slots stably sorted by local row (B_self + n_parts *
+    # B_off,) and the row pointer over them (num_nodes + 1,)
+    halo_back_perm: Optional[torch.Tensor] = None
+    halo_back_ptr: Optional[torch.Tensor] = None
     # True when compact_src and compact_dst are two views of one union-list
     # row space (unique (relation, node) over sources and destinations
     # together, the reference's default compact kind): one projection a

@@ -39,7 +39,9 @@ from . import _dispatch
 def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
                          perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: segment ids by ``repeat_interleave``, then
-    ``index_add_`` in f32."""
+    ``index_add_`` in f64, rounded to f32 once: on the card the adds are
+    atomic, in no fixed order, and a hub row of 10^5 edges summed so in
+    f32 strays further from the exact sum than the kernel's limit."""
     n = row_ptr.numel() - 1
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
@@ -49,9 +51,10 @@ def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
     idx = torch.arange(lo, hi, device=vals.device)
     if perm is not None:
         idx = perm[lo:hi].long()
-    out = torch.zeros(n, vals.shape[1], dtype=torch.float32,
+    out = torch.zeros(n, vals.shape[1], dtype=torch.float64,
                       device=vals.device)
-    return out.index_add_(0, seg, vals.index_select(0, idx).float())
+    out.index_add_(0, seg, vals.index_select(0, idx).double())
+    return out.float()
 
 
 def seg_max_sorted_plain(vals: torch.Tensor,
@@ -98,40 +101,64 @@ def _check(vals, row_ptr, perm):
         raise ValueError("row_ptr needs at least one entry")
 
 
-def _seg_sum_sorted_cuda(vals, row_ptr, perm):
-    fn = _dispatch.bind("seg_reduce", "het_seg_sum_sorted_f32", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+def split_len(C: int) -> int:
+    """Edges a task of the kernel walks at most (see its header): rows
+    longer than this are split over helper tasks.  Narrow rows have fewer
+    lanes a task, so they take shorter pieces; wider ones longer pieces
+    and fewer helpers."""
+    return 64 if C <= 4 else 128 if C <= 16 else 256
+
+
+def split_helpers(rows_bound: int, L: int) -> int:
+    """Helper tasks for at most ``rows_bound`` edges (vals' rows, or
+    perm's length) split at the multiples of ``L``: one a multiple below
+    the bound, known without reading the row pointer's end back from the
+    card; helpers past the real edges record no partial."""
+    return max(1, -(-rows_bound // L))
+
+
+def _seg_reduce_cuda(symbol, what, vals, row_ptr, perm):
+    """Launch ``symbol`` (the sum or the max) with its scratch: a row id
+    and a (C,) partial a helper.  Returns the output."""
+    args = [ctypes.c_void_p, ctypes.c_void_p] + (
+        [ctypes.c_void_p] if what == "seg_sum_sorted" else [])
+    fn = _dispatch.bind("seg_reduce", symbol, args + [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     n = row_ptr.numel() - 1
     C = vals.shape[1]
     out = torch.empty(n, C, dtype=torch.float32, device=vals.device)
     if n == 0 or C == 0:
         return out
+    L = split_len(C)
+    helpers = split_helpers(perm.numel() if perm is not None
+                            else vals.shape[0], L)
+    carry_row = torch.empty(helpers, dtype=torch.int32, device=vals.device)
+    carry = torch.empty(helpers, C, dtype=torch.float32, device=vals.device)
+    ptrs = [vals.data_ptr(), row_ptr.data_ptr()]
+    if what == "seg_sum_sorted":
+        ptrs.append(perm.data_ptr() if perm is not None else None)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = fn(vals.data_ptr(), row_ptr.data_ptr(),
-                 perm.data_ptr() if perm is not None else None,
-                 out.data_ptr(), n, C, stream)
-    _dispatch.check_launch("seg_reduce", err, "seg_sum_sorted")
-    seg_sum_sorted.launches += 1
+        err = fn(*ptrs, out.data_ptr(), n, C, L, helpers,
+                 carry_row.data_ptr(), carry.data_ptr(), stream)
+    _dispatch.check_launch("seg_reduce", err, what)
+    return out
+
+
+def _seg_sum_sorted_cuda(vals, row_ptr, perm):
+    out = _seg_reduce_cuda("het_seg_sum_sorted_f32", "seg_sum_sorted", vals,
+                           row_ptr, perm)
+    if out.numel():
+        seg_sum_sorted.launches += 1
     return out
 
 
 def _seg_max_sorted_cuda(vals, row_ptr):
-    fn = _dispatch.bind("seg_reduce", "het_seg_max_sorted_f32", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_void_p])
-    n = row_ptr.numel() - 1
-    C = vals.shape[1]
-    out = torch.empty(n, C, dtype=torch.float32, device=vals.device)
-    if n == 0 or C == 0:
-        return out
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = fn(vals.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, C,
-                 stream)
-    _dispatch.check_launch("seg_reduce", err, "seg_max_sorted")
-    seg_max_sorted.launches += 1
+    out = _seg_reduce_cuda("het_seg_max_sorted_f32", "seg_max_sorted", vals,
+                           row_ptr, None)
+    if out.numel():
+        seg_max_sorted.launches += 1
     return out
 
 

@@ -4,4 +4,5 @@ the halo exchanges, ``DPGNN`` and its training step."""
 from .dp import (DPGNN, halo_bytes, halo_exchange,  # noqa: F401
                  halo_gather, masked_nll, setup_rank, sum_grads, train_dp,
                  train_full)
-from .partition import PartitionInfo, partition_by_dst  # noqa: F401
+from .partition import (PartitionInfo, halo_back_index,  # noqa: F401
+                        partition_by_dst)

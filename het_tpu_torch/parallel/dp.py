@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import seg_sum_sorted
 from ..train.loop import train_steps
 from ..utils.misc import resolve_device
 
@@ -92,39 +93,43 @@ class _HaloExchange(torch.autograd.Function):
     """``[own rows | rows received from each rank]``: the own rows by a
     local gather, the rest by an all-to-all of the rows each peer needs.
     The backward sends each received block's cotangent back (the same
-    all-to-all) and adds it, and the own rows' cotangent, into the local
-    rows (``index_add_``: the JAX package leaves this scatter to XLA)."""
+    all-to-all) and sums the buffer's cotangent rows into the local rows
+    with one sorted segment sum over the shard's ``halo_back_ptr`` /
+    ``halo_back_perm`` (the JAX package leaves this scatter to XLA): in a
+    fixed order, without atomics, where a row sent to several peers
+    returns several cotangents."""
 
     @staticmethod
-    def forward(ctx, h_local, self_idx, send_idx):
-        ctx.n = h_local.shape[0]
-        ctx.save_for_backward(self_idx, send_idx)
-        own = h_local.index_select(0, self_idx)
-        send = h_local.index_select(0, send_idx.reshape(-1))
+    def forward(ctx, h_local, shard, impl):
+        ctx.shard, ctx.impl = shard, impl
+        own = h_local.index_select(0, shard.halo_self_idx)
+        send = h_local.index_select(0, shard.halo_send_idx.reshape(-1))
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send)
         return torch.cat([own, recv], dim=0)
 
     @staticmethod
     def backward(ctx, ct):
-        self_idx, send_idx = ctx.saved_tensors
-        b_self = self_idx.shape[0]
+        shard = ctx.shard
+        b_self = shard.halo_self_idx.shape[0]
         back = torch.empty_like(ct[b_self:])
         dist.all_to_all_single(back, ct[b_self:].contiguous())
-        dx = ct.new_zeros((ctx.n,) + ct.shape[1:])
-        dx.index_add_(0, self_idx, ct[:b_self])
-        dx.index_add_(0, send_idx.reshape(-1), back)
-        return dx, None, None
+        slots = torch.cat([ct[:b_self], back])
+        dx = seg_sum_sorted(slots.reshape(slots.shape[0], -1),
+                            shard.halo_back_ptr, shard.halo_back_perm,
+                            impl=ctx.impl)
+        return dx.reshape((dx.shape[0],) + ct.shape[1:]), None, None
 
 
-def halo_exchange(h_local: torch.Tensor, shard) -> torch.Tensor:
+def halo_exchange(h_local: torch.Tensor, shard, *,
+                  impl: str = "kernel") -> torch.Tensor:
     """Boundary-only source exchange for a shard partitioned with
     ``halo="boundary"``: (per, ...) -> (B_self + world * B_off, ...), the
-    buffer its edges index."""
+    buffer its edges index.  ``impl`` picks the backward's segment sum
+    (``ops.kernels``)."""
     if shard.halo_send_idx is None:
         raise ValueError("the shard was partitioned without halo='boundary'")
-    return _HaloExchange.apply(h_local, shard.halo_self_idx,
-                               shard.halo_send_idx)
+    return _HaloExchange.apply(h_local, shard, impl)
 
 
 def halo_bytes(shard, n_parts: int, feat_width: int,
@@ -149,16 +154,17 @@ class DPGNN(nn.Module):
     Takes any layer whose ``forward(g, x, x_dst=...)`` tells source-space
     from destination-space features (``RGATLayer``).  Parameter names are
     ``layers.{i}.*``, those of ``RGATModel``, so one state dict serves a
-    single-process model and its data-parallel twin."""
+    single-process model and its data-parallel twin.  ``impl`` is the
+    layers' (the boundary exchange's backward is a kernel too)."""
 
-    def __init__(self, layers: Sequence[nn.Module]):
+    def __init__(self, layers: Sequence[nn.Module], *, impl: str = "kernel"):
         super().__init__()
         self.layers = nn.ModuleList(layers)
+        self.impl = impl
 
-    @staticmethod
-    def exchange(shard, h: torch.Tensor) -> torch.Tensor:
+    def exchange(self, shard, h: torch.Tensor) -> torch.Tensor:
         if shard.halo_send_idx is not None:
-            return halo_exchange(h, shard)
+            return halo_exchange(h, shard, impl=self.impl)
         return halo_gather(h)
 
     def forward(self, shard, x_loc: torch.Tensor, *,

@@ -59,7 +59,8 @@ def rgat_job_inputs(rank: int, dev: torch.device, job: Dict
     labels = torch.as_tensor(job["labels"][rows]).to(dev)
     model = RGATModel(**job["model"], impl=job["impl"])
     model.load_state_dict(job["state"])
-    return DPGNN(model.layers).to(dev).train(), shard, x_loc, labels
+    return (DPGNN(model.layers, impl=job["impl"]).to(dev).train(), shard,
+            x_loc, labels)
 
 
 def run_rgat_job(rank: int, dev: torch.device, job: Dict) -> Dict:

@@ -31,7 +31,7 @@ import numpy as np
 from ..graph.build import _i32, build_heterograph, round_up
 from ..graph.structures import HeteroGraph
 
-__all__ = ["PartitionInfo", "partition_by_dst"]
+__all__ = ["PartitionInfo", "halo_back_index", "partition_by_dst"]
 
 
 @dataclass(frozen=True)
@@ -78,6 +78,27 @@ class PartitionInfo:
                       dtype=data.dtype)
         out[self.relabel(np.arange(self.num_global_nodes))] = data
         return out
+
+
+def halo_back_index(self_idx: np.ndarray, send_idx: np.ndarray,
+                    num_rows: int, valid=None) -> tuple:
+    """The boundary exchange's backward as a sorted segment sum: the
+    buffer slots ``[self_idx | send_idx rows]`` (each a local row id)
+    stably sorted by local row, and the row pointer over ``num_rows``
+    local rows, both int32 tensors.  ``seg_sum_sorted(ct_slots, ptr,
+    perm)`` then adds every slot's cotangent into its row in slot order,
+    without atomics.  Slots where ``valid`` (flat, slot order) is False,
+    the padding, go past ``ptr[-1]`` and are never read: no edge reads
+    them, so their cotangent is zero, which is all ``index_add_`` added."""
+    rows = np.concatenate([np.asarray(self_idx).ravel(),
+                           np.asarray(send_idx).ravel()]).astype(np.int64)
+    valid = (np.ones(len(rows), bool) if valid is None
+             else np.asarray(valid, bool).ravel())
+    key = np.where(valid, rows, num_rows)  # padding sorts past every row
+    perm = np.argsort(key, kind="stable")
+    ptr = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows[valid], minlength=num_rows), out=ptr[1:])
+    return _i32(ptr), _i32(perm)
 
 
 def _force_size_keys(g: HeteroGraph) -> Dict[str, int]:
@@ -261,13 +282,18 @@ def partition_by_dst(
             return out
 
         for p in range(n_parts):
+            own = _local(p, bl[p][p], b_self)
             send = np.stack([_local(p, bl[p][q] if q != p else bl[p][q][:0],
                                     b_off) for q in range(n_parts)])
+            real = [len(bl[p][p])] + [len(bl[p][q]) if q != p else 0
+                                      for q in range(n_parts)]
+            valid = np.concatenate([
+                np.arange(w) < k
+                for k, w in zip(real, [b_self] + [b_off] * n_parts)])
+            ptr, perm = halo_back_index(own, send, per, valid)
             parts[p] = dataclasses.replace(
-                parts[p],
-                halo_self_idx=_i32(_local(p, bl[p][p], b_self)),
-                halo_send_idx=_i32(send),
-            )
+                parts[p], halo_self_idx=_i32(own), halo_send_idx=_i32(send),
+                halo_back_perm=perm, halo_back_ptr=ptr)
     return _drop_unshared_static(parts), info
 
 

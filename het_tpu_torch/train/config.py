@@ -22,7 +22,11 @@ class TrainConfig:
     num_layers: int = 1
     hidden: int = 64
     lr: float = 1e-2
-    num_epochs: int = 10  # training steps (full-graph: one step an epoch)
+    num_epochs: int = 10  # timed training steps (full-graph: one an epoch)
+    # untimed Adam steps before the timed ones (het_tpu's warm-up, the
+    # reference's 5 epochs); none with --no_warm_up
+    warmup_epochs: int = 5
+    no_warm_up: bool = False
     dropout: float = 0.5
     compact: bool = False  # --compact_as_of_node_flag
     # --compact_union_flag: union-list compact rows (the reference's
@@ -50,6 +54,7 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--num_epochs", "-e", type=int, default=10)
     p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--no_warm_up", action="store_true")
     p.add_argument("--compact_as_of_node_flag", action="store_true",
                    dest="compact")
     p.add_argument("--compact_union_flag", action="store_true",

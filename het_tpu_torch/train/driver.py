@@ -63,12 +63,19 @@ def train(
     state: Optional[Mapping[str, Any]] = None,
     impl: str = "kernel",
     log: Callable[[str], None] = print,
+    net: Optional[NodeClassifier] = None,
 ) -> Dict[str, Any]:
-    """Train ``cfg.num_epochs`` full-graph steps and return the metrics.
+    """Train full-graph: ``cfg.warmup_epochs`` untimed Adam steps (none
+    with ``cfg.no_warm_up``), as het_tpu's trainer takes them, then
+    ``cfg.num_epochs`` timed ones, whose losses and times are returned
+    with the metrics.  The warm-up draws its dropout masks from the same
+    generator, so a run still repeats exactly.
 
     ``state`` (a state dict) replaces the seeded initial parameters;
     ``impl="plain"`` runs every kernel's plain PyTorch version on the card
-    instead of the kernel, to compare the two."""
+    instead of the kernel, to compare the two.  ``net``, where given, is
+    the model trained in place of a new one (``impl`` is then its own), so
+    that the caller holds the final parameters."""
     dev = resolve_device(cfg.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -77,8 +84,9 @@ def train(
                             num_classes=cfg.num_classes, seed=cfg.seed,
                             build_compact=cfg.compact,
                             compact_union=cfg.compact_union)
-    net = build_model(cfg, data, impl=impl,
-                      generator=torch.Generator().manual_seed(cfg.seed))
+    if net is None:
+        net = build_model(cfg, data, impl=impl,
+                          generator=torch.Generator().manual_seed(cfg.seed))
     if state is not None:
         net.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()}
@@ -94,7 +102,8 @@ def train(
         return loss, loss
 
     steps = train_steps(net, step_loss, steps=cfg.num_epochs, lr=cfg.lr,
-                        device=dev, log=log)
+                        device=dev, log=log,
+                        warmup=0 if cfg.no_warm_up else cfg.warmup_epochs)
     return {
         "dataset": data.name,
         "model": cfg.model,

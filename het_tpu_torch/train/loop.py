@@ -19,10 +19,12 @@ def train_steps(
     steps: int,
     lr: float,
     device: torch.device,
+    warmup: int = 0,
     after_backward: Optional[Callable[[], None]] = None,
     log: Optional[Callable[[str], None]] = None,
 ) -> Dict[str, List]:
-    """``steps`` Adam steps on ``module``'s parameters.
+    """``warmup`` untimed Adam steps, then ``steps`` timed ones, on
+    ``module``'s parameters (one optimizer state throughout).
 
     ``step_loss()`` runs the forward and returns ``(local, value)``: the
     tensor to differentiate and the loss to record (the same tensor in one
@@ -32,6 +34,18 @@ def train_steps(
     timer used."""
     opt = torch.optim.Adam(module.parameters(), lr=lr)
     on_card = device.type == "cuda"
+
+    def update():
+        opt.zero_grad(set_to_none=True)
+        local, value = step_loss()
+        local.backward()
+        if after_backward is not None:
+            after_backward()
+        opt.step()
+        return value
+
+    for _ in range(warmup):
+        update()
     losses, step_ms = [], []
     for step in range(steps):
         if on_card:
@@ -40,12 +54,7 @@ def train_steps(
             t0.record()
         else:
             h0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        local, value = step_loss()
-        local.backward()
-        if after_backward is not None:
-            after_backward()
-        opt.step()
+        value = update()
         if on_card:
             t1.record()
             t1.synchronize()

@@ -54,6 +54,50 @@ def test_seg_sum_kernel_matches_plain(cuda, C):
                                    atol=1e-5 * want.abs().max().item())
 
 
+def _hub_rows(dev, C, hub=100_000, seed=0, perm=False):
+    """One hub row of ``hub`` edges among 5000 rows of 1-3 edges, the
+    row pointer starting at 7, NaN rows before it and past its end (the
+    kernel must read neither)."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, 4, (5000,), generator=gen)
+    lengths[1234] = hub
+    ptr = torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)]) + 7
+    rows = int(ptr[-1]) + 11
+    vals = torch.randn(rows, C, generator=gen)
+    order = (torch.randperm(rows, generator=gen) if perm
+             else torch.arange(rows))
+    vals[order[:7]] = float("nan")
+    vals[order[int(ptr[-1]):]] = float("nan")
+    return (vals.to(dev), ptr.to(torch.int32).to(dev),
+            order.to(torch.int32).to(dev) if perm else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perm", [False, True])
+@pytest.mark.parametrize("C", [1, 3, 4, 12, 64, 68, 200])
+def test_seg_sum_kernel_hub_and_short_rows(cuda, C, perm):
+    """A hub row split over many workers and short rows packed into one,
+    with and without perm; rtol 1e-5, atol 1e-5 * max|out|."""
+    vals, ptr, order = _hub_rows(cuda, C, perm=perm)
+    seg_sum_sorted.launches = 0
+    got = seg_sum_sorted(vals, ptr, order)
+    torch.cuda.synchronize()
+    assert seg_sum_sorted.launches == 1
+    want = seg_sum_sorted_plain(vals, ptr, order)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 68])
+def test_seg_sum_kernel_hub_row_is_deterministic(cuda, C):
+    vals, ptr, _ = _hub_rows(cuda, C, hub=300_000, seed=1)
+    a = seg_sum_sorted(vals, ptr)
+    b = seg_sum_sorted(vals, ptr)
+    assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_seg_sum_kernel_is_deterministic(cuda):
     g = random_heterograph(num_nodes=200, num_edges=4000, num_rels=3,
@@ -218,8 +262,27 @@ def test_seg_max_kernel_edge_cases(cuda, ptr):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 4, 12])
+def test_seg_max_kernel_nan_in_another_chunk(cuda, C):
+    """A hub row with a NaN in one worker's chunk and a +inf in another's
+    (both map to 0 only after the partials meet), a -inf that the rest of
+    its column outweighs: bit for bit."""
+    vals, ptr, _ = _hub_rows(cuda, C)
+    hub = int(ptr[1234])
+    vals[hub + 1000, 0] = float("nan")
+    vals[hub + 90_000, C - 1] = float("inf")
+    vals[hub + 50_000] = float("-inf")
+    got = seg_max_sorted(vals, ptr)
+    torch.cuda.synchronize()
+    want = seg_max_sorted_plain(vals, ptr)
+    assert torch.equal(got, want)
+    assert got[1234, 0] == 0 and got[1234, C - 1] == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("view", ["fe_lanes", "transposed", "contiguous",
-                                  "column_slice", "empty"])
+                                  "column_slice", "empty", "odd_rows",
+                                  "odd_3d"])
 def test_force_rowmajor_kernel_equals_plain(cuda, view):
     gen = torch.Generator(device=cuda).manual_seed(1)
     if view == "fe_lanes":  # the feature lanes of a packed (UC, H, 1+D)
@@ -230,6 +293,10 @@ def test_force_rowmajor_kernel_equals_plain(cuda, view):
         x = torch.randn(2000, 33, device=cuda, generator=gen)
     elif view == "column_slice":
         x = torch.randn(999, 70, device=cuda, generator=gen)[:, 3:67]
+    elif view == "odd_rows":  # W % 4 != 0: rows not 16-byte aligned
+        x = torch.randn(1001, 70, device=cuda, generator=gen)[:, 2:9]
+    elif view == "odd_3d":  # W = 3 * 5, total not a multiple of 4
+        x = torch.randn(333, 3, 8, device=cuda, generator=gen)[..., 1:6]
     else:
         x = torch.randn(0, 16, device=cuda)
     force_rowmajor.launches = 0

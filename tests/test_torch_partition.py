@@ -9,28 +9,15 @@ import dataclasses
 import numpy as np
 import jax
 import pytest
+import torch
 
 from het_tpu.graph.build import build_heterograph as j_build
 from het_tpu.parallel import partition_by_dst as j_partition
 from het_tpu_torch.graph.build import build_heterograph as t_build
+from het_tpu_torch.ops.kernels import seg_sum_sorted_plain
+from het_tpu_torch.parallel import halo_back_index
 from het_tpu_torch.parallel import partition_by_dst as t_partition
-
-
-def _assert_same(t_obj, j_obj, where):
-    """Every field of the port's dataclass equals het_tpu's field of the
-    same name (tensors exactly, including dtype; None where None)."""
-    for f in dataclasses.fields(t_obj):
-        tv, jv = getattr(t_obj, f.name), getattr(j_obj, f.name)
-        name = f"{where}.{f.name}"
-        if dataclasses.is_dataclass(tv):
-            _assert_same(tv, jv, name)
-        elif hasattr(tv, "numpy"):
-            jv = np.asarray(jv)
-            tv = tv.numpy()
-            assert tv.dtype == jv.dtype, (name, tv.dtype, jv.dtype)
-            np.testing.assert_array_equal(tv, jv, err_msg=name)
-        else:
-            assert tv == jv, (name, tv, jv)
+from tests.test_torch_graph import _assert_same
 
 
 def _coo(seed=0, n=200, e=900, r=4):
@@ -67,6 +54,20 @@ def test_partition_matches_het_tpu(n_parts, balance, halo, compact):
     boundary = parts[0].halo_send_idx is not None
     assert boundary == (halo == "boundary" or (
         halo == "auto" and parts[0].src_space < info.num_padded_global_nodes))
+    for g in parts:
+        if not boundary:
+            assert g.halo_back_ptr is None and g.halo_back_perm is None
+            continue
+        # every real slot sits in its row's segment, in slot order, and
+        # the rest (padding, all row 0) past the end
+        rows = np.concatenate([g.halo_self_idx.numpy(),
+                               g.halo_send_idx.numpy().ravel()])
+        ptr, perm = g.halo_back_ptr.numpy(), g.halo_back_perm.numpy()
+        assert sorted(perm) == list(range(len(rows)))
+        seg = np.repeat(np.arange(g.num_nodes), np.diff(ptr))
+        assert (rows[perm[:ptr[-1]]] == seg).all()
+        assert (np.diff(perm[:ptr[-1]])[np.diff(seg) == 0] > 0).all()
+        assert (rows[perm[ptr[-1]:]] == 0).all()
     # relation sizes differ between these shards: the offsets move to the
     # device, which is what sends a shard's typed linears to the kernels
     assert parts[0].edge_rel_seg.seg_ptrs_static is None
@@ -116,3 +117,39 @@ def test_partition_rejects_bad_options():
         t_partition(src, dst, rel, n, r, 2, balance="degree")
     with pytest.raises(ValueError, match="halo"):
         t_partition(src, dst, rel, n, r, 2, halo="ring")
+
+
+@pytest.mark.parametrize("mark_padding", [False, True])
+def test_halo_backward_index_sums_every_slot_in_order(mark_padding):
+    """P = 3: local row 3 goes to two peers, row 2 is both an own source
+    and sent, and zero-padded slots point at row 0, either summed there
+    or (marked) never read.  The segment sum over ``halo_back_index``
+    equals a float64 sum of the slots' cotangents (rtol 1e-6), and
+    repeats bit for bit."""
+    n, width = 7, 5
+    self_idx = np.array([0, 2, 5, 0])  # last slot padding
+    send_idx = np.array([[0, 0, 0],  # to itself: padding
+                         [2, 3, 0],  # peer 1, last slot padding
+                         [1, 3, 6]])  # peer 2
+    rows = np.concatenate([self_idx, send_idx.ravel()])
+    pad = np.zeros(len(rows), bool)
+    pad[[3, 4, 5, 6, 9]] = True
+    rng = np.random.default_rng(0)
+    ct = rng.standard_normal((len(rows), width)).astype(np.float32)
+    ct[pad] = 0.0  # no edge reads a padding slot
+    ptr, perm = halo_back_index(self_idx, send_idx, n,
+                                ~pad if mark_padding else None)
+    assert ptr.dtype == perm.dtype == torch.int32
+    # stable: each row's slots in buffer order
+    if mark_padding:
+        assert ptr.tolist() == [0, 1, 2, 4, 6, 6, 7, 8]
+        assert perm.tolist() == [0, 10, 1, 7, 8, 11, 2, 12, 3, 4, 5, 6, 9]
+    else:
+        assert ptr.tolist() == [0, 6, 7, 9, 11, 11, 12, 13]
+        assert perm.tolist() == [0, 3, 4, 5, 6, 9, 10, 1, 7, 8, 11, 2, 12]
+    got = seg_sum_sorted_plain(torch.from_numpy(ct), ptr, perm)
+    want = np.zeros((n, width))
+    np.add.at(want, rows, ct.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    again = seg_sum_sorted_plain(torch.from_numpy(ct), ptr, perm)
+    assert torch.equal(got, again)

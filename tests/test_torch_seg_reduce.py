@@ -22,6 +22,7 @@ from het_tpu_torch.graph import random_heterograph as t_random_heterograph
 from het_tpu_torch.ops.kernels import (force_rowmajor, force_rowmajor_plain,
                                        seg_max_sorted, seg_max_sorted_plain,
                                        seg_sum_sorted, seg_sum_sorted_plain)
+from het_tpu_torch.ops.kernels.seg_reduce import split_helpers, split_len
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -244,3 +245,132 @@ def test_max_and_copy_plain_on_the_cpu_launch_nothing():
         force_rowmajor(torch.zeros(3))
     with pytest.raises((TypeError, ValueError)):
         seg_max_sorted(vals.double(), ptr)
+
+
+# ------------------------------------------- the kernel's split, modelled
+
+
+def _split_model(vals, ptr, perm, L, op, empty, finish):
+    """numpy model of ``csrc/seg_reduce.cu``, task by task: each row's
+    task (its edges up to the first multiple of ``L`` past its start where
+    the row is longer than ``L``, stored raw then), the helpers (edges
+    [h L, (h + 1) L) of a longer row that began before h L, found by a
+    search of the row pointer, left raw in ``carry``) and the combine
+    pass.  The output starts as NaN, as the kernel's does not
+    start at all, so a row nobody stores shows."""
+    ptr = np.asarray(ptr, np.int64)
+    n, lo = len(ptr) - 1, int(ptr[0])
+    m = int(ptr[n]) - lo
+    C = vals.shape[1]
+    helpers = split_helpers(len(perm) if perm is not None else len(vals), L)
+    assert helpers * L >= m
+    out = np.full((n, C), np.nan, np.float32)
+    carry_row = np.full(helpers, -7, np.int64)
+    carry = np.full((helpers, C), np.nan, np.float32)
+
+    def walk(a, b):
+        acc = np.full(C, empty, np.float32)
+        for k in range(a, b):
+            acc = op(acc, vals[perm[lo + k] if perm is not None else lo + k])
+        return acc
+
+    for h in range(helpers):
+        e = h * L
+        carry_row[h] = -1
+        if e >= m:
+            continue
+        r = int(np.searchsorted(ptr[1:] - lo, e, side="right"))
+        start, end = int(ptr[r]) - lo, int(ptr[r + 1]) - lo
+        if end - start > L and e > start:
+            carry_row[h] = r
+            carry[h] = walk(e, min(e + L, end))
+    for r in range(n):
+        start, end = int(ptr[r]) - lo, int(ptr[r + 1]) - lo
+        split = end - start > L
+        acc = walk(start, min(end, (start // L + 1) * L) if split else end)
+        out[r] = acc if split else finish(acc)
+    for h in range(helpers):
+        r = carry_row[h]
+        if r < 0 or (h > 0 and carry_row[h - 1] == r):
+            continue
+        acc, k = out[r], h
+        while k < helpers and carry_row[k] == r:
+            acc = op(acc, carry[k])
+            k += 1
+        out[r] = finish(acc)
+    return out
+
+
+def _sum(a, b):
+    return (a + b).astype(np.float32)
+
+
+def _max(a, b):
+    return np.where(np.isnan(a) | (a >= b), a, b).astype(np.float32)
+
+
+def _finite(a):
+    return np.where(np.isfinite(a), a, 0).astype(np.float32)
+
+
+def _hub_problem(seed, with_perm):
+    """A hub row of 300 edges among rows of 0-3 edges, row_ptr[0] = 5,
+    NaN rows past row_ptr[n] (and before row_ptr[0] without perm)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 4, 60)
+    lengths[17] = 300
+    ptr = np.concatenate([[0], np.cumsum(lengths)]) + 5
+    rows = int(ptr[-1]) + 9
+    vals = rng.standard_normal((rows, 3)).astype(np.float32)
+    perm = None
+    if with_perm:
+        perm = rng.permutation(rows).astype(np.int32)
+        vals[perm[:5]] = np.nan
+        vals[perm[int(ptr[-1]):]] = np.nan
+    else:
+        vals[:5] = np.nan
+        vals[int(ptr[-1]):] = np.nan
+    return vals, ptr.astype(np.int32), perm
+
+
+@pytest.mark.parametrize("L", [1, 3, 8, 64, 256])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_split_model_sums_hub_and_short_rows(L, with_perm):
+    """The kernel's split, modelled in numpy, equals the plain segment sum
+    (TOL: f32 sums in another order) and repeats exactly, however the
+    multiples of L cut the hub row (and, for small L, the short ones)."""
+    vals, ptr, perm = _hub_problem(L, with_perm)
+    got = _split_model(vals, ptr, perm, L, _sum, 0.0, lambda a: a)
+    want = seg_sum_sorted_plain(
+        torch.from_numpy(vals), torch.from_numpy(ptr),
+        None if perm is None else torch.from_numpy(perm)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    again = _split_model(vals, ptr, perm, L, _sum, 0.0, lambda a: a)
+    assert np.array_equal(got, again)
+
+
+@pytest.mark.parametrize("L", [1, 4, 16, 64])
+def test_split_model_max_keeps_nan_and_inf_of_other_chunks(L):
+    """A hub row holding a NaN in one helper's chunk and a +inf in
+    another's, a row whose only non-finite value is -inf: the modelled
+    split equals the plain max bit for bit (the final map runs once, after
+    the parts meet)."""
+    vals, ptr, _ = _hub_problem(2, False)
+    hub = int(ptr[17])
+    vals[hub + 40, 0] = np.nan
+    vals[hub + 250, 1] = np.inf
+    vals[hub + 120:hub + 130, 2] = -np.inf
+    got = _split_model(vals, ptr, None, L, _max, -np.inf, _finite)
+    want = seg_max_sorted_plain(torch.from_numpy(vals),
+                                torch.from_numpy(ptr)).numpy()
+    assert np.array_equal(got, want)
+    assert got[17, 0] == 0 and got[17, 1] == 0 and np.isfinite(got[17, 2])
+
+
+@pytest.mark.parametrize("C", [1, 4, 12, 64, 68, 200])
+@pytest.mark.parametrize("bound", [0, 1, 63, 64, 65, 1000, 21 * 10**6])
+def test_split_helpers_cover_every_edge(bound, C):
+    L = split_len(C)
+    h = split_helpers(bound, L)
+    assert h >= 1 and h * L >= bound
+    assert (h - 1) * L < max(bound, 1)

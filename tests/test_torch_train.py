@@ -1,0 +1,72 @@
+"""The port's trainer against het_tpu's, from the same initial parameters:
+het_tpu's own initialisation (``PRNGKey(seed)`` split three ways,
+``embed.init``, ``model.init``) carried over by ``params_from_jax``, at
+dropout 0 on a tiny synthetic mag, compact multiply-first.  Both take
+their warm-up Adam steps before the timed ones (or none with
+``no_warm_up``); the timed losses and the final parameters (het_tpu's
+from its end-of-run checkpoint) must agree.  Tolerance: rtol 1e-4 /
+atol 2e-4, the forward one of the backend-parity tests."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import orbax.checkpoint as ocp
+import pytest
+
+from het_tpu.data import load_dataset as j_load_dataset
+from het_tpu.models import NodeEmbed as JNodeEmbed
+from het_tpu.train import TrainConfig as JTrainConfig
+from het_tpu.train import train as j_train
+from het_tpu.train.driver import build_model as j_build_model
+from het_tpu_torch.data.loaders import load_dataset
+from het_tpu_torch.models import params_from_jax
+from het_tpu_torch.train import TrainConfig, train
+from het_tpu_torch.train.driver import build_model
+
+VAL = dict(rtol=1e-4, atol=2e-4)
+SHARED = dict(model="RGAT", dataset="mag", dataset_scale=0.002, n_infeat=16,
+              hidden=16, num_heads=2, num_layers=2, num_classes=8,
+              num_epochs=2, warmup_epochs=2, dropout=0.0, compact=True,
+              multiply_first=True, seed=0)
+
+
+def _jax_initial_params(cfg, data):
+    """het_tpu's trainer's initial parameters, made as its ``train``
+    makes them."""
+    key = jax.random.PRNGKey(cfg.seed)
+    k_embed, k_model, _ = jax.random.split(key, 3)
+    embed = JNodeEmbed(num_nodes=data.graph.num_nodes,
+                       embed_dim=cfg.n_infeat, param_dtype=jnp.float32)
+    e_params = embed.init(k_embed)
+    m_params = j_build_model(cfg, data).init(
+        k_model, jax.device_put(data.graph), embed.apply(e_params))
+    return jax.tree.map(np.asarray, {"embed": e_params, "model": m_params})
+
+
+@pytest.mark.parametrize("no_warm_up", [False, True])
+def test_trainer_matches_het_tpu(tmp_path, no_warm_up):
+    jcfg = JTrainConfig(**SHARED, no_warm_up=no_warm_up, save_every=2,
+                        checkpoint_dir=str(tmp_path / "ckpt"))
+    jdata = j_load_dataset("mag", scale=jcfg.dataset_scale,
+                           num_classes=jcfg.num_classes, seed=jcfg.seed,
+                           build_compact=True)
+    tree = _jax_initial_params(jcfg, jdata)
+    jm = j_train(jcfg, jdata)
+    with ocp.PyTreeCheckpointer() as ckptr:
+        j_final = ckptr.restore(str(tmp_path / "ckpt" / "step_2"))["params"]
+
+    cfg = TrainConfig(**SHARED, no_warm_up=no_warm_up, device="cpu")
+    data = load_dataset("mag", scale=cfg.dataset_scale,
+                        num_classes=cfg.num_classes, seed=cfg.seed)
+    net = build_model(cfg, data)
+    logs = []
+    m = train(cfg, data, state=params_from_jax(tree), log=logs.append,
+              net=net)
+    assert len(m["loss_list"]) == len(logs) == cfg.num_epochs
+    np.testing.assert_allclose(m["loss_list"], jm["loss_list"], **VAL)
+    final = net.state_dict()
+    want = params_from_jax(jax.tree.map(np.asarray, j_final))
+    assert sorted(final) == sorted(want)
+    for name, value in want.items():
+        np.testing.assert_allclose(final[name].numpy(), value.numpy(),
+                                   err_msg=name, **VAL)
