@@ -24,8 +24,12 @@ Phases, each of which fails the run:
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
      the union steps give it, and the data-parallel runs give rank 0's
      shard, at the general segment-matmul shapes (Hx = 1, K = O = 64, S =
-     4 and S = 535, about 1e6 rows), plus edge cases, with a control that
-     a dW from inputs rounded to TF32 fails the tolerance;
+     4 and S = 535, about 1e6 rows), plus edge cases (among them S = 535
+     segments mostly shorter than a chunk, NaN rows before and past the
+     segments, x one float off 16 bytes, a segment one row past a chunk),
+     each launched twice and compared bit for bit, with a control that a
+     dW from inputs rounded to TF32 fails the tolerance, and each time as
+     a share of its bound;
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
      data-parallel runs give rank 0's shard, at the general shapes (S =
      535: W is 8.8 MB) and edge cases, with the same TF32 control;
@@ -197,7 +201,9 @@ def _card_line() -> str:
 def _time_ms(fn, reps, flush):
     """Median ms of ``fn`` over ``reps`` launches, each timed with CUDA
     events after overwriting a buffer larger than the L2 cache, so every
-    launch reads its inputs from device memory."""
+    launch reads its inputs from device memory.  A spin of about 0.1 ms
+    on the card before each start event gives the host time to enqueue
+    ``fn``, so the time is the card's and not the host's latency."""
     import torch
 
     for _ in range(2):
@@ -205,6 +211,7 @@ def _time_ms(fn, reps, flush):
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(200_000)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -743,6 +750,29 @@ def _segments(sizes, tile, dev):
     return build_segments(seg_of_row, len(sizes), tile).to(dev)
 
 
+def _shifted(seg, lead):
+    """``seg`` moved ``lead`` rows into its row space: rows before its
+    first segment and past its last belong to none."""
+    import dataclasses
+    import torch
+
+    ptrs = tuple(p + lead for p in seg.seg_ptrs_static)
+    return dataclasses.replace(
+        seg, n_rows=ptrs[-1], seg_ptrs_static=ptrs,
+        seg_ptrs=torch.tensor(ptrs, dtype=torch.int32,
+                              device=seg.seg_ptrs.device))
+
+
+def _dw_chunk_rows(n_rows, S, H, Hx, K, O, dev):
+    """Rows a chunk of the dW kernel's plan for such operands."""
+    import torch
+    from het_tpu_torch.ops.kernels.segment_mm import card_dw_plan
+
+    return card_dw_plan(torch.zeros(n_rows, Hx * K, device=dev),
+                        torch.zeros(n_rows, H * O, device=dev),
+                        (S, H, K, O)).chunk_rows
+
+
 def _runs_of(run):
     """The runs a shape is listed for: None, one name or a tuple."""
     if run is None:
@@ -752,7 +782,9 @@ def _runs_of(run):
 
 def _dw_shapes(g, gu, shards, dev):
     """(label, run(s) or None, launches per step, seg, H, Hx, K, O, zero
-    ct on invalid rows): the attention-vector dW of the plain RGAT steps
+    ct on invalid rows[, operand form: "nan_outside" for NaN rows before
+    and past the segments, "unaligned" for x one float off 16 bytes]):
+    the attention-vector dW of the plain RGAT steps
     (two a layer over the relation-sorted edge rows), of the compact step
     (per layer, attn_l over the source and attn_r over the destination
     compact rows) and of the union-compact step (both over the shared
@@ -816,7 +848,28 @@ def _dw_shapes(g, gu, shards, dev):
          2, 2, 70, 5, False),
         ("edge: shared x, heads across tiles", None, 0,
          _segments((50, 0, 900), 8, dev), 3, 1, 70, 30, False),
+        # most of the 535 segments shorter than a chunk, NC = 68
+        ("edge: S=535 short segments, NC=68", None, 0, _segments(
+            rng.multinomial(200_000, skew / skew.sum()), 1, dev), 4, 1, 64,
+         17, False),
+        ("edge: NaN rows outside the segments, NC=68", None, 0,
+         _shifted(_segments((3000, 0, 1500, 9), 1, dev), 37), 4, 1, 64, 17,
+         False, "nan_outside"),
+        ("edge: NaN rows outside the segments, NC=4", None, 0,
+         _shifted(_segments((3000, 0, 1500, 9), 1, dev), 37), 4, 1, 64, 1,
+         False, "nan_outside"),
+        ("edge: x not 16-byte aligned, NC=68", None, 0,
+         _segments((2000, 33, 0, 900), 8, dev), 4, 1, 64, 17, False,
+         "unaligned"),
+        ("edge: x not 16-byte aligned, NC=4", None, 0,
+         _segments((2000, 33, 0, 900), 8, dev), 4, 1, 64, 1, False,
+         "unaligned"),
     ]
+    for H, Hx, K, O in ((4, 1, 64, 17), (4, 1, 64, 1)):
+        rows = _dw_chunk_rows(3000, 2, H, Hx, K, O, dev)
+        shapes.append((f"edge: a segment one row past a chunk, NC={H * O}",
+                       None, 0, _segments((rows + 1, 3000 - rows - 1), 1,
+                                          dev), H, Hx, K, O, False))
     assert g.num_rels == E.n_segments
     for shape in shapes:
         if any(run in DP_RUNS for run in _runs_of(shape[1])):
@@ -864,23 +917,39 @@ def check_dw(g, gu, shards, dev, flush):
     totals = {}
     max_err = 0.0
     print("shape | run | S | rows | H | Hx | K | O | kernel share | TF32 "
-          "control share | kernel ms | bound ms | plain ms | per-relation "
-          "torch.matmul ms")
+          "control share | kernel ms | bound ms | bound / kernel | plain ms "
+          "| per-relation torch.matmul ms")
     shapes = _dw_shapes(g, gu, shards, dev)
     counts = dict.fromkeys(list(RUNS) + list(DP_RUNS), 0)
     for shape in shapes:
         for run in _runs_of(shape[1]):
             counts[run] += shape[2]
     _check_shape_count("segment_matmul_dw", counts)
-    for label, run, per_step, seg, H, Hx, K, O, mask in shapes:
+    for label, run, per_step, seg, H, Hx, K, O, mask, *form in shapes:
         S, n = seg.n_segments, seg.n_rows
         w_shape = (S, H, K, O)
-        x = torch.randn(n, Hx * K, device=dev, generator=gen)
+        if form == ["unaligned"]:  # a contiguous view one float in
+            x = torch.randn(n * Hx * K + 1, device=dev,
+                            generator=gen)[1:].view(n, Hx * K)
+            assert x.data_ptr() % 16 != 0, label
+        else:
+            x = torch.randn(n, Hx * K, device=dev, generator=gen)
         ct = torch.randn(n, H * O, device=dev, generator=gen)
         if mask:  # as _RelInner's backward: no cotangent on padding rows
             ct = torch.where(seg.row_valid[:, None], ct, 0.0)
+        if form == ["nan_outside"]:  # rows no segment holds, and more past
+            first = int(seg.seg_ptrs_static[0])
+            x = torch.cat([x, torch.randn(45, Hx * K, device=dev)])
+            ct = torch.cat([ct, torch.randn(45, H * O, device=dev)])
+            for t in (x, ct):
+                t[:first] = float("nan")
+                t[n:] = float("nan")
         got = segment_matmul_dw(x, ct, w_shape, seg)
         torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: the dW is not finite")
+        if not torch.equal(got, segment_matmul_dw(x, ct, w_shape, seg)):
+            raise AssertionError(f"{label}: two calls differ")
         want = segment_matmul_dw_plain(x, ct, w_shape, seg)
         limit = DW_TOL * segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape,
                                                  seg)
@@ -936,7 +1005,7 @@ def check_dw(g, gu, shards, dev, flush):
         print(f"{label} | {run} | {S} | {rows} | {H} | {Hx} | {K} | {O} | "
               f"{share:.4g} | {control:.4g} | {ms:.4f} | {bound * 1e3:.4f} "
               f"({'bytes' if bytes_s >= ops_s else 'operations'}) | "
-              f"{plain:.4f} | {yard:.4f}")
+              f"{bound * 1e3 / ms:.1%} | {plain:.4f} | {yard:.4f}")
         for r in _runs_of(run):
             total = totals.setdefault(r, dict(
                 ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,

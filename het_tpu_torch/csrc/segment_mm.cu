@@ -56,120 +56,140 @@
 // Replaces the TPU kernels het_tpu/ops/pallas/segment_mm.py::_dw_resident
 // (whole dW resident in VMEM across an in-order grid) and
 // ::segment_matmul_rows_dw (one relation's block revisited tile after
-// tile once W passes the VMEM budget).  Both lean on the TPU's sequential
-// grid to carry a sum from one step to the next; on Hopper blocks run in
-// parallel and in no order, so the sum is split instead:
+// tile once W passes the VMEM budget).  Both carry a sum from one grid
+// step to the next; on Hopper blocks run in parallel and in no order, so
+// the sum is split in two launches:
 //
-//  1. plan: one block turns seg_ptrs into chunk_ptr, the prefix sum of
-//     ceil(rows(s) / kChunkRows).  Every segment is cut into chunks of at
-//     most kChunkRows rows that never cross a segment boundary, so a small
-//     segment count (S = 4 on the plain RGAT path) still fills all SMs;
-//  2. chunk pass: one block per chunk (the grid is the upper bound
-//     ceil(n_rows / kChunkRows) + S; blocks past the last chunk leave)
-//     writes the chunk's (H, K, O) partial sums to a scratch buffer;
-//  3. reduce: per segment, the chunks' partials summed in chunk order.
+//  1. chunk pass: every segment is cut into chunks of at most `chunk_rows`
+//     rows that never cross a segment boundary, and one block a chunk (and
+//     output tile) writes the chunk's (H, K, O) partial sums to scratch.
+//     A block finds its own chunk by a block-wide scan of ceil(rows(s) /
+//     chunk_rows) over the segments, so no planning launch precedes it;
+//     block 0 also writes that prefix (chunk_ptr) for the reduce.  The
+//     grid is the upper bound ceil(n_rows / chunk_rows) + S; blocks past
+//     the last chunk leave.  The wrapper picks chunk_rows from n_rows, S
+//     and the SM count, so that the grid fills the card for several waves
+//     while the partials stay within 1/16 of the input bytes;
+//  2. reduce: per segment, the chunks' partials summed in chunk order.
 // The result is deterministic and uses no atomics.  No row outside
 // [seg_ptrs[0], seg_ptrs[S]) is read.
 //
-// Bound.  Bytes: every row of x and ct is read once, rows * (Hx*K + H*O)
-// * 4 bytes, plus the (S, H, K, O) output.  Operations: 2 * rows * H*K*O.
-// Two regimes, two chunk kernels:
-//  * O == 1 (the attention-vector gradient of edge_rel_inner, 64 x
-//    columns and 4 ct columns a row on the main path): one multiply-add
-//    per x element read, so bytes bound.  dw_colsum_kernel reads rows as
-//    float4 (16 bytes a lane, neighbouring lanes on neighbouring
-//    addresses) when K % 4 == 0, with the lanes of a warp split into
-//    groups of the smallest power of two that covers a row, as in
-//    seg_reduce.cu; each lane weights its columns by its head's ct value.
-//  * O > 1 (the dW of the segment matmul, K = O = 64): 2 * K * O / ((K + O)
-//    * 4) = 16 operations a byte, near the f32 ridge.  dw_tiled_kernel
-//    stages 16-row slices of a 64 x 64 (k, column) tile in shared memory
-//    and keeps a 4 x 4 register tile a thread.  With per-head x (Hx = H)
-//    a tile's columns are one head's o; with one x row for all heads (Hx
-//    = 1) they run over all H * O columns of ct at once, so x is read
-//    once for every head and H * O = 68 fills 2 tiles, not 4 of which 47
-//    of 64 columns are empty.  It uses no tensor cores (f32 operands;
-//    wgmma and TMA are later work).
-// kChunkRows = 2048 keeps each block's loop long enough to hide latency
-// and the partials small next to the inputs (1/32 of the x bytes on the
-// main path).
+// A chunk's output is x_chunk[:, g]^T ct_chunk[:, cols(g)] for each group
+// g.  With one x row for all heads (Hx = 1) there is one group, whose NC
+// = H * O columns are all of ct, so x is read once for every head; with
+// one x row a head (Hx = H), group h is head h's K columns of x against
+// its NC = O columns of ct.
+//
+// Bound.  Bytes: every row of x and ct read once, rows * (Hx*K + H*O) * 4,
+// plus the (S, H, K, O) output.  Operations: 2 * rows * H*K*O.  Two
+// regimes, two chunk kernels:
+//  * narrow, NC <= 16 (the attention-vector dWs, O = 1; the typed linears'
+//    H*O = 4, 8, 12 on shards): under 2 * 16 * K / ((K + 16) * 4) = 8
+//    operations a byte, so bytes bound; the work is to read every byte
+//    once, 16 bytes a lane, with enough rows in flight.
+//    dw_narrow_kernel gives a lane one float4 of an x row (4 neighbouring
+//    columns, all heads' columns in one pass: Hx*K / 4 lanes a row, so
+//    two rows a warp at K = 64 and eight at H*K = 8) and the NC ct values
+//    that row's columns meet in registers (a float4 load where NC % 4 ==
+//    0; lanes of a row read the same ct addresses, one transaction), and
+//    keeps 4 rows of loads in flight.  The lanes of a row team meet by
+//    shuffles and the warps in shared memory, in a fixed order.
+//  * wide, NC > 16 (the typed linears' H*O = 64 and 68, the general K = O
+//    = 64): 2 * K * NC / ((K + NC) * 4) = 16-16.5 operations a byte at K =
+//    64, near the f32 ridge of 67 TFLOP/s over 3.35 TB/s (20), so the FMAs
+//    must overlap the loads and few shared-memory loads may feed them.
+//    dw_wide_kernel keeps a 64 (k) x BN (columns) output tile, BN in {64,
+//    80, 96} picked to cover NC in as few column passes as it can (NC =
+//    68: one 80-column pass, x read once, no 4-column tail tile), 8 x 4
+//    outputs a thread (two float4 of x and one of ct from shared memory
+//    for 32 FMAs), and stages 32 rows at a time with cp.async into a ring
+//    of 3 stages, so the copies of the next two stages are in flight
+//    while one is multiplied.  Wider K and NC take more k tiles and column
+//    passes (blockIdx.y).
+// Rows are read 16 bytes at a time where they are 16-byte aligned;
+// otherwise (K or NC not a multiple of 4, x a view that starts off 16
+// bytes) the same kernels load 4 bytes at a time.  Plain f32 FMAs, no
+// tensor cores: their f32 path is TF32, which fails the port's limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kChunkRows = 2048;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPlanThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---------------------------------------------------------------- plan
+// --------------------------------------------------------------- chunks
 
-__global__ void __launch_bounds__(kPlanThreads)
-segment_matmul_dw_plan_kernel(const int32_t* __restrict__ seg_ptrs,
-                              int32_t* __restrict__ chunk_ptr, int S) {
-  __shared__ int32_t warp_sum[kPlanThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (t == 0) chunk_ptr[0] = 0;
-  int32_t carry = 0;
-  for (int base = 0; base < S; base += kPlanThreads) {
-    const int s = base + t;
-    int32_t v = 0;
-    if (s < S) {
-      const int32_t len = seg_ptrs[s + 1] - seg_ptrs[s];
-      v = len > 0 ? (len + kChunkRows - 1) / kChunkRows : 0;
-    }
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t y = __shfl_up_sync(kFull, v, o);
-      if (lane >= o) v += y;
-    }
-    if (lane == 31) warp_sum[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      int32_t w = warp_sum[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int32_t y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_sum[lane] = w;  // inclusive prefix over the warps
-    }
-    __syncthreads();
-    if (s < S) chunk_ptr[s + 1] = carry + v + (warp ? warp_sum[warp - 1] : 0);
-    carry += warp_sum[kPlanThreads / 32 - 1];
-    __syncthreads();  // warp_sum is rewritten by the next tile
-  }
-}
-
-// The rows [lo, hi) and segment s of chunk `b`; false past the last chunk.
+// The rows [lo, hi) and segment s of a block's chunk.
 struct Chunk {
   int64_t lo, hi;
   int s;
 };
 
-__device__ __forceinline__ bool find_chunk(
-    const int32_t* __restrict__ seg_ptrs,
-    const int32_t* __restrict__ chunk_ptr, int S, int64_t b, Chunk* c) {
-  if (b >= __ldg(chunk_ptr + S)) return false;
-  // the last s with chunk_ptr[s] <= b; empty segments repeat a value and
-  // are skipped because the search takes the last of equal entries
-  int lo = 0, hi = S - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (__ldg(chunk_ptr + mid) <= b) lo = mid; else hi = mid - 1;
+__device__ __forceinline__ int32_t chunks_of(const int32_t* seg_ptrs, int s,
+                                             int rows) {
+  const int64_t len = static_cast<int64_t>(__ldg(seg_ptrs + s + 1)) -
+                      __ldg(seg_ptrs + s);
+  return len > 0 ? static_cast<int32_t>((len + rows - 1) / rows) : 0;
+}
+
+// Chunk blockIdx.x of the split of every segment into chunks of at most
+// `rows` rows, in segment order; false past the last chunk (the same
+// answer for every thread).  The block's T threads scan the chunk counts:
+// each thread takes a run of neighbouring segments, the warps scan by
+// shuffles and meet in shared memory.  Block (0, 0) also writes chunk_ptr
+// (S + 1,), the prefix of chunks a segment, for the reduce.
+template <int T>
+__device__ bool find_chunk(const int32_t* __restrict__ seg_ptrs,
+                           int32_t* __restrict__ chunk_ptr, int S, int rows,
+                           Chunk* c) {
+  static_assert(T % 32 == 0, "whole warps");
+  __shared__ int32_t warp_sum[T / 32];
+  __shared__ int32_t found_s, found_first;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (S + T - 1) / T;
+  const int s0 = min(t * per, S), s1 = min(s0 + per, S);
+  int32_t mine = 0;
+  for (int s = s0; s < s1; ++s) mine += chunks_of(seg_ptrs, s, rows);
+  int32_t v = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += y;
   }
-  const int64_t start = __ldg(seg_ptrs + lo);
-  const int64_t end = __ldg(seg_ptrs + lo + 1);
-  c->s = lo;
-  c->lo = start + (b - __ldg(chunk_ptr + lo)) * kChunkRows;
-  c->hi = c->lo + kChunkRows < end ? c->lo + kChunkRows : end;
+  if (lane == 31) warp_sum[warp] = v;
+  if (t == 0) found_s = -1;
+  __syncthreads();
+  int32_t first = v - mine;  // chunks before segment s0
+  for (int w = 0; w < warp; ++w) first += warp_sum[w];
+  const int64_t b = blockIdx.x;
+  const bool write = blockIdx.x == 0 && blockIdx.y == 0;
+  if (write && t == 0) chunk_ptr[0] = 0;
+  for (int s = s0; s < s1; ++s) {
+    const int32_t n = chunks_of(seg_ptrs, s, rows);
+    if (b >= first && b < first + n) {  // one thread at most
+      found_s = s;
+      found_first = first;
+    }
+    first += n;
+    if (write) chunk_ptr[s + 1] = first;
+  }
+  __syncthreads();
+  const int s = found_s;
+  if (s < 0) return false;
+  const int64_t start = __ldg(seg_ptrs + s), end = __ldg(seg_ptrs + s + 1);
+  c->s = s;
+  c->lo = start + (b - found_first) * rows;
+  c->hi = c->lo + rows < end ? c->lo + rows : end;
   return true;
 }
 
-// -------------------------------------------------------- O == 1 chunks
+// ------------------------------------------------------ narrow chunks
+
+constexpr int kNarrowThreads = 128;
+constexpr int kNarrowWarps = kNarrowThreads / 32;
+constexpr int kNarrowInFlight = 4;  // rows of loads a lane keeps in flight
 
 template <int V>
 struct Vec;
@@ -192,223 +212,396 @@ struct Vec<1> {
   __device__ static float get(const T& a, int) { return a; }
 };
 
-// Output column j = h * K + k (O == 1); a lane owns V neighbouring
-// columns of one head.  V: floats per load (4 needs K % 4 == 0).  L:
-// lanes per row group (power of two, 1..32); a warp holds 32 / L groups,
-// each on its own rows.
-template <int V, int L>
-__global__ void __launch_bounds__(kThreads)
-segment_matmul_dw_colsum_kernel(const float* __restrict__ x,
-                                const float* __restrict__ ct,
-                                const int32_t* __restrict__ seg_ptrs,
-                                const int32_t* __restrict__ chunk_ptr,
-                                float* __restrict__ partial, int S, int H,
-                                int Hx, int K) {
-  using Op = Vec<V>;
-  constexpr int G = 32 / L;
-  constexpr int NG = kWarps * G;  // row groups in the block
-  __shared__ float red[kWarps][32 * V];
-  Chunk c;
-  if (!find_chunk(seg_ptrs, chunk_ptr, S, blockIdx.x, &c)) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = lane / L, sub = lane % L;
-  const int NJ = H * K;
-  const int NV = NJ / V;
-  const int64_t xs = static_cast<int64_t>(Hx) * K;  // x row stride
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * NJ;
-
-  for (int c0 = 0; c0 < NV; c0 += L) {
-    const int col = c0 + sub;
-    const bool active = col < NV;
-    const int j = col * V;
-    const int h = active ? j / K : 0;
-    const int xcol = Hx > 1 ? j : j - h * K;
-    float acc[V];
+// The ct values of one row that a lane's x columns meet: cv[e][o] =
+// ct_row[coff[e] + o] for o < ncl, zero past it.  Per head (CE = V) each
+// x column e has its head's offset; neighbouring columns of one head
+// (`same`) share the first one's values.
+template <int NCP, bool kCtVec, int CE>
+__device__ __forceinline__ void load_ct(const float* __restrict__ row,
+                                        const int (&coff)[CE], int ncl,
+                                        bool same, float (&cv)[CE][NCP]) {
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = 0.f;
-    if (active) {
-      const float* xp = x + xcol;
-      const float* cp = ct + h;  // ct row stride H (O == 1)
-      int64_t i = c.lo + warp * G + grp;
-      for (; i + 3 * NG < c.hi; i += 4 * NG) {
-        const typename Op::T v0 = Op::load(xp + i * xs);
-        const typename Op::T v1 = Op::load(xp + (i + NG) * xs);
-        const typename Op::T v2 = Op::load(xp + (i + 2 * NG) * xs);
-        const typename Op::T v3 = Op::load(xp + (i + 3 * NG) * xs);
-        const float w0 = __ldg(cp + i * H);
-        const float w1 = __ldg(cp + (i + NG) * H);
-        const float w2 = __ldg(cp + (i + 2 * NG) * H);
-        const float w3 = __ldg(cp + (i + 3 * NG) * H);
+  for (int e = 0; e < CE; ++e) {
+    if (e > 0 && same) {
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          acc[e] += Op::get(v0, e) * w0;
-          acc[e] += Op::get(v1, e) * w1;
-          acc[e] += Op::get(v2, e) * w2;
-          acc[e] += Op::get(v3, e) * w3;
-        }
+      for (int o = 0; o < NCP; ++o) cv[e][o] = cv[0][o];
+    } else if (kCtVec) {
+#pragma unroll
+      for (int q = 0; q < NCP / 4; ++q) {
+        const float4 f =
+            __ldg(reinterpret_cast<const float4*>(row + coff[e]) + q);
+        cv[e][4 * q] = f.x;
+        cv[e][4 * q + 1] = f.y;
+        cv[e][4 * q + 2] = f.z;
+        cv[e][4 * q + 3] = f.w;
       }
-      for (; i < c.hi; i += NG) {
-        const typename Op::T v = Op::load(xp + i * xs);
-        const float w = __ldg(cp + i * H);
+    } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] += Op::get(v, e) * w;
-      }
+      for (int o = 0; o < NCP; ++o)
+        cv[e][o] = o < ncl ? __ldg(row + coff[e] + o) : 0.f;
     }
-    // fixed-order trees: the warp's groups meet by shuffles, then the
-    // warps meet in shared memory in warp order
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-#pragma unroll
-      for (int o = L; o < 32; o <<= 1)
-        acc[e] += __shfl_xor_sync(kFull, acc[e], o);
-    }
-    if (grp == 0) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) red[warp][sub * V + e] = acc[e];
-    }
-    __syncthreads();
-    const int t = threadIdx.x;
-    if (t < L * V && c0 * V + t < NJ) {
-      float sum = red[0][t];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) sum += red[w][t];
-      out[c0 * V + t] = sum;
-    }
-    __syncthreads();
   }
 }
 
-// --------------------------------------------------------- O > 1 chunks
-
-constexpr int kTile = 64;  // k and o extent of a block's output tile
-constexpr int kStage = 16;  // rows staged in shared memory at a time
-
-// blockIdx.y enumerates (head, k tile, column tile); 16 x 16 threads each
-// own a 4 x 4 register tile (k = k0 + 4 ty + p, column c = c0 + 4 tx + q).
-// A tile's columns are head h's o (Hx = H), or all of ct's h * O + o
-// (Hx = 1: one head pass, h = 0).
-__global__ void __launch_bounds__(kThreads)
-segment_matmul_dw_tiled_kernel(const float* __restrict__ x,
-                               const float* __restrict__ ct,
-                               const int32_t* __restrict__ seg_ptrs,
-                               const int32_t* __restrict__ chunk_ptr,
-                               float* __restrict__ partial, int S, int H,
-                               int Hx, int K, int O) {
-  __shared__ __align__(16) float xs[kStage][kTile];
-  __shared__ __align__(16) float cs[kStage][kTile];
+// NCP: the ct columns an x column meets (NCL = O per head, H * O for
+// shared x), rounded up to 1, 4, 8, 12 or 16.  kVec: x read as float4
+// (Hx*K % 4 == 0, x 16-byte aligned); kCtVec: ct read as float4 (shared
+// x, NCL == NCP, ct 16-byte aligned); kPerHead: Hx = H.  L: lanes a row
+// (a power of two; 32 / L rows a warp); a lane holds V neighbouring x
+// columns and every pass of the block covers L * V of the Hx*K columns.
+template <int NCP, bool kVec, bool kCtVec, bool kPerHead>
+__global__ void __launch_bounds__(kNarrowThreads)
+segment_matmul_dw_narrow_kernel(const float* __restrict__ x,
+                                const float* __restrict__ ct,
+                                const int32_t* __restrict__ seg_ptrs,
+                                int32_t* __restrict__ chunk_ptr,
+                                float* __restrict__ partial, int S, int H,
+                                int K, int O, int rows, int L) {
+  constexpr int V = kVec ? 4 : 1;
+  constexpr int CE = kPerHead ? V : 1;  // ct offsets a lane holds a row
+  constexpr int UN = kNarrowInFlight;
+  using Op = Vec<V>;
+  __shared__ float red[32 * V * NCP];
   Chunk c;
-  if (!find_chunk(seg_ptrs, chunk_ptr, S, blockIdx.x, &c)) return;
-  const int NC = Hx > 1 ? O : H * O;  // columns a head pass covers
-  const int nkt = (K + kTile - 1) / kTile, nct = (NC + kTile - 1) / kTile;
-  int tile = blockIdx.y;
-  const int ct_ = tile % nct;
-  tile /= nct;
-  const int kt = tile % nkt;
-  const int h = tile / nkt;
-  const int k0 = kt * kTile, c0 = ct_ * kTile;
-  const int kw = K - k0 < kTile ? K - k0 : kTile;
-  const int cw = NC - c0 < kTile ? NC - c0 : kTile;
-  const int64_t x_stride = static_cast<int64_t>(Hx) * K;
-  const int64_t c_stride = static_cast<int64_t>(H) * O;
-  const float* xb = x + static_cast<int64_t>(h) * K + k0;  // h = 0 if Hx = 1
-  const float* cb = ct + static_cast<int64_t>(h) * O + c0;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  if (!find_chunk<kNarrowThreads>(seg_ptrs, chunk_ptr, S, rows, &c)) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = 32 / L, grp = lane / L, sub = lane % L;
+  const int NG = kNarrowWarps * G;  // row teams in the block
+  const int XW = (kPerHead ? H : 1) * K;
+  const int HO = H * O;
+  const int ncl = kPerHead ? O : HO;
+  const int NV = XW / V;
+  const bool same = K % V == 0;  // a lane's V columns lie in one head
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * H * K * O;
 
-  float acc[4][4];
+  for (int v0 = 0; v0 < NV; v0 += L) {
+    const bool active = v0 + sub < NV;
+    const int j = (v0 + sub) * V;  // the lane's first x column
+    int coff[CE];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+    for (int e = 0; e < CE; ++e) coff[e] = kPerHead ? (j + e) / K * O : 0;
+    float acc[V][NCP];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+#pragma unroll
+      for (int o = 0; o < NCP; ++o) acc[e][o] = 0.f;
+    if (active) {
+      const float* xp = x + j;
+      int64_t i = c.lo + warp * G + grp;
+      for (; i + (UN - 1) * NG < c.hi; i += UN * NG) {
+        typename Op::T xv[UN];
+        float cv[UN][CE][NCP];
+#pragma unroll
+        for (int u = 0; u < UN; ++u) {
+          const int64_t r = i + u * NG;
+          xv[u] = Op::load(xp + r * XW);
+          load_ct<NCP, kCtVec, CE>(ct + r * HO, coff, ncl, same, cv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < UN; ++u)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+#pragma unroll
+            for (int o = 0; o < NCP; ++o)
+              acc[e][o] = fmaf(Op::get(xv[u], e), cv[u][kPerHead ? e : 0][o],
+                               acc[e][o]);
+      }
+      for (; i < c.hi; i += NG) {
+        const typename Op::T xv = Op::load(xp + i * XW);
+        float cv[CE][NCP];
+        load_ct<NCP, kCtVec, CE>(ct + i * HO, coff, ncl, same, cv);
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+#pragma unroll
+          for (int o = 0; o < NCP; ++o)
+            acc[e][o] = fmaf(Op::get(xv, e), cv[kPerHead ? e : 0][o],
+                             acc[e][o]);
+      }
+    }
+    // fixed-order trees: a warp's row teams meet by shuffles, then the
+    // warps in shared memory in warp order
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+#pragma unroll
+      for (int o = 0; o < NCP; ++o)
+        for (int d = L; d < 32; d <<= 1)
+          acc[e][o] += __shfl_xor_sync(kFull, acc[e][o], d);
+    for (int w = 0; w < kNarrowWarps; ++w) {
+      if (warp == w && grp == 0 && active) {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+#pragma unroll
+          for (int o = 0; o < NCP; ++o) {
+            float& r = red[(sub * V + e) * NCP + o];
+            r = w == 0 ? acc[e][o] : r + acc[e][o];
+          }
+      }
+      __syncthreads();
+    }
+    // a chunk's partial is (H, K, O) per head and (K, H*O) for shared
+    // x: x column jj (h*K + k, or k) meets ct column o of its group
+    for (int t = threadIdx.x; t < L * V * NCP; t += kNarrowThreads) {
+      const int jj = v0 * V + t / NCP, o = t % NCP;
+      if (jj < XW && o < ncl) out[static_cast<int64_t>(jj) * ncl + o] = red[t];
+    }
+    __syncthreads();  // red is rewritten by the next pass
+  }
+}
+
+// -------------------------------------------------------- wide chunks
+
+constexpr int kWideK = 64;     // k extent of a block's output tile
+constexpr int kWideRows = 32;  // rows a stage
+constexpr int kWideStages = 3;
+
+template <int BN>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return kWideStages * kWideRows * (kWideK + BN) * 4;
+}
+
+template <int BN>
+__host__ __device__ constexpr int wide_threads() {
+  return 2 * BN;
+}
+
+// cp.async of V floats (16 bytes through L2 only, or 4); `ok` false fills
+// the destination with zeros and reads nothing.
+template <int V>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
+                                         bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// blockIdx.y enumerates (head, k tile, column pass); 8 x (BN / 4) threads
+// each own 8 x 4 outputs (k = k0 + 8 ty + p, column c = c0 + 4 tx + q).
+// A pass's columns are head h's o (Hx = H) or ct's h * O + o (Hx = 1,
+// h = 0).  kVec: 16-byte copies (K, NC and H*O multiples of 4, x and ct
+// 16-byte aligned).
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(wide_threads<BN>())
+segment_matmul_dw_wide_kernel(const float* __restrict__ x,
+                              const float* __restrict__ ct,
+                              const int32_t* __restrict__ seg_ptrs,
+                              int32_t* __restrict__ chunk_ptr,
+                              float* __restrict__ partial, int S, int H,
+                              int Hx, int K, int O, int rows) {
+  constexpr int T = wide_threads<BN>(), TX = BN / 4, V = kVec ? 4 : 1;
+  constexpr int XS = kWideRows * kWideK, CS = kWideRows * BN;  // a stage
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;
+  float* cs = smem + kWideStages * XS;
+  Chunk c;
+  if (!find_chunk<T>(seg_ptrs, chunk_ptr, S, rows, &c)) return;
+  const int NC = Hx > 1 ? O : H * O;
+  const int nct = (NC + BN - 1) / BN, nkt = (K + kWideK - 1) / kWideK;
+  int tile = blockIdx.y;
+  const int c0 = tile % nct * BN;
+  tile /= nct;
+  const int k0 = tile % nkt * kWideK;
+  const int h = tile / nkt;
+  const int kw = min(kWideK, K - k0), cw = min(BN, NC - c0);
+  const int64_t xld = static_cast<int64_t>(Hx) * K;
+  const int64_t cld = static_cast<int64_t>(H) * O;
+  const float* xb = x + static_cast<int64_t>(h) * K + k0;
+  const float* cb = ct + static_cast<int64_t>(h) * O + c0;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+
+  // rows [r0, r0 + kWideRows) into ring slot `buf`, zeros past the chunk
+  // and past the tile's k and column extents
+  auto stage = [&](int buf, int64_t r0) {
+    float* xd = xs + buf * XS;
+    float* cd = cs + buf * CS;
+#pragma unroll
+    for (int e = threadIdx.x; e < XS / V; e += T) {
+      const int r = e / (kWideK / V), q = e % (kWideK / V) * V;
+      const int64_t i = r0 + r;
+      const bool ok = i < c.hi && q < kw;
+      cp_async<V>(xd + r * kWideK + q, ok ? xb + i * xld + q : x, ok);
+    }
+#pragma unroll
+    for (int e = threadIdx.x; e < CS / V; e += T) {
+      const int r = e / (BN / V), q = e % (BN / V) * V;
+      const int64_t i = r0 + r;
+      const bool ok = i < c.hi && q < cw;
+      cp_async<V>(cd + r * BN + q, ok ? cb + i * cld + q : ct, ok);
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
 
-  for (int64_t r0 = c.lo; r0 < c.hi; r0 += kStage) {
+  const int nst = static_cast<int>((c.hi - c.lo + kWideRows - 1) / kWideRows);
 #pragma unroll
-    for (int e = threadIdx.x; e < kStage * kTile; e += kThreads) {
-      const int r = e / kTile, col = e % kTile;
-      const int64_t i = r0 + r;
-      const bool row_ok = i < c.hi;
-      xs[r][col] = row_ok && col < kw ? __ldg(xb + i * x_stride + col) : 0.f;
-      cs[r][col] = row_ok && col < cw ? __ldg(cb + i * c_stride + col) : 0.f;
-    }
+  for (int st = 0; st < kWideStages - 1; ++st) {
+    if (st < nst) stage(st, c.lo + static_cast<int64_t>(st) * kWideRows);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    const int next = st + kWideStages - 1;  // into the slot read last round
+    if (next < nst)
+      stage(next % kWideStages, c.lo + static_cast<int64_t>(next) * kWideRows);
+    cp_async_commit();
+    cp_async_wait<kWideStages - 1>();  // stage st has landed
     __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kStage; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&cs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    const float* xd = xs + st % kWideStages * XS + ty * 8;
+    const float* cd = cs + st % kWideStages * CS + tx * 4;
+#pragma unroll 8
+    for (int r = 0; r < kWideRows; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xd + r * kWideK);
+      const float4 a1 = *reinterpret_cast<const float4*>(xd + r * kWideK + 4);
+      const float4 b = *reinterpret_cast<const float4*>(cd + r * BN);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int p = 0; p < 8; ++p)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] += av[p] * bv[q];
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
     }
-    __syncthreads();
+    __syncthreads();  // the slot is refilled next round
   }
-  // partial is (chunk, H, K, O): column c of the pass is (h + c / O, c % O)
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * H * K * O;
+  cp_async_wait<0>();
+
+  // a chunk's partial is (H, K, O) per head and (K, H*O) for shared x:
+  // group h's (K, NC) block, row k, column col
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * H * K * O +
+               static_cast<int64_t>(h) * K * NC;
+  const int col = c0 + tx * 4;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = c0 + tx * 4 + q;
-    if (c >= NC) continue;
-    const int64_t base = static_cast<int64_t>(h + c / O) * K * O + c % O;
+  for (int p = 0; p < 8; ++p) {
+    const int k = k0 + ty * 8 + p;
+    if (k >= K || col >= NC) continue;
+    float* row = out + static_cast<int64_t>(k) * NC + col;
+    if (kVec) {  // NC % 4 == 0: the 4 columns are in the tile, aligned
+      *reinterpret_cast<float4*>(row) =
+          make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+    } else {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int k = k0 + ty * 4 + p;
-      if (k < K) out[base + static_cast<int64_t>(k) * O] = acc[p][q];
+      for (int q = 0; q < 4; ++q)
+        if (col + q < NC) row[q] = acc[p][q];
     }
   }
 }
 
 // ---------------------------------------------------------------- reduce
 
-// out[s, j] = sum over the chunks of s, in chunk order, of partial[c, j].
-// A block covers 256 / CL columns; CL lanes per column stride the chunks
-// and meet in shared memory in lane order.
+// out[s] = the sum over the chunks of s of their partials, as (H, K, O).
+// A block covers 256 / CL entries j of a chunk's partial; CL lanes an
+// entry stride the chunks (four loads in flight, four sums) and meet in
+// shared memory in lane order, a fixed order.  For shared x (NC = H*O >
+// 0) entry j = k * NC + h * O + o of the (K, H*O) partial is out's (h, k,
+// o); per head (NC = 0) the layouts agree.
 template <int CL>
 __global__ void __launch_bounds__(kThreads)
 segment_matmul_dw_reduce_kernel(const float* __restrict__ partial,
                                 const int32_t* __restrict__ chunk_ptr,
-                                float* __restrict__ out, int64_t NJ) {
+                                float* __restrict__ out, int64_t NJ, int K,
+                                int O, int NC) {
   constexpr int CB = kThreads / CL;
   __shared__ float red[CL][CB];
   const int s = blockIdx.x;
   const int col = threadIdx.x % CB, ln = threadIdx.x / CB;
   const int64_t j = static_cast<int64_t>(blockIdx.y) * CB + col;
   const int c0 = __ldg(chunk_ptr + s), c1 = __ldg(chunk_ptr + s + 1);
-  float acc = 0.f;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   if (j < NJ) {
-    for (int c = c0 + ln; c < c1; c += CL)
-      acc += __ldg(partial + static_cast<int64_t>(c) * NJ + j);
+    const float* p = partial + j;
+    int c = c0 + ln;
+    for (; c + 3 * CL < c1; c += 4 * CL) {
+      a0 += __ldg(p + static_cast<int64_t>(c) * NJ);
+      a1 += __ldg(p + static_cast<int64_t>(c + CL) * NJ);
+      a2 += __ldg(p + static_cast<int64_t>(c + 2 * CL) * NJ);
+      a3 += __ldg(p + static_cast<int64_t>(c + 3 * CL) * NJ);
+    }
+    for (; c < c1; c += CL) a0 += __ldg(p + static_cast<int64_t>(c) * NJ);
   }
-  red[ln][col] = acc;
+  red[ln][col] = (a0 + a1) + (a2 + a3);
   __syncthreads();
   if (ln == 0 && j < NJ) {
     float sum = red[0][col];
 #pragma unroll
     for (int l = 1; l < CL; ++l) sum += red[l][col];
-    out[static_cast<int64_t>(s) * NJ + j] = sum;
+    int64_t o = j;
+    if (NC > 0) {
+      const int64_t k = j / NC, c = j % NC;
+      o = (c / O * K + k) * O + c % O;
+    }
+    out[static_cast<int64_t>(s) * NJ + o] = sum;
   }
 }
 
-template <int V>
-void launch_colsum(dim3 grid, const float* x, const float* ct,
-                   const int32_t* seg_ptrs, const int32_t* chunk_ptr,
-                   float* partial, int S, int H, int Hx, int K,
-                   cudaStream_t st) {
-  const int nv = H * K / V;
-#define HET_COLSUM(L)                                                      \
-  segment_matmul_dw_colsum_kernel<V, L><<<grid, kThreads, 0, st>>>(        \
-      x, ct, seg_ptrs, chunk_ptr, partial, S, H, Hx, K)
-  if (nv <= 1) HET_COLSUM(1);
-  else if (nv <= 2) HET_COLSUM(2);
-  else if (nv <= 4) HET_COLSUM(4);
-  else if (nv <= 8) HET_COLSUM(8);
-  else if (nv <= 16) HET_COLSUM(16);
-  else HET_COLSUM(32);
-#undef HET_COLSUM
+// ------------------------------------------------------------ launches
+
+// Calls fn(kernel) with the chunk kernel a plan names (see
+// het_segment_matmul_dw_f32); cudaErrorInvalidValue where none is built.
+template <int NCP, bool kPerHead, class Fn>
+cudaError_t with_narrow_ncp(bool vec, bool ct_vec, Fn fn) {
+  if (ct_vec) {
+    if constexpr (NCP % 4 == 0 && !kPerHead) {
+      return vec ? fn(segment_matmul_dw_narrow_kernel<NCP, true, true, false>)
+                 : fn(segment_matmul_dw_narrow_kernel<NCP, false, true, false>);
+    }
+    return cudaErrorInvalidValue;
+  }
+  return vec ? fn(segment_matmul_dw_narrow_kernel<NCP, true, false, kPerHead>)
+             : fn(segment_matmul_dw_narrow_kernel<NCP, false, false, kPerHead>);
 }
 
-int64_t max_chunks(int64_t n_rows, int S) {
-  return (n_rows + kChunkRows - 1) / kChunkRows + S;
+template <bool kPerHead, class Fn>
+cudaError_t with_narrow(int cols, bool vec, bool ct_vec, Fn fn) {
+  switch (cols) {
+    case 1: return with_narrow_ncp<1, kPerHead>(vec, ct_vec, fn);
+    case 4: return with_narrow_ncp<4, kPerHead>(vec, ct_vec, fn);
+    case 8: return with_narrow_ncp<8, kPerHead>(vec, ct_vec, fn);
+    case 12: return with_narrow_ncp<12, kPerHead>(vec, ct_vec, fn);
+    case 16: return with_narrow_ncp<16, kPerHead>(vec, ct_vec, fn);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// fn(kernel, threads, dynamic shared bytes) for the wide kernel of column
+// tile `cols`, after allowing it that much shared memory
+template <bool kVec, int BN, class Fn>
+cudaError_t with_wide_bn(Fn fn) {
+  constexpr int smem = wide_smem_bytes<BN>();
+  const auto kernel = segment_matmul_dw_wide_kernel<BN, kVec>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return err != cudaSuccess ? err : fn(kernel, wide_threads<BN>(), smem);
+}
+
+template <class Fn>
+cudaError_t with_wide(int cols, bool vec, Fn fn) {
+  switch (cols) {
+    case 64: return vec ? with_wide_bn<true, 64>(fn) : with_wide_bn<false, 64>(fn);
+    case 80: return vec ? with_wide_bn<true, 80>(fn) : with_wide_bn<false, 80>(fn);
+    case 96: return vec ? with_wide_bn<true, 96>(fn) : with_wide_bn<false, 96>(fn);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // ------------------------------------------------------- forward and dX
@@ -589,54 +782,92 @@ int launch_rows(bool dx, const float* a, const float* w,
 
 extern "C" {
 
-// Chunks the scratch of het_segment_matmul_dw_f32 must hold: `partial`
-// takes this many times H*K*O floats, `chunk_ptr` S + 1 int32.
-int64_t het_segment_matmul_dw_max_chunks(int64_t n_rows, int S) {
-  return max_chunks(n_rows, S);
+// Blocks of the chunk kernel that `wide`, `cols`, `vec`, `ct_vec` and
+// `per_head` name (as in het_segment_matmul_dw_f32) that one SM of the
+// current device holds at once; 0 if there is no such kernel.
+int het_segment_matmul_dw_resident(int wide, int cols, int vec, int ct_vec,
+                                   int per_head) {
+  int n = 0;
+  cudaError_t err;
+  if (wide) {
+    err = with_wide(cols, vec, [&](auto kernel, int threads, int smem) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                           threads, smem);
+    });
+  } else {
+    const auto query = [&](auto kernel) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, kNarrowThreads, 0);
+    };
+    err = per_head ? with_narrow<true>(cols, vec, ct_vec, query)
+                   : with_narrow<false>(cols, vec, ct_vec, query);
+  }
+  return err == cudaSuccess ? n : 0;
 }
 
 // x (n_rows, Hx*K) f32 and ct (n_rows, H*O) f32, row-major; seg_ptrs
-// (S + 1,) int32 on the device, non-decreasing, seg_ptrs[S] <= n_rows;
-// chunk_ptr and partial are scratch sized as above; out (S, H, K, O) f32.
-// Hx is 1 or H.  Launches on `stream` and returns the first launch error
-// (0 on success).
+// (S + 1,) int32 on the device, non-decreasing, seg_ptrs[S] <= n_rows; out
+// (S, H, K, O) f32; Hx is 1 or H.  The launch plan comes from the wrapper
+// (het_tpu_torch/ops/kernels/segment_mm.py::dw_plan): segments are cut
+// into chunks of `chunk_rows` rows; the grid takes `chunks` >=
+// ceil(n_rows / chunk_rows) + S blocks; `wide` picks the kernel, `cols`
+// its ct columns (narrow: 1, 4, 8, 12 or 16, at least NC; wide: the
+// column tile, 64, 80 or 96), `lanes` the narrow kernel's lanes a row,
+// `vec` and `ct_vec` its 16-byte loads.  Scratch: chunk_ptr (S + 1,) int32
+// and partial (chunks * H*K*O,) f32.  Launches on `stream` and returns the
+// first launch error, cudaErrorInvalidValue for a plan the operands do not
+// allow (0 on success).
 int het_segment_matmul_dw_f32(const float* x, const float* ct,
                               const int32_t* seg_ptrs, int32_t* chunk_ptr,
                               float* partial, float* out, int64_t n_rows,
                               int S, int H, int Hx, int K, int O,
+                              int chunk_rows, int64_t chunks, int wide,
+                              int cols, int lanes, int vec, int ct_vec,
                               void* stream) {
   if (S <= 0 || H <= 0 || K <= 0 || O <= 0) return cudaSuccess;
-  if (n_rows < 0 || (Hx != 1 && Hx != H)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t chunks = max_chunks(n_rows, S);
-  const int64_t NJ = static_cast<int64_t>(H) * K * O;
-  // O > 1: (head pass, k tile, column tile); one head pass of H * O
-  // columns when x is shared by the heads
-  const int64_t passes = Hx > 1 ? H : 1, cols = Hx > 1 ? O : H * O;
-  const int64_t tiles = passes * ((K + kTile - 1) / kTile) *
-                        ((cols + kTile - 1) / kTile);
-  if (chunks > 0x7fffffffLL || tiles > 65535) return cudaErrorInvalidValue;
-
-  segment_matmul_dw_plan_kernel<<<1, kPlanThreads, 0, st>>>(seg_ptrs,
-                                                            chunk_ptr, S);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const dim3 grid(static_cast<unsigned>(chunks),
-                  O == 1 ? 1u : static_cast<unsigned>(tiles));
-  if (O == 1) {
-    const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    if (vec4)
-      launch_colsum<4>(grid, x, ct, seg_ptrs, chunk_ptr, partial, S, H, Hx,
-                       K, st);
-    else
-      launch_colsum<1>(grid, x, ct, seg_ptrs, chunk_ptr, partial, S, H, Hx,
-                       K, st);
-  } else {
-    segment_matmul_dw_tiled_kernel<<<grid, kThreads, 0, st>>>(
-        x, ct, seg_ptrs, chunk_ptr, partial, S, H, Hx, K, O);
+  if (n_rows < 0 || (Hx != 1 && Hx != H) || chunk_rows <= 0 ||
+      chunks < (n_rows + chunk_rows - 1) / chunk_rows + S ||
+      chunks > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool per_head = Hx > 1;
+  const int NC = per_head ? O : H * O;
+  const int64_t NJ = static_cast<int64_t>(H) * K * O;
+  cudaError_t err;
+  if (wide) {
+    const int64_t tiles = static_cast<int64_t>(per_head ? H : 1) *
+                          ((K + kWideK - 1) / kWideK) *
+                          ((NC + cols - 1) / cols);
+    if (cols <= 0 || tiles > 65535 ||
+        (vec && (K % 4 || NC % 4 || (H * O) % 4 || !aligned16(x) ||
+                 !aligned16(ct)))) {
+      return cudaErrorInvalidValue;
+    }
+    const dim3 grid(static_cast<unsigned>(chunks),
+                    static_cast<unsigned>(tiles));
+    err = with_wide(cols, vec, [&](auto kernel, int threads, int smem) {
+      kernel<<<grid, threads, smem, st>>>(x, ct, seg_ptrs, chunk_ptr,
+                                          partial, S, H, Hx, K, O,
+                                          chunk_rows);
+      return cudaGetLastError();
+    });
+  } else {
+    if (NC > cols || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+        (vec && ((Hx * K) % 4 || !aligned16(x))) ||
+        (ct_vec && (per_head || NC != cols || !aligned16(ct)))) {
+      return cudaErrorInvalidValue;
+    }
+    const dim3 grid(static_cast<unsigned>(chunks));
+    const auto launch = [&](auto kernel) {
+      kernel<<<grid, kNarrowThreads, 0, st>>>(x, ct, seg_ptrs, chunk_ptr,
+                                              partial, S, H, K, O,
+                                              chunk_rows, lanes);
+      return cudaGetLastError();
+    };
+    err = per_head ? with_narrow<true>(cols, vec, ct_vec, launch)
+                   : with_narrow<false>(cols, vec, ct_vec, launch);
+  }
   if (err != cudaSuccess) return err;
 
   // chunk lanes per column: about the chunks a segment has
@@ -647,15 +878,16 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
   if (col_blocks > 65535) return cudaErrorInvalidValue;
   const dim3 rgrid(static_cast<unsigned>(S),
                    static_cast<unsigned>(col_blocks));
+  const int shared_nc = per_head ? 0 : NC;
   if (cl == 1)
     segment_matmul_dw_reduce_kernel<1><<<rgrid, kThreads, 0, st>>>(
-        partial, chunk_ptr, out, NJ);
+        partial, chunk_ptr, out, NJ, K, O, shared_nc);
   else if (cl == 8)
     segment_matmul_dw_reduce_kernel<8><<<rgrid, kThreads, 0, st>>>(
-        partial, chunk_ptr, out, NJ);
+        partial, chunk_ptr, out, NJ, K, O, shared_nc);
   else
     segment_matmul_dw_reduce_kernel<32><<<rgrid, kThreads, 0, st>>>(
-        partial, chunk_ptr, out, NJ);
+        partial, chunk_ptr, out, NJ, K, O, shared_nc);
   return cudaGetLastError();
 }
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -95,6 +95,107 @@ def segment_matmul_dw_plain(x_rows: torch.Tensor, ct_rows: torch.Tensor,
     return out
 
 
+# the narrow kernel's ct columns (an x column meets NC <= 16 of them) and
+# the wide kernel's column tiles; csrc/segment_mm.cu instantiates these
+NARROW_COLS = (1, 4, 8, 12, 16)
+WIDE_COLS = (64, 80, 96)
+WIDE_K = 64  # k extent of a wide tile
+MIN_CHUNK_ROWS = 256  # rows a block walks at least, to hide its start
+PARTIAL_SHARE = 16  # partials at most 1/16 of the input bytes
+
+
+class DwPlan(NamedTuple):
+    """How ``csrc/segment_mm.cu`` computes one grouped dW: the chunk
+    kernel (``wide`` or narrow), its ct columns (``cols``: narrow, NC
+    rounded up to :data:`NARROW_COLS`; wide, the column tile of
+    :data:`WIDE_COLS`), the narrow kernel's ``lanes`` a row, 16-byte loads
+    of x (``vec``) and of ct (``ct_vec``), the blocks along y (``tiles``),
+    the rows a chunk and the grid's bound on the chunks."""
+    wide: bool
+    cols: int
+    lanes: int
+    vec: bool
+    ct_vec: bool
+    tiles: int
+    chunk_rows: int = 0
+    chunks: int = 0
+
+
+def dw_plan(n_rows: int, S: int, H: int, Hx: int, K: int, O: int,
+            x_aligned: bool, ct_aligned: bool, sms: int,
+            resident: Callable[[DwPlan], int]) -> DwPlan:
+    """The launch plan of the dW kernel for x (n_rows, Hx*K) and ct
+    (n_rows, H*O) whose first rows are 16-byte aligned or not, on a card
+    with ``sms`` SMs, where ``resident(plan)`` is the number of blocks of
+    the plan's chunk kernel one SM holds at once.
+
+    NC, the ct columns an x column meets, is O per head (Hx = H) or H*O
+    (Hx = 1): up to 16 take the narrow kernel, more the wide one, whose
+    column tile covers NC in as few passes as 96-column tiles would.  Rows
+    a chunk: the chunks of the fewest waves of resident blocks that leave
+    room for half a wave past the one extra chunk a segment may cut, but
+    at least :data:`MIN_CHUNK_ROWS` rows, and enough that the partials
+    stay within 1/:data:`PARTIAL_SHARE` of the inputs; a multiple of 32
+    (the wide kernel's stage)."""
+    per_head = Hx > 1
+    nc = O if per_head else H * O
+    xw = Hx * K
+    if nc <= NARROW_COLS[-1]:
+        cols = next(c for c in NARROW_COLS if c >= nc)
+        vec = xw % 4 == 0 and x_aligned
+        vectors = xw // 4 if vec else xw
+        lanes = min(32, 1 << max(vectors - 1, 0).bit_length())
+        ct_vec = (not per_head and nc == cols and nc % 4 == 0
+                  and ct_aligned)
+        plan = DwPlan(False, cols, lanes, vec, ct_vec, 1)
+    else:
+        passes = -(-nc // WIDE_COLS[-1])
+        cols = next(c for c in WIDE_COLS if c >= -(-nc // passes))
+        vec = (K % 4 == 0 and nc % 4 == 0 and (H * O) % 4 == 0
+               and x_aligned and ct_aligned)
+        tiles = (H if per_head else 1) * -(-K // WIDE_K) * -(-nc // cols)
+        plan = DwPlan(True, cols, 0, vec, False, tiles)
+    per_wave = max(1, sms * max(1, resident(plan)) // plan.tiles)
+    waves = 1
+    while waves * per_wave - S < per_wave // 2:
+        waves += 1
+    rows = -(-n_rows // (waves * per_wave - S))
+    floor = -(-PARTIAL_SHARE * H * K * O // (xw + H * O))
+    rows = -(-max(rows, floor, MIN_CHUNK_ROWS) // 32) * 32
+    return plan._replace(chunk_rows=rows, chunks=-(-n_rows // rows) + S)
+
+
+_PLANS: Dict[tuple, DwPlan] = {}
+
+
+def _resident(index: int, plan: DwPlan, per_head: bool) -> int:
+    """Blocks of ``plan``'s chunk kernel one SM of device ``index`` holds
+    (CUDA's occupancy calculator)."""
+    fn = _dispatch.bind("segment_mm", "het_segment_matmul_dw_resident",
+                        [ctypes.c_int] * 5)
+    with torch.cuda.device(index):
+        return fn(int(plan.wide), plan.cols, int(plan.vec), int(plan.ct_vec),
+                  int(per_head))
+
+
+def card_dw_plan(x_rows: torch.Tensor, ct_rows: torch.Tensor,
+                 w_shape) -> DwPlan:
+    """:func:`dw_plan` for these CUDA operands on their card."""
+    S, H, K, O = w_shape
+    x2, ct2, Hx = _operands(x_rows, ct_rows, w_shape)
+    dev = x2.device
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, x2.shape[0], S, H, Hx, K, O, x2.data_ptr() % 16 == 0,
+           ct2.data_ptr() % 16 == 0)
+    plan = _PLANS.get(key)
+    if plan is None:  # a training step asks for the same few each time
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        plan = _PLANS[key] = dw_plan(*key[1:], sms,
+                                     lambda p: _resident(index, p, Hx > 1))
+    return plan
+
+
 def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
     S, H, K, O = w_shape
     n_rows = x2.shape[0]
@@ -102,22 +203,24 @@ def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    chunks = _dispatch.bind("segment_mm", "het_segment_matmul_dw_max_chunks",
-                         [ctypes.c_int64, ctypes.c_int], ctypes.c_int64)
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     dev = x2.device
     out = torch.empty(S, H, K, O, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    # scratch: the chunk plan and each chunk's partial (H, K, O) sums
+    plan = card_dw_plan(x2, ct2, w_shape)
+    # scratch: the chunk prefix and each chunk's partial (H, K, O) sums
     chunk_ptr = torch.empty(S + 1, dtype=torch.int32, device=dev)
-    partial = torch.empty(chunks(n_rows, S) * H * K * O, dtype=torch.float32,
+    partial = torch.empty(plan.chunks * H * K * O, dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x2.data_ptr(), ct2.data_ptr(), seg_ptrs.data_ptr(),
                  chunk_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                 n_rows, S, H, Hx, K, O, stream)
+                 n_rows, S, H, Hx, K, O, plan.chunk_rows, plan.chunks,
+                 int(plan.wide), plan.cols, plan.lanes, int(plan.vec),
+                 int(plan.ct_vec), stream)
     _dispatch.check_launch("segment_mm", err, "segment_matmul_dw")
     segment_matmul_dw.launches += 1
     return out
@@ -168,7 +271,7 @@ def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
 
 
 # launches of the CUDA kernel since the count was last set to 0 (one a
-# call: the plan, chunk and reduce passes of csrc/segment_mm.cu)
+# call: the chunk and reduce passes of csrc/segment_mm.cu)
 segment_matmul_dw.launches = 0
 
 

@@ -131,54 +131,117 @@ def _segments(sizes, tile):
     return build_segments(seg_of_row, len(sizes), tile)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("sizes,H,Hx,K,O", [
-    ((5000, 0, 3000, 17), 4, 4, 16, 1),  # the attention-vector shape
-    ((5000, 0, 3000, 17), 4, 4, 2, 1),  # K % 4 != 0: scalar loads
-    ((5000, 0, 3000, 17), 2, 1, 8, 1),  # head-broadcast x
-    ((4100, 0, 70, 9000), 1, 1, 64, 64),  # segment-matmul dW
-    ((4100, 0, 70, 9000), 2, 2, 70, 5),  # ragged k and o tiles
-    ((4100, 0, 70, 9000), 4, 1, 64, 17),  # shared x: 68 columns, 2 tiles
-    ((5000, 0, 3000, 17), 3, 1, 70, 30),  # shared x, heads across tiles
-    ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
-    ((300,), 1, 1, 1, 1),  # one segment, K = O = 1
-    ((40, 7), 1, 1, 1, 65),  # K = 1, O past one tile
-])
-def test_segment_matmul_dw_kernel_matches_plain(cuda, sizes, H, Hx, K, O):
-    """Tolerance: DW_TOL * sum |x| |ct| per output (f32 sums in another
-    order), which the plain version on inputs rounded to TF32 fails; empty
-    segments are exactly zero."""
-    seg = _segments(sizes, tile=8).to(cuda)
-    n = seg.n_rows
-    gen = torch.Generator(device=cuda).manual_seed(n + K + O)
-    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
-    ct = torch.randn(n, H * O, device=cuda, generator=gen)
+def _check_dw(x, ct, w_shape, seg, sizes=()):
+    """One dW launch against the plain version.  Tolerance: DW_TOL *
+    sum |x| |ct| per output (f32 sums in another order), which the plain
+    version on inputs rounded to TF32 fails; empty segments are exactly
+    zero.  Returns the kernel's result."""
     segment_matmul_dw.launches = 0
-    got = segment_matmul_dw(x, ct, (len(sizes), H, K, O), seg)
+    got = segment_matmul_dw(x, ct, w_shape, seg)
     torch.cuda.synchronize()
     assert segment_matmul_dw.launches == 1
-    want = segment_matmul_dw_plain(x, ct, (len(sizes), H, K, O), seg)
-    scale = segment_matmul_dw_plain(x.abs(), ct.abs(), (len(sizes), H, K, O),
-                                    seg)
+    want = segment_matmul_dw_plain(x, ct, w_shape, seg)
+    scale = segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape, seg)
     assert got.shape == want.shape
     assert ((got - want).abs() <= DW_TOL * scale).all()
     if scale.any():
-        tf32 = segment_matmul_dw_plain(_tf32(x), _tf32(ct),
-                                       (len(sizes), H, K, O), seg)
+        tf32 = segment_matmul_dw_plain(_tf32(x), _tf32(ct), w_shape, seg)
         assert not ((tf32 - want).abs() <= DW_TOL * scale).all()
     for s, size in enumerate(sizes):
         if size == 0:
             assert (got[s] == 0).all()
+    return got
+
+
+def _chunk_rows(n_rows, S, H, Hx, K, O, dev):
+    """Rows a chunk of the dW kernel's plan for such operands."""
+    from het_tpu_torch.ops.kernels.segment_mm import card_dw_plan
+
+    return card_dw_plan(torch.zeros(n_rows, Hx * K, device=dev),
+                        torch.zeros(n_rows, H * O, device=dev),
+                        (S, H, K, O)).chunk_rows
 
 
 @pytest.mark.gpu
-def test_segment_matmul_dw_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("sizes,H,Hx,K,O", [
+    ((5000, 0, 3000, 17), 4, 4, 16, 1),  # the attention-vector shape
+    ((5000, 0, 3000, 17), 4, 4, 2, 1),  # H*K = 8: two float4 a row
+    ((5000, 0, 3000, 17), 2, 1, 8, 1),  # head-broadcast x
+    ((4100, 0, 70, 9000), 1, 1, 64, 64),  # segment-matmul dW
+    ((4100, 0, 70, 9000), 2, 2, 70, 5),  # ragged k and o tiles
+    ((4100, 0, 70, 9000), 4, 1, 64, 17),  # shared x: 68 columns, one pass
+    ((5000, 0, 3000, 17), 3, 1, 70, 30),  # shared x, heads across tiles
+    ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
+    ((300,), 1, 1, 1, 1),  # one segment, K = O = 1
+    ((40, 7), 1, 1, 1, 65),  # K = 1, O past one tile
+    ((5000, 0, 3000, 17), 4, 1, 64, 1),  # W.a_r on a shard: NC = 4
+    ((5000, 0, 3000, 17), 4, 1, 64, 3),  # [W.a_l | W] at layer 1: NC = 12
+    ((5000, 0, 3000, 17), 4, 1, 64, 2),  # edge-row W at layer 1: NC = 8
+    ((5000, 0, 3000, 17), 4, 1, 64, 16),  # edge-row W at layer 0: NC = 64
+    ((2000, 33, 0, 900), 4, 1, 64, 17),  # x not 16-byte aligned
+    ((2000, 33, 0, 900), 4, 1, 64, 3),  # x not 16-byte aligned, narrow
+    ((2000, 33, 0, 900), 4, 4, 16, 1),  # x not 16-byte aligned, per head
+    ("chunk+1", 4, 1, 64, 17),  # one segment a row past a chunk, wide
+    ("chunk+1", 4, 1, 64, 1),  # the same, narrow
+])
+def test_segment_matmul_dw_kernel_matches_plain(cuda, sizes, H, Hx, K, O):
+    """Every kernel and load width the plan picks (narrow NC <= 16, wide
+    NC > 16; float4 and scalar rows), against the plain version."""
+    tile = 8
+    if sizes == "chunk+1":  # rows a chunk, from the plan for ~that size
+        tile = 1  # no padding: the segment is exactly one row past
+        rows = _chunk_rows(3000, 2, H, Hx, K, O, cuda)
+        sizes = (rows + 1, 3000 - rows - 1)
+        assert _chunk_rows(3000, 2, H, Hx, K, O, cuda) == rows
+    seg = _segments(sizes, tile=tile).to(cuda)
+    n = seg.n_rows
+    gen = torch.Generator(device=cuda).manual_seed(n + K + O)
+    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
+    if 33 in sizes:  # a contiguous view one float into its storage
+        x = torch.randn(n * Hx * K + 1, device=cuda,
+                        generator=gen)[1:].view(n, Hx * K)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    ct = torch.randn(n, H * O, device=cuda, generator=gen)
+    _check_dw(x, ct, (len(sizes), H, K, O), seg, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hx,K,O", [(4, 1, 64, 17), (4, 1, 64, 1),
+                                      (4, 4, 16, 1), (1, 1, 64, 64)])
+def test_segment_matmul_dw_kernel_reads_no_row_outside(cuda, H, Hx, K, O):
+    """Rows before seg_ptrs[0] and past seg_ptrs[S] hold NaN: the result is
+    finite and within the limit of the plain version (which reads only
+    the segments' rows)."""
+    import dataclasses
+
+    lead, tail = 37, 45
+    base = _segments((3000, 0, 1500, 9), tile=1)
+    ptrs = tuple(p + lead for p in base.seg_ptrs_static)
+    seg = dataclasses.replace(
+        base, n_rows=ptrs[-1], seg_ptrs=torch.tensor(ptrs, dtype=torch.int32),
+        seg_ptrs_static=ptrs).to(cuda)
+    n = ptrs[-1] + tail
+    gen = torch.Generator(device=cuda).manual_seed(K + O)
+    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
+    ct = torch.randn(n, H * O, device=cuda, generator=gen)
+    for t in (x, ct):
+        t[:lead] = float("nan")
+        t[ptrs[-1]:] = float("nan")
+    got = _check_dw(x, ct, (4, H, K, O), seg, (3000, 0, 1500, 9))
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hx,K,O", [(4, 4, 16, 1), (4, 1, 64, 17)])
+def test_segment_matmul_dw_kernel_is_deterministic(cuda, H, Hx, K, O):
+    """Segments of several chunks each: three calls, bit for bit."""
     seg = _segments((30000, 100, 20000), tile=128).to(cuda)
-    x = torch.randn(seg.n_rows, 64, device=cuda)
-    ct = torch.randn(seg.n_rows, 4, device=cuda)
-    a = segment_matmul_dw(x, ct, (3, 4, 16, 1), seg)
-    b = segment_matmul_dw(x, ct, (3, 4, 16, 1), seg)
-    assert torch.equal(a, b)
+    assert _chunk_rows(seg.n_rows, 3, H, Hx, K, O, cuda) < 20000
+    x = torch.randn(seg.n_rows, Hx * K, device=cuda)
+    ct = torch.randn(seg.n_rows, H * O, device=cuda)
+    a = segment_matmul_dw(x, ct, (3, H, K, O), seg)
+    for _ in range(2):
+        assert torch.equal(a, segment_matmul_dw(x, ct, (3, H, K, O), seg))
 
 
 @pytest.mark.gpu

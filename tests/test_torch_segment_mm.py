@@ -67,7 +67,7 @@ def _formula(x, ct, w_shape, jseg):
 
 
 @pytest.mark.parametrize("branch", ["resident", "streamed"])
-@pytest.mark.parametrize("O", [1, 5])
+@pytest.mark.parametrize("O", [1, 5, 17])  # 17: NC = H*O past 16 at Hx = 1
 @pytest.mark.parametrize("Hx", [1, H])
 def test_plain_dw_matches_pallas_and_formula(Hx, O, branch):
     x, ct, w_shape, jseg, tseg = _case(Hx, O, branch)
@@ -114,7 +114,11 @@ def _tf32(t):
     return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
 
 
-@pytest.mark.parametrize("H_,Hx,K,O", [(4, 4, 16, 1), (1, 1, 64, 64)])
+@pytest.mark.parametrize("H_,Hx,K,O", [
+    (4, 4, 16, 1), (1, 1, 64, 64),
+    # the shapes of the kernel's narrow and wide regimes on the paths
+    (4, 1, 64, 17), (4, 1, 64, 3), (4, 1, 64, 1), (4, 1, 64, 16),
+    (4, 1, 64, 2), (4, 4, 2, 1)])
 def test_dw_limit_tells_f32_from_tf32(H_, Hx, K, O):
     """The limit 1e-6 * sum |x| |ct| that holds the CUDA dW against its
     plain version: the f32 plain version stays inside it against a float64
@@ -249,3 +253,77 @@ def test_segment_matmul_on_device_offsets_matches_pallas_vjp():
     # and the same values as the host-offset path (per-relation matmuls)
     y_static = segment_matmul(torch.from_numpy(x), torch.from_numpy(w), tseg)
     np.testing.assert_allclose(y_static.numpy(), y.detach().numpy(), **TOL)
+
+
+# (n_rows, S, H, Hx, K, O): the dW shapes of the training paths (rank 0's
+# shard in the data-parallel runs) and the general and edge shapes
+PLAN_SHAPES = [
+    (527360, 4, 4, 1, 64, 17), (527360, 4, 4, 1, 64, 3),
+    (312064, 4, 4, 1, 64, 1), (1056896, 4, 4, 1, 64, 16),
+    (1056896, 4, 4, 1, 64, 2), (1056896, 4, 4, 4, 16, 1),
+    (2112384, 4, 4, 4, 2, 1), (674176, 4, 4, 4, 16, 1),
+    (1000192, 4, 1, 1, 64, 64), (1034496, 535, 1, 1, 64, 64),
+    (960, 3, 3, 1, 70, 30), (47, 2, 1, 1, 1, 65), (960, 3, 2, 2, 70, 5),
+    (0, 3, 2, 2, 4, 3), (304, 1, 1, 1, 64, 64), (40, 4, 2, 2, 8, 1),
+]
+
+
+def _resident(plan):
+    """A stand-in for the card's occupancy: blocks an SM holds."""
+    return 4 if plan.wide else 7
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_dw_plan_covers_the_operands(shape, aligned):
+    """The dW kernel's launch plan (``dw_plan``): narrow for NC <= 16 ct
+    columns an x column meets, wide past it with column tiles that cover
+    NC in as few passes as 96-wide ones would; a narrow row team covers a
+    row of x in one pass where 32 lanes can; 16-byte loads only on aligned
+    rows; chunks that fit the grid's bound, a multiple of the wide
+    kernel's 32-row stage, partials within 1/16 of the inputs."""
+    from het_tpu_torch.ops.kernels.segment_mm import (NARROW_COLS, WIDE_COLS,
+                                                      WIDE_K, dw_plan)
+    n, S_, H_, Hx, K, O = shape
+    p = dw_plan(n, S_, H_, Hx, K, O, aligned, aligned, 132, _resident)
+    nc = O if Hx > 1 else H_ * O
+    xw = Hx * K
+    assert p.wide == (nc > 16)
+    if p.wide:
+        assert p.cols in WIDE_COLS and not p.ct_vec
+        assert p.cols * -(-nc // p.cols) >= nc
+        assert -(-nc // p.cols) == -(-nc // 96)  # no extra column pass
+        assert p.tiles == ((H_ if Hx > 1 else 1) * -(-K // WIDE_K)
+                           * -(-nc // p.cols))
+        assert p.vec == (aligned and K % 4 == 0 and nc % 4 == 0
+                         and H_ * O % 4 == 0)
+    else:
+        assert p.cols in NARROW_COLS and p.cols >= nc
+        assert p.cols == min(c for c in NARROW_COLS if c >= nc)
+        assert p.tiles == 1
+        assert p.vec == (aligned and xw % 4 == 0)
+        assert p.ct_vec == (aligned and Hx == 1 and nc % 4 == 0)
+        width = xw // 4 if p.vec else xw  # loads a row
+        assert p.lanes & (p.lanes - 1) == 0 and 1 <= p.lanes <= 32
+        assert p.lanes >= min(width, 32) and p.lanes < 2 * max(width, 1)
+    assert p.chunk_rows % 32 == 0 and p.chunk_rows >= 256
+    assert p.chunks == -(-n // p.chunk_rows) + S_
+    partial = (p.chunks - S_) * H_ * K * O
+    assert partial <= max(n, p.chunk_rows) * (xw + H_ * O) / 16 + H_ * K * O
+
+
+def test_dw_plan_fills_whole_waves():
+    """The chunk pass's blocks fill the card's resident slots for a whole
+    number of waves: on the training paths' shapes one wave, whose chunks
+    (one extra a segment at most) all start at once and fill at least
+    three quarters of it; at S = 535, two."""
+    from het_tpu_torch.ops.kernels.segment_mm import dw_plan
+    for n, S_, H_, Hx, K, O in PLAN_SHAPES[:10]:
+        p = dw_plan(n, S_, H_, Hx, K, O, True, True, 132, _resident)
+        slots = 132 * _resident(p)
+        waves = 2 if S_ == 535 else 1
+        assert 0.75 * waves * slots <= p.chunks * p.tiles <= waves * slots, (
+            n, O, p)
+    # x at K = 64 shared by 4 heads: one row of x for all 68 columns
+    assert dw_plan(527360, 4, 4, 1, 64, 17, True, True, 132,
+                   _resident).tiles == 1
