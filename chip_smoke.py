@@ -32,7 +32,11 @@ Phases, each of which fails the run:
      a share of its bound;
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
      data-parallel runs give rank 0's shard, at the general shapes (S =
-     535: W is 8.8 MB) and edge cases, with the same TF32 control;
+     535: W is 8.8 MB) and edge cases (among them 300 short segments, three
+     column passes, K = 63, NaN rows before and past the segments, an
+     operand one float off 16 bytes), each launched twice and compared
+     bit for bit, with the same TF32 control, timed beside bare
+     per-relation cuBLAS (one ``torch.mm`` a segment on host offsets);
    * ``force_rowmajor`` bit for bit on the packed run's ``fe[..., 1:]``
      view, a transposed view and R = 0 (no path calls it);
    * compact multiply-first's fused op in its split and its packed
@@ -1043,9 +1047,11 @@ def check_dw(g, gu, shards, dev, flush):
 
 def _mm_shapes(shards, dev):
     """(label, run or None, forward launches a step, dX launches a step,
-    seg, S, H, Hx, K, O) of every forward and dX the data-parallel runs
-    give rank 0's shard (on the card), the general shapes and edge cases.
-    Offsets live only on the device, as on a shard."""
+    seg, S, H, Hx, K, O[, operand form: "nan_outside" for NaN rows before
+    and past the segments, "unaligned" for an operand one float off 16
+    bytes]) of every forward and dX the data-parallel runs give rank 0's
+    shard (on the card), the general shapes and edge cases.  Offsets live
+    only on the device, as on a shard."""
     import dataclasses
 
     import numpy as np
@@ -1087,10 +1093,67 @@ def _mm_shapes(shards, dev):
         ("edge: O=1", None, 0, 0, general((50, 0, 900), 8), 3, 2, 1, 8, 1),
         ("edge: per-head x", None, 0, 0, general((500, 0, 700), 8), 3, 4, 4,
          16, 5),
+        # 300 segments of 0-19 rows: tiles and warps across many segments
+        ("edge: short segments, C=68", None, 0, 0, general(
+            [i * 7 % 20 for i in range(300)], 1), 300, 4, 1, 64, 17),
+        ("edge: short segments, C=12", None, 0, 0, general(
+            [i * 7 % 20 for i in range(300)], 1), 300, 4, 1, 64, 3),
+        ("edge: C=200, three column passes", None, 0, 0,
+         general((3000, 0, 900), 1), 3, 2, 1, 64, 100),
+        ("edge: K=63, C=68", None, 0, 0, general((3000, 0, 900), 1), 3, 4,
+         1, 63, 17),
+        ("edge: K=63, C=4", None, 0, 0, general((3000, 0, 900), 1), 3, 4, 1,
+         63, 1),
+        ("edge: K=130, C=4, three k tiles", None, 0, 0,
+         general((3000, 0, 900), 1), 3, 4, 1, 130, 1),
+        ("edge: per-head x, K=100, two k tiles", None, 0, 0,
+         general((3000, 0, 900), 1), 3, 2, 2, 100, 3),
     ]
+    for H, O in ((4, 17), (4, 1)):
+        shapes += [
+            (f"edge: NaN rows outside the segments, C={H * O}", None, 0, 0,
+             dataclasses.replace(_shifted(_segments((3000, 0, 1500, 9), 1,
+                                                    dev), 37),
+                                 seg_ptrs_static=None), 4, H, 1, 64, O,
+             "nan_outside"),
+            (f"edge: operand not 16-byte aligned, C={H * O}", None, 0, 0,
+             general((2000, 33, 0, 900), 8), 4, H, 1, 64, O, "unaligned"),
+        ]
     for shape in shapes:
         assert shape[4].seg_ptrs_static is None, shape[0]
     return shapes
+
+
+def _bare_cublas(direction, a, w, ptrs, Hx):
+    """The yardstick of the forward (``direction`` "fwd") or the dX: one
+    ``torch.mm`` into the output's rows a non-empty segment, on offsets
+    ``ptrs`` read on the host and W laid out beforehand as (S, Hx*K, H*O)
+    (forward) or (S, H*O, Hx*K) (dX), block-diagonal over the heads where
+    x has one row a head; the rows outside the segments are zeroed.  The
+    port never calls it.  Returns the function to time."""
+    import torch
+
+    S, H, K, O = w.shape
+    if Hx == 1:  # (S, K, H*O): column h*O + o of row k is W[s, h, k, o]
+        w_cat = w.permute(0, 2, 1, 3).reshape(S, K, H * O)
+    else:
+        w_cat = torch.stack([torch.block_diag(*w[s]) for s in range(S)])
+    if direction == "dx":
+        w_cat = w_cat.transpose(1, 2)
+    w_cat = w_cat.contiguous()
+    segs = [(s, ptrs[s], ptrs[s + 1]) for s in range(S)
+            if ptrs[s + 1] > ptrs[s]]
+    width = w_cat.shape[2]
+
+    def run():
+        out = torch.empty(a.shape[0], width, device=a.device)
+        out[:ptrs[0]] = 0.0
+        out[ptrs[-1]:] = 0.0
+        for s, lo, hi in segs:
+            torch.mm(a[lo:hi], w_cat[s], out=out[lo:hi])
+        return out
+
+    return run
 
 
 def check_fwd_dx(shards, dev, flush):
@@ -1098,9 +1161,11 @@ def check_fwd_dx(shards, dev, flush):
     versions at every shape, within |kernel - plain| <= MM_TOL * sum |x|
     |W| (the plain version on absolute values), with the control that the
     plain version on TF32-rounded inputs fails that limit wherever there
-    are rows; per-shape times beside the yardstick, the plain version on
-    host-known offsets (per-relation ``torch.matmul`` without the host
-    read of ``seg_ptrs``).  Returns both kernels' JSON entries."""
+    are rows; per-shape times beside two yardsticks on host-known
+    offsets: bare per-relation cuBLAS (:func:`_bare_cublas`) and the plain
+    version (per-relation ``torch.matmul`` with its zero fill and copies,
+    without the host read of ``seg_ptrs``).  Returns both kernels' JSON
+    entries."""
     import dataclasses
 
     import torch
@@ -1114,7 +1179,7 @@ def check_fwd_dx(shards, dev, flush):
           f"{MM_TOL} * sum|x|*|W|; 'share' is the largest |diff| / limit")
     print("direction | shape | run | S | rows | H | Hx | K | O | kernel share"
           " | TF32 control share | kernel ms | bound ms | plain ms | "
-          "plain on host offsets ms")
+          "plain on host offsets ms | bare per-relation cuBLAS ms")
     gen = torch.Generator(device=dev).manual_seed(3)
     kernels = {"fwd": (segment_matmul_fwd, segment_matmul_fwd_plain),
                "dx": (segment_matmul_dx, segment_matmul_dx_plain)}
@@ -1127,7 +1192,7 @@ def check_fwd_dx(shards, dev, flush):
             if shape[1] is not None:
                 counts[shape[1]] += shape[i]
         _check_shape_count(name, counts)
-    for (label, run, n_fwd, n_dx, seg, S, H, Hx, K, O) in shapes:
+    for (label, run, n_fwd, n_dx, seg, S, H, Hx, K, O, *form) in shapes:
         n = seg.n_rows
         w = torch.randn(S, H, K, O, device=dev, generator=gen) / math.sqrt(K)
         # the yardstick's offsets, read on the host once beforehand
@@ -1135,10 +1200,25 @@ def check_fwd_dx(shards, dev, flush):
         for direction, per_step in (("fwd", n_fwd), ("dx", n_dx)):
             fn, plain_fn = kernels[direction]
             width = Hx * K if direction == "fwd" else H * O
-            a = torch.randn(n, width, device=dev, generator=gen)
+            if form == ["unaligned"]:  # a contiguous view one float in
+                a = torch.randn(n * width + 1, device=dev,
+                                generator=gen)[1:].view(n, width)
+                assert a.data_ptr() % 16 != 0, label
+            else:
+                a = torch.randn(n, width, device=dev, generator=gen)
+            if form == ["nan_outside"]:  # rows no segment holds, and more
+                first = static.seg_ptrs_static[0]
+                a = torch.cat([a, torch.randn(45, width, device=dev)])
+                a[:first] = float("nan")
+                a[n:] = float("nan")
             extra = () if direction == "fwd" else (Hx,)
             got = fn(a, w, seg, *extra)
             torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{direction} {label}: not finite")
+            if not torch.equal(got, fn(a, w, seg, *extra)):
+                raise AssertionError(f"{direction} {label}: two calls "
+                                     f"differ")
             want = plain_fn(a, w, seg, *extra)
             limit = MM_TOL * plain_fn(a.abs(), w.abs(), seg, *extra)
             if got.shape != want.shape:
@@ -1165,20 +1245,28 @@ def check_fwd_dx(shards, dev, flush):
             bound = max(bytes_s, ops_s)
             ms = _time_ms(lambda: fn(a, w, seg, *extra), 20, flush)
             plain = _time_ms(lambda: plain_fn(a, w, seg, *extra), 5, flush)
-            yard_ms = _time_ms(lambda: plain_fn(a, w, static, *extra), 5,
+            host_ms = _time_ms(lambda: plain_fn(a, w, static, *extra), 5,
                                flush)
+            bare = _bare_cublas(direction, a, w, static.seg_ptrs_static, Hx)
+            if _worst_share((bare().view(want.shape) - want).abs(),
+                            limit) > 1.0:
+                raise AssertionError(f"{direction} {label}: bare cuBLAS "
+                                     f"differs from plain")
+            bare_ms = _time_ms(bare, 5, flush)
             print(f"{direction} | {label} | {run} | {S} | {n} | {H} | {Hx} |"
                   f" {K} | {O} | {share:.4g} | {control:.4g} | {ms:.4f} | "
                   f"{bound * 1e3:.4f} "
                   f"({'bytes' if bytes_s >= ops_s else 'operations'}) | "
-                  f"{plain:.4f} | {yard_ms:.4f}")
+                  f"{plain:.4f} | {host_ms:.4f} | {bare_ms:.4f}")
             if run is None:
                 continue
             total = totals[direction].setdefault(run, dict(
-                ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
-                bytes_ms=0.0, ops_ms=0.0))
+                ms=0.0, plain_ms=0.0, bound_ms=0.0, bare_cublas_ms=0.0,
+                plain_host_offsets_ms=0.0, bytes_ms=0.0, ops_ms=0.0))
             for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("bound_ms", bound * 1e3), ("yardstick_ms", yard_ms),
+                           ("bound_ms", bound * 1e3),
+                           ("bare_cublas_ms", bare_ms),
+                           ("plain_host_offsets_ms", host_ms),
                            ("bytes_ms", bytes_s * 1e3),
                            ("ops_ms", ops_s * 1e3)):
                 total[key] += per_step * v
@@ -1205,8 +1293,10 @@ def check_fwd_dx(shards, dev, flush):
             "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
                          else "operations"),
             "library_ms": None,  # no single PyTorch call: no f32 grouped GEMM
-            "yardstick_ms": total["yardstick_ms"],
-            "yardstick": "plain version on host-known offsets",
+            "yardstick_ms": total["bare_cublas_ms"],
+            "yardstick": "bare per-relation torch.mm (cuBLAS) on host-known "
+                         "offsets",
+            "plain_host_offsets_ms": total["plain_host_offsets_ms"],
             "per_run": totals[direction],
         })
     return entries

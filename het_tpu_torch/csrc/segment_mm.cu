@@ -9,19 +9,67 @@
 // the device only: the segmentations these kernels serve (the shards of a
 // partitioned graph) have no host copy of them.
 //
-// ------------------------------------------------------- forward and dX
+// ------------------------------------------------------------- forward
 //
-//     fwd: y[i, h*O + o]  = sum_k x[i, (Hx>1 ? h : 0)*K + k] W[s, h, k, o]
-//     dX:  dx[i, h*K + k] = sum_o ct[i, h*O + o] W[s, h, k, o]   (Hx = H)
-//          dx[i, k]       = sum_{h,o} ct[i, h*O + o] W[s, h, k, o] (Hx = 1)
+//     y[i, h*O + o] = sum_k x[i, (Hx>1 ? h : 0)*K + k] W[s, h, k, o]
 //
-// Replace the TPU kernels het_tpu/ops/pallas/segment_mm.py::_fwd_resident
-// and ::_fwd_streamed (forward), ::_dx_resident and the streamed
-// ::segment_matmul_rows_dx (dX).  Those keep W whole in VMEM, or DMA one
-// relation's block per run of row tiles once W passes the VMEM budget,
-// and fold the heads into the minor dimension for the MXU; all three are
-// TPU workarounds.  Here both directions are one templated kernel, a
-// tiled f32 GEMM whose B operand is the block's relation's weight:
+// Replaces the TPU kernels het_tpu/ops/pallas/segment_mm.py::_fwd_resident
+// (W whole in VMEM) and ::_fwd_streamed (one relation's block DMA'd per
+// run of row tiles past the 4 MB VMEM budget); both fold the heads into
+// the minor dimension for the MXU, a TPU workaround.  Here one kernel pair
+// takes any W: a relation's weight slice is staged per run of rows of that
+// relation, never W whole.  A group is the K columns of x that meet Cg
+// output columns: per head (Hx = H) group h's K columns against O; for
+// shared x (Hx = 1) the one group of K columns against all Cg = H*O, so x
+// is read once for every head.
+//
+// Bound.  Bytes: x read once, y written once, W read once: n_rows * (Hx*K +
+// H*O) * 4 + S*H*K*O*4.  Operations: 2 * n_rows * H*K*O.  Two regimes, two
+// kernels over one walk (FwdWalk): a block takes a range of rows as
+// 64-row tiles cut at segment ends, so that a tile's rows share one
+// relation, streams their x rows through a 3-stage cp.async ring
+// (zero-filled past the tile and past K; k tiles of 64 where K > 64), and
+// stages the relation's (K, BN) weight slice in shared memory once for
+// each run of tiles of one relation, by cp.async one commit group ahead
+// of the next tile's.  A tile takes one barrier: the copies into the slot
+// read last round start after it.  The blocks fill one wave of the card.
+//  * narrow, Cg <= 16 (the attention columns W.a_r, C = 4; the layer-1
+//    typed linears, 8 and 12): under 2 * 16 * 64 / ((64 + 16) * 4) = 6.4
+//    operations a byte at K = 64, so bytes bound: the work is to read
+//    every byte of x once with enough rows in flight.
+//    segment_matmul_fwd_narrow_kernel gives each row of a tile four lanes
+//    that split its k (a float4 of x each for every 16 k), reads W as a
+//    broadcast from shared memory, and meets the four lanes by a 2-step
+//    reduce-scatter that leaves each a quarter of the row's BN columns
+//    (a float4 where BN = 16).  An earlier layout, a row's float4 spread
+//    over K/4 lanes with its 4 x Cg weights in registers and a
+//    reduce-scatter over 16 lanes, took 101-171 registers and ran C = 8
+//    and 12 slower than the kernel it replaced.
+//  * wide, Cg > 16 (the typed linears' 64 and 68, the general K = O = 64):
+//    16-16.5 operations a byte at K = 64, near the f32 ridge of 67 TFLOP/s
+//    over 3.35 TB/s (20), so the FMAs must overlap the loads and few
+//    shared-memory loads may feed them.  segment_matmul_fwd_wide_kernel
+//    covers Cg in as few column passes of BN in {64, 80, 96} as it can
+//    (68: one 80-column pass, x read once), 8 x 4 outputs a thread (eight
+//    float4 of x and four of W for 128 FMAs), y stored as float4, its
+//    registers capped so that 3 blocks share an SM.
+// Rows are read 16 bytes at a time where they are 16-byte aligned;
+// otherwise (K not a multiple of 4, x a view that starts off 16 bytes) the
+// same kernels load 4 bytes at a time.  Rows outside [seg_ptrs[0],
+// seg_ptrs[S]) are written as zeros and never read.  Each output is one
+// dot product in a fixed order: deterministic, no atomics.  Plain f32
+// FMAs, no tensor cores: their f32 path is TF32, which the port's f32 runs
+// (TF32 off) must not take.
+//
+// ------------------------------------------------------------------ dX
+//
+//     dx[i, h*K + k] = sum_o ct[i, h*O + o] W[s, h, k, o]     (Hx = H)
+//     dx[i, k]       = sum_{h,o} ct[i, h*O + o] W[s, h, k, o] (Hx = 1)
+//
+// Replaces ::_dx_resident and the streamed ::segment_matmul_rows_dx, TPU
+// kernels of the same layout as the forward's.  Here a tiled f32 GEMM
+// whose B operand is the block's relation's weight
+// (segment_matmul_dx_kernel):
 //
 //  * a block owns a tile of 64 rows and 64 output columns, or 256 rows and
 //    16 columns where the output is that narrow (blockIdx.y also picks
@@ -29,20 +77,14 @@
 //    binary search of seg_ptrs and, for each (one, unless the tile crosses
 //    a segment boundary), stages 64- or 32-deep slices of its rows and of
 //    that relation's weight columns in shared memory, so any K and H*O
-//    fit (S = 535, K = O = 64 and past it: W is never held whole); each
-//    thread keeps a 4 x 4 register tile and the block writes the rows of
-//    that segment;
+//    fit; each thread keeps a 4 x 4 register tile and the block writes the
+//    rows of that segment;
 //  * rows outside [seg_ptrs[0], seg_ptrs[S]) are written as zeros;
-//  * plain f32 fused multiply-adds, no tensor cores: their f32 path is
-//    TF32, which the port's f32 runs (TF32 off) must not take.
+//  * plain f32 fused multiply-adds, no tensor cores.
 //
-// Bound.  Bytes: x (or ct) read once, y (or dx) written once, W read
-// once: n_rows * (Hx*K + H*O) * 4 + S*H*K*O*4.  Operations: 2 * n_rows *
-// H*K*O.  At K = O = 64 that is 2 * 64 * 64 / ((64 + 64) * 4) = 16
-// operations a byte, near the f32 ridge of 67 TFLOP/s over 3.35 TB/s
-// (20); the main path's narrow shapes (O = 1 to 17) are bytes bound.
-// A block re-reads its weight columns from L2, never from device memory
-// more than once in the bound's sense.
+// Bound as the forward's, with ct and dx in place of x and y.  A block
+// re-reads its weight columns from L2, never from device memory more than
+// once in the bound's sense.
 //
 // ------------------------------------------------------------------- dW
 //
@@ -604,13 +646,475 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// ------------------------------------------------------- forward and dX
+// -------------------------------------------------------------- forward
+
+constexpr int kFwdRows = 64;   // rows a tile
+constexpr int kFwdDepth = 64;  // k a stage
+constexpr int kFwdStages = 3;
+
+// Entry (k, c) of group g's (K, Cg) weight slice of relation s: W[s, h, k,
+// o] with (h, o) = (g, c) per head (Cg = O) and (c / O, c % O) for shared x
+// (g = 0, Cg = H * O).
+__device__ __forceinline__ const float* fwd_w_ptr(const float* w, int s,
+                                                  int g, int H, int K, int O,
+                                                  int k, int c) {
+  const int h = g + c / O;
+  return w + ((static_cast<int64_t>(s) * H + h) * K + k) * O +
+         (c - (h - g) * O);
+}
+
+// The first segment that ends past `row` (S where none does) and its end
+// (*end): where S < 32 one offset a lane of the warp, a single round trip,
+// else a binary search.  The whole warp calls it.
+__device__ __forceinline__ int segment_of(const int32_t* __restrict__ seg_ptrs,
+                                          int S, int64_t row, int64_t* end) {
+  if (S < 32) {
+    const int lane = threadIdx.x & 31;
+    const int64_t e = lane < S ? __ldg(seg_ptrs + lane + 1) : 0;
+    const unsigned past = __ballot_sync(kFull, lane < S && e > row);
+    const int s = past ? __ffs(past) - 1 : S;
+    *end = __shfl_sync(kFull, e, s & 31);
+    return s;
+  }
+  int s = 0;
+  for (int hi = S; s < hi;) {
+    const int mid = (s + hi) >> 1;
+    if (__ldg(seg_ptrs + mid + 1) > row) hi = mid; else s = mid + 1;
+  }
+  *end = s < S ? __ldg(seg_ptrs + s + 1) : 0;
+  return s;
+}
+
+// One item of a block's walk: k tile kt of the tile of rows [lo, lo + n),
+// all in segment s; n = 0 past the last.
+struct FwdItem {
+  int64_t lo;
+  int n, s, kt;
+};
+
+// A block's walk over the rows [r0, r1) of x for one group: tiles of at
+// most kFwdRows rows cut at segment ends, so a tile's rows share one
+// relation, each in k tiles of kFwdDepth columns (one where K <=
+// kFwdDepth), staged by T threads with cp.async of V floats into a ring
+// of kFwdStages slots of kFwdRows rows XST floats apart, zero-filled past
+// the tile and past K.  Rows outside [seg_ptrs[0], seg_ptrs[S]) are
+// skipped (the kernels write their zeros).
+template <int T, int V, int XST>
+struct FwdWalk {
+  const float* x;  // the group's first column
+  const int32_t* seg_ptrs;
+  float* xs;
+  int64_t ldx, cur, end, seg_hi;
+  int K, nkt, s;
+  FwdItem p;  // the tile being staged, and its next k tile in p.kt
+
+  __device__ FwdWalk(const float* xg, const int32_t* sp, float* ring,
+                     int64_t ld, int K_, int64_t r0, int64_t r1, int64_t p0,
+                     int64_t pS, int S)
+      : x(xg), seg_ptrs(sp), xs(ring), ldx(ld), K(K_) {
+    nkt = K > kFwdDepth ? (K + kFwdDepth - 1) / kFwdDepth : 1;
+    // the segment of r0, not of max(r0, p0): the search then needs no
+    // offset loaded before it, and the walk steps over what lies between
+    s = segment_of(seg_ptrs, S, r0, &seg_hi);
+    cur = r0 > p0 ? r0 : p0;
+    end = r1 < pS ? r1 : pS;
+    p = FwdItem{0, 0, 0, nkt};
+  }
+
+  // the next item, staged into ring slot `slot`: one commit group whether
+  // or not there is one
+  __device__ FwdItem produce(int slot) {
+    if (p.kt >= nkt) {
+      p = FwdItem{0, 0, 0, 0};
+      if (cur < end) {
+        while (cur >= seg_hi) seg_hi = __ldg(seg_ptrs + (++s) + 1);
+        const int64_t hi_t = cur + kFwdRows;
+        const int64_t hi = hi_t < seg_hi ? (hi_t < end ? hi_t : end)
+                                         : (seg_hi < end ? seg_hi : end);
+        p = FwdItem{cur, static_cast<int>(hi - cur), s, 0};
+        cur = hi;
+      }
+    }
+    const FwdItem it = p;
+    ++p.kt;
+    if (it.n > 0) {
+      float* xd = xs + slot * (kFwdRows * XST);
+      const int kb = it.kt * kFwdDepth;
+      const int kd = min(kFwdDepth, K - kb), kd4 = (kd + 3) & ~3;
+#pragma unroll 4
+      for (int e = threadIdx.x; e < kFwdRows * (kFwdDepth / V); e += T) {
+        const int m = e / (kFwdDepth / V), k = e % (kFwdDepth / V) * V;
+        if (k >= kd4) continue;
+        const bool ok = m < it.n && k < kd;
+        cp_async<V>(xd + m * XST + k, ok ? x + (it.lo + m) * ldx + kb + k : x,
+                    ok);
+      }
+    }
+    cp_async_commit();
+    return it;
+  }
+};
+
+// y's columns [c0, c0 + cw) of group g: float4 stores where they are
+// 16-byte aligned
+struct FwdOut {
+  float* y;  // column c0 of the group in row 0
+  int64_t ld;
+  int cw;
+  bool vec;
+
+  __device__ FwdOut(float* y_, int H, int G, int O, int g, int c0, int cw_)
+      : y(y_ + (G > 1 ? static_cast<int64_t>(g) * O : 0) + c0),
+        ld(static_cast<int64_t>(H) * O), cw(cw_) {
+    vec = ld % 4 == 0 && (G > 1 ? g * O : 0) % 4 == 0 && c0 % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(y_) % 16 == 0;
+  }
+
+  // N sums of row `row` from column c on
+  template <int N>
+  __device__ void store(int64_t row, int c, const float* v) const {
+    float* dst = y + row * ld + c;
+    if (N == 4 && vec && c % 4 == 0 && c + 3 < cw) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < N; ++q)
+        if (c + q < cw) dst[q] = v[q];
+    }
+  }
+};
+
+// The column pass of a block: group g, columns c0 .. c0 + BN of Cg.
+struct FwdPass {
+  int Cg, g, c0, cw;
+  __device__ FwdPass(int H, int G, int O, int BN) {
+    Cg = G > 1 ? O : H * O;
+    const int passes = (Cg + BN - 1) / BN;
+    g = blockIdx.y / passes;
+    c0 = blockIdx.y % passes * BN;
+    cw = min(BN, Cg - c0);
+  }
+};
+
+// ------------------------------------------------------- narrow forward
+
+constexpr int kFwdNarrowThreads = 256;
+constexpr int kFwdSlices = 4;                  // lanes a row: k slices
+constexpr int kFwdNarrowStride = kFwdDepth + 16;  // floats a staged row
+
+// One step of a reduce-scatter between lanes d apart: the lower lane keeps
+// the sums of acc[0, HALF), the upper lane those of acc[HALF, 2 HALF), each
+// now in acc[0, HALF).
+template <int HALF, int N>
+__device__ __forceinline__ void halve(float (&acc)[N], bool up, int d) {
+#pragma unroll
+  for (int c = 0; c < HALF; ++c) {
+    const float send = up ? acc[c] : acc[c + HALF];
+    const float keep = up ? acc[c + HALF] : acc[c];
+    acc[c] = keep + __shfl_xor_sync(kFull, send, d);
+  }
+}
+
+template <int BN>
+__host__ __device__ constexpr int fwd_narrow_smem_bytes() {
+  // the ring, and W a k slice after another, 4 floats apart
+  return (kFwdStages * kFwdRows * kFwdNarrowStride +
+          kFwdSlices * (16 * BN + 4)) * 4;
+}
+
+// Cg <= BN <= 16 columns: lane j of a row's four takes the k = 4 j + 16 i
+// + q (i, q < 4) of a 64-deep stage, a float4 of x for each i, and the
+// BN weights of each k (BN / 4 float4 from shared memory, the same for the
+// warp's eight rows: a broadcast).  The stride of 80 floats puts the two
+// rows of a quarter warp on different halves of the banks, and W's
+// slices 4 banks apart, so no load conflicts.  The four lanes then meet
+// by a reduce-scatter (3 BN / 4 shuffles) that leaves lane j the columns
+// j BN / 4 .. + BN / 4 of the row, stored as a float4 where BN = 16.
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(kFwdNarrowThreads)
+segment_matmul_fwd_narrow_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ w,
+                                 const int32_t* __restrict__ seg_ptrs,
+                                 float* __restrict__ y, int64_t n_rows,
+                                 int64_t rows, int S, int H, int G, int K,
+                                 int O) {
+  constexpr int T = kFwdNarrowThreads, V = kVec ? 4 : 1;
+  constexpr int XST = kFwdNarrowStride, XS = kFwdRows * XST;
+  constexpr int WSLOT = 16 * BN + 4, Q = BN / 4;
+  constexpr int WE = (kFwdDepth * BN + T - 1) / T;  // weights a thread
+  static_assert(T == kFwdRows * kFwdSlices, "a row a lane team");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem + kFwdStages * XS;
+  const FwdPass ps(H, G, O, BN);
+  const FwdOut out(y, H, G, O, ps.g, ps.c0, ps.cw);
+  const int m = threadIdx.x / kFwdSlices, j = threadIdx.x % kFwdSlices;
+  const int64_t rb0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int64_t rb1 = rb0 + rows < n_rows ? rb0 + rows : n_rows;
+  if (rb0 >= rb1) return;
+  const int64_t p0 = __ldg(seg_ptrs), pS = __ldg(seg_ptrs + S);
+  {  // zeros on the rows of the range that no segment holds
+    const float z[Q] = {};
+    const int64_t a1 = p0 < rb1 ? p0 : rb1, b0 = pS > rb0 ? pS : rb0;
+    for (int64_t r = rb0 + m; r < a1; r += kFwdRows) out.store<Q>(r, j * Q, z);
+    for (int64_t r = b0 + m; r < rb1; r += kFwdRows) out.store<Q>(r, j * Q, z);
+  }
+  FwdWalk<T, V, XST> walk(x + static_cast<int64_t>(ps.g) * K, seg_ptrs, smem,
+                          static_cast<int64_t>(G) * K, K, rb0, rb1, p0, pS,
+                          S);
+
+  float acc[BN];
+#pragma unroll
+  for (int c = 0; c < BN; ++c) acc[c] = 0.f;
+  FwdItem i0 = walk.produce(0), i1 = walk.produce(1);
+  int wseg = -1;
+  for (int it = 0; i0.n > 0; ++it) {
+    cp_async_wait<kFwdStages - 2>();  // item 0 has landed
+    // ... in every thread's copies, and every thread is done with the
+    // last round's slot and weights
+    __syncthreads();
+    const bool new_w = walk.nkt > 1 || i0.s != wseg;
+    if (new_w) {
+      // relation i0.s's weight slice, rows of k tile i0.kt, zeros past K
+      // and past the pass's columns, one commit group ahead of the next
+      // tile's
+      wseg = i0.s;
+      const int kb = i0.kt * kFwdDepth;
+#pragma unroll
+      for (int i = 0; i < WE; ++i) {
+        const int e = threadIdx.x + i * T, kk = e / BN, c = e % BN;
+        const bool ok = c < ps.cw && kb + kk < K;
+        if (e < kFwdDepth * BN)
+          cp_async<1>(ws + kk / 4 % 4 * WSLOT + (kk / 16 * 4 + kk % 4) * BN + c,
+                      ok ? fwd_w_ptr(w, i0.s, ps.g, H, K, O, kb + kk,
+                                     ps.c0 + c) : w, ok);
+      }
+      cp_async_commit();
+    }
+    // into the slot read last round
+    const FwdItem i2 = walk.produce((it + 2) % kFwdStages);
+    if (new_w) {
+      cp_async_wait<1>();  // the weights have landed
+      __syncthreads();
+    }
+    const float* xr = smem + it % kFwdStages * XS + m * XST + 4 * j;
+    const float* wj = ws + j * WSLOT;
+    const int kd = min(kFwdDepth, K - i0.kt * kFwdDepth);
+#pragma unroll
+    for (int i = 0; i < kFwdDepth / 16; ++i) {
+      if (16 * i + 4 * j >= kd) break;  // past K: nothing staged there
+      const float4 a = *reinterpret_cast<const float4*>(xr + 16 * i);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int c = 0; c < Q; ++c) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(wj + (4 * i + q) * BN + 4 * c);
+          acc[4 * c] = fmaf(av[q], b.x, acc[4 * c]);
+          acc[4 * c + 1] = fmaf(av[q], b.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = fmaf(av[q], b.z, acc[4 * c + 2]);
+          acc[4 * c + 3] = fmaf(av[q], b.w, acc[4 * c + 3]);
+        }
+      }
+    }
+    if (i0.kt == walk.nkt - 1) {
+      // the row's four lanes: halves, then quarters, of the columns
+      halve<BN / 2>(acc, j & 2, 2);
+      halve<BN / 4>(acc, j & 1, 1);
+      if (m < i0.n) out.store<Q>(i0.lo + m, j * Q, acc);
+#pragma unroll
+      for (int c = 0; c < BN; ++c) acc[c] = 0.f;
+    }
+    i0 = i1;
+    i1 = i2;
+  }
+  cp_async_wait<0>();
+}
+
+// --------------------------------------------------------- wide forward
+
+constexpr int kFwdWideStride = kFwdDepth + 4;  // floats a staged row
+
+template <int BN>
+__host__ __device__ constexpr int fwd_wide_threads() {
+  return 2 * BN;  // 8 row groups x BN / 4 column groups
+}
+
+template <int BN>
+__host__ __device__ constexpr int fwd_wide_smem_bytes() {
+  return (kFwdStages * kFwdRows * kFwdWideStride + kFwdDepth * BN) * 4;
+}
+
+// Blocks an SM holds by shared memory (3 up to BN = 80, 2 at 96): the
+// registers are capped so that they hold as many (one form of this loop
+// took 137 registers at BN = 80, which fits 2 blocks, and ran 20% slower)
+template <int BN>
+__host__ __device__ constexpr int fwd_wide_min_blocks() {
+  return BN <= 80 ? 3 : 2;
+}
+
+// Cg > 16 columns in passes of BN in {64, 80, 96}.  A thread owns rows ty
+// + 8 p (p < 8) and columns 4 tx .. + 3: per 4 k, eight float4 of x and
+// four of W from shared memory feed 128 FMAs, the 8 rows innermost; the
+// padded stride of 68 floats puts neighbouring row groups on different
+// banks.  A thread stages one column of the weight slice (T is a multiple
+// of BN).
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(fwd_wide_threads<BN>(),
+                                  fwd_wide_min_blocks<BN>())
+segment_matmul_fwd_wide_kernel(const float* __restrict__ x,
+                               const float* __restrict__ w,
+                               const int32_t* __restrict__ seg_ptrs,
+                               float* __restrict__ y, int64_t n_rows,
+                               int64_t rows, int S, int H, int G, int K,
+                               int O) {
+  constexpr int T = fwd_wide_threads<BN>(), TX = BN / 4, V = kVec ? 4 : 1;
+  constexpr int XST = kFwdWideStride, XS = kFwdRows * XST;
+  constexpr int WE = kFwdDepth * BN / T;  // weights a thread stages
+  static_assert(T % BN == 0, "a thread stages one weight column");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem + kFwdStages * XS;
+  const FwdPass ps(H, G, O, BN);
+  const FwdOut out(y, H, G, O, ps.g, ps.c0, ps.cw);
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  // the weight column this thread stages: W[s, wh, k, wo]
+  const int wc = threadIdx.x % BN, wk = threadIdx.x / BN;
+  const int wcc = ps.c0 + wc < ps.Cg ? ps.c0 + wc : 0;
+  const int wh = ps.g + wcc / O, wo = wcc - (wh - ps.g) * O;
+  const int64_t rb0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int64_t rb1 = rb0 + rows < n_rows ? rb0 + rows : n_rows;
+  if (rb0 >= rb1) return;
+  const int64_t p0 = __ldg(seg_ptrs), pS = __ldg(seg_ptrs + S);
+  {  // zeros on the rows of the range that no segment holds
+    const float z[4] = {};
+    const int64_t a1 = p0 < rb1 ? p0 : rb1, b0 = pS > rb0 ? pS : rb0;
+    for (int64_t r = rb0 + ty; r < a1; r += 8) out.store<4>(r, 4 * tx, z);
+    for (int64_t r = b0 + ty; r < rb1; r += 8) out.store<4>(r, 4 * tx, z);
+  }
+  FwdWalk<T, V, XST> walk(x + static_cast<int64_t>(ps.g) * K, seg_ptrs, smem,
+                          static_cast<int64_t>(G) * K, K, rb0, rb1, p0, pS,
+                          S);
+
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+  FwdItem i0 = walk.produce(0), i1 = walk.produce(1);
+  int wseg = -1;
+  for (int it = 0; i0.n > 0; ++it) {
+    cp_async_wait<kFwdStages - 2>();  // item 0 has landed
+    // ... in every thread's copies, and every thread is done with the
+    // last round's slot and weights
+    __syncthreads();
+    const bool new_w = walk.nkt > 1 || i0.s != wseg;
+    if (new_w) {
+      // relation i0.s's weight slice, rows of k tile i0.kt, zeros past K
+      // and past the pass's columns, one commit group ahead of the next
+      // tile's
+      wseg = i0.s;
+      const int kb = i0.kt * kFwdDepth;
+      const float* wp =
+          w + ((static_cast<int64_t>(i0.s) * H + wh) * K + kb) * O + wo;
+#pragma unroll
+      for (int i = 0; i < WE; ++i) {
+        const int kk = wk + i * (T / BN);
+        const bool ok = wc < ps.cw && kb + kk < K;
+        cp_async<1>(ws + kk * BN + wc,
+                    ok ? wp + static_cast<int64_t>(kk) * O : w, ok);
+      }
+      cp_async_commit();
+    }
+    // into the slot read last round
+    const FwdItem i2 = walk.produce((it + 2) % kFwdStages);
+    if (new_w) {
+      cp_async_wait<1>();  // the weights have landed
+      __syncthreads();
+    }
+    const float* xb = smem + it % kFwdStages * XS + ty * XST;
+    const float* wb = ws + tx * 4;
+    const int kd = min(kFwdDepth, K - i0.kt * kFwdDepth), kd4 = (kd + 3) & ~3;
+#pragma unroll 2
+    for (int kk = 0; kk < kd4; kk += 4) {
+      float4 a[8], b[4];
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+        a[p] = *reinterpret_cast<const float4*>(xb + 8 * p * XST + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        b[q] = *reinterpret_cast<const float4*>(wb + (kk + q) * BN);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          const float av = q == 0 ? a[p].x : q == 1 ? a[p].y
+                         : q == 2 ? a[p].z : a[p].w;
+          acc[p][0] = fmaf(av, b[q].x, acc[p][0]);
+          acc[p][1] = fmaf(av, b[q].y, acc[p][1]);
+          acc[p][2] = fmaf(av, b[q].z, acc[p][2]);
+          acc[p][3] = fmaf(av, b[q].w, acc[p][3]);
+        }
+      }
+    }
+    if (i0.kt == walk.nkt - 1) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        if (ty + 8 * p < i0.n) out.store<4>(i0.lo + ty + 8 * p, 4 * tx, acc[p]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+      }
+    }
+    i0 = i1;
+    i1 = i2;
+  }
+  cp_async_wait<0>();
+}
+
+// fn(kernel, threads, dynamic shared bytes) for the forward of column tile
+// BN (narrow up to 16, wide past it), after allowing it that much shared
+// memory
+template <bool kVec, int BN, class Fn>
+cudaError_t with_fwd_bn(Fn fn) {
+  const auto run = [&](auto kernel, int threads, int smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return err != cudaSuccess ? err : fn(kernel, threads, smem);
+  };
+  if constexpr (BN > 16) {
+    return run(segment_matmul_fwd_wide_kernel<BN, kVec>,
+               fwd_wide_threads<BN>(), fwd_wide_smem_bytes<BN>());
+  } else {
+    return run(segment_matmul_fwd_narrow_kernel<BN, kVec>, kFwdNarrowThreads,
+               fwd_narrow_smem_bytes<BN>());
+  }
+}
+
+// fn(kernel, threads, dynamic shared bytes) for the forward of column tile
+// `cols`; cudaErrorInvalidValue where none is built
+template <class Fn>
+cudaError_t with_fwd(int cols, bool vec, Fn fn) {
+#define HET_FWD(BN) \
+  case BN: return vec ? with_fwd_bn<true, BN>(fn) : with_fwd_bn<false, BN>(fn);
+  switch (cols) {
+    HET_FWD(4)
+    HET_FWD(8)
+    HET_FWD(12)
+    HET_FWD(16)
+    HET_FWD(64)
+    HET_FWD(80)
+    HET_FWD(96)
+    default: return cudaErrorInvalidValue;
+  }
+#undef HET_FWD
+}
+
+// ------------------------------------------------------------------- dX
 
 // A block's output tile is BM rows by BN columns, 4 x 4 outputs a thread
 // (BM / 4 * BN / 4 = kThreads), and it stages BD-deep slices of the
-// reduction.  Wide tiles for wide outputs; narrow ones for the attention
-// columns of the main path (H*O = 4 or 12), where a 64-column tile would
-// leave 15 of every 16 threads without a column.  BD = 64 takes K = 64 in
+// reduction.  Wide tiles for wide outputs; narrow ones where dx has at
+// most 16 columns a group (K <= 16), where a 64-column tile would leave
+// most threads without a column.  BD = 64 takes a 64-deep reduction in
 // one stage, so a block waits for device memory once.
 template <int BM, int BN, int BD>
 struct Tile {
@@ -620,35 +1124,33 @@ struct Tile {
 using WideTile = Tile<64, 64, 64>;
 using NarrowTile = Tile<256, 16, 32>;
 
-// One template for both directions (see the header).  Per group g (the
-// head when Hx = H, else the only group): the reduction index r runs over
-// R entries of A's columns [a_off, a_off + R), the output index c over C
-// columns [o_off, o_off + C) of `out`, and the weight entry for (r, c) is
-// W[s, j / O, k, j % O] with (k, j) = (r, j_off + c) forward and
-// (c, j_off + r) for dX.
-template <bool kDx, typename T>
+// Per group g (the head when Hx = H, else the only group): the reduction
+// index r runs over R entries of ct's columns [a_off, a_off + R), the
+// output index c over the K columns [o_off, o_off + K) of dx, and the
+// weight entry for (r, c) is W[s, j / O, c, j % O] with j = j_off + r.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-segment_matmul_rows_kernel(const float* __restrict__ a,
-                           const float* __restrict__ w,
-                           const int32_t* __restrict__ seg_ptrs,
-                           float* __restrict__ out, int64_t n_rows, int S,
-                           int H, int Hx, int K, int O) {
+segment_matmul_dx_kernel(const float* __restrict__ a,
+                         const float* __restrict__ w,
+                         const int32_t* __restrict__ seg_ptrs,
+                         float* __restrict__ out, int64_t n_rows, int S,
+                         int H, int Hx, int K, int O) {
   constexpr int BM = T::kRows, BN = T::kCols, BD = T::kDepth;
   // +4: the staging stores walk the depth, BM + 4 floats apart
   __shared__ __align__(16) float as[BD][BM + 4];
   __shared__ __align__(16) float ws[BD][BN];
   const int HO = H * O;
   const bool per_head = Hx > 1;
-  const int64_t lda = kDx ? HO : static_cast<int64_t>(Hx) * K;
-  const int64_t ldo = kDx ? static_cast<int64_t>(Hx) * K : HO;
-  const int R = kDx ? (per_head ? O : HO) : K;
-  const int C = kDx ? K : (per_head ? O : HO);
+  const int64_t lda = HO;
+  const int64_t ldo = static_cast<int64_t>(Hx) * K;
+  const int R = per_head ? O : HO;
+  const int C = K;
   const int ctiles = (C + BN - 1) / BN;
   const int g = blockIdx.y / ctiles;
   const int c0 = (blockIdx.y % ctiles) * BN;
   const int j_off = per_head ? g * O : 0;
-  const int a_off = kDx ? j_off : (per_head ? g * K : 0);
-  const int o_off = kDx ? (per_head ? g * K : 0) : j_off;
+  const int a_off = j_off;
+  const int o_off = per_head ? g * K : 0;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * BM;
   const int64_t r1 = r0 + BM < n_rows ? r0 + BM : n_rows;
   const int tx = threadIdx.x % (BN / 4), ty = threadIdx.x / (BN / 4);
@@ -703,8 +1205,8 @@ segment_matmul_rows_kernel(const float* __restrict__ a,
         const int cc = c0 + c;
         float v = 0.f;
         if (d < depth && cc < C) {
-          const int k = kDx ? cc : rk + d;
-          const int j = j_off + (kDx ? rk + d : cc);
+          const int k = cc;
+          const int j = j_off + rk + d;
           const int h = j / O;
           v = __ldg(wsg + (static_cast<int64_t>(h) * K + k) * O + (j - h * O));
         }
@@ -743,38 +1245,34 @@ segment_matmul_rows_kernel(const float* __restrict__ a,
   }
 }
 
-template <bool kDx, typename T>
-int launch_rows_tiled(const float* a, const float* w,
-                      const int32_t* seg_ptrs, float* out, int64_t n_rows,
-                      int S, int H, int Hx, int K, int O, int C,
-                      cudaStream_t st) {
+template <typename T>
+int launch_dx_tiled(const float* a, const float* w,
+                    const int32_t* seg_ptrs, float* out, int64_t n_rows,
+                    int S, int H, int Hx, int K, int O, cudaStream_t st) {
   const int64_t ytiles = static_cast<int64_t>(Hx > 1 ? H : 1) *
-                         ((C + T::kCols - 1) / T::kCols);
+                         ((K + T::kCols - 1) / T::kCols);
   const int64_t xtiles = (n_rows + T::kRows - 1) / T::kRows;
   if (ytiles == 0 || xtiles == 0) return cudaSuccess;  // nothing to write
   if (ytiles > 65535 || xtiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(xtiles),
                   static_cast<unsigned>(ytiles));
-  segment_matmul_rows_kernel<kDx, T><<<grid, kThreads, 0, st>>>(
+  segment_matmul_dx_kernel<T><<<grid, kThreads, 0, st>>>(
       a, w, seg_ptrs, out, n_rows, S, H, Hx, K, O);
   return cudaGetLastError();
 }
 
-int launch_rows(bool dx, const float* a, const float* w,
-                const int32_t* seg_ptrs, float* out, int64_t n_rows, int S,
-                int H, int Hx, int K, int O, void* stream) {
+int launch_dx(const float* ct, const float* w, const int32_t* seg_ptrs,
+              float* dx, int64_t n_rows, int S, int H, int Hx, int K, int O,
+              void* stream) {
   if (n_rows < 0 || S < 0 || H < 0 || K < 0 || O < 0 ||
       (Hx != 1 && Hx != H)) {
     return cudaErrorInvalidValue;
   }
-  // an empty reduction (K = 0 forward, O = 0 dX) still writes zeros
-  const int C = dx ? K : (Hx > 1 ? O : H * O);
+  // an empty reduction (O = 0) still writes zeros
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool narrow = C <= NarrowTile::kCols;
-#define HET_ROWS(DX, T) \
-  launch_rows_tiled<DX, T>(a, w, seg_ptrs, out, n_rows, S, H, Hx, K, O, C, st)
-  if (dx) return narrow ? HET_ROWS(true, NarrowTile) : HET_ROWS(true, WideTile);
-  return narrow ? HET_ROWS(false, NarrowTile) : HET_ROWS(false, WideTile);
+#define HET_ROWS(T) \
+  launch_dx_tiled<T>(ct, w, seg_ptrs, dx, n_rows, S, H, Hx, K, O, st)
+  return K <= NarrowTile::kCols ? HET_ROWS(NarrowTile) : HET_ROWS(WideTile);
 #undef HET_ROWS
 }
 
@@ -891,15 +1389,50 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
   return cudaGetLastError();
 }
 
+// Blocks of the forward kernel of column tile `cols` and 16-byte loads
+// `vec` (as in het_segment_matmul_fwd_f32) that one SM of the current
+// device holds at once; 0 if there is no such kernel.
+int het_segment_matmul_fwd_resident(int cols, int vec) {
+  int n = 0;
+  const cudaError_t err =
+      with_fwd(cols, vec, [&](auto kernel, int threads, int smem) {
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                             threads, smem);
+      });
+  return err == cudaSuccess ? n : 0;
+}
+
 // Forward: x (n_rows, Hx*K) f32 and W (S, H, K, O) f32, row-major, on the
-// device; seg_ptrs as above; y (n_rows, H*O) f32.  Launches on `stream`
-// and returns the launch error (0 on success).
+// device; seg_ptrs as above; y (n_rows, H*O) f32; Hx is 1 or H.  The launch
+// plan comes from the wrapper (het_tpu_torch/ops/kernels/segment_mm.py::
+// fwd_plan): the column tile `cols` (narrow 4, 8, 12 or 16, wide 64, 80
+// or 96), `vec` 16-byte loads of x, a grid of `blocks` x `tiles` (groups
+// x column passes), each block taking `rows` rows.  Launches on `stream`
+// and returns the launch error, cudaErrorInvalidValue for a plan the
+// operands do not allow (0 on success).
 int het_segment_matmul_fwd_f32(const float* x, const float* w,
                                const int32_t* seg_ptrs, float* y,
                                int64_t n_rows, int S, int H, int Hx, int K,
-                               int O, void* stream) {
-  return launch_rows(false, x, w, seg_ptrs, y, n_rows, S, H, Hx, K, O,
-                     stream);
+                               int O, int cols, int vec, int64_t blocks,
+                               int tiles, int64_t rows, void* stream) {
+  if (n_rows < 0 || S < 0 || H < 0 || K < 0 || O < 0 ||
+      (Hx != 1 && Hx != H)) {
+    return cudaErrorInvalidValue;
+  }
+  const int Cg = Hx > 1 ? O : H * O;
+  if (n_rows == 0 || Cg == 0) return cudaSuccess;  // nothing to write
+  if (cols <= 0 || rows <= 0 || blocks <= 0 || blocks > 0x7fffffffLL ||
+      blocks * rows < n_rows || tiles != Hx * ((Cg + cols - 1) / cols) ||
+      tiles > 65535 || (vec && (K % 4 || !aligned16(x)))) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
+  return with_fwd(cols, vec, [&](auto kernel, int threads, int smem) {
+    kernel<<<grid, threads, smem, st>>>(x, w, seg_ptrs, y, n_rows, rows, S,
+                                        H, Hx, K, O);
+    return cudaGetLastError();
+  });
 }
 
 // dX: ct (n_rows, H*O) f32 and W (S, H, K, O) f32; dx (n_rows, Hx*K) f32,
@@ -908,8 +1441,7 @@ int het_segment_matmul_dx_f32(const float* ct, const float* w,
                               const int32_t* seg_ptrs, float* dx,
                               int64_t n_rows, int S, int H, int Hx, int K,
                               int O, void* stream) {
-  return launch_rows(true, ct, w, seg_ptrs, dx, n_rows, S, H, Hx, K, O,
-                     stream);
+  return launch_dx(ct, w, seg_ptrs, dx, n_rows, S, H, Hx, K, O, stream);
 }
 
 const char* het_cuda_error_string(int err) {

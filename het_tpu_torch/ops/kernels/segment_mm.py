@@ -15,12 +15,15 @@ gradients of the plain RGAT.  Counterparts of
 ``segment_matmul_rows_fwd`` (``_fwd_resident`` and ``_fwd_streamed``),
 :func:`segment_matmul_dx` of ``segment_matmul_rows_dx`` (``_dx_resident``
 and the streamed form), :func:`segment_matmul_dw` of
-``segment_matmul_rows_dw`` (``_dw_resident`` and the streamed form); one
-CUDA kernel covers each pair.  Every row of a segment is summed in the
-dW, valid or not, as there; a caller that must drop padding rows zeroes
-their ``ct``.  A segment that owns no rows gives zeros, and the forward
-and dX write zeros on rows outside ``[seg_ptrs[0], seg_ptrs[S])``.  The
-kernels are ``csrc/segment_mm.cu``; its header says what bounds them.
+``segment_matmul_rows_dw`` (``_dw_resident`` and the streamed form).  One
+wrapper call covers each pair, whatever the size of W: the forward's
+narrow or wide column tile picked by :func:`fwd_plan`, the dX's one kernel,
+the dW's chunk and reduce passes planned by :func:`dw_plan`.  Every row
+of a segment is summed in the dW, valid or not, as there; a caller that
+must drop padding rows zeroes their ``ct``.  A segment that owns no rows
+gives zeros, and the forward and dX write zeros on rows outside
+``[seg_ptrs[0], seg_ptrs[S])``.  The kernels are ``csrc/segment_mm.cu``;
+its header says what bounds them.
 
 The device of the first operand picks the implementation
 (``_dispatch.takes_plain``): a CUDA tensor launches the kernel (or
@@ -322,8 +325,101 @@ def segment_matmul_dx_plain(ct_rows: torch.Tensor, w: torch.Tensor, seg,
     return out
 
 
-def _segment_matmul_rows_cuda(symbol, a2, w, seg_ptrs, out, Hx):
-    fn = _dispatch.bind("segment_mm", symbol, [
+# the forward's column tiles: narrow (Cg <= 16 output columns a group,
+# four lanes a row) and wide (8 x 4 outputs a thread); csrc/segment_mm.cu
+# instantiates these
+FWD_NARROW_COLS = (4, 8, 12, 16)
+FWD_ROWS = 64  # rows a tile
+
+
+class FwdPlan(NamedTuple):
+    """How ``csrc/segment_mm.cu`` computes one forward: the column tile
+    (``cols``: narrow, Cg rounded up to :data:`FWD_NARROW_COLS`; wide, one
+    of :data:`WIDE_COLS`), 16-byte loads of x (``vec``) and the grid:
+    ``blocks`` by ``tiles`` (the groups times the column passes), each
+    block taking ``rows`` rows."""
+    cols: int
+    vec: bool
+    tiles: int
+    blocks: int = 0
+    rows: int = 0
+
+
+def fwd_plan(n_rows: int, H: int, Hx: int, K: int, O: int,
+             x_aligned: bool, sms: int,
+             resident: Callable[[FwdPlan], int]) -> FwdPlan:
+    """The launch plan of the forward kernel for x (n_rows, Hx*K) whose
+    first row is 16-byte aligned or not, on a card with ``sms`` SMs, where
+    ``resident(plan)`` is the number of blocks of the plan's kernel one SM
+    holds at once.
+
+    Cg, the output columns a group of K x columns meets, is O per head (Hx
+    = H) or H*O (Hx = 1).  Up to 16 take a narrow column tile (Cg rounded
+    up to a multiple of 4), more a wide one that covers Cg in as few passes
+    as 96-column tiles would.  The blocks fill one wave of resident blocks
+    and share the rows in whole tiles."""
+    cg = O if Hx > 1 else H * O
+    if cg <= FWD_NARROW_COLS[-1]:
+        cols = next(c for c in FWD_NARROW_COLS if c >= cg)
+    else:
+        passes = -(-cg // WIDE_COLS[-1])
+        cols = next(c for c in WIDE_COLS if c >= -(-cg // passes))
+    plan = FwdPlan(cols, K % 4 == 0 and x_aligned,
+                   (H if Hx > 1 else 1) * -(-cg // cols))
+    per_wave = max(1, sms * max(1, resident(plan)) // plan.tiles)
+    blocks = max(1, min(per_wave, -(-n_rows // FWD_ROWS)))
+    per_block = -(-n_rows // blocks)
+    rows = max(1, -(-per_block // FWD_ROWS)) * FWD_ROWS
+    return plan._replace(blocks=max(1, -(-n_rows // rows)), rows=rows)
+
+
+_FWD_PLANS: Dict[tuple, FwdPlan] = {}
+
+
+def card_fwd_plan(x2: torch.Tensor, w_shape) -> FwdPlan:
+    """:func:`fwd_plan` for the CUDA operand ``x2`` (n_rows, Hx*K) and a
+    weight of shape ``w_shape`` on its card."""
+    _, H, K, O = w_shape
+    Hx = _heads_of(x2, H, K, "x_rows")
+    dev = x2.device
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, x2.shape[0], H, Hx, K, O, x2.data_ptr() % 16 == 0)
+    plan = _FWD_PLANS.get(key)
+    if plan is None:  # a training step asks for the same few each time
+        fn = _dispatch.bind("segment_mm", "het_segment_matmul_fwd_resident",
+                            [ctypes.c_int] * 2)
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+
+        def resident(p):
+            with torch.cuda.device(index):
+                return fn(p.cols, int(p.vec))
+
+        plan = _FWD_PLANS[key] = fwd_plan(*key[1:], sms, resident)
+    return plan
+
+
+def _segment_matmul_fwd_cuda(x2, w, seg_ptrs, out, Hx):
+    fn = _dispatch.bind("segment_mm", "het_segment_matmul_fwd_f32", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+    S, H, K, O = w.shape
+    if out.numel() == 0:
+        return False
+    plan = card_fwd_plan(x2, w.shape)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(x2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
+                 out.data_ptr(), x2.shape[0], S, H, Hx, K, O, plan.cols,
+                 int(plan.vec), plan.blocks, plan.tiles, plan.rows, stream)
+    _dispatch.check_launch("segment_mm", err, "segment_matmul_fwd")
+    return True
+
+
+def _segment_matmul_dx_cuda(ct2, w, seg_ptrs, out, Hx):
+    fn = _dispatch.bind("segment_mm", "het_segment_matmul_dx_f32", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -332,9 +428,9 @@ def _segment_matmul_rows_cuda(symbol, a2, w, seg_ptrs, out, Hx):
         return False
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(a2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
-                 out.data_ptr(), a2.shape[0], S, H, Hx, K, O, stream)
-    _dispatch.check_launch("segment_mm", err, symbol)
+        err = fn(ct2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
+                 out.data_ptr(), ct2.shape[0], S, H, Hx, K, O, stream)
+    _dispatch.check_launch("segment_mm", err, "segment_matmul_dx")
     return True
 
 
@@ -360,8 +456,7 @@ def segment_matmul_fwd(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
     _check_cuda((("x_rows", x2), ("w", w)), seg)
     out = torch.empty(x2.shape[0], H, O, dtype=torch.float32,
                       device=x2.device)
-    if _segment_matmul_rows_cuda("het_segment_matmul_fwd_f32", x2, w,
-                                 seg.seg_ptrs, out, Hx):
+    if _segment_matmul_fwd_cuda(x2, w, seg.seg_ptrs, out, Hx):
         segment_matmul_fwd.launches += 1
     return out
 
@@ -389,8 +484,7 @@ def segment_matmul_dx(ct_rows: torch.Tensor, w: torch.Tensor, seg,
     _check_cuda((("ct_rows", ct2), ("w", w)), seg)
     out = torch.empty(ct2.shape[0], x_heads * K, dtype=torch.float32,
                       device=ct2.device)
-    if _segment_matmul_rows_cuda("het_segment_matmul_dx_f32", ct2, w,
-                                 seg.seg_ptrs, out, x_heads):
+    if _segment_matmul_dx_cuda(ct2, w, seg.seg_ptrs, out, x_heads):
         segment_matmul_dx.launches += 1
     return out
 

@@ -32,7 +32,8 @@ CATEGORIES = (
     ("MaxOp", "seg_max_sorted (port kernel)"),
     ("strided_copy", "force_rowmajor (port kernel)"),
     ("segment_matmul_dw", "segment_matmul_dw (port kernel)"),
-    ("segment_matmul_rows", "segment_matmul_fwd / _dx (port kernels)"),
+    ("segment_matmul_fwd", "segment_matmul_fwd (port kernel)"),
+    ("segment_matmul_dx", "segment_matmul_dx (port kernel)"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("splitKreduce", "matmul"),
     ("index", "gather / index"), ("gather", "gather / index"),
     ("Cat", "concatenate"),

@@ -5,29 +5,16 @@ checkouts of ``het_tpu_torch`` on one NVIDIA GPU, in turns.
     python3 scripts/bench_dw.py [ROOT ...]
 
 Each ROOT is a directory that holds ``het_tpu_torch`` (default: this
-checkout).  The roots run in the order given and then in reverse (A, B,
-B, A), each turn in a process of its own, so two versions of the package
-meet on one card in one call.  The shapes are the dW launches of the
-training paths in ``chip_smoke.py`` (row counts of the synthetic ogbn-mag
-at 0.1, rank 0's shard in the data-parallel runs) over S = 4 segments of
-fixed shares, and the general K = O = 64 shapes at S = 4 and 535.  Every
-launch reads its inputs from device memory (a buffer larger than the L2
-cache is overwritten before it) and is timed with CUDA events that a spin
-on the card keeps clear of the host's latency; the median of 20 launches
-is printed
-beside the bound (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s,
-whichever is larger) and the card's name and power limit.
+checkout); the turns (A, B, B, A), the timing and the table are
+``bench_turns.py``'s.  The shapes are the dW launches of the training
+paths in ``chip_smoke.py`` (row counts of the synthetic ogbn-mag at 0.1,
+rank 0's shard in the data-parallel runs) over S = 4 segments of fixed
+shares, and the general K = O = 64 shapes at S = 4 and 535.
 """
 
-import json
-import os
-import statistics
-import subprocess
 import sys
 
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-SHARES = (0.4, 0.3, 0.2, 0.1)
+import bench_turns
 
 # label, launches a step on its path, rows, S, H, Hx, K, O
 SHAPES = [
@@ -52,103 +39,17 @@ SHAPES = [
 ]
 
 
-def _sizes(rows, S):
-    if S == len(SHARES):
-        sizes = [int(rows * f) for f in SHARES]
-    else:  # a few large relations and a long tail
-        w = [1.0 / (1 + i) for i in range(S)]
-        sizes = [int(rows * v / sum(w)) for v in w]
-    sizes[0] += rows - sum(sizes)
-    return sizes
-
-
-def _bound_ms(rows, S, H, Hx, K, O):
-    nbytes = rows * (Hx * K + H * O) * 4 + S * H * K * O * 4 + (S + 1) * 4
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                     2 * rows * H * K * O / F32_FLOP_PER_S)
-
-
-def run_turn():
-    """One turn in this process: the package on sys.path first, every
-    shape, one JSON line of {label: ms}."""
-    import numpy as np
+def make(shape, dev, gen):
+    """The dW call of one shape, on inputs made on the card."""
     import torch
-    from het_tpu_torch.graph.build import build_segments
     from het_tpu_torch.ops.kernels import segment_matmul_dw
-    from het_tpu_torch.ops.kernels._build import build_all
 
-    build_all(("segment_mm",))
-    dev = torch.device("cuda")
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    out = {}
-    for label, _, rows, S, H, Hx, K, O in SHAPES:
-        sizes = _sizes(rows, S)
-        seg = build_segments(np.repeat(np.arange(S), sizes), S, 1).to(dev)
-        x = torch.randn(rows, Hx * K, device=dev, generator=gen)
-        ct = torch.randn(rows, H * O, device=dev, generator=gen)
-        w_shape = (S, H, K, O)
-        for _ in range(2):
-            segment_matmul_dw(x, ct, w_shape, seg)
-        times = []
-        for _ in range(20):
-            flush.zero_()
-            # a spin of ~0.1 ms on the card, so that the host has enqueued
-            # the call before the card reaches t0: the time is the card's
-            torch.cuda._sleep(200_000)
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            segment_matmul_dw(x, ct, w_shape, seg)
-            t1.record()
-            t1.synchronize()
-            times.append(t0.elapsed_time(t1))
-        out[label] = statistics.median(times)
-        del x, ct
-    print(json.dumps(out))
-
-
-def main(roots):
-    import torch
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card)
-    turns = list(roots) + list(reversed(roots))
-    results = {r: [] for r in roots}
-    for root in turns:
-        env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
-        done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--turn"], env=env, cwd=root,
-                              capture_output=True, text=True)
-        if done.returncode:
-            print(done.stdout, done.stderr, file=sys.stderr)
-            return 1
-        results[root].append(json.loads(done.stdout.strip().splitlines()[-1]))
-    print("shape | a step | bound ms | " + " | ".join(
-        f"{r} ms (turns)" for r in roots))
-    totals = {r: {} for r in roots}
-    for label, per_step, rows, S, H, Hx, K, O in SHAPES:
-        bound = _bound_ms(rows, S, H, Hx, K, O)
-        cells = []
-        for r in roots:
-            ts = [t[label] for t in results[r]]
-            cells.append(" / ".join(f"{t:.4f}" for t in ts))
-            path = label.rsplit(" l", 1)[0] if per_step else label
-            totals[r][path] = totals[r].get(path, 0.0) + per_step * min(ts)
-        print(f"{label} | {per_step} | {bound:.4f} | " + " | ".join(cells))
-    print("a step, the better turn of each shape (ms):", json.dumps(totals))
-    return 0
+    _, _, rows, S, H, Hx, K, O = shape
+    seg = bench_turns.segments(rows, S, dev)
+    x = torch.randn(rows, Hx * K, device=dev, generator=gen)
+    ct = torch.randn(rows, H * O, device=dev, generator=gen)
+    return lambda: segment_matmul_dw(x, ct, (S, H, K, O), seg)
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--turn"]:
-        run_turn()
-    else:
-        sys.exit(main(sys.argv[1:] or [os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))]))
+    sys.exit(bench_turns.cli(__file__, SHAPES, make, "segment_mm"))

@@ -244,6 +244,10 @@ def test_segment_matmul_dw_kernel_is_deterministic(cuda, H, Hx, K, O):
         assert torch.equal(a, segment_matmul_dw(x, ct, (3, H, K, O), seg))
 
 
+# 200 segments of 0-19 rows (padded to 0-24): 64-row tiles cross many
+SHORT_SEGMENTS = tuple(i * 7 % 20 for i in range(200))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sizes,H,Hx,K,O", [
     ((5000, 0, 3000, 17), 4, 1, 64, 17),  # compact multiply-first source
@@ -254,10 +258,23 @@ def test_segment_matmul_dw_kernel_is_deterministic(cuda, H, Hx, K, O):
     ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
     ((300,), 1, 1, 1, 1),  # one segment, K = O = 1
     ((40, 7), 1, 1, 1, 65),  # K = 1, O past one column tile
+    ((5000, 0, 3000, 17), 4, 1, 64, 2),  # edge-row W at layer 1: C = 8
+    ((5000, 0, 3000, 17), 4, 1, 64, 3),  # [W.a_l | W] at layer 1: C = 12
+    ((5000, 0, 3000, 17), 4, 1, 64, 16),  # edge-row W at layer 0: C = 64
+    ((3000, 0, 900), 2, 1, 64, 100),  # C = 200: three wide passes
+    ((2000, 33, 0, 900), 4, 1, 64, 17),  # x not 16-byte aligned, wide
+    ((2000, 33, 0, 900), 4, 1, 64, 1),  # x not 16-byte aligned, narrow
+    ((3000, 0, 900), 4, 1, 63, 17),  # K = 63: 4-byte loads, wide
+    ((3000, 0, 900), 4, 1, 63, 1),  # K = 63: 4-byte loads, narrow
+    ((3000, 0, 900), 4, 1, 130, 1),  # narrow, three k tiles, 4-byte loads
+    ((3000, 0, 900), 2, 2, 100, 3),  # narrow per head, two k tiles
+    (SHORT_SEGMENTS, 4, 1, 64, 17),  # tiles across many segments, wide
+    (SHORT_SEGMENTS, 4, 1, 64, 3),  # tasks across many segments, narrow
 ])
 def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
                                                    O):
-    """Forward and dX on offsets held only on the device.  Tolerance:
+    """Forward and dX on offsets held only on the device: the forward's
+    narrow (C <= 16) and wide kernels, 16- and 4-byte loads.  Tolerance:
     MM_TOL * sum |x| |W| per output (f32 sums in another order), which the
     plain version on inputs rounded to TF32 fails; rows past the segments
     (the operand is longer) are zeros."""
@@ -268,6 +285,10 @@ def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
     n = seg.n_rows + 8
     gen = torch.Generator(device=cuda).manual_seed(n + K + O)
     x = torch.randn(n, Hx * K, device=cuda, generator=gen)
+    if 33 in sizes:  # a contiguous view one float into its storage
+        x = torch.randn(n * Hx * K + 1, device=cuda,
+                        generator=gen)[1:].view(n, Hx * K)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
     ct = torch.randn(n, H * O, device=cuda, generator=gen)
     w = torch.randn(len(sizes), H, K, O, device=cuda, generator=gen)
     for fn, plain, a, extra in (
@@ -285,6 +306,51 @@ def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
         if scale.any():
             tf32 = plain(_tf32(a), _tf32(w), seg, *extra)
             assert not ((tf32 - want).abs() <= MM_TOL * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hx,K,O", [(4, 1, 64, 17), (4, 1, 64, 1),
+                                      (4, 4, 16, 5), (1, 1, 64, 64)])
+def test_segment_matmul_fwd_kernel_reads_no_row_outside(cuda, H, Hx, K, O):
+    """Rows of x before seg_ptrs[0] and past seg_ptrs[S] hold NaN: the
+    forward never reads them and writes zeros there; the segments' rows
+    are within MM_TOL * sum |x| |W| of the plain version."""
+    import dataclasses
+
+    lead, tail = 37, 45
+    base = _segments((3000, 0, 1500, 9), tile=1)
+    ptrs = tuple(p + lead for p in base.seg_ptrs_static)
+    seg = dataclasses.replace(
+        base, n_rows=ptrs[-1], seg_ptrs=torch.tensor(ptrs, dtype=torch.int32),
+        seg_ptrs_static=None).to(cuda)
+    n = ptrs[-1] + tail
+    gen = torch.Generator(device=cuda).manual_seed(K + O)
+    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
+    w = torch.randn(4, H, K, O, device=cuda, generator=gen)
+    x[:lead] = float("nan")
+    x[ptrs[-1]:] = float("nan")
+    got = segment_matmul_fwd(x, w, seg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got[:lead] == 0).all() and (got[ptrs[-1]:] == 0).all()
+    inside = slice(lead, ptrs[-1])
+    want = segment_matmul_fwd_plain(x, w, seg)[inside]
+    scale = segment_matmul_fwd_plain(x[inside].abs(), w.abs(),
+                                     base.to(cuda))
+    assert ((got[inside] - want).abs() <= MM_TOL * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hx,K,O", [(4, 1, 64, 17), (4, 1, 64, 3),
+                                      (1, 1, 64, 64)])
+def test_segment_matmul_fwd_kernel_is_deterministic(cuda, H, Hx, K, O):
+    """Blocks over many tiles and segments: three calls, bit for bit."""
+    seg = _segments((30000, 100, 20000) + SHORT_SEGMENTS, tile=1).to(cuda)
+    x = torch.randn(seg.n_rows, Hx * K, device=cuda)
+    w = torch.randn(seg.n_segments, H, K, O, device=cuda)
+    a = segment_matmul_fwd(x, w, seg)
+    for _ in range(2):
+        assert torch.equal(a, segment_matmul_fwd(x, w, seg))
 
 
 @pytest.mark.gpu

@@ -327,3 +327,65 @@ def test_dw_plan_fills_whole_waves():
     # x at K = 64 shared by 4 heads: one row of x for all 68 columns
     assert dw_plan(527360, 4, 4, 1, 64, 17, True, True, 132,
                    _resident).tiles == 1
+
+
+# (n_rows, S, H, Hx, K, O): the forward shapes of the data-parallel runs
+# (rank 0's shard), the general shapes and edge cases
+FWD_PLAN_SHAPES = [
+    (527360, 4, 4, 1, 64, 17), (312064, 4, 4, 1, 64, 1),
+    (527360, 4, 4, 1, 64, 3), (1056896, 4, 4, 1, 64, 16),
+    (1056896, 4, 4, 1, 64, 2), (1000192, 4, 1, 1, 64, 64),
+    (1034496, 535, 1, 1, 64, 64), (64, 4, 2, 1, 8, 3), (304, 1, 1, 1, 64, 64),
+    (960, 3, 1, 1, 1, 64), (960, 3, 2, 1, 8, 1), (1208, 3, 4, 4, 16, 5),
+    (0, 3, 2, 2, 3, 1), (4000, 3, 4, 1, 63, 17), (4000, 3, 4, 1, 63, 1),
+    (4000, 3, 2, 1, 64, 100), (1000, 3, 4, 1, 700, 100), (7, 1, 3, 3, 129, 2),
+]
+
+
+def _fwd_resident(plan):
+    """A stand-in for the card's occupancy: blocks an SM holds."""
+    return 3 if plan.cols > 16 else 4
+
+
+@pytest.mark.parametrize("shape", FWD_PLAN_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fwd_plan_covers_the_operands(shape, aligned):
+    """The forward's launch plan (``fwd_plan``): a narrow column tile for
+    Cg <= 16 output columns a group (Cg rounded up to a multiple of 4), a
+    wide one past it that covers Cg in as few passes as 96-wide ones
+    would; 16-byte loads only on aligned rows of a K that is a multiple of
+    4; a grid of whole tiles that covers every row and stays within one
+    wave of resident blocks, with no idle block."""
+    from het_tpu_torch.ops.kernels.segment_mm import (FWD_NARROW_COLS,
+                                                      FWD_ROWS, WIDE_COLS,
+                                                      fwd_plan)
+    n, _, H_, Hx, K, O = shape
+    p = fwd_plan(n, H_, Hx, K, O, aligned, 132, _fwd_resident)
+    cg = O if Hx > 1 else H_ * O
+    assert p.vec == (aligned and K % 4 == 0)
+    assert (p.cols in WIDE_COLS) == (cg > 16)
+    if cg > 16:
+        assert p.cols in WIDE_COLS
+        assert -(-cg // p.cols) == -(-cg // 96)  # no extra column pass
+    else:
+        assert p.cols == min(c for c in FWD_NARROW_COLS if c >= cg)
+    assert p.tiles == (H_ if Hx > 1 else 1) * -(-cg // p.cols)
+    assert p.rows % FWD_ROWS == 0 and p.blocks >= 1
+    assert p.blocks * p.rows >= n  # every row, zeros included
+    assert (p.blocks - 1) * p.rows < max(n, 1)  # no idle block
+    assert p.blocks * p.tiles <= max(132 * _fwd_resident(p), p.tiles)
+
+
+def test_fwd_plan_reads_x_once_on_the_paths():
+    """On the data-parallel shapes x is read in one pass: a narrow tile
+    for the attention and layer-1 columns (C = 4, 8, 12), one wide column
+    pass for C = 64 and C = 68 (an 80-column tile), with float4 loads;
+    and each fills at least three quarters of one wave of resident
+    blocks."""
+    from het_tpu_torch.ops.kernels.segment_mm import fwd_plan
+    want = {1: 4, 3: 12, 2: 8, 16: 64, 17: 80}
+    for n, _, H_, Hx, K, O in FWD_PLAN_SHAPES[:5]:
+        p = fwd_plan(n, H_, Hx, K, O, True, 132, _fwd_resident)
+        assert p.cols == want[O] and p.tiles == 1 and p.vec
+        slots = 132 * _fwd_resident(p)
+        assert 0.75 * slots <= p.blocks <= slots
