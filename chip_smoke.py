@@ -33,8 +33,10 @@ Phases, each of which fails the run:
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
      data-parallel runs give rank 0's shard, at the general shapes (S =
      535: W is 8.8 MB) and edge cases (among them 300 short segments, three
-     column passes, K = 63, NaN rows before and past the segments, an
-     operand one float off 16 bytes), each launched twice and compared
+     column passes, K = 63, the dX's reductions of 3, 16 and 17 columns
+     and a per-head dX of 17 columns, one tile, NaN rows before and past
+     the segments, an operand one float off 16 bytes), each launched
+     twice and compared
      bit for bit, with the same TF32 control, timed beside bare
      per-relation cuBLAS (one ``torch.mm`` a segment on host offsets);
    * ``force_rowmajor`` bit for bit on the packed run's ``fe[..., 1:]``
@@ -1108,6 +1110,17 @@ def _mm_shapes(shards, dev):
          general((3000, 0, 900), 1), 3, 4, 1, 130, 1),
         ("edge: per-head x, K=100, two k tiles", None, 0, 0,
          general((3000, 0, 900), 1), 3, 2, 2, 100, 3),
+        # the dX's reduction R (H*O, or O a head) and output (K) axes
+        ("edge: dX R=16", None, 0, 0, general((3000, 0, 900), 1), 3, 4, 1,
+         64, 4),
+        ("edge: dX R=17, 4-byte ct loads", None, 0, 0,
+         general((3000, 0, 900), 1), 3, 1, 1, 64, 17),
+        ("edge: dX R=3, a ct row of 12 bytes", None, 0, 0,
+         general((3000, 0, 900), 1), 3, 1, 1, 64, 3),
+        ("edge: dX per-head K=17, wide output", None, 0, 0,
+         general((3000, 0, 900), 1), 3, 4, 4, 17, 5),
+        ("edge: one tile", None, 0, 0, general((16, 16, 16, 16), 1), 4, 4, 1,
+         64, 1),
     ]
     for H, O in ((4, 17), (4, 1)):
         shapes += [

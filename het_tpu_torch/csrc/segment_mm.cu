@@ -67,24 +67,41 @@
 //     dx[i, k]       = sum_{h,o} ct[i, h*O + o] W[s, h, k, o] (Hx = 1)
 //
 // Replaces ::_dx_resident and the streamed ::segment_matmul_rows_dx, TPU
-// kernels of the same layout as the forward's.  Here a tiled f32 GEMM
-// whose B operand is the block's relation's weight
-// (segment_matmul_dx_kernel):
+// kernels of the forward's layout that transpose W in their wrapper.  Here
+// the dX is the forward with ct in x's place and W read transposed, on the
+// same walk and, but for the path's narrow reductions, the same kernels:
+// their kDx flag changes only the address of a staged weight entry.  In
+// the forward's dimensions (H', G, K', O'), a
+// group's K' columns of ct against its O' columns of dx:
+//  * Hx = 1: (1, 1, H*O, K), W'[s, 0, j, k] = W[s, j / O, k, j % O]: all
+//    of ct's row is one group's reduction, so ct is read once;
+//  * Hx = H: (H, H, O, K), W'[s, h, o, k] = W[s, h, k, o].
+// The forward's strides then hold as they are (a ct row is H*O floats, a
+// dx row Hx*K), the plan is the forward's on these dimensions
+// (ops/kernels/segment_mm.py::dx_plan), and a relation's weight slice is
+// staged once a run of its rows, its neighbouring columns O floats apart in
+// W (a strided L2 read once a run).
 //
-//  * a block owns a tile of 64 rows and 64 output columns, or 256 rows and
-//    16 columns where the output is that narrow (blockIdx.y also picks
-//    the head when Hx = H).  It finds the segments that meet its rows by a
-//    binary search of seg_ptrs and, for each (one, unless the tile crosses
-//    a segment boundary), stages 64- or 32-deep slices of its rows and of
-//    that relation's weight columns in shared memory, so any K and H*O
-//    fit; each thread keeps a 4 x 4 register tile and the block writes the
-//    rows of that segment;
-//  * rows outside [seg_ptrs[0], seg_ptrs[S]) are written as zeros;
-//  * plain f32 fused multiply-adds, no tensor cores.
-//
-// Bound as the forward's, with ct and dx in place of x and y.  A block
-// re-reads its weight columns from L2, never from device memory more than
-// once in the bound's sense.
+// Bound.  Bytes: ct read once, dx written once, W read once: n_rows *
+// (H*O + Hx*K) * 4 + S*H*K*O*4.  Operations: 2 * n_rows * H*K*O.  On the
+// path (H*O = 4, 8, 12 ct columns against K = 64) under 2 * 12 * 64 / ((12
+// + 64) * 4) = 5 operations a byte, so bytes bound, and 84-94% of the
+// bytes are dx written.  The general K = O = 64 is the forward's shape, 16
+// operations a byte.  Three kernels over the walk, by the plan:
+//  * a reduction of 1-16 ct columns against dx groups past 16 columns (the
+//    path's shapes): segment_matmul_dx_rows_kernel, a dX-only tile laid out
+//    for the stores and for little work around them: 16 lanes a row, each
+//    with a float4 of 64 dx columns and one store, R FMAs an output, tiles
+//    of 256 rows.  The forward's wide kernel, its 64 x 64 tile computing 8
+//    x 4 outputs a thread, ran these shapes slower (PERF.md §6);
+//  * dx groups of at most 16 columns (per head, K <= 16): the forward's
+//    narrow kernel;
+//  * the rest, the forward's wide kernel: K = 130 in two 80-column passes,
+//    reductions past 64 (the general K = O = 64, H*O = 200) in k tiles of
+//    64; its k loop runs to the reduction rounded up to 4, and only those
+//    rows of W are staged.
+// Rows outside [seg_ptrs[0], seg_ptrs[S]) are written as zeros and never
+// read; each output is one dot product in a fixed order; plain f32 FMAs.
 //
 // ------------------------------------------------------------------- dW
 //
@@ -652,15 +669,24 @@ constexpr int kFwdRows = 64;   // rows a tile
 constexpr int kFwdDepth = 64;  // k a stage
 constexpr int kFwdStages = 3;
 
-// Entry (k, c) of group g's (K, Cg) weight slice of relation s: W[s, h, k,
-// o] with (h, o) = (g, c) per head (Cg = O) and (c / O, c % O) for shared x
-// (g = 0, Cg = H * O).
-__device__ __forceinline__ const float* fwd_w_ptr(const float* w, int s,
-                                                  int g, int H, int K, int O,
-                                                  int k, int c) {
-  const int h = g + c / O;
-  return w + ((static_cast<int64_t>(s) * H + h) * K + k) * O +
-         (c - (h - g) * O);
+// Entry (k, c) of group g's (K, Cg) weight slice of relation s, in the
+// kernels' dimensions (H, G, K, O).  Forward: W[s, h, k, o] with (h, o) =
+// (g, c) per head (Cg = O) and (c / O, c % O) for shared x (g = 0, Cg =
+// H * O).  dX (kDx; see the header): W[s, j / wO, c, j % wO] with j = g * K
+// + k, W being (S, G * K / wO, O, wO).
+template <bool kDx>
+__device__ __forceinline__ const float* w_entry(const float* w, int s, int g,
+                                                int H, int G, int K, int O,
+                                                int wO, int k, int c) {
+  if constexpr (kDx) {
+    const int j = g * K + k, h = j / wO;
+    return w + static_cast<int64_t>(s) * G * K * O +
+           (static_cast<int64_t>(h) * O + c) * wO + (j - h * wO);
+  } else {
+    const int h = g + c / O;
+    return w + ((static_cast<int64_t>(s) * H + h) * K + k) * O +
+           (c - (h - g) * O);
+  }
 }
 
 // The first segment that ends past `row` (S where none does) and its end
@@ -693,13 +719,15 @@ struct FwdItem {
 };
 
 // A block's walk over the rows [r0, r1) of x for one group: tiles of at
-// most kFwdRows rows cut at segment ends, so a tile's rows share one
+// most ROWS rows cut at segment ends, so a tile's rows share one
 // relation, each in k tiles of kFwdDepth columns (one where K <=
 // kFwdDepth), staged by T threads with cp.async of V floats into a ring
-// of kFwdStages slots of kFwdRows rows XST floats apart, zero-filled past
-// the tile and past K.  Rows outside [seg_ptrs[0], seg_ptrs[S]) are
-// skipped (the kernels write their zeros).
-template <int T, int V, int XST>
+// of kFwdStages slots of ROWS rows XST floats apart, zero-filled past the
+// tile and past K.  Rows outside [seg_ptrs[0], seg_ptrs[S]) are skipped
+// (the kernels write their zeros).  ROWS (kFwdRows but in the dX rows
+// tile) bounds a tile; KD is the widest k tile staged (kFwdDepth, or the
+// dX rows tile's 16 where K <= 16).
+template <int T, int V, int XST, int ROWS = kFwdRows, int KD = kFwdDepth>
 struct FwdWalk {
   const float* x;  // the group's first column
   const int32_t* seg_ptrs;
@@ -728,7 +756,7 @@ struct FwdWalk {
       p = FwdItem{0, 0, 0, 0};
       if (cur < end) {
         while (cur >= seg_hi) seg_hi = __ldg(seg_ptrs + (++s) + 1);
-        const int64_t hi_t = cur + kFwdRows;
+        const int64_t hi_t = cur + ROWS;
         const int64_t hi = hi_t < seg_hi ? (hi_t < end ? hi_t : end)
                                          : (seg_hi < end ? seg_hi : end);
         p = FwdItem{cur, static_cast<int>(hi - cur), s, 0};
@@ -738,12 +766,12 @@ struct FwdWalk {
     const FwdItem it = p;
     ++p.kt;
     if (it.n > 0) {
-      float* xd = xs + slot * (kFwdRows * XST);
+      float* xd = xs + slot * (ROWS * XST);
       const int kb = it.kt * kFwdDepth;
       const int kd = min(kFwdDepth, K - kb), kd4 = (kd + 3) & ~3;
 #pragma unroll 4
-      for (int e = threadIdx.x; e < kFwdRows * (kFwdDepth / V); e += T) {
-        const int m = e / (kFwdDepth / V), k = e % (kFwdDepth / V) * V;
+      for (int e = threadIdx.x; e < ROWS * (KD / V); e += T) {
+        const int m = e / (KD / V), k = e % (KD / V) * V;
         if (k >= kd4) continue;
         const bool ok = m < it.n && k < kd;
         cp_async<V>(xd + m * XST + k, ok ? x + (it.lo + m) * ldx + kb + k : x,
@@ -830,14 +858,16 @@ __host__ __device__ constexpr int fwd_narrow_smem_bytes() {
 // slices 4 banks apart, so no load conflicts.  The four lanes then meet
 // by a reduce-scatter (3 BN / 4 shuffles) that leaves lane j the columns
 // j BN / 4 .. + BN / 4 of the row, stored as a float4 where BN = 16.
-template <int BN, bool kVec>
+// kDx: the dX in the forward's dimensions (x is ct, y dx; see the header),
+// wO the weight's own O.
+template <int BN, bool kVec, bool kDx>
 __global__ void __launch_bounds__(kFwdNarrowThreads)
 segment_matmul_fwd_narrow_kernel(const float* __restrict__ x,
                                  const float* __restrict__ w,
                                  const int32_t* __restrict__ seg_ptrs,
                                  float* __restrict__ y, int64_t n_rows,
                                  int64_t rows, int S, int H, int G, int K,
-                                 int O) {
+                                 int O, int wO) {
   constexpr int T = kFwdNarrowThreads, V = kVec ? 4 : 1;
   constexpr int XST = kFwdNarrowStride, XS = kFwdRows * XST;
   constexpr int WSLOT = 16 * BN + 4, Q = BN / 4;
@@ -885,8 +915,8 @@ segment_matmul_fwd_narrow_kernel(const float* __restrict__ x,
         const bool ok = c < ps.cw && kb + kk < K;
         if (e < kFwdDepth * BN)
           cp_async<1>(ws + kk / 4 % 4 * WSLOT + (kk / 16 * 4 + kk % 4) * BN + c,
-                      ok ? fwd_w_ptr(w, i0.s, ps.g, H, K, O, kb + kk,
-                                     ps.c0 + c) : w, ok);
+                      ok ? w_entry<kDx>(w, i0.s, ps.g, H, G, K, O, wO,
+                                        kb + kk, ps.c0 + c) : w, ok);
       }
       cp_async_commit();
     }
@@ -958,8 +988,10 @@ __host__ __device__ constexpr int fwd_wide_min_blocks() {
 // four of W from shared memory feed 128 FMAs, the 8 rows innermost; the
 // padded stride of 68 floats puts neighbouring row groups on different
 // banks.  A thread stages one column of the weight slice (T is a multiple
-// of BN).
-template <int BN, bool kVec>
+// of BN).  kDx: the dX in the forward's dimensions (x is ct, y dx; see the
+// header), wO the weight's own O; only the rows of W that the k loop reads
+// are staged.
+template <int BN, bool kVec, bool kDx>
 __global__ void __launch_bounds__(fwd_wide_threads<BN>(),
                                   fwd_wide_min_blocks<BN>())
 segment_matmul_fwd_wide_kernel(const float* __restrict__ x,
@@ -967,7 +999,7 @@ segment_matmul_fwd_wide_kernel(const float* __restrict__ x,
                                const int32_t* __restrict__ seg_ptrs,
                                float* __restrict__ y, int64_t n_rows,
                                int64_t rows, int S, int H, int G, int K,
-                               int O) {
+                               int O, int wO) {
   constexpr int T = fwd_wide_threads<BN>(), TX = BN / 4, V = kVec ? 4 : 1;
   constexpr int XST = kFwdWideStride, XS = kFwdRows * XST;
   constexpr int WE = kFwdDepth * BN / T;  // weights a thread stages
@@ -977,7 +1009,7 @@ segment_matmul_fwd_wide_kernel(const float* __restrict__ x,
   const FwdPass ps(H, G, O, BN);
   const FwdOut out(y, H, G, O, ps.g, ps.c0, ps.cw);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  // the weight column this thread stages: W[s, wh, k, wo]
+  // the weight column this thread stages: W[s, wh, k, wo] (forward)
   const int wc = threadIdx.x % BN, wk = threadIdx.x / BN;
   const int wcc = ps.c0 + wc < ps.Cg ? ps.c0 + wc : 0;
   const int wh = ps.g + wcc / O, wo = wcc - (wh - ps.g) * O;
@@ -1014,14 +1046,27 @@ segment_matmul_fwd_wide_kernel(const float* __restrict__ x,
       // tile's
       wseg = i0.s;
       const int kb = i0.kt * kFwdDepth;
-      const float* wp =
-          w + ((static_cast<int64_t>(i0.s) * H + wh) * K + kb) * O + wo;
+      if constexpr (kDx) {
+        const int kd4 = (min(kFwdDepth, K - kb) + 3) & ~3;
 #pragma unroll
-      for (int i = 0; i < WE; ++i) {
-        const int kk = wk + i * (T / BN);
-        const bool ok = wc < ps.cw && kb + kk < K;
-        cp_async<1>(ws + kk * BN + wc,
-                    ok ? wp + static_cast<int64_t>(kk) * O : w, ok);
+        for (int i = 0; i < WE; ++i) {
+          const int kk = wk + i * (T / BN);
+          if (kk >= kd4) break;
+          const bool ok = wc < ps.cw && kb + kk < K;
+          cp_async<1>(ws + kk * BN + wc,
+                      ok ? w_entry<true>(w, i0.s, ps.g, H, G, K, O, wO,
+                                         kb + kk, ps.c0 + wc) : w, ok);
+        }
+      } else {
+        const float* wp =
+            w + ((static_cast<int64_t>(i0.s) * H + wh) * K + kb) * O + wo;
+#pragma unroll
+        for (int i = 0; i < WE; ++i) {
+          const int kk = wk + i * (T / BN);
+          const bool ok = wc < ps.cw && kb + kk < K;
+          cp_async<1>(ws + kk * BN + wc,
+                      ok ? wp + static_cast<int64_t>(kk) * O : w, ok);
+        }
       }
       cp_async_commit();
     }
@@ -1070,10 +1115,129 @@ segment_matmul_fwd_wide_kernel(const float* __restrict__ x,
   cp_async_wait<0>();
 }
 
+// ------------------------------------------------------------- dX rows
+
+constexpr int kDxRowsThreads = 256;
+constexpr int kDxRowsLanes = 16;                    // lanes a row
+constexpr int kDxRowsCols = 4 * kDxRowsLanes;       // dx columns a pass
+constexpr int kDxRowsTeams = kDxRowsThreads / kDxRowsLanes;  // rows at once
+constexpr int kDxRowsTile = 256;   // rows a tile: 16 a row team
+constexpr int kDxRowsStride = 16;  // floats a staged ct row: R <= 16
+
+template <int RP>
+__host__ __device__ constexpr int dx_rows_smem_bytes() {
+  return (kFwdStages * kDxRowsTile * kDxRowsStride + RP * kDxRowsCols) * 4;
+}
+
+// The dX where the reduction is narrow (R = H*O, or O a head, <= RP <= 16; RP
+// the reduction rounded up to 4: the path's 4, 8 and 12) and dx wide (K >
+// 16, in passes of 64 columns), in the forward's dimensions of the header
+// (G groups of K = R ct columns against O = dx's K columns, wO the
+// weight's own O).  84-94% of the bytes are dx written, and a row's work is
+// small (R FMAs an output), so the tile is laid out for the stores and for
+// little work around them: a row takes 16 lanes, each of which owns a
+// float4 of the pass's 64 columns and stores it once; the row's R ct values
+// are a broadcast from the staged tile (a float4 a load, the two rows of a
+// warp 16 banks apart) and the R x 64 weight slice is read as float4 from
+// shared memory.  The walk's tiles are 256 rows (16 a row team) of at most
+// 16 staged floats, so a barrier and a walk step serve 64 KB of dx.  The
+// ring and the weight staging are the other kernels'; only the rows of W
+// below RP are staged.
+template <int RP, bool kVec>
+__global__ void __launch_bounds__(kDxRowsThreads)
+segment_matmul_dx_rows_kernel(const float* __restrict__ x,
+                              const float* __restrict__ w,
+                              const int32_t* __restrict__ seg_ptrs,
+                              float* __restrict__ y, int64_t n_rows,
+                              int64_t rows, int S, int H, int G, int K, int O,
+                              int wO) {
+  constexpr int T = kDxRowsThreads, V = kVec ? 4 : 1, BN = kDxRowsCols;
+  constexpr int XST = kDxRowsStride, XS = kDxRowsTile * XST;
+  static_assert(RP % 4 == 0 && RP <= XST, "a staged row holds RP floats");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem + kFwdStages * XS;  // (RP, BN)
+  const FwdPass ps(H, G, O, BN);
+  const FwdOut out(y, H, G, O, ps.g, ps.c0, ps.cw);
+  const int lane = threadIdx.x % kDxRowsLanes;
+  const int team = threadIdx.x / kDxRowsLanes;
+  const int64_t rb0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int64_t rb1 = rb0 + rows < n_rows ? rb0 + rows : n_rows;
+  if (rb0 >= rb1) return;
+  const int64_t p0 = __ldg(seg_ptrs), pS = __ldg(seg_ptrs + S);
+  {  // zeros on the rows of the range that no segment holds
+    const float z[4] = {};
+    const int64_t a1 = p0 < rb1 ? p0 : rb1, b0 = pS > rb0 ? pS : rb0;
+    for (int64_t r = rb0 + team; r < a1; r += kDxRowsTeams)
+      out.store<4>(r, 4 * lane, z);
+    for (int64_t r = b0 + team; r < rb1; r += kDxRowsTeams)
+      out.store<4>(r, 4 * lane, z);
+  }
+  FwdWalk<T, V, XST, kDxRowsTile, XST> walk(
+      x + static_cast<int64_t>(ps.g) * K, seg_ptrs, smem,
+      static_cast<int64_t>(G) * K, K, rb0, rb1, p0, pS, S);
+  FwdItem i0 = walk.produce(0), i1 = walk.produce(1);
+  int wseg = -1;
+  for (int it = 0; i0.n > 0; ++it) {
+    cp_async_wait<kFwdStages - 2>();  // item 0 has landed
+    // ... in every thread's copies, and every thread is done with the
+    // last round's slot and weights
+    __syncthreads();
+    const bool new_w = i0.s != wseg;
+    if (new_w) {
+      // relation i0.s's weight slice, zeros past K and past the pass's
+      // columns, one commit group ahead of the next tile's
+      wseg = i0.s;
+#pragma unroll
+      for (int e = threadIdx.x; e < RP * BN; e += T) {
+        const int kk = e / BN, c = e % BN;
+        const bool ok = c < ps.cw && kk < K;
+        cp_async<1>(ws + e, ok ? w_entry<true>(w, i0.s, ps.g, H, G, K, O, wO,
+                                               kk, ps.c0 + c) : w, ok);
+      }
+      cp_async_commit();
+    }
+    // into the slot read last round
+    const FwdItem i2 = walk.produce((it + 2) % kFwdStages);
+    if (new_w) {
+      cp_async_wait<1>();  // the weights have landed
+      __syncthreads();
+    }
+    const float* xs = smem + it % kFwdStages * XS;
+    const int rows_mine = (i0.n - team + kDxRowsTeams - 1) / kDxRowsTeams;
+#pragma unroll 4
+    for (int p = 0; p < rows_mine; ++p) {
+      const int m = team + p * kDxRowsTeams;
+      float a[RP];
+#pragma unroll
+      for (int q = 0; q < RP / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + m * XST + 4 * q);
+        a[4 * q] = v.x;
+        a[4 * q + 1] = v.y;
+        a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+      float acc[4] = {};
+#pragma unroll
+      for (int r = 0; r < RP; ++r) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(ws + r * BN + 4 * lane);
+        acc[0] = fmaf(a[r], b.x, acc[0]);
+        acc[1] = fmaf(a[r], b.y, acc[1]);
+        acc[2] = fmaf(a[r], b.z, acc[2]);
+        acc[3] = fmaf(a[r], b.w, acc[3]);
+      }
+      out.store<4>(i0.lo + m, 4 * lane, acc);
+    }
+    i0 = i1;
+    i1 = i2;
+  }
+  cp_async_wait<0>();
+}
+
 // fn(kernel, threads, dynamic shared bytes) for the forward of column tile
 // BN (narrow up to 16, wide past it), after allowing it that much shared
 // memory
-template <bool kVec, int BN, class Fn>
+template <bool kVec, bool kDx, int BN, class Fn>
 cudaError_t with_fwd_bn(Fn fn) {
   const auto run = [&](auto kernel, int threads, int smem) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1081,20 +1245,20 @@ cudaError_t with_fwd_bn(Fn fn) {
     return err != cudaSuccess ? err : fn(kernel, threads, smem);
   };
   if constexpr (BN > 16) {
-    return run(segment_matmul_fwd_wide_kernel<BN, kVec>,
+    return run(segment_matmul_fwd_wide_kernel<BN, kVec, kDx>,
                fwd_wide_threads<BN>(), fwd_wide_smem_bytes<BN>());
   } else {
-    return run(segment_matmul_fwd_narrow_kernel<BN, kVec>, kFwdNarrowThreads,
-               fwd_narrow_smem_bytes<BN>());
+    return run(segment_matmul_fwd_narrow_kernel<BN, kVec, kDx>,
+               kFwdNarrowThreads, fwd_narrow_smem_bytes<BN>());
   }
 }
 
-// fn(kernel, threads, dynamic shared bytes) for the forward of column tile
-// `cols`; cudaErrorInvalidValue where none is built
-template <class Fn>
-cudaError_t with_fwd(int cols, bool vec, Fn fn) {
-#define HET_FWD(BN) \
-  case BN: return vec ? with_fwd_bn<true, BN>(fn) : with_fwd_bn<false, BN>(fn);
+template <bool kDx, class Fn>
+cudaError_t with_fwd_dir(int cols, bool vec, Fn fn) {
+#define HET_FWD(BN)                                        \
+  case BN:                                                 \
+    return vec ? with_fwd_bn<true, kDx, BN>(fn)            \
+               : with_fwd_bn<false, kDx, BN>(fn);
   switch (cols) {
     HET_FWD(4)
     HET_FWD(8)
@@ -1108,172 +1272,36 @@ cudaError_t with_fwd(int cols, bool vec, Fn fn) {
 #undef HET_FWD
 }
 
-// ------------------------------------------------------------------- dX
-
-// A block's output tile is BM rows by BN columns, 4 x 4 outputs a thread
-// (BM / 4 * BN / 4 = kThreads), and it stages BD-deep slices of the
-// reduction.  Wide tiles for wide outputs; narrow ones where dx has at
-// most 16 columns a group (K <= 16), where a 64-column tile would leave
-// most threads without a column.  BD = 64 takes a 64-deep reduction in
-// one stage, so a block waits for device memory once.
-template <int BM, int BN, int BD>
-struct Tile {
-  static_assert(BM / 4 * (BN / 4) == kThreads, "4 x 4 outputs a thread");
-  static constexpr int kRows = BM, kCols = BN, kDepth = BD;
-};
-using WideTile = Tile<64, 64, 64>;
-using NarrowTile = Tile<256, 16, 32>;
-
-// Per group g (the head when Hx = H, else the only group): the reduction
-// index r runs over R entries of ct's columns [a_off, a_off + R), the
-// output index c over the K columns [o_off, o_off + K) of dx, and the
-// weight entry for (r, c) is W[s, j / O, c, j % O] with j = j_off + r.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segment_matmul_dx_kernel(const float* __restrict__ a,
-                         const float* __restrict__ w,
-                         const int32_t* __restrict__ seg_ptrs,
-                         float* __restrict__ out, int64_t n_rows, int S,
-                         int H, int Hx, int K, int O) {
-  constexpr int BM = T::kRows, BN = T::kCols, BD = T::kDepth;
-  // +4: the staging stores walk the depth, BM + 4 floats apart
-  __shared__ __align__(16) float as[BD][BM + 4];
-  __shared__ __align__(16) float ws[BD][BN];
-  const int HO = H * O;
-  const bool per_head = Hx > 1;
-  const int64_t lda = HO;
-  const int64_t ldo = static_cast<int64_t>(Hx) * K;
-  const int R = per_head ? O : HO;
-  const int C = K;
-  const int ctiles = (C + BN - 1) / BN;
-  const int g = blockIdx.y / ctiles;
-  const int c0 = (blockIdx.y % ctiles) * BN;
-  const int j_off = per_head ? g * O : 0;
-  const int a_off = j_off;
-  const int o_off = per_head ? g * K : 0;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int64_t r1 = r0 + BM < n_rows ? r0 + BM : n_rows;
-  const int tx = threadIdx.x % (BN / 4), ty = threadIdx.x / (BN / 4);
-
-  // rows that no segment holds read as zero rows
-  const int64_t p0 = __ldg(seg_ptrs), pS = __ldg(seg_ptrs + S);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int64_t i = r0 + ty * 4 + p;
-    if (i >= r1 || (i >= p0 && i < pS)) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + tx * 4 + q;
-      if (c < C) out[i * ldo + o_off + c] = 0.f;
-    }
-  }
-
-  // the first segment that ends past r0
-  int s = 0;
-  for (int hi = S; s < hi;) {
-    const int mid = (s + hi) >> 1;
-    if (__ldg(seg_ptrs + mid + 1) > r0) hi = mid; else s = mid + 1;
-  }
-  for (; s < S; ++s) {
-    const int64_t lo_s = __ldg(seg_ptrs + s), hi_s = __ldg(seg_ptrs + s + 1);
-    if (lo_s >= r1) break;
-    const int64_t ra = lo_s > r0 ? lo_s : r0, rb = hi_s < r1 ? hi_s : r1;
-    if (ra >= rb) continue;  // an empty segment
-    const float* wsg = w + static_cast<int64_t>(s) * H * K * O;
-    float acc[4][4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
-
-    for (int rk = 0; rk < R; rk += BD) {
-      const int depth = R - rk < BD ? R - rk : BD;
-      // this segment's rows of A, every load of the stage in flight at
-      // once; depth fastest, so neighbouring threads read neighbouring
-      // addresses of one row
-#pragma unroll
-      for (int e = threadIdx.x; e < BM * BD; e += kThreads) {
-        const int m = e / BD, d = e % BD;
-        const int64_t i = r0 + m;
-        as[d][m] = i >= ra && i < rb && d < depth
-                       ? __ldg(a + i * lda + a_off + rk + d) : 0.f;
-      }
-      // the relation's weight slice, output columns fastest
-#pragma unroll
-      for (int e = threadIdx.x; e < BD * BN; e += kThreads) {
-        const int d = e / BN, c = e % BN;
-        const int cc = c0 + c;
-        float v = 0.f;
-        if (d < depth && cc < C) {
-          const int k = cc;
-          const int j = j_off + rk + d;
-          const int h = j / O;
-          v = __ldg(wsg + (static_cast<int64_t>(h) * K + k) * O + (j - h * O));
-        }
-        ws[d][c] = v;
-      }
-      __syncthreads();
-      auto fma_depth = [&](int d) {
-        const float4 av = *reinterpret_cast<const float4*>(&as[d][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&ws[d][tx * 4]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(ar[p], br[q], acc[p][q]);
-      };
-      if (depth == BD) {  // a full stage: a loop the compiler unrolls
-#pragma unroll
-        for (int d = 0; d < BD; ++d) fma_depth(d);
-      } else {  // the last, short stage (R = 4 or 12: all of it)
-#pragma unroll 4
-        for (int d = 0; d < depth; ++d) fma_depth(d);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int64_t i = r0 + ty * 4 + p;
-      if (i < ra || i >= rb) continue;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = c0 + tx * 4 + q;
-        if (c < C) out[i * ldo + o_off + c] = acc[p][q];
-      }
-    }
-  }
+template <int RP, class Fn>
+cudaError_t with_dx_rows_rp(bool vec, Fn fn) {
+  const auto run = [&](auto kernel) {
+    constexpr int smem = dx_rows_smem_bytes<RP>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return err != cudaSuccess ? err : fn(kernel, kDxRowsThreads, smem);
+  };
+  return vec ? run(segment_matmul_dx_rows_kernel<RP, true>)
+             : run(segment_matmul_dx_rows_kernel<RP, false>);
 }
 
-template <typename T>
-int launch_dx_tiled(const float* a, const float* w,
-                    const int32_t* seg_ptrs, float* out, int64_t n_rows,
-                    int S, int H, int Hx, int K, int O, cudaStream_t st) {
-  const int64_t ytiles = static_cast<int64_t>(Hx > 1 ? H : 1) *
-                         ((K + T::kCols - 1) / T::kCols);
-  const int64_t xtiles = (n_rows + T::kRows - 1) / T::kRows;
-  if (ytiles == 0 || xtiles == 0) return cudaSuccess;  // nothing to write
-  if (ytiles > 65535 || xtiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(xtiles),
-                  static_cast<unsigned>(ytiles));
-  segment_matmul_dx_kernel<T><<<grid, kThreads, 0, st>>>(
-      a, w, seg_ptrs, out, n_rows, S, H, Hx, K, O);
-  return cudaGetLastError();
-}
-
-int launch_dx(const float* ct, const float* w, const int32_t* seg_ptrs,
-              float* dx, int64_t n_rows, int S, int H, int Hx, int K, int O,
-              void* stream) {
-  if (n_rows < 0 || S < 0 || H < 0 || K < 0 || O < 0 ||
-      (Hx != 1 && Hx != H)) {
-    return cudaErrorInvalidValue;
+// fn(kernel, threads, dynamic shared bytes) for the forward (dx false) or
+// the dX of column tile `cols`, or for the dX rows tile of reduction
+// `depth` (4, 8, 12 or 16; 0 for the forward's kernels);
+// cudaErrorInvalidValue where none is built
+template <class Fn>
+cudaError_t with_fwd(int cols, int depth, bool vec, bool dx, Fn fn) {
+  if (depth > 0) {
+    if (!dx || cols != kDxRowsCols) return cudaErrorInvalidValue;
+    switch (depth) {
+      case 4: return with_dx_rows_rp<4>(vec, fn);
+      case 8: return with_dx_rows_rp<8>(vec, fn);
+      case 12: return with_dx_rows_rp<12>(vec, fn);
+      case 16: return with_dx_rows_rp<16>(vec, fn);
+      default: return cudaErrorInvalidValue;
+    }
   }
-  // an empty reduction (O = 0) still writes zeros
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define HET_ROWS(T) \
-  launch_dx_tiled<T>(ct, w, seg_ptrs, dx, n_rows, S, H, Hx, K, O, st)
-  return K <= NarrowTile::kCols ? HET_ROWS(NarrowTile) : HET_ROWS(WideTile);
-#undef HET_ROWS
+  return dx ? with_fwd_dir<true>(cols, vec, fn)
+            : with_fwd_dir<false>(cols, vec, fn);
 }
 
 }  // namespace
@@ -1389,59 +1417,63 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
   return cudaGetLastError();
 }
 
-// Blocks of the forward kernel of column tile `cols` and 16-byte loads
-// `vec` (as in het_segment_matmul_fwd_f32) that one SM of the current
-// device holds at once; 0 if there is no such kernel.
-int het_segment_matmul_fwd_resident(int cols, int vec) {
+// Blocks of the forward (dx 0) or dX (dx 1) kernel of column tile `cols`,
+// dX rows tile `depth` and 16-byte loads `vec` (as in
+// het_segment_matmul_fwd_f32) that one SM of the current device holds at
+// once; 0 if there is no such kernel.
+int het_segment_matmul_fwd_resident(int cols, int depth, int vec, int dx) {
   int n = 0;
   const cudaError_t err =
-      with_fwd(cols, vec, [&](auto kernel, int threads, int smem) {
+      with_fwd(cols, depth, vec, dx, [&](auto kernel, int threads, int smem) {
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
                                                              threads, smem);
       });
   return err == cudaSuccess ? n : 0;
 }
 
-// Forward: x (n_rows, Hx*K) f32 and W (S, H, K, O) f32, row-major, on the
-// device; seg_ptrs as above; y (n_rows, H*O) f32; Hx is 1 or H.  The launch
-// plan comes from the wrapper (het_tpu_torch/ops/kernels/segment_mm.py::
-// fwd_plan): the column tile `cols` (narrow 4, 8, 12 or 16, wide 64, 80
-// or 96), `vec` 16-byte loads of x, a grid of `blocks` x `tiles` (groups
-// x column passes), each block taking `rows` rows.  Launches on `stream`
-// and returns the launch error, cudaErrorInvalidValue for a plan the
-// operands do not allow (0 on success).
+// Forward (dx 0): x (n_rows, Hx*K) f32 and W (S, H, K, O) f32, row-major,
+// on the device; seg_ptrs as above; y (n_rows, H*O) f32; Hx is 1 or H.
+// dX (dx 1): x is ct (n_rows, H*O), y is dx (n_rows, Hx*K), per head when
+// Hx = H, summed over the heads when Hx = 1; the same kernels run it in
+// the forward's dimensions of the header's dX part.  The launch plan comes
+// from the wrapper (het_tpu_torch/ops/kernels/segment_mm.py::fwd_plan, or
+// dx_plan): the column tile `cols` (narrow 4, 8, 12 or 16, wide 64, 80 or
+// 96), or for the dX the rows tile of `depth` (the reduction rounded up
+// to 4, at most 16; 0 otherwise) and 64 columns, `vec` 16-byte loads of x,
+// a grid of `blocks` x `tiles` (groups x column passes), each block taking
+// `rows` rows.
+// Launches on `stream` and returns the launch error, cudaErrorInvalidValue
+// for a plan the operands do not allow (0 on success).
 int het_segment_matmul_fwd_f32(const float* x, const float* w,
                                const int32_t* seg_ptrs, float* y,
                                int64_t n_rows, int S, int H, int Hx, int K,
-                               int O, int cols, int vec, int64_t blocks,
-                               int tiles, int64_t rows, void* stream) {
+                               int O, int dx, int cols, int depth, int vec,
+                               int64_t blocks, int tiles, int64_t rows,
+                               void* stream) {
   if (n_rows < 0 || S < 0 || H < 0 || K < 0 || O < 0 ||
       (Hx != 1 && Hx != H)) {
     return cudaErrorInvalidValue;
   }
-  const int Cg = Hx > 1 ? O : H * O;
+  // the kernels' dimensions: a group's kK columns of x against its Cg
+  // columns of y
+  const int kH = dx && Hx == 1 ? 1 : H;
+  const int kK = dx ? (Hx > 1 ? O : H * O) : K, kO = dx ? K : O;
+  const int Cg = Hx > 1 ? kO : kH * kO;
   if (n_rows == 0 || Cg == 0) return cudaSuccess;  // nothing to write
   if (cols <= 0 || rows <= 0 || blocks <= 0 || blocks > 0x7fffffffLL ||
       blocks * rows < n_rows || tiles != Hx * ((Cg + cols - 1) / cols) ||
-      tiles > 65535 || (vec && (K % 4 || !aligned16(x)))) {
+      tiles > 65535 || (vec && (kK % 4 || !aligned16(x))) ||
+      (depth && depth != ((kK + 3) & ~3))) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
-  return with_fwd(cols, vec, [&](auto kernel, int threads, int smem) {
+  return with_fwd(cols, depth, vec, dx, [&](auto kernel, int threads,
+                                            int smem) {
     kernel<<<grid, threads, smem, st>>>(x, w, seg_ptrs, y, n_rows, rows, S,
-                                        H, Hx, K, O);
+                                        kH, Hx, kK, kO, O);
     return cudaGetLastError();
   });
-}
-
-// dX: ct (n_rows, H*O) f32 and W (S, H, K, O) f32; dx (n_rows, Hx*K) f32,
-// per head when Hx = H, summed over the heads when Hx = 1.
-int het_segment_matmul_dx_f32(const float* ct, const float* w,
-                              const int32_t* seg_ptrs, float* dx,
-                              int64_t n_rows, int S, int H, int Hx, int K,
-                              int O, void* stream) {
-  return launch_dx(ct, w, seg_ptrs, dx, n_rows, S, H, Hx, K, O, stream);
 }
 
 const char* het_cuda_error_string(int err) {

@@ -17,8 +17,9 @@ gradients of the plain RGAT.  Counterparts of
 and the streamed form), :func:`segment_matmul_dw` of
 ``segment_matmul_rows_dw`` (``_dw_resident`` and the streamed form).  One
 wrapper call covers each pair, whatever the size of W: the forward's
-narrow or wide column tile picked by :func:`fwd_plan`, the dX's one kernel,
-the dW's chunk and reduce passes planned by :func:`dw_plan`.  Every row
+narrow or wide column tile picked by :func:`fwd_plan`, the dX on the same
+walk with W read transposed (:func:`dx_plan`), the dW's chunk and reduce
+passes planned by :func:`dw_plan`.  Every row
 of a segment is summed in the dW, valid or not, as there; a caller that
 must drop padding rows zeroes their ``ct``.  A segment that owns no rows
 gives zeros, and the forward and dX write zeros on rows outside
@@ -326,23 +327,40 @@ def segment_matmul_dx_plain(ct_rows: torch.Tensor, w: torch.Tensor, seg,
 
 
 # the forward's column tiles: narrow (Cg <= 16 output columns a group,
-# four lanes a row) and wide (8 x 4 outputs a thread); csrc/segment_mm.cu
-# instantiates these
+# four lanes a row) and wide (8 x 4 outputs a thread); the dX rows tile's
+# reductions (R <= 16 ct columns, rounded up to 4) and dx columns a pass;
+# csrc/segment_mm.cu instantiates these
 FWD_NARROW_COLS = (4, 8, 12, 16)
+DX_ROWS_DEPTHS = (4, 8, 12, 16)
+DX_ROWS_COLS = 64
 FWD_ROWS = 64  # rows a tile
 
 
 class FwdPlan(NamedTuple):
-    """How ``csrc/segment_mm.cu`` computes one forward: the column tile
-    (``cols``: narrow, Cg rounded up to :data:`FWD_NARROW_COLS`; wide, one
-    of :data:`WIDE_COLS`), 16-byte loads of x (``vec``) and the grid:
-    ``blocks`` by ``tiles`` (the groups times the column passes), each
-    block taking ``rows`` rows."""
+    """How ``csrc/segment_mm.cu`` computes one forward or dX: the column
+    tile (``cols``: narrow, Cg rounded up to :data:`FWD_NARROW_COLS`;
+    wide, one of :data:`WIDE_COLS`; the dX rows tile's
+    :data:`DX_ROWS_COLS`), the dX rows tile's reduction (``depth``, one of
+    :data:`DX_ROWS_DEPTHS`; 0 for the forward's kernels), 16-byte loads of
+    x (``vec``) and the grid: ``blocks`` by ``tiles`` (the groups times the
+    column passes), each block taking ``rows`` rows."""
     cols: int
     vec: bool
     tiles: int
     blocks: int = 0
     rows: int = 0
+    depth: int = 0
+
+
+def _one_wave(plan: FwdPlan, n_rows: int, sms: int,
+              resident: Callable[[FwdPlan], int]) -> FwdPlan:
+    """``plan`` with blocks that fill one wave of resident blocks and
+    share the rows in whole tiles."""
+    per_wave = max(1, sms * max(1, resident(plan)) // plan.tiles)
+    blocks = max(1, min(per_wave, -(-n_rows // FWD_ROWS)))
+    per_block = -(-n_rows // blocks)
+    rows = max(1, -(-per_block // FWD_ROWS)) * FWD_ROWS
+    return plan._replace(blocks=max(1, -(-n_rows // rows)), rows=rows)
 
 
 def fwd_plan(n_rows: int, H: int, Hx: int, K: int, O: int,
@@ -366,71 +384,87 @@ def fwd_plan(n_rows: int, H: int, Hx: int, K: int, O: int,
         cols = next(c for c in WIDE_COLS if c >= -(-cg // passes))
     plan = FwdPlan(cols, K % 4 == 0 and x_aligned,
                    (H if Hx > 1 else 1) * -(-cg // cols))
-    per_wave = max(1, sms * max(1, resident(plan)) // plan.tiles)
-    blocks = max(1, min(per_wave, -(-n_rows // FWD_ROWS)))
-    per_block = -(-n_rows // blocks)
-    rows = max(1, -(-per_block // FWD_ROWS)) * FWD_ROWS
-    return plan._replace(blocks=max(1, -(-n_rows // rows)), rows=rows)
+    return _one_wave(plan, n_rows, sms, resident)
+
+
+def dx_dims(H: int, Hx: int, K: int, O: int) -> Tuple[int, int, int, int]:
+    """The forward's (H, Hx, K, O) that computes the dX of a weight (S, H,
+    K, O) into (n_rows, Hx*K): ct's K' columns a group against dx's K, with
+    W read transposed (``csrc/segment_mm.cu``'s header).  All H*O columns
+    of ct are one group where dx is summed over the heads (Hx = 1), O a
+    head otherwise."""
+    return (H, H, O, K) if Hx > 1 else (1, 1, H * O, K)
+
+
+def dx_plan(n_rows: int, H: int, Hx: int, K: int, O: int,
+            ct_aligned: bool, sms: int,
+            resident: Callable[[FwdPlan], int]) -> FwdPlan:
+    """The launch plan of the dX of a weight (S, H, K, O) for ct (n_rows,
+    H*O) whose first row is 16-byte aligned or not, in the forward's
+    dimensions (:func:`dx_dims`): a reduction of R = H*O (or O a head) ct
+    columns against K dx columns a group, 16-byte loads where R is a
+    multiple of 4.  A narrow reduction (0 < R <= 16) against K > 16 takes
+    the dX rows tile (R rounded up to 4, passes of 64 columns); every other
+    shape :func:`fwd_plan`'s kernels.  Hx times the column passes along
+    y."""
+    dims = dx_dims(H, Hx, K, O)
+    R = dims[2]
+    if not 0 < R <= DX_ROWS_DEPTHS[-1] or K <= FWD_NARROW_COLS[-1]:
+        return fwd_plan(n_rows, *dims, ct_aligned, sms, resident)
+    plan = FwdPlan(DX_ROWS_COLS, R % 4 == 0 and ct_aligned,
+                   Hx * -(-K // DX_ROWS_COLS), depth=-(-R // 4) * 4)
+    return _one_wave(plan, n_rows, sms, resident)
 
 
 _FWD_PLANS: Dict[tuple, FwdPlan] = {}
 
 
-def card_fwd_plan(x2: torch.Tensor, w_shape) -> FwdPlan:
-    """:func:`fwd_plan` for the CUDA operand ``x2`` (n_rows, Hx*K) and a
-    weight of shape ``w_shape`` on its card."""
+def card_fwd_plan(a2: torch.Tensor, w_shape, Hx: int,
+                  dx: bool = False) -> FwdPlan:
+    """:func:`fwd_plan` (or, with ``dx``, :func:`dx_plan`) for the CUDA
+    operand ``a2`` (x, or ct for the dX) and a weight of shape ``w_shape``
+    on its card."""
     _, H, K, O = w_shape
-    Hx = _heads_of(x2, H, K, "x_rows")
-    dev = x2.device
+    dev = a2.device
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    key = (index, x2.shape[0], H, Hx, K, O, x2.data_ptr() % 16 == 0)
+    key = (index, a2.shape[0], H, Hx, K, O, a2.data_ptr() % 16 == 0, dx)
     plan = _FWD_PLANS.get(key)
     if plan is None:  # a training step asks for the same few each time
         fn = _dispatch.bind("segment_mm", "het_segment_matmul_fwd_resident",
-                            [ctypes.c_int] * 2)
+                            [ctypes.c_int] * 4)
         sms = torch.cuda.get_device_properties(index).multi_processor_count
 
         def resident(p):
             with torch.cuda.device(index):
-                return fn(p.cols, int(p.vec))
+                return fn(p.cols, p.depth, int(p.vec), int(dx))
 
-        plan = _FWD_PLANS[key] = fwd_plan(*key[1:], sms, resident)
+        plan = _FWD_PLANS[key] = (dx_plan if dx else fwd_plan)(
+            *key[1:-1], sms, resident)
     return plan
 
 
-def _segment_matmul_fwd_cuda(x2, w, seg_ptrs, out, Hx):
+def _segment_matmul_cuda(a2, w, seg_ptrs, out, Hx, dx):
+    """One launch of the forward (``a2`` is x) or, with ``dx``, the dX
+    (``a2`` is ct) into ``out``; False where there is nothing to write."""
     fn = _dispatch.bind("segment_mm", "het_segment_matmul_fwd_f32", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_void_p])
     S, H, K, O = w.shape
     if out.numel() == 0:
         return False
-    plan = card_fwd_plan(x2, w.shape)
+    plan = card_fwd_plan(a2, w.shape, Hx, dx)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(x2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
-                 out.data_ptr(), x2.shape[0], S, H, Hx, K, O, plan.cols,
-                 int(plan.vec), plan.blocks, plan.tiles, plan.rows, stream)
-    _dispatch.check_launch("segment_mm", err, "segment_matmul_fwd")
-    return True
-
-
-def _segment_matmul_dx_cuda(ct2, w, seg_ptrs, out, Hx):
-    fn = _dispatch.bind("segment_mm", "het_segment_matmul_dx_f32", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    S, H, K, O = w.shape
-    if out.numel() == 0:
-        return False
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(ct2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
-                 out.data_ptr(), ct2.shape[0], S, H, Hx, K, O, stream)
-    _dispatch.check_launch("segment_mm", err, "segment_matmul_dx")
+        err = fn(a2.data_ptr(), w.data_ptr(), seg_ptrs.data_ptr(),
+                 out.data_ptr(), a2.shape[0], S, H, Hx, K, O, int(dx),
+                 plan.cols, plan.depth, int(plan.vec), plan.blocks,
+                 plan.tiles, plan.rows, stream)
+    _dispatch.check_launch("segment_mm", err,
+                           "segment_matmul_dx" if dx else "segment_matmul_fwd")
     return True
 
 
@@ -456,7 +490,7 @@ def segment_matmul_fwd(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
     _check_cuda((("x_rows", x2), ("w", w)), seg)
     out = torch.empty(x2.shape[0], H, O, dtype=torch.float32,
                       device=x2.device)
-    if _segment_matmul_fwd_cuda(x2, w, seg.seg_ptrs, out, Hx):
+    if _segment_matmul_cuda(x2, w, seg.seg_ptrs, out, Hx, False):
         segment_matmul_fwd.launches += 1
     return out
 
@@ -484,7 +518,7 @@ def segment_matmul_dx(ct_rows: torch.Tensor, w: torch.Tensor, seg,
     _check_cuda((("ct_rows", ct2), ("w", w)), seg)
     out = torch.empty(ct2.shape[0], x_heads * K, dtype=torch.float32,
                       device=ct2.device)
-    if _segment_matmul_dx_cuda(ct2, w, seg.seg_ptrs, out, x_heads):
+    if _segment_matmul_cuda(ct2, w, seg.seg_ptrs, out, x_heads, True):
         segment_matmul_dx.launches += 1
     return out
 

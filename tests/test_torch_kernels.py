@@ -252,7 +252,7 @@ SHORT_SEGMENTS = tuple(i * 7 % 20 for i in range(200))
 @pytest.mark.parametrize("sizes,H,Hx,K,O", [
     ((5000, 0, 3000, 17), 4, 1, 64, 17),  # compact multiply-first source
     ((5000, 0, 3000, 17), 4, 1, 64, 1),  # attention-vector columns
-    ((5000, 0, 3000, 17), 4, 4, 16, 5),  # per-head x
+    ((5000, 0, 3000, 17), 4, 4, 16, 5),  # per-head x; dX: narrow, K = 16
     ((4100, 0, 70, 9000), 1, 1, 64, 64),  # general shape
     ((200, 300, 0, 100), 4, 1, 700, 100),  # W past 4 MB: 1.1e6 floats
     ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
@@ -262,35 +262,56 @@ SHORT_SEGMENTS = tuple(i * 7 % 20 for i in range(200))
     ((5000, 0, 3000, 17), 4, 1, 64, 3),  # [W.a_l | W] at layer 1: C = 12
     ((5000, 0, 3000, 17), 4, 1, 64, 16),  # edge-row W at layer 0: C = 64
     ((3000, 0, 900), 2, 1, 64, 100),  # C = 200: three wide passes
-    ((2000, 33, 0, 900), 4, 1, 64, 17),  # x not 16-byte aligned, wide
-    ((2000, 33, 0, 900), 4, 1, 64, 1),  # x not 16-byte aligned, narrow
+    ((2000, 33, 0, 900), 4, 1, 64, 17),  # x and ct not 16-byte aligned, wide
+    ((2000, 33, 0, 900), 4, 1, 64, 1),  # x and ct not 16-byte aligned, narrow
     ((3000, 0, 900), 4, 1, 63, 17),  # K = 63: 4-byte loads, wide
     ((3000, 0, 900), 4, 1, 63, 1),  # K = 63: 4-byte loads, narrow
     ((3000, 0, 900), 4, 1, 130, 1),  # narrow, three k tiles, 4-byte loads
     ((3000, 0, 900), 2, 2, 100, 3),  # narrow per head, two k tiles
     (SHORT_SEGMENTS, 4, 1, 64, 17),  # tiles across many segments, wide
     (SHORT_SEGMENTS, 4, 1, 64, 3),  # tasks across many segments, narrow
+    # the dX's reduction (R = H*O, or O a head) and output (K) axes
+    ((5000, 0, 3000, 17), 4, 1, 64, 4),  # R = 16
+    ((5000, 0, 3000, 17), 1, 1, 64, 17),  # R = 17: 4-byte ct loads
+    ((5000, 0, 3000, 17), 1, 1, 64, 3),  # R = 3: a ct row of 12 bytes
+    ((5000, 0, 3000, 17), 4, 4, 17, 5),  # per head, K = 17: wide output
+    ((5000, 0, 3000, 17), 4, 4, 16, 4),  # per head, K = 16, float4 ct
+    ((2000, 33, 0, 900), 4, 1, 64, 3),  # ct not 16-byte aligned, R = 12
+    (SHORT_SEGMENTS, 4, 1, 16, 3),  # narrow dX across many segments
 ])
 def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
                                                    O):
     """Forward and dX on offsets held only on the device: the forward's
-    narrow (C <= 16) and wide kernels, 16- and 4-byte loads.  Tolerance:
-    MM_TOL * sum |x| |W| per output (f32 sums in another order), which the
-    plain version on inputs rounded to TF32 fails; rows past the segments
-    (the operand is longer) are zeros."""
+    narrow (C <= 16) and wide kernels, 16- and 4-byte loads, and the dX on
+    the same kernels (K output columns a group, a reduction of H*O or O
+    columns).  Tolerance: MM_TOL * sum |x| |W| per output (f32 sums in
+    another order), which the plain version on inputs rounded to TF32
+    fails.  Rows before and past the segments hold NaN in both operands:
+    they are written as zeros and never read.  A second call is bit for
+    bit the same."""
     import dataclasses
 
-    seg = dataclasses.replace(_segments(sizes, tile=8),
-                              seg_ptrs_static=None).to(cuda)
-    n = seg.n_rows + 8
+    lead, tail = 5, 8
+    base = _segments(sizes, tile=8)
+    ptrs = tuple(p + lead for p in base.seg_ptrs_static)
+    seg = dataclasses.replace(
+        base, n_rows=ptrs[-1], seg_ptrs=torch.tensor(ptrs, dtype=torch.int32),
+        seg_ptrs_static=None).to(cuda)
+    n = ptrs[-1] + tail
     gen = torch.Generator(device=cuda).manual_seed(n + K + O)
-    x = torch.randn(n, Hx * K, device=cuda, generator=gen)
-    if 33 in sizes:  # a contiguous view one float into its storage
-        x = torch.randn(n * Hx * K + 1, device=cuda,
-                        generator=gen)[1:].view(n, Hx * K)
-        assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    ct = torch.randn(n, H * O, device=cuda, generator=gen)
     w = torch.randn(len(sizes), H, K, O, device=cuda, generator=gen)
+    operands = []
+    for width in (Hx * K, H * O):
+        if 33 in sizes:  # a contiguous view one float into its storage
+            a = torch.randn(n * width + 1, device=cuda,
+                            generator=gen)[1:].view(n, width)
+            assert a.is_contiguous() and a.data_ptr() % 16 != 0
+        else:
+            a = torch.randn(n, width, device=cuda, generator=gen)
+        a[:lead] = float("nan")
+        a[ptrs[-1]:] = float("nan")
+        operands.append(a)
+    x, ct = operands
     for fn, plain, a, extra in (
             (segment_matmul_fwd, segment_matmul_fwd_plain, x, ()),
             (segment_matmul_dx, segment_matmul_dx_plain, ct, (Hx,))):
@@ -298,11 +319,13 @@ def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
         got = fn(a, w, seg, *extra)
         torch.cuda.synchronize()
         assert fn.launches == (1 if got.numel() else 0)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, fn(a, w, seg, *extra))
         want = plain(a, w, seg, *extra)
-        scale = plain(a.abs(), w.abs(), seg, *extra)
+        scale = plain(a.abs(), w.abs(), seg, *extra)  # reads no NaN row
         assert got.shape == want.shape
         assert ((got - want).abs() <= MM_TOL * scale).all()
-        assert (got[seg.n_rows:] == 0).all()
+        assert (got[:lead] == 0).all() and (got[ptrs[-1]:] == 0).all()
         if scale.any():
             tf32 = plain(_tf32(a), _tf32(w), seg, *extra)
             assert not ((tf32 - want).abs() <= MM_TOL * scale).all()

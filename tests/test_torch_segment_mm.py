@@ -31,6 +31,7 @@ from het_tpu_torch.ops import segment_matmul
 from het_tpu_torch.ops.kernels import (segment_matmul_dw,
                                        segment_matmul_dw_plain,
                                        segment_matmul_dx, segment_matmul_fwd)
+from het_tpu_torch.ops.kernels.segment_mm import dx_dims
 
 TOL = dict(rtol=1e-4, atol=2e-4)
 S, H, EMPTY = 4, 2, 1  # segment 1 owns no rows
@@ -344,7 +345,7 @@ FWD_PLAN_SHAPES = [
 
 def _fwd_resident(plan):
     """A stand-in for the card's occupancy: blocks an SM holds."""
-    return 3 if plan.cols > 16 else 4
+    return 6 if plan.depth else 3 if plan.cols > 16 else 4
 
 
 @pytest.mark.parametrize("shape", FWD_PLAN_SHAPES)
@@ -389,3 +390,114 @@ def test_fwd_plan_reads_x_once_on_the_paths():
         assert p.cols == want[O] and p.tiles == 1 and p.vec
         slots = 132 * _fwd_resident(p)
         assert 0.75 * slots <= p.blocks <= slots
+
+
+# (n_rows, S, H, Hx, K, O) of the dX: the data-parallel runs' shapes
+# (rank 0's shard; R = H*O = 12, 4, 8 against K = 64), the general shapes
+# and the kernel tests' reduction and output axes
+DX_PLAN_SHAPES = [
+    (527360, 4, 4, 1, 64, 3), (312064, 4, 4, 1, 64, 1),
+    (1056896, 4, 4, 1, 64, 2), (1000192, 4, 1, 1, 64, 64),
+    (1034496, 535, 1, 1, 64, 64), (4000, 3, 4, 1, 64, 4),
+    (4000, 3, 1, 1, 64, 17), (4000, 3, 1, 1, 64, 3), (1208, 3, 4, 4, 16, 5),
+    (1208, 3, 4, 4, 17, 5), (4000, 3, 4, 1, 130, 1), (4000, 3, 2, 1, 64, 100),
+    (4000, 3, 4, 1, 63, 17), (47, 2, 1, 1, 1, 65), (0, 3, 2, 2, 3, 1),
+    (7, 1, 3, 3, 129, 2),
+]
+
+
+@pytest.mark.parametrize("shape", DX_PLAN_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_dx_plan_covers_the_operands(shape, aligned):
+    """The dX's launch plan (``dx_plan``) on the mapped dimensions
+    (``dx_dims``): one group of all H*O ct columns against dx's K where dx
+    is summed over the heads, O against K a head otherwise.  A reduction R
+    of 1-16 columns against K > 16 takes the dX rows tile (R rounded up to
+    4, passes of 64 columns); every other shape is ``fwd_plan`` on those
+    dimensions (narrow for K <= 16, wide passes past it, k tiles past R =
+    64).  16-byte loads where R is a multiple of 4 on an aligned ct,
+    whatever K is; Hx times the column passes along y; a grid of whole
+    tiles within one wave."""
+    from het_tpu_torch.ops.kernels.segment_mm import (DX_ROWS_COLS,
+                                                      FWD_NARROW_COLS,
+                                                      FWD_ROWS, WIDE_COLS,
+                                                      dx_plan, fwd_plan)
+    n, _, H_, Hx, K, O = shape
+    R = O if Hx > 1 else H_ * O
+    dims = dx_dims(H_, Hx, K, O)
+    assert dims == ((H_, H_, O, K) if Hx > 1 else (1, 1, H_ * O, K))
+    p = dx_plan(n, H_, Hx, K, O, aligned, 132, _fwd_resident)
+    assert p.vec == (aligned and R % 4 == 0)
+    if 0 < R <= 16 and K > 16:
+        assert p.depth == -(-R // 4) * 4 and p.cols == DX_ROWS_COLS
+    else:
+        assert p == fwd_plan(n, *dims, aligned, 132, _fwd_resident)
+        assert p.depth == 0
+        if K > 16:
+            assert p.cols in WIDE_COLS
+            assert -(-K // p.cols) == -(-K // 96)  # no extra column pass
+        else:
+            assert p.cols == min(c for c in FWD_NARROW_COLS if c >= K)
+    assert p.tiles == Hx * -(-K // p.cols)
+    assert p.rows % FWD_ROWS == 0 and p.blocks * p.rows >= n
+    assert (p.blocks - 1) * p.rows < max(n, 1)  # no idle block
+    assert p.blocks * p.tiles <= max(132 * _fwd_resident(p), p.tiles)
+
+
+def test_dx_plan_on_the_paths():
+    """The data-parallel dX shapes (R = 12, 4, 8 ct columns against K =
+    64) take the dX rows tile in one 64-column pass with float4 loads of
+    ct, and fill at least three quarters of one wave of resident blocks."""
+    from het_tpu_torch.ops.kernels.segment_mm import dx_plan
+    for n, _, H_, Hx, K, O in DX_PLAN_SHAPES[:3]:
+        p = dx_plan(n, H_, Hx, K, O, True, 132, _fwd_resident)
+        assert p.depth == 4 * O and p.cols == 64 and p.tiles == 1 and p.vec
+        slots = 132 * _fwd_resident(p)
+        assert 0.75 * slots <= p.blocks <= slots
+
+
+def _dx_weight(w, H_, Hx, K, O):
+    """W' (S, H', K', O') in the forward's dimensions of the dX, entry by
+    entry from the flat W as ``csrc/segment_mm.cu``'s ``w_entry<true>``
+    addresses it: W'[s, g, k, c] = W[s, j / O, c, j % O], j = g K' + k."""
+    S_ = w.shape[0]
+    H2, G, K2, O2 = dims = dx_dims(H_, Hx, K, O)
+    flat = w.reshape(-1)
+    out = np.empty((S_, H2, K2, O2), np.float32)
+    for s in range(S_):
+        for g in range(H2):
+            for k in range(K2):
+                j = g * K2 + k
+                h = j // O
+                for c in range(O2):
+                    out[s, g, k, c] = flat[s * G * K2 * O2 + (h * O2 + c) * O
+                                           + (j - h * O)]
+    return out, dims
+
+
+@pytest.mark.parametrize("H_,Hx,K,O", [(4, 1, 8, 3), (4, 4, 8, 3),
+                                       (2, 1, 5, 1), (3, 3, 17, 2)])
+def test_dx_is_the_forward_with_w_read_transposed(H_, Hx, K, O):
+    """The kernels' dX mapping: het_tpu's Pallas forward
+    (``segment_matmul_rows_fwd``, interpret mode) of ct against W' as the
+    dX kernel addresses it (``_dx_weight``) equals het_tpu's Pallas dX
+    (``segment_matmul_rows_dx``) and the port's plain dX, within TOL."""
+    rng = np.random.default_rng(K * 10 + O)
+    seg_of_row = rng.choice([0, 2, 3], size=21)
+    jseg = j_build_segments(seg_of_row, S, 8)
+    tseg = t_build_segments(seg_of_row, S, 8)
+    n = jseg.n_rows
+    ct = rng.standard_normal((n, H_ * O)).astype(np.float32)
+    w = rng.standard_normal((S, H_, K, O)).astype(np.float32)
+    w2, (H2, G, K2, O2) = _dx_weight(w, H_, Hx, K, O)
+    ct_j = ct.reshape(n, G, K2) if G > 1 else ct
+    y_j = segment_matmul_rows_fwd(jnp.asarray(ct_j), jnp.asarray(w2), jseg,
+                                  interpret=True)
+    dx_j = segment_matmul_rows_dx(jnp.asarray(ct), jnp.asarray(w), jseg,
+                                  Hx > 1, Hx, interpret=True)
+    np.testing.assert_allclose(np.asarray(y_j).reshape(n, Hx * K),
+                               np.asarray(dx_j).reshape(n, Hx * K), **TOL)
+    dx = segment_matmul_dx(torch.from_numpy(ct), torch.from_numpy(w), tseg,
+                           Hx)
+    np.testing.assert_allclose(np.asarray(y_j).reshape(n, Hx * K),
+                               dx.numpy(), **TOL)
