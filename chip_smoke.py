@@ -13,17 +13,19 @@ Phases, each of which fails the run:
    stand-in at scale 0.1 (dual- and union-list compact) and 0.2 (the
    packed run):
    * ``seg_sum_sorted`` at every shape the compact multiply-first, the
-     packed, the union and the plain RGAT steps give it, on one card and
-     on rank 0's shard of each data-parallel run (the boundary halo's
-     exchange backward included), plus edge cases, among them a hub row
+     packed, the union and the plain RGAT steps and the plain and compact
+     RGCN steps give it, on one card and on rank 0's shard of each
+     data-parallel run (the boundary halo's exchange backward included),
+     plus edge cases, among them a hub row
      of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
      without perm, each launched twice and compared bit for bit;
    * ``seg_max_sorted`` bit for bit at every shape the stable="max" steps
      give it (packed at 0.2, plain at 0.1), plus edge cases, among them a
      hub row with a NaN and a +inf in different workers' chunks;
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
-     the union steps give it, and the data-parallel runs give rank 0's
-     shard, at the general segment-matmul shapes (Hx = 1, K = O = 64, S =
+     the union steps give it, and the data-parallel runs (RGAT and
+     compact RGCN) give rank 0's shard, at the general segment-matmul
+     shapes (Hx = 1, K = O = 64, S =
      4 and S = 535, about 1e6 rows), plus edge cases (among them S = 535
      segments mostly shorter than a chunk, NaN rows before and past the
      segments, x one float off 16 bytes, a segment one row past a chunk),
@@ -45,6 +47,9 @@ Phases, each of which fails the run:
      operand form on the same inputs, forward and backward, at each
      layer's shapes of the compact multiply-first (0.1) and the packed
      (0.2) runs: the two agree, and their times and memory are printed;
+   * the featureless RGCN layer's weight gradient (one segment sum over
+     the (relation, source) runs) bit for bit on a second call and
+     against its plain version;
 4. training runs of the 2-layer RGAT (heads 4, in 64, hidden 64, 8
    classes, f32, TF32 off, dropout 0), each once through the kernels and
    once through their plain versions from the same seeded parameters,
@@ -56,17 +61,20 @@ Phases, each of which fails the run:
    every dual-list compact multiply-first run takes the packed form,
    asserted); two steps each of the
    plain multiply-first, the compact, both union-list compact branches
-   and plain stable="max"; then the slice's path at the published size
-   (scale 1.0, 21.1M edges), three steps through the kernels, with its
-   step time, edges/s and peak device memory, after the segment sum and
-   max at every shape of its step, against their plain versions and
-   timed beside their bounds;
+   and plain stable="max"; five of the 2-layer RGCN (``--model RGCN``,
+   in 64, hidden 64, 8 classes), plain and compact; then the packed max
+   path at the published size (scale 1.0, 21.1M edges), three steps
+   through the kernels, and compact RGCN on the same graph, two steps,
+   each with its step time, edges/s and peak device memory, after the
+   segment sum and max at every shape of a packed max step, against their
+   plain versions and timed beside their bounds;
 5. data-parallel training: the graph split into P = 2 destination-range
    shards (balanced on edges), two ranks spawned as processes on cuda:0
-   over gloo, five steps of compact multiply-first (halo "auto") and two
-   of plain RGAT (halo "boundary"), through the kernels and the plain
-   versions, each held per step to the other and to a single-process run
-   on the unpartitioned graph, with each kernel's launches a step a rank.
+   over gloo, five steps of compact multiply-first and of compact RGCN
+   (halo "auto", one partition) and two of plain RGAT (halo "boundary"),
+   through the kernels and the plain versions, each held per step to the
+   other and to a single-process run on the unpartitioned graph, with
+   each kernel's launches a step a rank.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -105,9 +113,10 @@ FULL_STEPS = 3
 
 
 def _run(compact, multiply_first, steps, launches, *, union=False,
-         stable="clip", scale=SCALE):
+         stable="clip", scale=SCALE, model="RGAT"):
     return dict(compact=compact, multiply_first=multiply_first, steps=steps,
-                launches=launches, union=union, stable=stable, scale=scale)
+                launches=launches, union=union, stable=stable, scale=scale,
+                model=model)
 
 
 # training runs: name -> the branch, its softmax, its graph's scale, its
@@ -120,8 +129,12 @@ def _run(compact, multiply_first, steps, launches, *, union=False,
 # backwards; the per-edge fused backward is gathers only); every branch
 # without multiply-first takes two attention-vector dW a layer, and
 # stable="max" one destination max a layer in the forward (the backward
-# reuses it).  Host-known offsets: the typed linears take per-relation
-# matmuls.
+# reuses it).  RGCN (2 layers from the learned embeddings, no heads)
+# reduces twice a layer plain (the destination aggregation, the source
+# edge-gather backward; the aggregation's backward is a gather) and 3
+# times compact (compact_weighted_agg forward and backward through
+# edge_sort_perm, the compact-gather backward).  Host-known offsets: the
+# typed linears take per-relation matmuls.
 RUNS = {
     "compact_multiply_first": _run(True, True, STEPS,
                                    dict(seg_sum_sorted=10)),
@@ -141,6 +154,10 @@ RUNS = {
     "plain_max": _run(False, False, SHORT_STEPS, dict(
         seg_sum_sorted=6, segment_matmul_dw=4, seg_max_sorted=2),
         stable="max"),
+    "rgcn_plain": _run(False, False, STEPS, dict(seg_sum_sorted=4),
+                       model="RGCN"),
+    "rgcn_compact": _run(True, False, STEPS, dict(seg_sum_sorted=6),
+                         model="RGCN"),
 }
 # the single-card plain RGAT path, whose launches the dW reports
 MAIN = "plain"
@@ -148,12 +165,15 @@ MAIN = "plain"
 # launches the segment sum and the segment max report
 SLICE_MAIN = "compact_multiply_first_packed_max"
 FULL = "full_scale"  # the slice's path at FULL_SCALE, kernels only
+# compact RGCN at FULL_SCALE on the same graph, kernels only
+FULL_RGCN, FULL_RGCN_RUN, FULL_RGCN_STEPS = ("full_scale_rgcn_compact",
+                                             "rgcn_compact", 2)
 # segment_matmul_fwd / _dx: |kernel - plain| <= MM_TOL * sum |x| |W| per
 # output (the plain version on absolute values); TF32 inputs fail it
 MM_TOL = 1e-5
 # data-parallel runs, P ranks as processes on cuda:0 (gloo): name ->
-# (compact, multiply_first, steps, halo, launches a step a rank).  Per
-# layer every branch makes two typed linears, whose offsets live only on
+# the branch, its steps, its halo and the launches a step a rank.  Per
+# layer every RGAT branch makes two typed linears, whose offsets live only on
 # the device on a shard (one forward each, one dX each where the layer's
 # input needs a gradient: layer 1, not layer 0, whose input is the fixed
 # features) and whose weight gradients are grouped dWs; the plain branch
@@ -162,25 +182,39 @@ MM_TOL = 1e-5
 # in layer 1; the plain branch 1 in layer 0 (the edge-gather backwards
 # need one too) and 3 in layer 1, plus, with the boundary halo, one for
 # layer 1's exchange backward (layer 0 exchanges the fixed features).
+# Compact RGCN makes one typed linear a layer (H = 1) and reduces twice in
+# layer 0 (compact_weighted_agg forward and backward) and 3 times in
+# layer 1 (and its compact-gather backward).
 P = 2
+
+
+def _dp_run(compact, multiply_first, steps, halo, launches, model="RGAT"):
+    return dict(compact=compact, multiply_first=multiply_first, steps=steps,
+                halo=halo, launches=launches, model=model)
+
+
 DP_RUNS = {
-    "dp_compact_multiply_first": (True, True, STEPS, "auto", dict(
+    "dp_compact_multiply_first": _dp_run(True, True, STEPS, "auto", dict(
         seg_sum_sorted=8, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=4)),
-    "dp_plain": (False, False, SHORT_STEPS, "boundary", dict(
+    "dp_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
         seg_sum_sorted=5, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=8)),
+    "dp_rgcn_compact": _dp_run(True, False, STEPS, "auto", dict(
+        seg_sum_sorted=5, segment_matmul_fwd=2, segment_matmul_dx=1,
+        segment_matmul_dw=2), model="RGCN"),
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
 
 
+def _spec(run):
+    """The ``RUNS`` or ``DP_RUNS`` entry of a run."""
+    return RUNS[run] if run in RUNS else DP_RUNS[run]
+
+
 def _per_step(run):
     """Each kernel's launches a step (a rank) of a training run."""
-    return (RUNS[run]["launches"] if run in RUNS else DP_RUNS[run][4])
-
-
-def _is_compact(run):
-    return RUNS[run]["compact"] if run in RUNS else DP_RUNS[run][0]
+    return _spec(run)["launches"]
 
 
 def _check_shape_count(kernel, shapes_per_run):
@@ -283,6 +317,50 @@ def _seg_sum_shapes(g, compact, first_input_grad):
                            g.halo_back_perm.numel(), dims[layer],
                            g.halo_back_ptr, g.halo_back_perm))
     return shapes
+
+
+def _rgcn_seg_sum_shapes(g, compact, first_input_grad):
+    """The same list for a step of the RGCN runs: per layer the
+    destination aggregation (plain: the normalized per-edge rows;
+    compact: ``compact_weighted_agg``'s forward) and, compact, its
+    backward into the source compact rows through ``edge_sort_perm``, at
+    the layer's output width; the source gather's backward at its input
+    width where the layer's input needs a gradient (the plain one over the
+    edge rows in source order, the compact one over the compact rows)."""
+    S, E = g.compact_src, g.edge_rel_seg
+    EP = g.num_padded_edges
+    dims = _dims()
+    shapes = []
+    for layer in range(LAYERS):
+        out = dims[layer + 1]
+        gathers = layer > 0 or first_input_grad
+        shapes.append((f"l{layer} fwd dst aggregate", EP, out, g.in_row_ptr,
+                       None))
+        if compact:
+            shapes.append((f"l{layer} bwd src-compact ct*norm", EP, out,
+                           S.edge_row_ptr, S.edge_sort_perm))
+            if gathers:
+                shapes.append((f"l{layer} bwd src gather", S.seg.n_rows,
+                               dims[layer], S.node_row_ptr,
+                               S.node_sort_perm))
+        elif gathers:
+            shapes.append((f"l{layer} bwd src edge gather", E.n_rows,
+                           dims[layer], g.out_row_ptr,
+                           E.inv.index_select(0, g.out_perm)))
+        if gathers and g.halo_back_ptr is not None:
+            shapes.append((f"l{layer} bwd halo exchange",
+                           g.halo_back_perm.numel(), dims[layer],
+                           g.halo_back_ptr, g.halo_back_perm))
+    return shapes
+
+
+def _run_seg_sum_shapes(run, g):
+    """Every seg_sum_sorted launch of a step of ``run`` on ``g`` (rank 0's
+    shard for a data-parallel run, whose layer 0 reads fixed features)."""
+    spec = _spec(run)
+    shapes = (_rgcn_seg_sum_shapes if spec["model"] == "RGCN"
+              else _seg_sum_shapes)
+    return shapes(g, spec["compact"], run in RUNS)
 
 
 def _hub_ptr(dev, hub=100_000, short=20_000, at=1, seed=0):
@@ -424,8 +502,7 @@ def check_seg_sum(graphs, dev, flush):
                        seg_sum_sorted(vals, ptr, perm), f"{label} (repeat)")
         print(f"seg_sum edge case ok: {label}")
 
-    runs = {run: _seg_sum_shapes(g, _is_compact(run), run in RUNS)
-            for run, g in graphs.items()}
+    runs = {run: _run_seg_sum_shapes(run, g) for run, g in graphs.items()}
     _check_shape_count("seg_sum_sorted",
                        {run: len(shapes) for run, shapes in runs.items()})
     totals = {}
@@ -745,6 +822,47 @@ def compare_fused_forms(graphs, dev, flush):
     return result
 
 
+def check_rgcn_layer0(g, dev):
+    """The featureless RGCN layer (``rgcn_layer0``, weight (R, N, HIDDEN))
+    on the card, ``g`` the scale-0.1 graph: two segment-sum launches a
+    forward and backward (the aggregation, then the weight gradient as one
+    sum over the (relation, source) runs, no scatter), the weight gradient
+    the same bit for bit on a second call and within the segment sum's
+    tolerance of the plain versions' (which launch nothing).  No training
+    run takes this layer (het_tpu's trainer feeds RGCN embeddings)."""
+    import torch
+    from het_tpu_torch import ops
+    from het_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    w = torch.randn(g.num_rels, g.num_nodes, HIDDEN, device=dev,
+                    generator=gen).requires_grad_()
+    ct = torch.randn(g.num_nodes, HIDDEN, device=dev, generator=gen)
+    norm, runs = ops.rgcn_norm(g), ops.rel_src_runs(g)
+
+    def grad(impl):
+        kernels.reset_launches()
+        out = ops.rgcn_layer0(g, w, norm, impl=impl, runs=runs)
+        dw = torch.autograd.grad(out, w, ct)[0]
+        n = kernels.launch_counts()["seg_sum_sorted"]
+        if n != (2 if impl == "kernel" else 0):
+            raise AssertionError(f"rgcn_layer0 {impl}: {n} segment sums")
+        return dw
+
+    got = grad("kernel")
+    _compare_exact(got, grad("kernel"), "rgcn_layer0 weight gradient, "
+                   "second call")
+    want = grad("plain")
+    torch.testing.assert_close(
+        got, want, rtol=TOL_RTOL,
+        atol=TOL_RTOL * max(want.abs().max().item(), 1e-30),
+        msg=lambda m: f"rgcn_layer0 weight gradient: {m}")
+    print(f"rgcn_layer0 weight gradient ({tuple(w.shape)}, {g.num_edges} "
+          f"edges): 2 segment sums, bit for bit on a second call, max "
+          f"|kernel - plain| {(got - want).abs().max().item():.3g}")
+    del w, got, want
+
+
 # --------------------------------------------------------- segment_matmul_dw
 
 
@@ -807,6 +925,7 @@ def _dw_shapes(g, gu, shards, dev):
     skew = 1.0 / (1.0 + np.arange(535))  # a few large relations, a long tail
     cs = shards["dp_compact_multiply_first"]
     ps = shards["dp_plain"]
+    rs = shards["dp_rgcn_compact"]
     shapes = []
     for layer in range(LAYERS):
         K = dims[layer + 1] // HEADS
@@ -834,6 +953,8 @@ def _dw_shapes(g, gu, shards, dev):
              ps.edge_rel_seg, HEADS, 1, K, D, False),
             (f"l{layer} shard attn_l/attn_r dW, edge rows", "dp_plain", 2,
              ps.edge_rel_seg, HEADS, HEADS, D, 1, True),
+            (f"l{layer} shard src compact RGCN W dW", "dp_rgcn_compact", 1,
+             rs.compact_src.seg, 1, 1, K, dims[layer + 1], False),
         ]
     shapes += [
         ("general S=4", None, 0, _segments(rng.multinomial(
@@ -1064,12 +1185,15 @@ def _mm_shapes(shards, dev):
     skew = 1.0 / (1.0 + np.arange(535))
     cs = shards["dp_compact_multiply_first"]
     ps = shards["dp_plain"]
+    rs = shards["dp_rgcn_compact"]
     R = ps.num_rels
     shapes = []
     for layer in range(LAYERS):
         K, D = dims[layer], dims[layer + 1] // HEADS
         dx = 1 if layer > 0 else 0
         shapes += [
+            (f"l{layer} src compact RGCN W", "dp_rgcn_compact", 1, dx,
+             rs.compact_src.seg, R, 1, 1, K, dims[layer + 1]),
             (f"l{layer} src compact [W.a_l | W]", "dp_compact_multiply_first",
              1, dx, cs.compact_src.seg, R, HEADS, 1, K, 1 + D),
             (f"l{layer} dst compact W.a_r", "dp_compact_multiply_first", 1,
@@ -1329,14 +1453,20 @@ def _dp_features(g, seed=0):
 
 def partition_dp(data):
     """Each data-parallel run's partition of the graph: P shards by
-    destination ranges balanced on edges.  Returns {run: (shards, info)}."""
+    destination ranges balanced on edges, one partition for the runs that
+    share its compact rows and halo.  Returns {run: (shards, info)}."""
     from het_tpu_torch.parallel import halo_bytes, partition_by_dst
 
     g = data.graph
     E = g.num_edges
     coo = [t[:E].numpy() for t in (g.src, g.dst, g.rel)]
-    out = {}
-    for run, (compact, _, _, halo, *_) in DP_RUNS.items():
+    out, made = {}, {}
+    for run, spec in DP_RUNS.items():
+        compact, halo = spec["compact"], spec["halo"]
+        if (compact, halo) in made:
+            out[run] = made[compact, halo]
+            print(f"[{run}] the partition of {out[run][2]}")
+            continue
         t0 = time.perf_counter()
         shards, info = partition_by_dst(
             *coo, g.num_nodes, g.num_rels, P, tile=g.edge_rel_seg.tile,
@@ -1353,35 +1483,43 @@ def partition_dp(data):
               f"{shards[0].edge_rel_seg.n_rows}"
               + (f", compact rows src {shards[0].compact_src.seg.n_rows} dst"
                  f" {shards[0].compact_dst.seg.n_rows}" if compact else ""))
-        out[run] = (shards, info)
-    return out
+        out[run] = made[compact, halo] = (shards, info, run)
+    return {run: part[:2] for run, part in out.items()}
 
 
 def check_dp(data, parts, dev, card):
     """Every DP_RUNS entry on P spawned ranks sharing cuda:0 (gloo),
     through the kernels and through the plain versions from the same
     seeded parameters, each against a single-process run of the port's
-    RGAT on the unpartitioned graph.  Returns {run: rank 0's launches}."""
+    model on the unpartitioned graph.  Returns {run: rank 0's launches}."""
     import tempfile
 
     import torch
-    from het_tpu_torch.models import RGATModel
     from het_tpu_torch.ops.kernels import KERNELS
     from het_tpu_torch.parallel import train_full
-    from het_tpu_torch.parallel.launch import spawn_ranks
+    from het_tpu_torch.parallel.launch import MODELS, spawn_ranks
 
     g = data.graph
     x = _dp_features(g)
     labels = data.labels
     jobs, singles = [], {}
-    for run, (compact, mf, steps, *_rest) in DP_RUNS.items():
+    for run, spec in DP_RUNS.items():
         shards, info = parts[run]
-        kw = dict(in_feat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
-                  num_rels=g.num_rels, num_heads=HEADS, num_layers=LAYERS,
-                  compact=compact, multiply_first=mf, dropout=0.0,
-                  stable_softmax="clip")
-        state = _initial_state(RGATModel(**kw))
-        model = RGATModel(**kw)
+        steps = spec["steps"]
+        if spec["model"] == "RGCN":
+            kw = dict(num_nodes=g.num_nodes, hidden=HIDDEN,
+                      num_classes=CLASSES, num_rels=g.num_rels,
+                      featureless=False, in_feat=IN_FEAT,
+                      compact=spec["compact"], dropout=0.0)
+        else:
+            kw = dict(in_feat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                      num_rels=g.num_rels, num_heads=HEADS,
+                      num_layers=LAYERS, compact=spec["compact"],
+                      multiply_first=spec["multiply_first"], dropout=0.0,
+                      stable_softmax="clip")
+        family = MODELS[spec["model"]]
+        state = _initial_state(family(**kw))
+        model = family(**kw)
         model.load_state_dict(state)
         single = train_full(model.to(dev).train(), g.to(dev),
                             torch.from_numpy(x).to(dev),
@@ -1394,8 +1532,8 @@ def check_dp(data, parts, dev, card):
             jobs.append(dict(shards=shards, nodes_per_part=info.nodes_per_part,
                              x=info.pad_node_data(x),
                              labels=info.pad_node_data(labels, fill=-1),
-                             model=kw, state=state, steps=steps, lr=1e-2,
-                             impl=impl))
+                             family=spec["model"], model=kw, state=state,
+                             steps=steps, lr=1e-2, impl=impl))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
@@ -1403,8 +1541,9 @@ def check_dp(data, parts, dev, card):
     print(f"data-parallel ranks ran in {time.perf_counter() - t0:.1f} s")
     launches = {}
     i = 0
-    for run, (compact, _, steps, _, per_step) in DP_RUNS.items():
-        want = {k: per_step.get(k, 0) * steps for k in KERNELS}
+    for run, spec in DP_RUNS.items():
+        compact, steps = spec["compact"], spec["steps"]
+        want = {k: spec["launches"].get(k, 0) * steps for k in KERNELS}
         runs = {}
         for impl in ("kernel", "plain"):
             runs[impl] = [results[rank][i] for rank in range(P)]
@@ -1470,7 +1609,7 @@ def _initial_state(net, seed=0):
         shape = tuple(p.shape)
         if name == "embed.embed":
             a = rng.uniform(0.0, 1.0, shape)
-        elif name.endswith("h_bias"):
+        elif name.endswith(("h_bias", ".bias")):
             a = np.zeros(shape)
         else:
             rf = math.prod(shape[:-2])
@@ -1507,7 +1646,7 @@ def _config(r, dev, steps):
     from het_tpu_torch.train import TrainConfig
 
     return TrainConfig(
-        model="RGAT", dataset="mag", dataset_scale=r["scale"],
+        model=r["model"], dataset="mag", dataset_scale=r["scale"],
         n_infeat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
         num_heads=HEADS, num_layers=LAYERS, compact=r["compact"],
         compact_union=r["union"], multiply_first=r["multiply_first"],
@@ -1589,10 +1728,12 @@ def check_full_scale(dev, card):
     """The slice's path (compact multiply-first, packed, stable="max") on
     synthetic ogbn-mag at FULL_SCALE, FULL_STEPS steps through the kernels
     only: finite losses, the last below the first, the packed form and
-    the slice's launches a step; prints the step time, edges/s and the
-    peak device memory.  First the segment sum and max at every shape of
-    a step there, each against its plain version, timed beside its bound.
-    Returns the launches and those two per-step totals."""
+    the slice's launches a step; then compact RGCN on the same graph,
+    FULL_RGCN_STEPS steps (finite losses, its launches); each prints its
+    step time, edges/s and the peak device memory.  First the segment sum
+    and max at every shape of a step of the slice's path there, each
+    against its plain version, timed beside its bound.  Returns each
+    run's launches and those two per-step totals."""
     import gc
 
     import torch
@@ -1616,29 +1757,38 @@ def check_full_scale(dev, card):
     }
     del g, flush
     torch.cuda.empty_cache()
-    cfg = _config(dict(RUNS[SLICE_MAIN], scale=FULL_SCALE), dev, FULL_STEPS)
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    with _PackedCalls() as packed:
-        m = train(cfg, data, log=lambda s: print(f"[{FULL} kernel] {s}"))
-    launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    _check_packed(FULL, RUNS[SLICE_MAIN], packed.calls, WARMUP + FULL_STEPS)
-    _check_losses(FULL, "kernel", m["loss_list"], FULL_STEPS, True)
-    per_step = RUNS[SLICE_MAIN]["launches"]
-    want = {k: per_step.get(k, 0) * (WARMUP + FULL_STEPS)
-            for k in kernels.KERNELS}
-    if launches != want:
-        raise AssertionError(f"{FULL}: launched {launches}, expected {want}")
-    E = data.graph.num_edges
-    warm = statistics.median(m["step_ms_list"][1:])
-    print(f"training {FULL} ({card}):", json.dumps({
-        "edges": E, "losses": m["loss_list"], "step_ms": m["step_ms_list"],
-        "median_warm_step_ms": warm, "edges_per_s": E / (warm / 1e3),
-        "launches": launches, "peak_mem_gb": peak}))
-    del data, m
+    launches = {}
+    for name, run, steps in ((FULL, SLICE_MAIN, FULL_STEPS),
+                             (FULL_RGCN, FULL_RGCN_RUN, FULL_RGCN_STEPS)):
+        r = RUNS[run]
+        cfg = _config(dict(r, scale=FULL_SCALE), dev, steps)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        with _PackedCalls() as packed:
+            m = train(cfg, data,
+                      log=lambda s, n=name: print(f"[{n} kernel] {s}"))
+        launches[name] = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        _check_packed(name, r, packed.calls, WARMUP + steps)
+        _check_losses(name, "kernel", m["loss_list"], steps,
+                      steps == FULL_STEPS)
+        want = {k: r["launches"].get(k, 0) * (WARMUP + steps)
+                for k in kernels.KERNELS}
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launched {launches[name]}, "
+                                 f"expected {want}")
+        E = data.graph.num_edges
+        warm = statistics.median(m["step_ms_list"][1:])
+        print(f"training {name} ({card}):", json.dumps({
+            "edges": E, "losses": m["loss_list"],
+            "step_ms": m["step_ms_list"], "median_warm_step_ms": warm,
+            "edges_per_s": E / (warm / 1e3), "launches": launches[name],
+            "peak_mem_gb": peak}))
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del data
     gc.collect()
-    torch.cuda.empty_cache()
     return launches, totals
 
 
@@ -1686,13 +1836,16 @@ def main() -> int:
     gp = datasets[(PACKED_SCALE, False)].graph.to(dev)
 
     parts = partition_dp(data)
-    # rank 0's shard of each data-parallel run
-    shards = {run: s[0].to(dev) for run, (s, _) in parts.items()}
+    # rank 0's shard of each data-parallel run (one copy a partition)
+    on_card = {}
+    shards = {run: on_card.setdefault(id(s), s[0].to(dev))
+              for run, (s, _) in parts.items()}
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     entries = [
         check_seg_sum({"compact_multiply_first": gd, MAIN: gd,
                        SLICE_MAIN: gp, "union_compact_multiply_first": gu,
-                       **shards}, dev, flush),
+                       "rgcn_plain": gd, "rgcn_compact": gd, **shards},
+                      dev, flush),
         check_seg_max({SLICE_MAIN: gp, "plain_max": gd}, dev, flush),
         check_dw(gd, gu, shards, dev, flush),
         *check_fwd_dx(shards, dev, flush),
@@ -1700,7 +1853,8 @@ def main() -> int:
     ]
     compare_fused_forms({"compact_multiply_first": gd, SLICE_MAIN: gp}, dev,
                         flush)
-    del flush, gd, gu, gp, shards
+    check_rgcn_layer0(gd, dev)
+    del flush, gd, gu, gp, shards, on_card
     torch.cuda.empty_cache()
 
     launches, summaries = {}, {}
@@ -1712,10 +1866,14 @@ def main() -> int:
              ["median_warm_step_ms"])
     print(f"plain / compact multiply-first step time, kernels ({card}): "
           f"{ratio:.3f}")
+    ratio = (summaries["rgcn_plain"]["kernel"]["median_warm_step_ms"]
+             / summaries["rgcn_compact"]["kernel"]["median_warm_step_ms"])
+    print(f"RGCN plain / compact step time, kernels ({card}): {ratio:.3f}")
     for key in list(datasets):  # host memory for the full-scale graph
         if key != (SCALE, False):
             del datasets[key]
-    launches[FULL], full_totals = check_full_scale(dev, card)
+    full_launches, full_totals = check_full_scale(dev, card)
+    launches.update(full_launches)
     launches.update(check_dp(data, parts, dev, card))
     for entry in entries:
         kernel = entry["name"]

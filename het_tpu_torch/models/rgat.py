@@ -2,7 +2,9 @@
 
 Counterpart of ``het_tpu/models/rgat.py`` with the same parameter names
 and shapes: ``conv_weights`` (R, H, in, D), ``attn_l``/``attn_r``
-(R, H, D), ``h_bias`` (out,), and every branch het_tpu has.  The four
+(R, H, D), ``h_bias`` (out,; none with ``bias=False``), ``loop_weight``
+(in, out; with ``self_loop``, adding ``x_dst @ loop_weight`` before the
+bias), and every branch het_tpu has.  The four
 dual-list ones:
 
 * plain (per edge): ``edge_typed_linear`` projects each edge's source and
@@ -68,7 +70,9 @@ class RGATLayer(nn.Module):
         num_rels: int,
         num_heads: int,
         *,
+        bias: bool = True,
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        self_loop: bool = False,
         compact: bool = False,
         multiply_first: bool = False,
         dropout: float = 0.5,
@@ -92,7 +96,11 @@ class RGATLayer(nn.Module):
         self.attn_r = nn.Parameter(torch.empty(num_rels, H, D))
         for p in (self.conv_weights, self.attn_l, self.attn_r):
             xavier_uniform_(p, generator)
-        self.h_bias = nn.Parameter(torch.zeros(out_feat))
+        self.loop_weight = None
+        if self_loop:
+            self.loop_weight = nn.Parameter(torch.empty(in_feat, out_feat))
+            xavier_uniform_(self.loop_weight, generator)
+        self.h_bias = nn.Parameter(torch.zeros(out_feat)) if bias else None
 
     def forward(self, g, x: torch.Tensor, *,
                 x_dst: Optional[torch.Tensor] = None,
@@ -107,7 +115,11 @@ class RGATLayer(nn.Module):
             h = self._compact(g, x, x_dst)
         else:
             h = self._plain(g, x, x_dst)
-        h = h.reshape(g.num_nodes, self.out_feat) + self.h_bias
+        h = h.reshape(g.num_nodes, self.out_feat)
+        if self.loop_weight is not None:
+            h = h + x_dst @ self.loop_weight
+        if self.h_bias is not None:
+            h = h + self.h_bias
         if self.activation is not None:
             h = self.activation(h)
         if self.training and self.dropout > 0:

@@ -1,12 +1,15 @@
 """Carry parameters over from the JAX package.
 
 ``het_tpu.train`` keeps its parameters as
-``{"embed": {"params": {"embed"}}, "model": {"params": {"RGATLayer_i":
-{...}}}}``; the port keeps the same arrays under the same leaf names in a
-:class:`~het_tpu_torch.train.driver.NodeClassifier` state dict.
-``het_tpu.parallel.DPGNN.init`` returns a list of per-layer
-``{"params": {...}}`` dicts; the port's ``DPGNN`` (and ``RGATModel``)
-keeps them as ``layers.{i}.*``.
+``{"embed": {"params": {"embed"}}, "model": {"params": {group: {...}}}}``
+with one flax group a layer: ``RGATLayer_i``, ``RGCNLayer_i`` or, for the
+featureless RGCN, ``SeastarRGCNLayer0_0`` followed by ``RGCNLayer_0``.
+The port keeps the same arrays under the same leaf names in a
+:class:`~het_tpu_torch.train.driver.NodeClassifier` state dict, a layer
+at its place in the model (``model.layers.{i}``), which is not always its
+flax suffix.  ``het_tpu.parallel.DPGNN.init`` returns a list of per-layer
+``{"params": {...}}`` dicts; the port's ``DPGNN`` (and ``RGATModel``,
+``RGCNModel``) keeps them as ``layers.{i}``.
 """
 
 from __future__ import annotations
@@ -17,25 +20,38 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+_GROUP = re.compile(r"(RGATLayer|RGCNLayer|SeastarRGCNLayer0)_(\d+)")
+
+
+def _layer_index(name: str, groups) -> int:
+    """The port's layer of flax group ``name``: flax counts each module
+    class apart, so after the featureless ``SeastarRGCNLayer0_0`` (layer
+    0) ``RGCNLayer_i`` is layer ``i + 1``."""
+    m = _GROUP.fullmatch(name)
+    if m is None or (m.group(1) == "SeastarRGCNLayer0" and m.group(2) != "0"):
+        raise KeyError(f"unexpected parameter group {name!r}")
+    i = int(m.group(2))
+    if m.group(1) == "RGCNLayer" and "SeastarRGCNLayer0_0" in groups:
+        i += 1
+    return i
+
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dicts of numpy arrays, shaped as the JAX trainer builds them,
-    -> the port's state dict (``embed.embed``,
-    ``model.layers.{i}.{conv_weights,attn_l,attn_r,h_bias}``)."""
+    -> the port's state dict (``embed.embed``, ``model.layers.{i}.{leaf}``
+    with het_tpu's leaf names)."""
     out = {"embed.embed": _tensor(tree["embed"]["params"]["embed"])}
-    for name, leaves in tree["model"]["params"].items():
-        m = re.fullmatch(r"RGATLayer_(\d+)", name)
-        if m is None:
-            raise KeyError(f"unexpected parameter group {name!r}")
+    groups = tree["model"]["params"]
+    for name, leaves in groups.items():
+        i = _layer_index(name, groups)
         for leaf, value in leaves.items():
-            out[f"model.layers.{m.group(1)}.{leaf}"] = _tensor(value)
+            out[f"model.layers.{i}.{leaf}"] = _tensor(value)
     return out
 
 
 def dp_params_from_jax(layers: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
     """``DPGNN.init``'s list of per-layer flax dicts -> the state dict of
-    the port's ``DPGNN`` (``layers.{i}.{conv_weights,attn_l,attn_r,
-    h_bias}``)."""
+    the port's ``DPGNN`` (``layers.{i}.{leaf}``)."""
     return {f"layers.{i}.{leaf}": _tensor(value)
             for i, layer in enumerate(layers)
             for leaf, value in layer["params"].items()}

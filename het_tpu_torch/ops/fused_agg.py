@@ -42,6 +42,16 @@ Backward, with ``s`` the softmax denominators:
 ``draw`` is summed over the canonical (dst, rel) runs into destination
 compact rows (d_er); ``[draw | dfeat]`` is summed, through
 ``edge_sort_perm``, into source compact rows (d_el, d_feat).
+
+:class:`CompactWeightedAgg` is the counterpart of
+``_compact_weighted_agg_op`` (``_cwa_fwd`` / ``_cwa_bwd``), RGCN's
+single-sided compact aggregation with a per-edge weight:
+
+    out[v] = sum_{dst(e)=v} w_e * feat_c[rowS(e)]
+
+one segment sum over ``in_row_ptr`` forward; backward, ``d_feat_c`` one
+segment sum of ``ct[dst(e)] * w_e`` through ``edge_sort_perm`` into the
+source compact rows and ``d_w_e = <feat_c[rowS(e)], ct[dst(e)]>``.
 """
 
 from __future__ import annotations
@@ -272,3 +282,44 @@ class CompactFusedGATPacked(torch.autograd.Function):
         d_er_c = _d_er(g.compact_dst, draw, impl)
         return (d_fe.to(fe2d.dtype), d_er_c.to(er_c.dtype),
                 None, None, None, None)
+
+
+class CompactWeightedAgg(torch.autograd.Function):
+    """``forward(feat_c (UCs, C), w_e (EP,), g, impl) -> (N, C)``.  Saves
+    the compact rows and the weights, no per-edge tensor; ``d_w`` only
+    where ``w_e`` needs a gradient (het_tpu always returns it)."""
+
+    @staticmethod
+    def forward(ctx, feat_c, w_e, g, impl: str):
+        feat_e = take_rows(feat_c, g.compact_src.edge_map).float()
+        out = seg_sum_sorted(feat_e * w_e.float()[:, None], g.in_row_ptr,
+                             impl=impl)
+        ctx.save_for_backward(feat_c, w_e)
+        ctx.g, ctx.impl = g, impl
+        return out.to(feat_c.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        feat_c, w_e = ctx.saved_tensors
+        g, infoS = ctx.g, ctx.g.compact_src
+        ct_e = gather_dst(g, ct.float())  # zero on padding edges
+        d_feat = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_feat = seg_sum_sorted(ct_e * w_e.float()[:, None],
+                                    infoS.edge_row_ptr, infoS.edge_sort_perm,
+                                    impl=ctx.impl).to(feat_c.dtype)
+        if ctx.needs_input_grad[1]:
+            feat_e = take_rows(feat_c, infoS.edge_map).float()
+            d_w = (feat_e * ct_e).sum(-1).to(w_e.dtype)
+        return d_feat, d_w, None, None
+
+
+def compact_weighted_agg(g, feat_c: torch.Tensor, w_e: torch.Tensor, *,
+                         impl: str = "kernel") -> torch.Tensor:
+    """``out[v] = sum_{dst(e)=v} w_e * feat_c[compact_src_row(e)]``:
+    feat_c (UCs, C) on source compact rows, w_e (EP,) a weight per
+    canonical edge -> (N, C).  Per-edge rows exist only between the
+    compact-row gather and the segment sum."""
+    if g.compact_src is None:
+        raise ValueError("graph built without compact indices")
+    return CompactWeightedAgg.apply(feat_c, w_e, g, impl)

@@ -32,7 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import gather_nodes, take_rows, take_rows_injective
+from .common import (gather_nodes, sorted_gather, take_rows,
+                     take_rows_injective)
 from .kernels import (seg_sum_sorted, segment_matmul_dw, segment_matmul_dx,
                       segment_matmul_fwd)
 
@@ -131,27 +132,6 @@ def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
     return _SegmentMatmul.apply(x_rows, w, seg.seg_ptrs_static)
 
 
-class _CompactGather(torch.autograd.Function):
-    """Node rows -> compact rows; sentinel rows read zeros.  Backward: the
-    cotangent rows, taken in node order through ``node_sort_perm``, are
-    summed per node over ``node_row_ptr`` (padding rows sort past its
-    end and are never read)."""
-
-    @staticmethod
-    def forward(ctx, x, row_idx, info, impl: str):
-        ctx.info, ctx.impl = info, impl
-        ctx.x_shape = x.shape
-        return gather_nodes(x, row_idx)
-
-    @staticmethod
-    def backward(ctx, ct):
-        info = ctx.info
-        flat = ct.reshape(ct.shape[0], -1).float().contiguous()
-        dx = seg_sum_sorted(flat, info.node_row_ptr, info.node_sort_perm,
-                            impl=ctx.impl)
-        return dx.view(ctx.x_shape).to(ct.dtype), None, None, None
-
-
 def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
                          side: str = "src", *,
                          impl: str = "kernel") -> torch.Tensor:
@@ -168,7 +148,8 @@ def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
                          f"side {rows}")
     row_idx = torch.where(seg.row_valid, info.node_ids,
                           torch.full_like(info.node_ids, rows))
-    x_rows = _CompactGather.apply(x, row_idx, info, impl)
+    x_rows = sorted_gather(x, row_idx, info.node_row_ptr,
+                           info.node_sort_perm, impl=impl)
     return segment_matmul(x_rows, w, seg, impl=impl)
 
 

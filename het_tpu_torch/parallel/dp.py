@@ -152,9 +152,10 @@ class DPGNN(nn.Module):
     """A stack of single-shard layers with a halo exchange before each.
 
     Takes any layer whose ``forward(g, x, x_dst=...)`` tells source-space
-    from destination-space features (``RGATLayer``).  Parameter names are
-    ``layers.{i}.*``, those of ``RGATModel``, so one state dict serves a
-    single-process model and its data-parallel twin.  ``impl`` is the
+    from destination-space features (``RGATLayer``, ``RGCNLayer``).
+    Parameter names are ``layers.{i}.*``, those of ``RGATModel`` and
+    ``RGCNModel``, so one state dict serves a single-process model and its
+    data-parallel twin.  ``impl`` is the
     layers' (the boundary exchange's backward is a kernel too)."""
 
     def __init__(self, layers: Sequence[nn.Module], *, impl: str = "kernel"):

@@ -1,10 +1,10 @@
-"""Spawn data-parallel ranks and run RGAT jobs on them.
+"""Spawn data-parallel ranks and run training jobs on them.
 
 :func:`spawn_ranks` starts ``world`` processes with
 ``torch.multiprocessing`` (start method ``spawn``, so a parent that has
 already touched CUDA may call it), opens their group through a
 ``file://`` rendezvous in ``workdir`` and runs a list of jobs in each, in
-order, through ``job_fn`` (:func:`run_rgat_job` unless told otherwise).
+order, through ``job_fn`` (:func:`run_job` unless told otherwise).
 Every rank writes its results to ``workdir``; a failure in any rank raises
 in the parent.  Nothing here imports JAX, so a test that does may spawn
 these ranks.
@@ -15,10 +15,12 @@ A job is a dict:
   ``shards[r]``), ``nodes_per_part``;
 * ``x`` and ``labels``: padded global node features (f32) and labels
   (-1 where unlabelled), numpy;
-* ``model``: ``RGATModel`` keyword arguments, ``state``: its state dict;
+* ``family``: "RGAT" (when absent) or "RGCN", the model whose layers
+  the rank's ``DPGNN`` stacks; ``model``: that model's keyword
+  arguments, ``state``: its state dict;
 * ``steps``, ``lr``, ``impl`` ("kernel" or "plain").
 
-A rank's result from :func:`run_rgat_job`: the losses and step times of
+A rank's result from :func:`run_job`: the losses and step times of
 ``train_dp``, each kernel's launches over the training steps, its peak
 device memory, and which of its typed linears' segmentations hold their
 offsets only on the device.
@@ -33,7 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..models import RGATModel
+from ..models import RGATModel, RGCNModel
 from ..ops import kernels
 from .dp import DPGNN, setup_rank, train_dp
 
@@ -48,8 +50,11 @@ def _device_only(shard) -> Dict[str, bool]:
     return {k: s.seg_ptrs_static is None for k, s in segs.items()}
 
 
-def rgat_job_inputs(rank: int, dev: torch.device, job: Dict
-                    ) -> Tuple[DPGNN, object, torch.Tensor, torch.Tensor]:
+MODELS = {"RGAT": RGATModel, "RGCN": RGCNModel}
+
+
+def job_inputs(rank: int, dev: torch.device, job: Dict
+               ) -> Tuple[DPGNN, object, torch.Tensor, torch.Tensor]:
     """This rank's ``DPGNN`` (the job's parameters), shard, local features
     and labels, on ``dev``."""
     per = job["nodes_per_part"]
@@ -57,15 +62,16 @@ def rgat_job_inputs(rank: int, dev: torch.device, job: Dict
     shard = job["shards"][rank].to(dev)
     x_loc = torch.as_tensor(job["x"][rows]).to(dev)
     labels = torch.as_tensor(job["labels"][rows]).to(dev)
-    model = RGATModel(**job["model"], impl=job["impl"])
+    model = MODELS[job.get("family", "RGAT")](**job["model"],
+                                              impl=job["impl"])
     model.load_state_dict(job["state"])
     return (DPGNN(model.layers, impl=job["impl"]).to(dev).train(), shard,
             x_loc, labels)
 
 
-def run_rgat_job(rank: int, dev: torch.device, job: Dict) -> Dict:
+def run_job(rank: int, dev: torch.device, job: Dict) -> Dict:
     """One training job on this rank (see the module docstring)."""
-    dp, shard, x_loc, labels = rgat_job_inputs(rank, dev, job)
+    dp, shard, x_loc, labels = job_inputs(rank, dev, job)
     out = {"device_only": _device_only(shard)}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -94,7 +100,7 @@ def _rank_main(rank: int, world: int, init_method: str, device: str,
 def spawn_ranks(world: int, jobs: List[Dict], *, workdir: str,
                 device: str = "cuda",
                 job_fn: Callable[[int, torch.device, Dict], Dict]
-                = run_rgat_job) -> List[List[Dict]]:
+                = run_job) -> List[List[Dict]]:
     """Run ``job_fn(rank, device, job)`` for each of ``jobs`` on ``world``
     spawned ranks; returns ``results[rank][job]``.  ``job_fn`` must be a
     module-level function (spawn pickles it by name).  ``workdir`` must

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..data.loaders import Dataset, load_dataset
-from ..models import NodeEmbed, RGATModel
+from ..models import NodeEmbed, RGATModel, RGCNModel
 from ..utils.misc import nll_loss, resolve_device
 from .config import TrainConfig
 from .loop import train_steps
@@ -37,20 +37,30 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
                 impl: str = "kernel",
                 generator: Optional[torch.Generator] = None
                 ) -> NodeClassifier:
-    """The model ``cfg`` names, with parameters drawn from ``generator``."""
-    if cfg.model.upper() != "RGAT":
-        raise NotImplementedError(
-            f"--model {cfg.model}: only RGAT is ported so far (ROADMAP.md "
-            "queue 1 lists RGCN, HGT and GAT)"
-        )
+    """The model ``cfg`` names, with parameters drawn from ``generator``.
+    RGCN is het_tpu's trainer's: two layers from the embeddings, whatever
+    ``--num_layers`` and ``--num_heads`` say."""
     g = data.graph
-    model = RGATModel(
-        cfg.n_infeat, cfg.hidden, data.num_classes, g.num_rels,
-        cfg.num_heads, max(cfg.num_layers, 1), compact=cfg.compact,
-        multiply_first=cfg.multiply_first, dropout=cfg.dropout,
-        stable_softmax=cfg.stable_softmax, impl=impl,
-        generator=generator,
-    )
+    name = cfg.model.upper()
+    if name == "RGAT":
+        model = RGATModel(
+            cfg.n_infeat, cfg.hidden, data.num_classes, g.num_rels,
+            cfg.num_heads, max(cfg.num_layers, 1), compact=cfg.compact,
+            multiply_first=cfg.multiply_first, dropout=cfg.dropout,
+            stable_softmax=cfg.stable_softmax, impl=impl,
+            generator=generator,
+        )
+    elif name == "RGCN":
+        model = RGCNModel(
+            g.num_nodes, cfg.hidden, data.num_classes, g.num_rels,
+            featureless=False, in_feat=cfg.n_infeat, compact=cfg.compact,
+            dropout=cfg.dropout, impl=impl, generator=generator,
+        )
+    else:
+        raise NotImplementedError(
+            f"--model {cfg.model}: only RGAT and RGCN are ported so far "
+            "(ROADMAP.md queue 1 lists HGT and GAT)"
+        )
     return NodeClassifier(
         NodeEmbed(g.num_nodes, cfg.n_infeat, generator=generator), model
     )

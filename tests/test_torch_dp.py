@@ -5,9 +5,10 @@ with the same parameters (``DPGNN.init``'s, carried by
 logits of every real node (through ``info.relabel``) and every summed
 parameter gradient, in the four dual-list branches (compact
 multiply-first in the port's packed form, het_tpu's split one) and two
-with the exact max softmax, with the halo gathered and exchanged at the
-boundary; and three data-parallel Adam steps against the port's
-single-process run.  This is the comparison
+with the exact max softmax, and for RGCN (``RGCNModel``, plain and
+compact, from ``DPGNN.init`` over ``RGCNLayer``s), with the halo gathered
+and exchanged at the boundary; and three data-parallel Adam steps against
+the port's single-process run.  This is the comparison
 ``tests/test_parallel.py`` makes for het_tpu's own data parallelism.
 Tolerances: forward rtol 1e-4 / atol 2e-4, gradients rtol 5e-3 / atol
 2e-4, losses rtol 1e-4 (the repo's backend-parity ones)."""
@@ -21,14 +22,16 @@ import torch
 from het_tpu.graph import build_heterograph as j_build
 from het_tpu.models import RGATLayer as JRGATLayer
 from het_tpu.models import RGATModel as JRGATModel
+from het_tpu.models.rgcn import RGCNLayer as JRGCNLayer
+from het_tpu.models.rgcn import RGCNModel as JRGCNModel
 from het_tpu.parallel import DPGNN as JDPGNN
 from het_tpu.parallel import make_mesh
 from het_tpu.parallel import partition_by_dst as j_partition
 from het_tpu_torch.graph import build_heterograph as t_build
-from het_tpu_torch.models import RGATModel, dp_params_from_jax
+from het_tpu_torch.models import RGATModel, RGCNModel, dp_params_from_jax
 from het_tpu_torch.parallel import partition_by_dst, train_full
 from het_tpu_torch.parallel.launch import spawn_ranks
-from tests.test_torch_dp_worker import record_rgat_job
+from tests.test_torch_dp_worker import record_job
 
 VAL = dict(rtol=1e-4, atol=2e-4)
 GRAD = dict(rtol=5e-3, atol=2e-4)
@@ -42,13 +45,16 @@ BRANCHES = {
     "plain_max": (False, False, "max"),
     "compact_multiply_first_max": (True, True, "max"),
 }
+# RGCN branch -> compact
+RGCN_BRANCHES = {"rgcn_plain": False, "rgcn_compact": True}
+N_NODES = 200
 HALOS = ("gather", "boundary")
-CASES = [(b, h) for b in BRANCHES for h in HALOS]
+CASES = [(b, h) for b in [*BRANCHES, *RGCN_BRANCHES] for h in HALOS]
 
 
 def _problem():
     rng = np.random.default_rng(11)
-    n, e, r = 200, 900, 4
+    n, e, r = N_NODES, 900, 4
     src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
     rel = rng.integers(0, r, e)
     x = rng.standard_normal((n, IN)).astype(np.float32)
@@ -57,7 +63,20 @@ def _problem():
     return src, dst, rel, n, r, x, labels
 
 
+def _family(branch):
+    return "RGCN" if branch in RGCN_BRANCHES else "RGAT"
+
+
+def _group(branch, i):
+    """het_tpu's flax group of layer ``i``."""
+    return f"{_family(branch)}Layer_{i}"
+
+
 def _model_kw(r, branch):
+    if branch in RGCN_BRANCHES:
+        return dict(num_nodes=N_NODES, hidden=HID, num_classes=CLS,
+                    num_rels=r, featureless=False, in_feat=IN,
+                    compact=RGCN_BRANCHES[branch], dropout=0.0)
     compact, multiply_first, stable = BRANCHES[branch]
     return dict(in_feat=IN, hidden=HID, num_classes=CLS, num_rels=r,
                 num_heads=HEADS, num_layers=2, compact=compact,
@@ -68,28 +87,38 @@ def _model_kw(r, branch):
 def _jax_params(branch, jsg, x_pad, r):
     """het_tpu's ``DPGNN.init`` on its own partition, with non-zero
     biases."""
-    compact, multiply_first, stable = BRANCHES[branch]
-    kw = dict(num_rels=r, num_heads=HEADS, compact=compact,
-              multiply_first=multiply_first, dropout=0.0,
-              stable_softmax=stable)
-    layers = [JRGATLayer(in_feat=IN, out_feat=HID, activation=jax.nn.relu,
-                         **kw),
-              JRGATLayer(in_feat=HID, out_feat=CLS, **kw)]
+    if branch in RGCN_BRANCHES:
+        kw = dict(num_rels=r, compact=RGCN_BRANCHES[branch])
+        layers = [JRGCNLayer(in_feat=IN, out_feat=HID,
+                             activation=jax.nn.relu, **kw),
+                  JRGCNLayer(in_feat=HID, out_feat=CLS, **kw)]
+    else:
+        compact, multiply_first, stable = BRANCHES[branch]
+        kw = dict(num_rels=r, num_heads=HEADS, compact=compact,
+                  multiply_first=multiply_first, dropout=0.0,
+                  stable_softmax=stable)
+        layers = [JRGATLayer(in_feat=IN, out_feat=HID,
+                             activation=jax.nn.relu, **kw),
+                  JRGATLayer(in_feat=HID, out_feat=CLS, **kw)]
     params = JDPGNN(layers, make_mesh(P)).init(jax.random.PRNGKey(3), jsg,
                                                jnp.asarray(x_pad))
     params = jax.tree.map(np.asarray, params)
     rng = np.random.default_rng(5)
+    bias = "bias" if branch in RGCN_BRANCHES else "h_bias"
     for layer in params:
-        b = layer["params"]["h_bias"]
-        layer["params"]["h_bias"] = (
+        b = layer["params"][bias]
+        layer["params"][bias] = (
             rng.standard_normal(b.shape).astype(np.float32) * 0.1)
     return params
 
 
 def _jax_reference(branch, params, g1, x, labels, r):
     """Logits, loss and gradients of het_tpu's single-chip model."""
-    model = JRGATModel(**_model_kw(r, branch))
-    tree = {"params": {f"RGATLayer_{i}": p["params"]
+    if branch in RGCN_BRANCHES:
+        model = JRGCNModel(**_model_kw(r, branch))
+    else:
+        model = JRGATModel(**_model_kw(r, branch))
+    tree = {"params": {_group(branch, i): p["params"]
                        for i, p in enumerate(params)}}
     y = jnp.asarray(labels)
 
@@ -118,7 +147,7 @@ def runs(tmp_path_factory):
     x_pad = info.pad_node_data(x)
     labels_pad = info.pad_node_data(labels, fill=-1)
     refs = {}
-    for branch in BRANCHES:
+    for branch in [*BRANCHES, *RGCN_BRANCHES]:
         params = _jax_params(branch, parts["gather"][1], x_pad, r)
         refs[branch] = (params,
                         _jax_reference(branch, params, g1, x, labels, r))
@@ -127,12 +156,12 @@ def runs(tmp_path_factory):
         shards, info_h = parts[halo][0]
         jobs.append(dict(shards=shards, nodes_per_part=info_h.nodes_per_part,
                          x=x_pad, labels=labels_pad,
-                         model=_model_kw(r, branch),
+                         family=_family(branch), model=_model_kw(r, branch),
                          state=dp_params_from_jax(refs[branch][0]),
                          steps=STEPS, lr=LR, impl="kernel"))
     workdir = tmp_path_factory.mktemp("dp_ranks")
     results = spawn_ranks(P, jobs, workdir=str(workdir), device="cpu",
-                          job_fn=record_rgat_job)
+                          job_fn=record_job)
     out = {}
     for i, case in enumerate(CASES):
         out[case] = [results[rank][i] for rank in range(P)]
@@ -152,27 +181,29 @@ def test_dp_matches_single_chip(runs, branch, halo):
     np.testing.assert_allclose(dp_logits[rows], logits, **VAL)
     np.testing.assert_allclose(ranks[0]["loss"], value, **VAL)
     names = sorted(ranks[0]["grads"])
-    assert len(names) == 8
+    assert len(names) == (4 if branch in RGCN_BRANCHES else 8)
     for name in names:
         _, i, leaf = name.split(".")
-        want = grads["params"][f"RGATLayer_{i}"][leaf]
+        want = grads["params"][_group(branch, i)][leaf]
         for rank in ranks:  # every rank holds the same summed gradient
             np.testing.assert_allclose(rank["grads"][name].numpy(), want,
                                        err_msg=name, **GRAD)
     # the shards' typed linears ran on offsets held only on the device,
     # the path of the segment-matmul kernels
-    compact = BRANCHES[branch][0]
+    compact = (RGCN_BRANCHES[branch] if branch in RGCN_BRANCHES
+               else BRANCHES[branch][0])
     key = "compact_src" if compact else "edge_rel_seg"
     assert any(r_["device_only"][key] for r_ in ranks)
 
 
-@pytest.mark.parametrize("branch", list(BRANCHES))
+@pytest.mark.parametrize("branch", [*BRANCHES, *RGCN_BRANCHES])
 def test_dp_training_matches_single_process(runs, branch):
     """Three data-parallel Adam steps (gather and boundary halos) against
     the port's single-process run on the unpartitioned graph."""
     out, refs, pb = runs
     g = t_build(pb["src"], pb["dst"], pb["rel"], pb["n"], pb["r"], tile=8)
-    model = RGATModel(**_model_kw(pb["r"], branch))
+    model = (RGCNModel if branch in RGCN_BRANCHES else RGATModel)(
+        **_model_kw(pb["r"], branch))
     model.load_state_dict(dp_params_from_jax(refs[branch][0]))
     single = train_full(model.train(), g, torch.from_numpy(pb["x"]),
                         torch.from_numpy(pb["labels"]), steps=STEPS, lr=LR)

@@ -7,19 +7,19 @@ import os
 import torch
 
 from het_tpu_torch.parallel import masked_nll, sum_grads
-from het_tpu_torch.parallel.launch import rgat_job_inputs, run_rgat_job
+from het_tpu_torch.parallel.launch import job_inputs, run_job
 
 
-def record_rgat_job(rank, dev, job):
-    """The job's training run (``run_rgat_job``), plus this rank's logits,
+def record_job(rank, dev, job):
+    """The job's training run (``run_job``), plus this rank's logits,
     the loss and the gradients summed over the ranks at the initial
     parameters."""
-    dp, shard, x_loc, labels = rgat_job_inputs(rank, dev, job)
+    dp, shard, x_loc, labels = job_inputs(rank, dev, job)
     logits = dp(shard, x_loc)
     local, value = masked_nll(logits, labels)
     local.backward()
     sum_grads(dp)
-    out = run_rgat_job(rank, dev, job)
+    out = run_job(rank, dev, job)
     out.update(logits=logits.detach().cpu(), loss=value.item(),
                grads={name: p.grad.cpu() for name, p in dp.named_parameters()})
     return out

@@ -212,15 +212,30 @@ def test_cpu_training_run(branch, monkeypatch):
     assert m3["loss_list"][-1] < m3["loss_list"][0]
 
 
-@pytest.mark.parametrize("branch", [
+# layer-test case -> (branch, the layer options het_tpu's RGATLayer shares
+# with RGCNLayer); cases named by a branch take the defaults
+LAYER_OPTIONS = {
+    "plain_self_loop": ("plain", dict(self_loop=True)),
+    "plain_no_bias": ("plain", dict(bias=False)),
+    "compact_self_loop_no_bias": ("compact", dict(self_loop=True,
+                                                  bias=False)),
+    "packed_self_loop": ("packed", dict(self_loop=True)),
+    "union_multiply_first_no_bias": ("union_multiply_first",
+                                     dict(bias=False)),
+}
+
+
+@pytest.mark.parametrize("case", [
     "plain_max", "union", "union_multiply_first", "packed", "packed_max",
-    "union_multiply_first_max",
+    "union_multiply_first_max", *LAYER_OPTIONS,
 ])
 def test_layer_matches_het_tpu(pallas_backend, graphs, union_graphs,
-                               monkeypatch, branch):
+                               monkeypatch, case):
     """One RGAT layer (no activation, dropout 0) of each branch this slice
-    ports, against het_tpu's layer with the same parameters: output and
-    the gradients of the input and of every parameter."""
+    ports, and with ``self_loop`` or ``bias=False``, against het_tpu's
+    layer with the same parameters: output and the gradients of the input
+    and of every parameter."""
+    branch, options = LAYER_OPTIONS.get(case, (case, {}))
     compact, multiply_first, union, _, stable = BRANCHES[branch]
     jg, tg = union_graphs if union else graphs
     _packed_gate(monkeypatch, branch)
@@ -229,13 +244,15 @@ def test_layer_matches_het_tpu(pallas_backend, graphs, union_graphs,
     proj = rng.standard_normal((tg.num_nodes, HID)).astype(np.float32)
     jlayer = JRGATLayer(IN, HID, jg.num_rels, HEADS, compact=compact,
                         multiply_first=multiply_first, dropout=0.0,
-                        stable_softmax=stable)
+                        stable_softmax=stable, **options)
     prev = jops.get_backend()
     jops.set_backend("xla")  # init needs shapes only: skip interpret mode
     params = jlayer.init(jax.random.PRNGKey(4), jg, jnp.asarray(x))
     jops.set_backend(prev)
     params = jax.tree.map(np.asarray, params)
-    params["params"]["h_bias"] = rng.standard_normal(HID).astype(np.float32)
+    if options.get("bias", True):
+        params["params"]["h_bias"] = rng.standard_normal(HID).astype(
+            np.float32)
 
     def j_loss(p, xx):
         return jnp.sum(jlayer.apply(p, jg, xx) * proj)
@@ -244,7 +261,8 @@ def test_layer_matches_het_tpu(pallas_backend, graphs, union_graphs,
         params, jnp.asarray(x))
     layer = RGATLayer(IN, HID, tg.num_rels, HEADS, compact=compact,
                       multiply_first=multiply_first, dropout=0.0,
-                      stable_softmax=stable)
+                      stable_softmax=stable, **options)
+    assert sorted(layer.state_dict()) == sorted(params["params"])
     layer.load_state_dict({k: torch.tensor(v)
                            for k, v in params["params"].items()})
     tx = torch.from_numpy(x).requires_grad_()

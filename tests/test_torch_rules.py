@@ -141,6 +141,33 @@ def test_union_and_max_train_through_the_cli(monkeypatch, capsys, flags):
             assert "NotImplementedError" not in f.read(), rel
 
 
+@pytest.mark.parametrize("flags", [[], ["--compact_as_of_node_flag"]])
+def test_rgcn_trains_through_the_cli(monkeypatch, capsys, flags):
+    """``--model RGCN`` trains through ``python -m het_tpu_torch.train`` (on
+    the CPU here, so no kernel launches); the RGAT-only flags are taken
+    and ignored, as het_tpu's trainer ignores them."""
+    import json
+    import sys
+
+    from het_tpu_torch.models import rgcn
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train.__main__ import main
+
+    assert os.path.abspath(rgcn.__file__) in set(_port_files())
+    kernels.reset_launches()
+    monkeypatch.setattr(sys, "argv", [
+        "het_tpu_torch.train", "--model", "RGCN", "-d", "mag",
+        "--dataset_scale", "0.002", "--num_heads", "4", "--num_layers", "3",
+        "--multiply_among_weights_first_flag", "--n_infeat", "8",
+        "--hidden", "8", "-e", "2", "--device", "cpu", *flags])
+    main()
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["model"] == "RGCN" and len(metrics["loss_list"]) == 2
+    assert all(map(math.isfinite, metrics["loss_list"]))
+    assert metrics["flags"]["compact"] == bool(flags)
+    assert not any(kernels.launch_counts().values())
+
+
 def test_unported_model_raises():
     from het_tpu_torch.train import TrainConfig, train
 

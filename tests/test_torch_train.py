@@ -1,7 +1,9 @@
 """The port's trainer against het_tpu's, from the same initial parameters:
 het_tpu's own initialisation (``PRNGKey(seed)`` split three ways,
 ``embed.init``, ``model.init``) carried over by ``params_from_jax``, at
-dropout 0 on a tiny synthetic mag, compact multiply-first.  Both take
+dropout 0 on a tiny synthetic mag: RGAT compact multiply-first, and
+``--model RGCN`` plain and compact (given the same heads, layers and
+multiply-first flags, which both trainers ignore for RGCN).  Both take
 their warm-up Adam steps before the timed ones (or none with
 ``no_warm_up``); the timed losses and the final parameters (het_tpu's
 from its end-of-run checkpoint) must agree.  Tolerance: rtol 1e-4 /
@@ -43,9 +45,15 @@ def _jax_initial_params(cfg, data):
     return jax.tree.map(np.asarray, {"embed": e_params, "model": m_params})
 
 
-@pytest.mark.parametrize("no_warm_up", [False, True])
-def test_trainer_matches_het_tpu(tmp_path, no_warm_up):
-    jcfg = JTrainConfig(**SHARED, no_warm_up=no_warm_up, save_every=2,
+@pytest.mark.parametrize("model,no_warm_up", [
+    pytest.param({}, False, id="False"),
+    pytest.param({}, True, id="True"),
+    pytest.param(dict(model="RGCN", compact=False), False, id="RGCN-plain"),
+    pytest.param(dict(model="RGCN", compact=True), False, id="RGCN-compact"),
+])
+def test_trainer_matches_het_tpu(tmp_path, model, no_warm_up):
+    shared = dict(SHARED, **model)
+    jcfg = JTrainConfig(**shared, no_warm_up=no_warm_up, save_every=2,
                         checkpoint_dir=str(tmp_path / "ckpt"))
     jdata = j_load_dataset("mag", scale=jcfg.dataset_scale,
                            num_classes=jcfg.num_classes, seed=jcfg.seed,
@@ -55,7 +63,7 @@ def test_trainer_matches_het_tpu(tmp_path, no_warm_up):
     with ocp.PyTreeCheckpointer() as ckptr:
         j_final = ckptr.restore(str(tmp_path / "ckpt" / "step_2"))["params"]
 
-    cfg = TrainConfig(**SHARED, no_warm_up=no_warm_up, device="cpu")
+    cfg = TrainConfig(**shared, no_warm_up=no_warm_up, device="cpu")
     data = load_dataset("mag", scale=cfg.dataset_scale,
                         num_classes=cfg.num_classes, seed=cfg.seed)
     net = build_model(cfg, data)
