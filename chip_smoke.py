@@ -13,18 +13,21 @@ Phases, each of which fails the run:
    stand-in at scale 0.1 (dual- and union-list compact) and 0.2 (the
    packed run):
    * ``seg_sum_sorted`` at every shape the compact multiply-first, the
-     packed, the union and the plain RGAT steps and the plain and compact
-     RGCN steps give it, on one card and on rank 0's shard of each
+     packed, the union and the plain RGAT steps, the plain and compact
+     RGCN steps and the plain, compact and compact stable="max" HGT
+     steps give it, on one card and on rank 0's shard of each
      data-parallel run (the boundary halo's exchange backward included),
      plus edge cases, among them a hub row
      of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
      without perm, each launched twice and compared bit for bit;
    * ``seg_max_sorted`` bit for bit at every shape the stable="max" steps
-     give it (packed at 0.2, plain at 0.1), plus edge cases, among them a
+     give it (packed at 0.2, plain RGAT and compact HGT at 0.1), plus
+     edge cases, among them a
      hub row with a NaN and a +inf in different workers' chunks;
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
-     the union steps give it, and the data-parallel runs (RGAT and
-     compact RGCN) give rank 0's shard, at the general segment-matmul
+     the union steps give it, and the data-parallel runs (RGAT, compact
+     RGCN, and HGT's per-head typed linears, x a row a head at K = O =
+     16 and 2) give rank 0's shard, at the general segment-matmul
      shapes (Hx = 1, K = O = 64, S =
      4 and S = 535, about 1e6 rows), plus edge cases (among them S = 535
      segments mostly shorter than a chunk, NaN rows before and past the
@@ -33,7 +36,8 @@ Phases, each of which fails the run:
      dW from inputs rounded to TF32 fails the tolerance, and each time as
      a share of its bound;
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
-     data-parallel runs give rank 0's shard, at the general shapes (S =
+     data-parallel runs give rank 0's shard (HGT's per head at K = O = 16
+     and 2 among them), at the general shapes (S =
      535: W is 8.8 MB) and edge cases (among them 300 short segments, three
      column passes, K = 63, the dX's reductions of 3, 16 and 17 columns
      and a per-head dX of 17 columns, one tile, NaN rows before and past
@@ -62,16 +66,20 @@ Phases, each of which fails the run:
    asserted); two steps each of the
    plain multiply-first, the compact, both union-list compact branches
    and plain stable="max"; five of the 2-layer RGCN (``--model RGCN``,
-   in 64, hidden 64, 8 classes), plain and compact; then the packed max
-   path at the published size (scale 1.0, 21.1M edges), three steps
-   through the kernels, and compact RGCN on the same graph, two steps,
+   in 64, hidden 64, 8 classes), plain and compact; five of the 2-layer
+   HGT (``--model HGT``, heads 4, in 64, hidden 64, 8 classes: d_k 16
+   and 2), plain and compact, and two of compact HGT with stable="max";
+   then the packed max path at the published size (scale 1.0, 21.1M
+   edges), three steps through the kernels, and compact RGCN and
+   compact HGT on the same graph, two steps each,
    each with its step time, edges/s and peak device memory, after the
    segment sum and max at every shape of a packed max step, against their
    plain versions and timed beside their bounds;
 5. data-parallel training: the graph split into P = 2 destination-range
    shards (balanced on edges), two ranks spawned as processes on cuda:0
-   over gloo, five steps of compact multiply-first and of compact RGCN
-   (halo "auto", one partition) and two of plain RGAT (halo "boundary"),
+   over gloo, five steps of compact multiply-first, of compact RGCN and
+   of compact HGT (halo "auto", one partition) and two of plain RGAT and
+   of plain HGT (halo "boundary", one partition),
    through the kernels and the plain versions, each held per step to the
    other and to a single-process run on the unpartitioned graph, with
    each kernel's launches a step a rank.
@@ -133,8 +141,18 @@ def _run(compact, multiply_first, steps, launches, *, union=False,
 # reduces twice a layer plain (the destination aggregation, the source
 # edge-gather backward; the aggregation's backward is a gather) and 3
 # times compact (compact_weighted_agg forward and backward through
-# edge_sort_perm, the compact-gather backward).  Host-known offsets: the
-# typed linears take per-relation matmuls.
+# edge_sort_perm, the compact-gather backward).  HGT (2 layers from the
+# learned embeddings, heads 4: d_k 16 in layer 0, 2 in layer 1) reduces 3
+# times a layer plain (the fused core's forward aggregation, d_q, d_k with
+# d_v in one) and 6 times compact (the fused attention's forward
+# aggregation, its source-compact, source-node and (dst, rel)-run reduces,
+# and the two compact-gather backwards); compact with stable="max" takes
+# the unfused chain, also 6 (the aggregation, the message expansion's
+# backward, the score's two and the two gathers), and one destination max
+# a layer.  relation_pri's gradient (score * mu[rel] is a per-relation
+# scaling) is one grouped dW a layer over the relation-sorted edge rows
+# (K = O = 1 a head).  Host-known offsets: the typed linears take
+# per-relation matmuls.
 RUNS = {
     "compact_multiply_first": _run(True, True, STEPS,
                                    dict(seg_sum_sorted=10)),
@@ -158,6 +176,15 @@ RUNS = {
                        model="RGCN"),
     "rgcn_compact": _run(True, False, STEPS, dict(seg_sum_sorted=6),
                          model="RGCN"),
+    "hgt_plain": _run(False, False, STEPS, dict(seg_sum_sorted=6,
+                                                segment_matmul_dw=2),
+                      model="HGT"),
+    "hgt_compact": _run(True, False, STEPS, dict(seg_sum_sorted=12,
+                                                 segment_matmul_dw=2),
+                        model="HGT"),
+    "hgt_compact_max": _run(True, False, SHORT_STEPS, dict(
+        seg_sum_sorted=12, seg_max_sorted=2, segment_matmul_dw=2),
+        stable="max", model="HGT"),
 }
 # the single-card plain RGAT path, whose launches the dW reports
 MAIN = "plain"
@@ -165,9 +192,10 @@ MAIN = "plain"
 # launches the segment sum and the segment max report
 SLICE_MAIN = "compact_multiply_first_packed_max"
 FULL = "full_scale"  # the slice's path at FULL_SCALE, kernels only
-# compact RGCN at FULL_SCALE on the same graph, kernels only
-FULL_RGCN, FULL_RGCN_RUN, FULL_RGCN_STEPS = ("full_scale_rgcn_compact",
-                                             "rgcn_compact", 2)
+# compact RGCN and compact HGT at FULL_SCALE on the same graph, kernels
+# only: (name, run, steps)
+FULL_OTHERS = (("full_scale_rgcn_compact", "rgcn_compact", 2),
+               ("full_scale_hgt_compact", "hgt_compact", 2))
 # segment_matmul_fwd / _dx: |kernel - plain| <= MM_TOL * sum |x| |W| per
 # output (the plain version on absolute values); TF32 inputs fail it
 MM_TOL = 1e-5
@@ -184,7 +212,16 @@ MM_TOL = 1e-5
 # layer 1's exchange backward (layer 0 exchanges the fixed features).
 # Compact RGCN makes one typed linear a layer (H = 1) and reduces twice in
 # layer 0 (compact_weighted_agg forward and backward) and 3 times in
-# layer 1 (and its compact-gather backward).
+# layer 1 (and its compact-gather backward).  HGT projects k, q and v on
+# the shard's own rows (one node type, whose offsets stay on the host:
+# per-relation matmuls) and exchanges k and v, so every layer's typed
+# linears need an input gradient: compact, two per-head typed linears a
+# layer on compact rows (a forward, a dX and a dW each) and the single
+# card's 6 segment sums; plain, the fused core's two per-head typed
+# linears on the edge rows, each run in the forward and again in the
+# backward (a dX and a dW each), its 3 segment sums and, with the
+# boundary halo, the exchange backwards of k and v; both the dW of
+# relation_pri a layer.
 P = 2
 
 
@@ -203,6 +240,12 @@ DP_RUNS = {
     "dp_rgcn_compact": _dp_run(True, False, STEPS, "auto", dict(
         seg_sum_sorted=5, segment_matmul_fwd=2, segment_matmul_dx=1,
         segment_matmul_dw=2), model="RGCN"),
+    "dp_hgt_compact": _dp_run(True, False, STEPS, "auto", dict(
+        seg_sum_sorted=12, segment_matmul_fwd=4, segment_matmul_dx=4,
+        segment_matmul_dw=6), model="HGT"),
+    "dp_hgt_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
+        seg_sum_sorted=10, segment_matmul_fwd=8, segment_matmul_dx=4,
+        segment_matmul_dw=6), model="HGT"),
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
 
@@ -354,10 +397,65 @@ def _rgcn_seg_sum_shapes(g, compact, first_input_grad):
     return shapes
 
 
+def _hgt_seg_sum_shapes(g, compact, stable):
+    """The same list for a step of the HGT runs.  Every layer's typed
+    linears need an input gradient (their inputs are projections), and
+    the gathered rows are the projections, as wide as the layer's output
+    (``out`` = heads x d_k)."""
+    S, D, E = g.compact_src, g.compact_dst, g.edge_rel_seg
+    EP = g.num_padded_edges
+    dims = _dims()
+    shapes = []
+    for layer in range(LAYERS):
+        out = dims[layer + 1]
+        shapes.append((f"l{layer} fwd dst [z|z*msg]", EP, HEADS + out,
+                       g.in_row_ptr, None))
+        if compact and stable == "max":
+            shapes += [
+                (f"l{layer} bwd msg expansion into src compact", EP, out,
+                 S.edge_row_ptr, S.edge_sort_perm),
+                (f"l{layer} bwd score (dst,rel) runs", EP, out, D.canon_ptr,
+                 None),
+                (f"l{layer} bwd score src k", EP, out, g.out_row_ptr,
+                 g.out_perm),
+            ]
+        elif compact:
+            shapes += [
+                (f"l{layer} bwd src-compact [dmsg|dscore*attq]", EP, 2 * out,
+                 S.edge_row_ptr, S.edge_sort_perm),
+                (f"l{layer} bwd src-compact rows -> k", S.seg.n_rows, out,
+                 S.node_row_ptr, S.node_sort_perm),
+                (f"l{layer} bwd (dst,rel) runs dscore*k", EP, out,
+                 D.canon_ptr, None),
+            ]
+        else:
+            shapes += [
+                (f"l{layer} bwd q edge rows", E.n_rows, out, g.in_row_ptr,
+                 E.inv),
+                (f"l{layer} bwd [k|v] edge rows", E.n_rows, 2 * out,
+                 g.out_row_ptr, E.inv.index_select(0, g.out_perm)),
+            ]
+        if compact:
+            shapes += [
+                (f"l{layer} bwd q dst compact gather", D.seg.n_rows, out,
+                 D.node_row_ptr, D.node_sort_perm),
+                (f"l{layer} bwd v src compact gather", S.seg.n_rows, out,
+                 S.node_row_ptr, S.node_sort_perm),
+            ]
+        if g.halo_back_ptr is not None:
+            shapes += [(f"l{layer} bwd halo exchange {t}",
+                        g.halo_back_perm.numel(), out, g.halo_back_ptr,
+                        g.halo_back_perm) for t in "kv"]
+    return shapes
+
+
 def _run_seg_sum_shapes(run, g):
     """Every seg_sum_sorted launch of a step of ``run`` on ``g`` (rank 0's
     shard for a data-parallel run, whose layer 0 reads fixed features)."""
     spec = _spec(run)
+    if spec["model"] == "HGT":
+        return _hgt_seg_sum_shapes(g, spec["compact"],
+                                   spec.get("stable", "clip"))
     shapes = (_rgcn_seg_sum_shapes if spec["model"] == "RGCN"
               else _seg_sum_shapes)
     return shapes(g, spec["compact"], run in RUNS)
@@ -926,9 +1024,29 @@ def _dw_shapes(g, gu, shards, dev):
     cs = shards["dp_compact_multiply_first"]
     ps = shards["dp_plain"]
     rs = shards["dp_rgcn_compact"]
+    hc, hp = shards["dp_hgt_compact"], shards["dp_hgt_plain"]
+    hgt = ("hgt_plain", "hgt_compact", "hgt_compact_max")
     shapes = []
     for layer in range(LAYERS):
         K = dims[layer + 1] // HEADS
+        shapes += [
+            # HGT's relation_pri: score * mu[rel], K = O = 1 a head
+            (f"l{layer} HGT relation_pri dW, edge rows", hgt, 1, E, HEADS,
+             HEADS, 1, 1, True),
+            (f"l{layer} shard HGT relation_pri dW, edge rows",
+             "dp_hgt_compact", 1, hc.edge_rel_seg, HEADS, HEADS, 1, 1, True),
+            (f"l{layer} shard HGT relation_pri dW, edge rows, boundary",
+             "dp_hgt_plain", 1, hp.edge_rel_seg, HEADS, HEADS, 1, 1, True),
+            # HGT's per-head typed linears (x a row a head, K = O = d_k)
+            (f"l{layer} shard dst compact HGT q.W_att dW, per head",
+             "dp_hgt_compact", 1, hc.compact_dst.seg, HEADS, HEADS, K, K,
+             True),
+            (f"l{layer} shard src compact HGT v.W_msg dW, per head",
+             "dp_hgt_compact", 1, hc.compact_src.seg, HEADS, HEADS, K, K,
+             True),
+            (f"l{layer} shard edge rows HGT q.W_att, v.W_msg dW, per head",
+             "dp_hgt_plain", 2, hp.edge_rel_seg, HEADS, HEADS, K, K, True),
+        ]
         shapes += [
             (f"l{layer} attn_l/attn_r dW, edge rows", (MAIN, "plain_max"),
              2, E, HEADS, HEADS, K, 1, True),
@@ -1099,21 +1217,21 @@ def check_dw(g, gu, shards, dev, flush):
         ptrs = host_seg_ptrs(seg)  # read once, outside the timed calls
 
         def yardstick():
-            # the per-relation torch.matmul loop of _SegmentMatmul's
-            # backward (batched over heads when x is per head); the port's
-            # dW never calls it
+            # the per-relation torch.matmul loop of the host-offset
+            # segment matmul's backward (ops/linear.py::_static_bwd: where
+            # x is per head, one (H*K, H*O) product and its diagonal
+            # blocks); the port's dW never calls it
             out = torch.zeros(w_shape, device=dev)
             for s in range(S):
                 lo, hi = ptrs[s], ptrs[s + 1]
                 if hi == lo:
                     continue
+                full = x[lo:hi].t() @ ct[lo:hi]  # (Hx*K, H*O)
                 if Hx == 1:
-                    out[s] = (x[lo:hi].t() @ ct[lo:hi]).view(
-                        K, H, O).permute(1, 0, 2)
+                    out[s] = full.view(K, H, O).permute(1, 0, 2)
                 else:
-                    out[s] = torch.matmul(
-                        x[lo:hi].view(-1, H, K).permute(1, 2, 0),
-                        ct[lo:hi].view(-1, H, O).permute(1, 0, 2))
+                    out[s] = full.view(H, K, H, O).diagonal(
+                        dim1=0, dim2=2).permute(2, 0, 1)
             return out
 
         if (yardstick() - want).abs().max().item() > 1e-4 * max(
@@ -1186,11 +1304,23 @@ def _mm_shapes(shards, dev):
     cs = shards["dp_compact_multiply_first"]
     ps = shards["dp_plain"]
     rs = shards["dp_rgcn_compact"]
+    hc, hp = shards["dp_hgt_compact"], shards["dp_hgt_plain"]
     R = ps.num_rels
     shapes = []
     for layer in range(LAYERS):
         K, D = dims[layer], dims[layer + 1] // HEADS
         dx = 1 if layer > 0 else 0
+        # HGT's per-head typed linears: an input gradient in every layer;
+        # the plain core runs its two in the forward and again in the
+        # backward
+        shapes += [
+            (f"l{layer} dst compact HGT q.W_att, per head", "dp_hgt_compact",
+             1, 1, hc.compact_dst.seg, R, HEADS, HEADS, D, D),
+            (f"l{layer} src compact HGT v.W_msg, per head", "dp_hgt_compact",
+             1, 1, hc.compact_src.seg, R, HEADS, HEADS, D, D),
+            (f"l{layer} edge rows HGT q.W_att, v.W_msg, per head",
+             "dp_hgt_plain", 4, 2, hp.edge_rel_seg, R, HEADS, HEADS, D, D),
+        ]
         shapes += [
             (f"l{layer} src compact RGCN W", "dp_rgcn_compact", 1, dx,
              rs.compact_src.seg, R, 1, 1, K, dims[layer + 1]),
@@ -1511,6 +1641,12 @@ def check_dp(data, parts, dev, card):
                       num_classes=CLASSES, num_rels=g.num_rels,
                       featureless=False, in_feat=IN_FEAT,
                       compact=spec["compact"], dropout=0.0)
+        elif spec["model"] == "HGT":
+            kw = dict(in_dim=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                      num_ntypes=g.num_ntypes, num_rels=g.num_rels,
+                      num_heads=HEADS, num_layers=LAYERS,
+                      compact=spec["compact"], dropout=0.0,
+                      stable_softmax="clip")
         else:
             kw = dict(in_feat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
                       num_rels=g.num_rels, num_heads=HEADS,
@@ -1599,7 +1735,8 @@ def check_dp(data, parts, dev, card):
 
 def _initial_state(net, seed=0):
     """Initial parameters from a numpy seed: embeddings uniform on [0, 1),
-    weights Glorot-uniform (flax's fan convention), biases zero."""
+    weights Glorot-uniform (flax's fan convention), biases zero, HGT's
+    ``relation_pri`` and ``skip`` one (as flax initializes them)."""
     import numpy as np
     import torch
 
@@ -1611,6 +1748,8 @@ def _initial_state(net, seed=0):
             a = rng.uniform(0.0, 1.0, shape)
         elif name.endswith(("h_bias", ".bias")):
             a = np.zeros(shape)
+        elif name.endswith((".relation_pri", ".skip")):
+            a = np.ones(shape)
         else:
             rf = math.prod(shape[:-2])
             lim = math.sqrt(6.0 / ((shape[-2] + shape[-1]) * rf))
@@ -1728,8 +1867,9 @@ def check_full_scale(dev, card):
     """The slice's path (compact multiply-first, packed, stable="max") on
     synthetic ogbn-mag at FULL_SCALE, FULL_STEPS steps through the kernels
     only: finite losses, the last below the first, the packed form and
-    the slice's launches a step; then compact RGCN on the same graph,
-    FULL_RGCN_STEPS steps (finite losses, its launches); each prints its
+    the slice's launches a step; then compact RGCN and compact HGT on
+    the same graph (``FULL_OTHERS``: finite losses, their launches); each
+    prints its
     step time, edges/s and the peak device memory.  First the segment sum
     and max at every shape of a step of the slice's path there, each
     against its plain version, timed beside its bound.  Returns each
@@ -1758,8 +1898,7 @@ def check_full_scale(dev, card):
     del g, flush
     torch.cuda.empty_cache()
     launches = {}
-    for name, run, steps in ((FULL, SLICE_MAIN, FULL_STEPS),
-                             (FULL_RGCN, FULL_RGCN_RUN, FULL_RGCN_STEPS)):
+    for name, run, steps in ((FULL, SLICE_MAIN, FULL_STEPS), *FULL_OTHERS):
         r = RUNS[run]
         cfg = _config(dict(r, scale=FULL_SCALE), dev, steps)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1844,9 +1983,11 @@ def main() -> int:
     entries = [
         check_seg_sum({"compact_multiply_first": gd, MAIN: gd,
                        SLICE_MAIN: gp, "union_compact_multiply_first": gu,
-                       "rgcn_plain": gd, "rgcn_compact": gd, **shards},
+                       "rgcn_plain": gd, "rgcn_compact": gd, "hgt_plain": gd,
+                       "hgt_compact": gd, "hgt_compact_max": gd, **shards},
                       dev, flush),
-        check_seg_max({SLICE_MAIN: gp, "plain_max": gd}, dev, flush),
+        check_seg_max({SLICE_MAIN: gp, "plain_max": gd,
+                       "hgt_compact_max": gd}, dev, flush),
         check_dw(gd, gu, shards, dev, flush),
         *check_fwd_dx(shards, dev, flush),
         check_force_rowmajor(gp, dev, flush),
@@ -1869,6 +2010,9 @@ def main() -> int:
     ratio = (summaries["rgcn_plain"]["kernel"]["median_warm_step_ms"]
              / summaries["rgcn_compact"]["kernel"]["median_warm_step_ms"])
     print(f"RGCN plain / compact step time, kernels ({card}): {ratio:.3f}")
+    ratio = (summaries["hgt_plain"]["kernel"]["median_warm_step_ms"]
+             / summaries["hgt_compact"]["kernel"]["median_warm_step_ms"])
+    print(f"HGT plain / compact step time, kernels ({card}): {ratio:.3f}")
     for key in list(datasets):  # host memory for the full-scale graph
         if key != (SCALE, False):
             del datasets[key]

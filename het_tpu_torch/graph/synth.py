@@ -5,6 +5,8 @@ as ``het_tpu.graph.random_heterograph``."""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
 
 from .build import build_heterograph
@@ -17,6 +19,7 @@ def random_heterograph(
     num_rels: int,
     *,
     seed: int = 0,
+    ntype_offsets: Optional[Sequence[int]] = None,
     tile: int = 8,
     power_law: bool = False,
 ) -> HeteroGraph:
@@ -29,4 +32,5 @@ def random_heterograph(
         dst = rng.integers(0, num_nodes, size=num_edges)
     src = rng.integers(0, num_nodes, size=num_edges)
     rel = rng.integers(0, num_rels, size=num_edges)
-    return build_heterograph(src, dst, rel, num_nodes, num_rels, tile=tile)
+    return build_heterograph(src, dst, rel, num_nodes, num_rels,
+                             ntype_offsets=ntype_offsets, tile=tile)

@@ -1,8 +1,13 @@
-"""Shared gathers and the destination sum over the canonical edge layout.
+"""Shared gathers and sums over the canonical edge layout.
 
 They keep the padding discipline of ``het_tpu.ops.common``: a node gather
 accepts the sentinel index ``x.shape[0]`` (padding edges, padding compact
-rows) and returns a zero row for it.
+rows) and returns a zero row for it.  Each gather whose input may need a
+gradient has the sorted transpose as its backward, never
+``index_select``'s atomic scatter: the edge gathers at destinations and
+sources sum into the nodes over ``in_row_ptr`` and ``out_row_ptr``
+(``scatter_sum_dst`` / ``scatter_sum_src``), the injective gathers by the
+inverse gather.
 """
 
 from __future__ import annotations
@@ -51,6 +56,32 @@ def take_rows_injective(y: torch.Tensor, inv: torch.Tensor,
     return _TakeRowsInjective.apply(y, inv, perm, row_valid)
 
 
+class _GatherRowsInjective(torch.autograd.Function):
+    """``x[perm]`` zeroed on invalid rows; backward ``ct[inv]``."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv, row_valid):
+        ctx.save_for_backward(inv)
+        rows = take_rows(x, perm)
+        mask = row_valid.view((-1,) + (1,) * (rows.dim() - 1))
+        return torch.where(mask, rows, torch.zeros_like(rows))
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv,) = ctx.saved_tensors
+        return take_rows(ct, inv), None, None, None
+
+
+def gather_rows_injective(x: torch.Tensor, perm: torch.Tensor,
+                          inv: torch.Tensor,
+                          row_valid: torch.Tensor) -> torch.Tensor:
+    """Source rows arranged into a padded segment space, ``x[perm]`` with
+    zeros on invalid rows, where ``perm`` and ``inv`` are mutually inverse
+    injections: its transpose is the gather ``ct[inv]``
+    (``het_tpu/ops/linear.py::_gather_rows_injective``)."""
+    return _GatherRowsInjective.apply(x, perm, inv, row_valid)
+
+
 class _SortedGather(torch.autograd.Function):
     """``x[idx]`` with the sentinel reading a zero row.  Backward: the
     cotangent rows summed into ``x``'s rows by one sorted segment sum over
@@ -80,32 +111,69 @@ def sorted_gather(x: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
     return _SortedGather.apply(x, idx, ptr, perm, impl)
 
 
-def gather_dst(g, node_vals: torch.Tensor) -> torch.Tensor:
-    """Per-edge rows of ``node_vals`` at each edge's destination (zero on
-    padding edges)."""
-    return gather_nodes(node_vals, g.dst)
+def _sum_dst(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
+    """(EP, C) rows in canonical order summed into their destinations:
+    one sorted segment sum over ``in_row_ptr`` (canonical order is
+    destination-sorted; padding edges lie past its end)."""
+    return seg_sum_sorted(flat.float().contiguous(), g.in_row_ptr, impl=impl)
 
 
-def gather_src(g, node_vals: torch.Tensor) -> torch.Tensor:
-    """Per-edge rows of ``node_vals`` at each edge's source."""
-    return gather_nodes(node_vals, g.src)
+def _sum_src(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
+    """(EP, C) rows in canonical order summed into their sources: one
+    sorted segment sum over ``out_row_ptr``, reading the rows through
+    ``out_perm`` (padding edges lie past its end)."""
+    return seg_sum_sorted(flat.float().contiguous(), g.out_row_ptr,
+                          g.out_perm, impl=impl)
 
 
-class _ScatterSumDst(torch.autograd.Function):
-    """Per-edge rows summed into their destinations: one sorted segment
-    sum over ``in_row_ptr`` (canonical order is destination-sorted, and
-    padding edges lie past its end).  Backward: the destination gather."""
+class _GatherSide(torch.autograd.Function):
+    """Per-edge rows of node rows at each edge's destination or source
+    (zero on padding edges).  Backward: the transpose, one sorted segment
+    sum into the nodes (:func:`_sum_dst`, :func:`_sum_src`), not
+    ``index_select``'s atomic scatter."""
 
     @staticmethod
-    def forward(ctx, vals, g, impl: str):
-        ctx.g = g
-        flat = vals.reshape(vals.shape[0], -1).float().contiguous()
-        out = seg_sum_sorted(flat, g.in_row_ptr, impl=impl)
+    def forward(ctx, x, g, side: str, impl: str):
+        ctx.g, ctx.side, ctx.impl, ctx.x_shape = g, side, impl, x.shape
+        return gather_nodes(x, g.dst if side == "dst" else g.src)
+
+    @staticmethod
+    def backward(ctx, ct):
+        flat = ct.reshape(ct.shape[0], -1)
+        total = _sum_dst if ctx.side == "dst" else _sum_src
+        dx = total(ctx.g, flat, ctx.impl)
+        return dx.view(ctx.x_shape).to(ct.dtype), None, None, None
+
+
+def gather_dst(g, node_vals: torch.Tensor, *,
+               impl: str = "kernel") -> torch.Tensor:
+    """Per-edge rows of ``node_vals`` at each edge's destination (zero on
+    padding edges); the gradient is :func:`scatter_sum_dst`'s sum."""
+    return _GatherSide.apply(node_vals, g, "dst", impl)
+
+
+def gather_src(g, node_vals: torch.Tensor, *,
+               impl: str = "kernel") -> torch.Tensor:
+    """Per-edge rows of ``node_vals`` at each edge's source (zero on
+    padding edges); the gradient is :func:`scatter_sum_src`'s sum."""
+    return _GatherSide.apply(node_vals, g, "src", impl)
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Per-edge rows summed into their destinations or sources by one
+    sorted segment sum.  Backward: the gather at each edge's node."""
+
+    @staticmethod
+    def forward(ctx, vals, g, side: str, impl: str):
+        ctx.g, ctx.side = g, side
+        total = _sum_dst if side == "dst" else _sum_src
+        out = total(g, vals.reshape(vals.shape[0], -1), impl)
         return out.view((out.shape[0],) + vals.shape[1:]).to(vals.dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        return gather_dst(ctx.g, ct), None, None
+        idx = ctx.g.dst if ctx.side == "dst" else ctx.g.src
+        return gather_nodes(ct, idx), None, None, None
 
 
 def scatter_sum_dst(g, edge_vals: torch.Tensor, *,
@@ -113,7 +181,15 @@ def scatter_sum_dst(g, edge_vals: torch.Tensor, *,
     """Sum per-edge rows (EP, ...) in canonical order into destination
     nodes (num_nodes, ...), without atomics; zero rows where a node has no
     incoming edge."""
-    return _ScatterSumDst.apply(edge_vals, g, impl)
+    return _ScatterSum.apply(edge_vals, g, "dst", impl)
+
+
+def scatter_sum_src(g, edge_vals: torch.Tensor, *,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Sum per-edge rows (EP, ...) in canonical order into source nodes
+    (src_space, ...) through the source-sorted ``out_perm``, without
+    atomics (``het_tpu/ops/common.py::scatter_sum_src``)."""
+    return _ScatterSum.apply(edge_vals, g, "src", impl)
 
 
 def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:

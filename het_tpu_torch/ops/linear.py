@@ -3,12 +3,18 @@
 Counterpart of ``het_tpu/ops/linear.py``:
 
 * :func:`segment_matmul` multiplies each relation's rows by that
-  relation's weight: one dense matmul per relation over the row slice
-  ``seg_ptrs_static[r]:seg_ptrs_static[r+1]`` where the offsets are known
-  on the host (the JAX package's static-mix plan,
-  ``segment_matmul_static_mix``; there too the matmul is left to the
-  compiler's library, here ``torch.matmul``), the segment-matmul kernels
-  where they live only on the device (a shard of a partitioned graph);
+  relation's weight, from one input row for every head or one a head
+  (HGT's per-head inputs): one dense matmul per relation over the row
+  slice ``seg_ptrs_static[r]:seg_ptrs_static[r+1]`` (batched over the
+  heads) where the offsets are known on the host (the JAX package's
+  static-mix plan, ``segment_matmul_static_mix``; there too the matmul is
+  left to the compiler's library, here ``torch.matmul``), the
+  segment-matmul kernels where they live only on the device (a shard of
+  a partitioned graph); :func:`segment_matmul_pullback` is its backward
+  for ops that recompute the matmul;
+* :func:`ntype_linear` is the per-node-type linear over ``ntype_seg``,
+  whose gathers in and out are injective: both backwards are masked
+  gathers;
 * :func:`compact_typed_linear` gathers node rows into the unique
   (relation, node) compact rows and applies :func:`segment_matmul`.  The
   gather's backward is the sorted segment sum over ``node_row_ptr`` with
@@ -18,6 +24,11 @@ Counterpart of ``het_tpu/ops/linear.py``:
   read back in canonical edge order.  The gather's backward is a sorted
   segment sum over the source or destination CSR, reading the cotangent
   rows through a permutation, as ``_make_edge_row_gather`` has it;
+* :func:`expand_compact` reads compact rows per edge (its backward the
+  sorted segment sum through ``edge_sort_perm``), and
+  :func:`compact_dst_inner` is HGT's single-sided compact score, whose
+  backward sums over the canonical (dst, rel) runs and the source-sorted
+  edges;
 * :func:`edge_rel_inner` and :func:`segment_rel_inner` are the
   attention-logit inner products ``<feat[h], a[rel, h]>``; their ``a``
   gradient is the grouped dW kernel (``kernels.segment_matmul_dw``).
@@ -32,8 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import (gather_nodes, sorted_gather, take_rows,
-                     take_rows_injective)
+from .common import (gather_nodes, gather_rows_injective, sorted_gather,
+                     take_rows, take_rows_injective)
 from .kernels import (seg_sum_sorted, segment_matmul_dw, segment_matmul_dx,
                       segment_matmul_fwd)
 
@@ -44,92 +55,168 @@ def _flat_weight(w_r: torch.Tensor) -> torch.Tensor:
     return w_r.permute(1, 0, 2).reshape(K, H * O)
 
 
-class _SegmentMatmul(torch.autograd.Function):
-    """Per-relation dense matmul over static row slices; the backward
-    writes each slice's dx into its disjoint rows and dW per relation
-    (``_static_mix_bwd_impl``)."""
+def _as_heads(x_rows: torch.Tensor, H: int) -> torch.Tensor:
+    """(n_rows, K) or (n_rows, Hx, K) -> (n_rows, Hx, K), Hx in {1, H}."""
+    x3 = x_rows[:, None, :] if x_rows.dim() == 2 else x_rows
+    if x3.dim() != 3 or x3.shape[1] not in (1, H):
+        raise ValueError(f"x_rows {tuple(x_rows.shape)} is not (n_rows, K) "
+                         f"or (n_rows, Hx, K) with Hx in (1, {H})")
+    return x3
 
-    @staticmethod
-    def forward(ctx, x_rows, w, seg_ptrs: Tuple[int, ...]):
-        S, H, K, O = w.shape
-        # the slices tile [0, n_rows) exactly, so every row is written
-        y = x_rows.new_empty(x_rows.shape[0], H * O)
-        for r in range(S):
-            lo, hi = seg_ptrs[r], seg_ptrs[r + 1]
-            if hi > lo:
-                torch.matmul(x_rows[lo:hi], _flat_weight(w[r]), out=y[lo:hi])
-        ctx.save_for_backward(x_rows, w)
-        ctx.seg_ptrs = seg_ptrs
-        return y.view(-1, H, O)
 
-    @staticmethod
-    def backward(ctx, ct):
-        x_rows, w = ctx.saved_tensors
-        S, H, K, O = w.shape
-        ct2 = ct.reshape(ct.shape[0], H * O)
-        dx = torch.empty_like(x_rows) if ctx.needs_input_grad[0] else None
-        dw = torch.zeros_like(w) if ctx.needs_input_grad[1] else None
-        for r in range(S):
-            lo, hi = ctx.seg_ptrs[r], ctx.seg_ptrs[r + 1]
-            if hi == lo:
-                continue
+def _static_fwd(x3, w, ptrs):
+    """Forward on host-known offsets: one ``torch.matmul`` a relation over
+    its row slice, batched over the heads where x has a row a head."""
+    S, H, _, O = w.shape
+    Hx = x3.shape[1]
+    # the slices tile [0, n_rows) exactly, so every row is written
+    y = x3.new_empty(x3.shape[0], H, O)
+    for r in range(S):
+        lo, hi = ptrs[r], ptrs[r + 1]
+        if hi == lo:
+            continue
+        if Hx == 1:
+            torch.matmul(x3[lo:hi, 0], _flat_weight(w[r]),
+                         out=y[lo:hi].view(hi - lo, H * O))
+        else:  # (H, n, K) @ (H, K, O)
+            y[lo:hi] = torch.matmul(x3[lo:hi].transpose(0, 1),
+                                    w[r]).transpose(0, 1)
+    return y
+
+
+def _static_bwd(x3, w, ptrs, ct, need_dx: bool, need_dw: bool):
+    """The pullback of :func:`_static_fwd`: each slice's dx into its
+    disjoint rows and dW per relation (``_static_mix_bwd_impl``)."""
+    S, H, K, O = w.shape
+    Hx = x3.shape[1]
+    dx = torch.empty_like(x3) if need_dx else None
+    dw = torch.zeros_like(w) if need_dw else None
+    for r in range(S):
+        lo, hi = ptrs[r], ptrs[r + 1]
+        if hi == lo:
+            continue
+        cs = ct[lo:hi]  # (n, H, O)
+        if Hx == 1:
+            c2 = cs.reshape(hi - lo, H * O)
             if dx is not None:
-                torch.matmul(ct2[lo:hi], _flat_weight(w[r]).t(),
-                             out=dx[lo:hi])
+                torch.matmul(c2, _flat_weight(w[r]).t(), out=dx[lo:hi, 0])
             if dw is not None:
-                dwr = x_rows[lo:hi].t() @ ct2[lo:hi]  # (K, H*O)
-                dw[r] = dwr.view(K, H, O).permute(1, 0, 2)
-        return dx, dw, None
+                dw[r] = (x3[lo:hi, 0].t() @ c2).view(K, H, O).permute(1, 0, 2)
+        else:
+            ch = cs.transpose(0, 1)  # (H, n, O)
+            if dx is not None:
+                dx[lo:hi] = torch.matmul(ch, w[r].transpose(1, 2)
+                                         ).transpose(0, 1)
+            if dw is not None:
+                # one (H*K, H*O) product over the rows, its diagonal blocks
+                # kept: cuBLAS splits the long reduction of this shape,
+                # where a batch of (K, n) @ (n, O), one small tile a head,
+                # ran 100x slower on the card
+                full = x3[lo:hi].reshape(hi - lo, H * K).t() @ cs.reshape(
+                    hi - lo, H * O)
+                dw[r] = full.view(H, K, H, O).diagonal(
+                    dim1=0, dim2=2).permute(2, 0, 1)
+    return dx, dw
 
 
-class _SegmentMatmulRows(torch.autograd.Function):
-    """Segment matmul whose offsets live only on the device (a shard of a
-    partitioned graph): forward and dX by the CUDA kernels of
-    ``kernels.segment_matmul_fwd`` / ``segment_matmul_dx``, dW by the
-    grouped ``segment_matmul_dw``, as ``segment_matmul_rows_pallas`` has
-    them; dX only where the input needs a gradient."""
+def _rows_fwd(x3, w, seg, impl: str):
+    """Forward on device-only offsets: the segment-matmul kernel, x read
+    as (n_rows, Hx*K)."""
+    x2 = x3.reshape(x3.shape[0], -1).contiguous()
+    return segment_matmul_fwd(x2, w.contiguous(), seg, impl=impl)
+
+
+def _rows_bwd(x3, w, seg, ct, need_dx: bool, need_dw: bool, impl: str):
+    """The pullback of :func:`_rows_fwd`: the dX kernel (per head where x
+    has a row a head) and the grouped dW kernel."""
+    n, Hx, K = x3.shape
+    ct2 = ct.reshape(n, -1).float().contiguous()
+    w = w.contiguous()
+    dx = dw = None
+    if need_dx:
+        dx = segment_matmul_dx(ct2, w, seg, Hx, impl=impl).view(n, Hx, K)
+    if need_dw:
+        dw = segment_matmul_dw(x3.reshape(n, Hx * K).contiguous(), ct2,
+                               tuple(w.shape), seg, impl=impl)
+    return dx, dw
+
+
+def segment_matmul_pullback(x_rows: torch.Tensor, w: torch.Tensor, seg,
+                            ct: torch.Tensor, *, need_dx: bool = True,
+                            need_dw: bool = True, impl: str = "kernel"
+                            ) -> Tuple[Optional[torch.Tensor],
+                                       Optional[torch.Tensor]]:
+    """``(dx, dW)`` of :func:`segment_matmul` at ``(x_rows, w)`` for the
+    cotangent ``ct`` (n_rows, H, O): dx in ``x_rows``' shape, dW f32;
+    None where not asked.  For ops that recompute a matmul in their own
+    backward (``jax.vjp``'s role)."""
+    x3 = _as_heads(x_rows, w.shape[1])
+    ct = ct.reshape(x3.shape[0], w.shape[1], w.shape[3]).float()
+    if seg.seg_ptrs_static is None:
+        dx, dw = _rows_bwd(x3, w, seg, ct, need_dx, need_dw, impl)
+    else:
+        dx, dw = _static_bwd(x3, w, seg.seg_ptrs_static, ct, need_dx,
+                             need_dw)
+    if dx is not None:
+        dx = dx.view(x_rows.shape).to(x_rows.dtype)
+    return dx, (dw.to(w.dtype) if dw is not None else None)
+
+
+class _SegmentMatmul(torch.autograd.Function):
+    """Per-segment matmul: per-relation ``torch.matmul`` over host-known
+    row slices, or the segment-matmul kernels where the offsets live only
+    on the device (a shard of a partitioned graph, as
+    ``segment_matmul_rows_pallas`` has them); dX only where the input
+    needs a gradient."""
 
     @staticmethod
     def forward(ctx, x_rows, w, seg, impl: str):
+        x3 = _as_heads(x_rows, w.shape[1])
         ctx.save_for_backward(x_rows, w)
         ctx.seg, ctx.impl = seg, impl
-        return segment_matmul_fwd(x_rows, w, seg, impl=impl)
+        if seg.seg_ptrs_static is None:
+            return _rows_fwd(x3, w, seg, impl)
+        return _static_fwd(x3, w, seg.seg_ptrs_static)
 
     @staticmethod
     def backward(ctx, ct):
         x_rows, w = ctx.saved_tensors
-        seg, impl = ctx.seg, ctx.impl
-        ct = ct.float().contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = segment_matmul_dx(ct, w, seg, 1, impl=impl).to(x_rows.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = segment_matmul_dw(x_rows, ct, tuple(w.shape), seg,
-                                   impl=impl).to(w.dtype)
+        dx, dw = segment_matmul_pullback(
+            x_rows, w, ctx.seg, ct, need_dx=ctx.needs_input_grad[0],
+            need_dw=ctx.needs_input_grad[1], impl=ctx.impl)
         return dx, dw, None, None
 
 
 def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
                    impl: str = "kernel") -> torch.Tensor:
-    """x_rows (n_rows, K) of the segment row space, w (S, H, K, O) ->
-    (n_rows, H, O): row ``i`` of segment ``s`` times ``w[s]``.
+    """x_rows (n_rows, K), or (n_rows, Hx, K) with Hx in {1, H} (one row
+    for every head, or one a head), of the segment row space; w (S, H, K,
+    O) -> (n_rows, H, O): row ``i`` of segment ``s`` times ``w[s]``.
 
     Dispatches as the JAX package's pallas backend does: host-known
     offsets take the per-relation ``torch.matmul`` slices; offsets that
     live only on the device (``seg_ptrs_static is None``) take the
-    segment-matmul kernels, which read them there."""
-    if x_rows.dim() != 2:
-        raise NotImplementedError(
-            "segment_matmul takes (n_rows, K) rows; per-head (n_rows, H, K) "
-            "inputs have no caller on the ported paths yet (ROADMAP.md "
-            "queue 1)"
-        )
+    segment-matmul kernels, which read them there and read Hx from x's
+    width."""
     if seg.n_rows != x_rows.shape[0]:
         raise ValueError("x_rows does not span the segment row space")
-    if seg.seg_ptrs_static is None:
-        return _SegmentMatmulRows.apply(x_rows.contiguous(), w.contiguous(),
-                                        seg, impl)
-    return _SegmentMatmul.apply(x_rows, w, seg.seg_ptrs_static)
+    return _SegmentMatmul.apply(x_rows, w, seg, impl)
+
+
+def ntype_linear(g, x: torch.Tensor, w: torch.Tensor, *,
+                 impl: str = "kernel") -> torch.Tensor:
+    """Per-node-type linear ``y_n = x[n] @ W[ntype(n)]``: x (N, K), w (T,
+    H, K, O) -> (N, H, O) at node rows.  The rows are arranged into
+    ``g.ntype_seg`` by an injective gather and read back by another, whose
+    transposes are masked gathers: no scatter either way
+    (``het_tpu/ops/linear.py::ntype_linear``)."""
+    seg = g.ntype_seg
+    if x.shape[0] != seg.n_src:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph's node types "
+                         f"{seg.n_src}")
+    rows = gather_rows_injective(x, seg.perm, seg.inv, seg.row_valid)
+    return take_rows_injective(segment_matmul(rows, w, seg, impl=impl),
+                               seg.inv, seg.perm, seg.row_valid)
 
 
 def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
@@ -210,6 +297,70 @@ def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
                                seg.inv, seg.perm, seg.row_valid)
 
 
+def expand_compact(g, c: torch.Tensor, side: str = "src", *,
+                   impl: str = "kernel") -> torch.Tensor:
+    """Compact (relation, node) rows of one side, (n_rows, ...), expanded
+    to canonical edge order (EP, ...); padding edges read row 0, as in
+    het_tpu.  The gradient is one sorted segment sum over ``edge_row_ptr``
+    through ``edge_sort_perm`` at every width (het_tpu sends payloads
+    under 16 lanes to XLA's scatter-add, which sums the same values)."""
+    info = g.compact_src if side == "src" else g.compact_dst
+    if info is None:
+        raise ValueError("graph built without compact indices")
+    return sorted_gather(c, info.edge_map, info.edge_row_ptr,
+                         info.edge_sort_perm, impl=impl)
+
+
+class _CompactDstInner(torch.autograd.Function):
+    """``score[e, h] = <c2d[rowD(e)] (head h), x[src(e), h]>``.  Backward
+    (``_cdi_bwd``): ``d_c`` one segment sum over the canonical (dst, rel)
+    runs, read back through ``canon_to_row``; ``d_x`` one over the
+    source-sorted edges (:func:`~.common.scatter_sum_src`'s sum)."""
+
+    @staticmethod
+    def _edge_terms(c2d, x, g):
+        EP = g.num_padded_edges
+        H, dk = x.shape[1], x.shape[2]
+        c_e = take_rows(c2d, g.compact_dst.edge_map).float().view(EP, H, dk)
+        x_e = gather_nodes(x, g.src).float().view(EP, H, dk)
+        return c_e, x_e
+
+    @staticmethod
+    def forward(ctx, c2d, x, g, impl: str):
+        ctx.save_for_backward(c2d, x)
+        ctx.g, ctx.impl = g, impl
+        c_e, x_e = _CompactDstInner._edge_terms(c2d, x, g)
+        return (c_e * x_e).sum(-1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        c2d, x = ctx.saved_tensors
+        g, impl = ctx.g, ctx.impl
+        infoD = g.compact_dst
+        EP = g.num_padded_edges
+        c_e, x_e = _CompactDstInner._edge_terms(c2d, x, g)
+        ct = ct.float()[..., None]
+        red = seg_sum_sorted((ct * x_e).view(EP, -1), infoD.canon_ptr,
+                             impl=impl)
+        d_c = gather_nodes(red, infoD.canon_to_row)
+        d_x = seg_sum_sorted((ct * c_e).view(EP, -1), g.out_row_ptr,
+                             g.out_perm, impl=impl)
+        return (d_c.to(c2d.dtype), d_x.view(x.shape).to(x.dtype), None,
+                None)
+
+
+def compact_dst_inner(g, c_dst: torch.Tensor, x_src: torch.Tensor, *,
+                      impl: str = "kernel") -> torch.Tensor:
+    """``score_e[h] = <c_dst[compact_dst_row(e), h], x_src[src(e), h]>``:
+    c_dst (UCd, H, dk) on destination compact rows, x_src (src_space, H,
+    dk) -> (EP, H), the single-sided compact SDDMM of HGT's attention
+    score.  Per-edge rows exist only inside the op."""
+    if g.compact_dst is None or g.compact_dst.canon_ptr is None:
+        raise ValueError("graph built without compact indices")
+    UC, H, dk = c_dst.shape
+    return _CompactDstInner.apply(c_dst.reshape(UC, H * dk), x_src, g, impl)
+
+
 class _RelInner(torch.autograd.Function):
     """``score[i, h] = <feat[i, h], a[rel[i], h]>``.  Backward: ``d_feat
     = ct * a[rel]``; ``d_a`` is the grouped dW over the segments of
@@ -226,17 +377,36 @@ class _RelInner(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         feat, a, rel = ctx.saved_tensors
-        seg, perm = ctx.seg, ctx.perm
         ct = ct.float()
         d_feat = (ct[..., None] * take_rows(a, rel)).to(feat.dtype)
-        fr, cr = feat.float(), ct
-        if perm is not None:
-            fr, cr = take_rows(fr, perm), take_rows(cr, perm)
-        cr = torch.where(seg.row_valid[:, None], cr, torch.zeros_like(cr))
-        R, H, D = a.shape
-        da = segment_matmul_dw(fr.contiguous(), cr[..., None], (R, H, D, 1),
-                               seg, impl=ctx.impl)[..., 0]
+        da = _rel_inner_da(feat, ct, a.shape[0], ctx.seg, ctx.perm, ctx.impl)
         return d_feat, da.to(a.dtype), None, None, None, None
+
+
+def _rel_inner_da(feat, ct, R: int, seg, perm, impl: str) -> torch.Tensor:
+    """``d_a[r, h] = sum_{i in segment r} feat[i, h] * ct[i, h]`` (R, H,
+    D): the grouped dW over the segments of ``seg``, rows taken in segment
+    order through ``perm`` (None when they already are) and ``ct`` zeroed
+    on invalid rows."""
+    fr, cr = feat.float(), ct.float()
+    if perm is not None:
+        fr, cr = take_rows(fr, perm), take_rows(cr, perm)
+    cr = torch.where(seg.row_valid[:, None], cr, torch.zeros_like(cr))
+    H, D = fr.shape[1], fr.shape[2]
+    return segment_matmul_dw(fr.contiguous(), cr[..., None], (R, H, D, 1),
+                             seg, impl=impl)[..., 0]
+
+
+def edge_rel_scale_grad(g, score_e: torch.Tensor, ct_e: torch.Tensor, *,
+                        impl: str = "kernel") -> torch.Tensor:
+    """The gradient of ``mu`` (R, H) in ``raw_e = score_e * mu[rel_e]``
+    for the cotangent ``ct_e`` of ``raw``, both (EP, H): the inner
+    product's ``d_a`` at D = 1, the grouped dW over the relation-sorted
+    edge rows (no atomics: a segment's rows in chunks, each summed in a
+    fixed order)."""
+    seg = g.edge_rel_seg
+    return _rel_inner_da(score_e[..., None], ct_e, g.num_rels, seg, seg.perm,
+                         impl)[..., 0]
 
 
 def edge_rel_inner(g, feat_e: torch.Tensor, a: torch.Tensor, *,

@@ -1,5 +1,5 @@
-"""Relational fused GAT aggregation, per edge and over compact rows, and
-the RGCN ops.
+"""Relational fused GAT aggregation, per edge and over compact rows, the
+RGCN ops and the HGT ops.
 
 Counterparts of ``het_tpu/ops/spmm.py::relational_fused_gat``,
 ``::relational_fused_gat_compact`` and
@@ -7,7 +7,14 @@ Counterparts of ``het_tpu/ops/spmm.py::relational_fused_gat``,
 ``rgcn_aggregate``, ``rgcn_aggregate_compact``, ``rgcn_layer1`` and
 ``rgcn_layer0``: every RGCN aggregation is one sorted segment sum into
 the destinations, and every gradient into node, compact or weight rows
-one more, over a row pointer with a permutation (no atomics).
+one more, over a row pointer with a permutation (no atomics).  The HGT
+ops (``inner_product_edge_node``, ``edge_softmax``, ``hgt_edge_softmax``,
+``hgt_softmax_weighted_agg`` and its compact form, and the dispatchers
+``hgt_compact_attention``, ``hgt_plain_attention`` and
+``hgt_plain_layer_core``) pick, as het_tpu's pallas backend does, the
+fused ops of ``fused_agg`` under "raw" and "clip" and the unfused chain
+under "max"; ``score * mu[rel]`` is ``edge_rel_inner`` at D = 1, whose
+``mu`` gradient is the grouped dW over the relation-sorted edge rows.
 
 The edge softmax is a raw ``exp`` with no max subtraction by default, as
 in the reference (``stable=False`` or ``"raw"``); ``stable="clip"``
@@ -23,11 +30,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import gather_dst, scatter_sum_dst, sorted_gather
+from .common import (gather_dst, gather_nodes, safe_div, scatter_sum_dst,
+                     scatter_sum_src, sorted_gather)
 from .fused_agg import (CLIP_LOGIT, STABLE_MODES,  # noqa: F401
-                        CompactFusedGAT, CompactFusedGATPacked, FusedGAT,
-                        compact_weighted_agg)
-from .linear import edge_typed_linear
+                        CompactFusedGAT, CompactFusedGATPacked,
+                        HGTCompactAttention, HGTPlainFull,
+                        compact_weighted_agg, fused_softmax_agg)
+from .kernels import seg_max_sorted
+from .linear import (compact_dst_inner, edge_rel_inner, edge_typed_linear,
+                     expand_compact)
 
 
 def _mode(stable) -> str:
@@ -52,9 +63,8 @@ def relational_fused_gat(
     """Edge softmax of ``leaky_relu(el + er)`` over each destination's
     incoming edges, weighting ``feat_src_e``: feat_src_e (EP, H, D) and
     el_e/er_e (EP, H) in canonical edge order -> (N, H, D)."""
-    EP, H, D = feat_src_e.shape
-    return FusedGAT.apply(feat_src_e.reshape(EP, H * D), el_e + er_e, g,
-                          float(slope), _mode(stable), impl)
+    return fused_softmax_agg(g, feat_src_e, el_e + er_e, slope=slope,
+                             stable=_mode(stable), impl=impl)
 
 
 def relational_fused_gat_compact(
@@ -170,3 +180,191 @@ def rgcn_layer0(g, w: torch.Tensor, norm_e: torch.Tensor, *,
     feat_e = sorted_gather(w.reshape(R * N, O), _weight_rows(g), *runs,
                            impl=impl)
     return rgcn_aggregate(g, feat_e, norm_e, impl=impl)
+
+
+# ------------------------------------------------------------------- HGT
+
+
+class _InnerProduct(torch.autograd.Function):
+    """``score[e, h] = <left_e[e, h], right[side(e), h]>``.  Backward:
+    ``d_left = ct * right[side(e)]``; ``d_right`` the sorted segment sum
+    of ``ct * left_e`` into the side's nodes."""
+
+    @staticmethod
+    def forward(ctx, left_e, right, g, side: str, impl: str):
+        ctx.save_for_backward(left_e, right)
+        ctx.g, ctx.side, ctx.impl = g, side, impl
+        r_e = gather_nodes(right, g.dst if side == "dst" else g.src)
+        return (left_e.float() * r_e.float()).sum(-1).to(left_e.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        left_e, right = ctx.saved_tensors
+        g = ctx.g
+        r_e = gather_nodes(right, g.dst if ctx.side == "dst" else g.src)
+        ct = ct.float()[..., None]
+        total = scatter_sum_dst if ctx.side == "dst" else scatter_sum_src
+        d_right = total(g, ct * left_e.float(), impl=ctx.impl)
+        return ((ct * r_e.float()).to(left_e.dtype),
+                d_right.view(right.shape).to(right.dtype), None, None, None)
+
+
+def inner_product_edge_node(g, left_e: torch.Tensor, right: torch.Tensor,
+                            side: str = "dst", *,
+                            impl: str = "kernel") -> torch.Tensor:
+    """``score_e[h] = <left_e[e, h], right[side(e), h]>``: left_e (EP, H,
+    D) per edge, right (nodes of the side, H, D) -> (EP, H)."""
+    return _InnerProduct.apply(left_e, right, g, side, impl)
+
+
+def _edge_valid(g) -> torch.Tensor:
+    return g.dst < g.num_nodes
+
+
+def _stabilize(g, logits: torch.Tensor, mode: str,
+               impl: str) -> torch.Tensor:
+    """Overflow protection of the raw-exp softmax: none ("raw"), logits
+    clamped to +-``CLIP_LOGIT`` ("clip"), or the destination max
+    subtracted ("max": ``seg_max_sorted`` over ``in_row_ptr``, which never
+    reads a padding edge; no gradient through the max, as het_tpu stops
+    it)."""
+    if mode == "raw":
+        return logits
+    if mode == "clip":
+        return logits.clamp(-CLIP_LOGIT, CLIP_LOGIT)
+    EP = logits.shape[0]
+    m = seg_max_sorted(logits.detach().float().reshape(EP, -1).contiguous(),
+                       g.in_row_ptr, impl=impl)
+    return logits - gather_nodes(m, g.dst).view(logits.shape)
+
+
+def _masked_exp(g, logits: torch.Tensor) -> torch.Tensor:
+    """``exp(logits)``, 0 on padding edges.  Their logits are dropped
+    before the ``exp``: het_tpu masks after it, where an overflowing
+    padding logit turns the backward's 0 * inf into NaN."""
+    valid = _edge_valid(g).view((-1,) + (1,) * (logits.dim() - 1))
+    zero = torch.zeros_like(logits)
+    return torch.where(valid, torch.exp(torch.where(valid, logits, zero)),
+                       zero)
+
+
+def edge_softmax(g, logits: torch.Tensor, *, stable=False,
+                 impl: str = "kernel") -> torch.Tensor:
+    """Per-destination softmax over incoming edges, (EP, H) -> (EP, H),
+    exactly 0 on padding edges."""
+    e = _masked_exp(g, _stabilize(g, logits, _mode(stable), impl))
+    s = scatter_sum_dst(g, e, impl=impl)
+    return safe_div(e, gather_dst(g, s, impl=impl))
+
+
+def _typed_logits(g, score_e: torch.Tensor, mu: torch.Tensor,
+                  impl: str) -> torch.Tensor:
+    """``score_e * mu[rel_e]`` (EP, H): the inner product of
+    :func:`edge_rel_inner` at D = 1, whose ``mu`` gradient is the grouped
+    dW over the relation-sorted edge rows, not ``index_select``'s atomic
+    scatter of millions of rows into R * H addresses."""
+    return edge_rel_inner(g, score_e[..., None], mu[..., None], impl=impl)
+
+
+def hgt_edge_softmax(g, score_e: torch.Tensor, mu: torch.Tensor, *,
+                     stable=False, impl: str = "kernel") -> torch.Tensor:
+    """HGT's typed edge softmax ``softmax_dst(score_e * mu[rel_e])``: mu
+    (R, H) = relation_pri / sqrt(d_k), score_e (EP, H)."""
+    return edge_softmax(g, _typed_logits(g, score_e, mu, impl),
+                        stable=stable, impl=impl)
+
+
+def hgt_softmax_weighted_agg(g, message_e: torch.Tensor,
+                             score_e: torch.Tensor, mu: torch.Tensor, *,
+                             stable=False,
+                             impl: str = "kernel") -> torch.Tensor:
+    """HGT's typed edge softmax and the weighted sum of ``message_e``
+    (EP, H, D) into destinations -> (N, H, D), as het_tpu's pallas
+    backend computes it: the fused per-edge op with the identity
+    activation (:func:`~.fused_agg.fused_softmax_agg`) under "raw" and
+    "clip"; under "max" one segment sum of ``[z | z*msg]`` after the
+    max-subtracted ``exp``."""
+    mode = _mode(stable)
+    raw = _typed_logits(g, score_e, mu, impl)
+    if mode != "max":
+        return fused_softmax_agg(g, message_e, raw, act="identity",
+                                 stable=mode, impl=impl)
+    z = _masked_exp(g, _stabilize(g, raw, mode, impl))
+    EP, H = z.shape
+    D = message_e.shape[-1]
+    zf = (message_e * z[..., None]).reshape(EP, H * D)
+    agg = scatter_sum_dst(g, torch.cat([z, zf], dim=1), impl=impl)
+    return safe_div(agg[:, H:].view(-1, H, D), agg[:, :H, None])
+
+
+def hgt_softmax_weighted_agg_compact(g, message_c: torch.Tensor,
+                                     score_e: torch.Tensor,
+                                     mu: torch.Tensor, *, stable=False,
+                                     impl: str = "kernel") -> torch.Tensor:
+    """:func:`hgt_softmax_weighted_agg` with messages on source compact
+    rows (UCs, H, D), expanded to the edges (:func:`expand_compact`)."""
+    message_e = expand_compact(g, message_c, "src", impl=impl)
+    return hgt_softmax_weighted_agg(g, message_e, score_e, mu,
+                                    stable=stable, impl=impl)
+
+
+def hgt_compact_attention(g, message_c: torch.Tensor,
+                          att_q_c: torch.Tensor, k_nodes: torch.Tensor,
+                          mu: torch.Tensor, *, stable=False,
+                          impl: str = "kernel") -> torch.Tensor:
+    """HGT's compact attention: the score ``<att_q_c[rowD(e)],
+    k[src(e)]>``, the typed softmax and the aggregation of source compact
+    messages -> (N, H, dk).  "raw" and "clip" take the fused
+    :class:`~.fused_agg.HGTCompactAttention`; "max" the unfused chain
+    (:func:`compact_dst_inner`, then
+    :func:`hgt_softmax_weighted_agg_compact`), as het_tpu's pallas
+    backend does."""
+    mode = _mode(stable)
+    if mode == "max":
+        score = compact_dst_inner(g, att_q_c, k_nodes, impl=impl)
+        return hgt_softmax_weighted_agg_compact(g, message_c, score, mu,
+                                                stable=mode, impl=impl)
+    UC, H, dk = message_c.shape
+    return HGTCompactAttention.apply(
+        message_c.reshape(UC, H * dk),
+        att_q_c.reshape(att_q_c.shape[0], H * dk),
+        k_nodes.reshape(k_nodes.shape[0], H * dk), mu, g,
+        CLIP_LOGIT if mode == "clip" else None, impl)
+
+
+def hgt_plain_attention(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
+                        k_nodes: torch.Tensor, w_att: torch.Tensor,
+                        mu: torch.Tensor, *, stable=False,
+                        impl: str = "kernel") -> torch.Tensor:
+    """HGT's per-edge attention chain: ``att_q_e = q[dst] W_att[rel]``
+    (:func:`edge_typed_linear`, a row a head), the score ``<att_q_e,
+    k[src]>``, the typed softmax and the aggregation of ``message_e``.
+    het_tpu fuses it for "raw" and "clip" in an op no ``HGTLayer`` path
+    reaches; the port runs the chain in every mode."""
+    att_q_e = edge_typed_linear(g, q_nodes, w_att, side="dst", impl=impl)
+    score = inner_product_edge_node(g, att_q_e, k_nodes, "src", impl=impl)
+    return hgt_softmax_weighted_agg(g, message_e, score, mu, stable=stable,
+                                    impl=impl)
+
+
+def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
+                         k_nodes: torch.Tensor, w_msg: torch.Tensor,
+                         w_att: torch.Tensor, mu: torch.Tensor, *,
+                         stable=False, impl: str = "kernel") -> torch.Tensor:
+    """HGT's plain layer core: the message ``v[src] W_msg[rel]``, the
+    score ``q[dst] W_att[rel] . k[src]``, the typed softmax and the
+    aggregation -> (N, H, dk).  "raw" and "clip" take the fused
+    :class:`~.fused_agg.HGTPlainFull`; "max" the unfused chain, as
+    het_tpu's pallas backend does."""
+    mode = _mode(stable)
+    if mode == "max":
+        message_e = edge_typed_linear(g, v_nodes, w_msg, side="src",
+                                      impl=impl)
+        return hgt_plain_attention(g, message_e, q_nodes, k_nodes, w_att,
+                                   mu, stable=mode, impl=impl)
+    H, dk = q_nodes.shape[1], q_nodes.shape[2]
+    return HGTPlainFull.apply(
+        v_nodes.reshape(v_nodes.shape[0], H * dk),
+        q_nodes.reshape(q_nodes.shape[0], H * dk),
+        k_nodes.reshape(k_nodes.shape[0], H * dk), w_msg, w_att, mu, g,
+        CLIP_LOGIT if mode == "clip" else None, impl)

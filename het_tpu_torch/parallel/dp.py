@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.hgt import HGTLayer
 from ..ops.kernels import seg_sum_sorted
 from ..train.loop import train_steps
 from ..utils.misc import resolve_device
@@ -152,11 +153,14 @@ class DPGNN(nn.Module):
     """A stack of single-shard layers with a halo exchange before each.
 
     Takes any layer whose ``forward(g, x, x_dst=...)`` tells source-space
-    from destination-space features (``RGATLayer``, ``RGCNLayer``).
-    Parameter names are ``layers.{i}.*``, those of ``RGATModel`` and
-    ``RGCNModel``, so one state dict serves a single-process model and its
-    data-parallel twin.  ``impl`` is the
-    layers' (the boundary exchange's backward is a kernel too)."""
+    from destination-space features (``RGATLayer``, ``RGCNLayer``), or
+    one that takes its local rows and a ``halo`` hook (``HGTLayer``, as
+    het_tpu's ``_is_halo_style``): the layer projects locally and
+    exchanges only its projected k and v.  Parameter names are
+    ``layers.{i}.*``, those of ``RGATModel``, ``RGCNModel`` and
+    ``HGTModel``, so one state dict serves a single-process model and its
+    data-parallel twin.  ``impl`` is the layers' (the boundary exchange's
+    backward is a kernel too)."""
 
     def __init__(self, layers: Sequence[nn.Module], *, impl: str = "kernel"):
         super().__init__()
@@ -172,8 +176,12 @@ class DPGNN(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x_loc
         for layer in self.layers:
-            h = layer(shard, self.exchange(shard, h), x_dst=h,
-                      generator=generator)
+            if isinstance(layer, HGTLayer):
+                h = layer(shard, h, halo=lambda t: self.exchange(shard, t),
+                          generator=generator)
+            else:
+                h = layer(shard, self.exchange(shard, h), x_dst=h,
+                          generator=generator)
         return h
 
 

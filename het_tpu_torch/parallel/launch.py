@@ -15,7 +15,7 @@ A job is a dict:
   ``shards[r]``), ``nodes_per_part``;
 * ``x`` and ``labels``: padded global node features (f32) and labels
   (-1 where unlabelled), numpy;
-* ``family``: "RGAT" (when absent) or "RGCN", the model whose layers
+* ``family``: "RGAT" (when absent), "RGCN" or "HGT", the model whose layers
   the rank's ``DPGNN`` stacks; ``model``: that model's keyword
   arguments, ``state``: its state dict;
 * ``steps``, ``lr``, ``impl`` ("kernel" or "plain").
@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..models import RGATModel, RGCNModel
+from ..models import HGTModel, RGATModel, RGCNModel
 from ..ops import kernels
 from .dp import DPGNN, setup_rank, train_dp
 
@@ -43,14 +43,14 @@ from .dp import DPGNN, setup_rank, train_dp
 def _device_only(shard) -> Dict[str, bool]:
     """Per segmentation a typed linear multiplies over: whether its
     offsets live only on the device (what sends it to the kernels)."""
-    segs = {"edge_rel_seg": shard.edge_rel_seg}
+    segs = {"edge_rel_seg": shard.edge_rel_seg, "ntype_seg": shard.ntype_seg}
     if shard.compact_src is not None:
         segs["compact_src"] = shard.compact_src.seg
         segs["compact_dst"] = shard.compact_dst.seg
     return {k: s.seg_ptrs_static is None for k, s in segs.items()}
 
 
-MODELS = {"RGAT": RGATModel, "RGCN": RGCNModel}
+MODELS = {"RGAT": RGATModel, "RGCN": RGCNModel, "HGT": HGTModel}
 
 
 def job_inputs(rank: int, dev: torch.device, job: Dict

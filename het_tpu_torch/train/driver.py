@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..data.loaders import Dataset, load_dataset
-from ..models import NodeEmbed, RGATModel, RGCNModel
+from ..models import HGTModel, NodeEmbed, RGATModel, RGCNModel
 from ..utils.misc import nll_loss, resolve_device
 from .config import TrainConfig
 from .loop import train_steps
@@ -39,7 +39,8 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
                 ) -> NodeClassifier:
     """The model ``cfg`` names, with parameters drawn from ``generator``.
     RGCN is het_tpu's trainer's: two layers from the embeddings, whatever
-    ``--num_layers`` and ``--num_heads`` say."""
+    ``--num_layers`` and ``--num_heads`` say.  HGT is too: neither
+    multiply-first nor ``use_norm`` (het_tpu's trainer passes neither)."""
     g = data.graph
     name = cfg.model.upper()
     if name == "RGAT":
@@ -56,10 +57,18 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
             featureless=False, in_feat=cfg.n_infeat, compact=cfg.compact,
             dropout=cfg.dropout, impl=impl, generator=generator,
         )
+    elif name == "HGT":
+        model = HGTModel(
+            cfg.n_infeat, cfg.hidden, data.num_classes, g.num_ntypes,
+            g.num_rels, cfg.num_heads, max(cfg.num_layers, 1),
+            dropout=cfg.dropout, compact=cfg.compact,
+            stable_softmax=cfg.stable_softmax, impl=impl,
+            generator=generator,
+        )
     else:
         raise NotImplementedError(
-            f"--model {cfg.model}: only RGAT and RGCN are ported so far "
-            "(ROADMAP.md queue 1 lists HGT and GAT)"
+            f"--model {cfg.model}: only RGAT, RGCN and HGT are ported so "
+            "far (ROADMAP.md queue 1 lists GAT)"
         )
     return NodeClassifier(
         NodeEmbed(g.num_nodes, cfg.n_infeat, generator=generator), model

@@ -183,6 +183,12 @@ def _chunk_rows(n_rows, S, H, Hx, K, O, dev):
     ((2000, 33, 0, 900), 4, 4, 16, 1),  # x not 16-byte aligned, per head
     ("chunk+1", 4, 1, 64, 17),  # one segment a row past a chunk, wide
     ("chunk+1", 4, 1, 64, 1),  # the same, narrow
+    # HGT's per-head typed linears (a row a head, d_k = 16 and 2) and its
+    # layer-2 output projection a_linears (8 x 8)
+    ((5000, 0, 3000, 17), 4, 4, 16, 16),
+    ((5000, 0, 3000, 17), 4, 4, 2, 2),
+    ((2000, 33, 0, 900), 4, 4, 2, 2),  # x not 16-byte aligned, K = 2
+    ((5000, 0, 3000, 17), 1, 1, 8, 8),
 ])
 def test_segment_matmul_dw_kernel_matches_plain(cuda, sizes, H, Hx, K, O):
     """Every kernel and load width the plan picks (narrow NC <= 16, wide
@@ -278,6 +284,12 @@ SHORT_SEGMENTS = tuple(i * 7 % 20 for i in range(200))
     ((5000, 0, 3000, 17), 4, 4, 16, 4),  # per head, K = 16, float4 ct
     ((2000, 33, 0, 900), 4, 1, 64, 3),  # ct not 16-byte aligned, R = 12
     (SHORT_SEGMENTS, 4, 1, 16, 3),  # narrow dX across many segments
+    # HGT's per-head typed linears (d_k = 16 and 2) and a_linears (8 x 8)
+    ((5000, 0, 3000, 17), 4, 4, 16, 16),
+    ((5000, 0, 3000, 17), 4, 4, 2, 2),
+    ((2000, 33, 0, 900), 4, 4, 2, 2),  # not 16-byte aligned, K = O = 2
+    (SHORT_SEGMENTS, 4, 4, 2, 2),  # per head across many segments
+    ((5000, 0, 3000, 17), 1, 1, 8, 8),
 ])
 def test_segment_matmul_fwd_dx_kernels_match_plain(cuda, sizes, H, Hx, K,
                                                    O):

@@ -168,11 +168,41 @@ def test_rgcn_trains_through_the_cli(monkeypatch, capsys, flags):
     assert not any(kernels.launch_counts().values())
 
 
+@pytest.mark.parametrize("flags", [[], ["--compact_as_of_node_flag"],
+                                   ["--compact_as_of_node_flag",
+                                    "--stable_softmax", "max"]])
+def test_hgt_trains_through_the_cli(monkeypatch, capsys, flags):
+    """``--model HGT`` trains through ``python -m het_tpu_torch.train`` (on
+    the CPU here, so no kernel launches), plain, compact and compact with
+    the exact softmax; ``--multiply_among_weights_first_flag`` is taken
+    and ignored, as het_tpu's trainer ignores it for HGT."""
+    import json
+    import sys
+
+    from het_tpu_torch.models import hgt
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train.__main__ import main
+
+    assert os.path.abspath(hgt.__file__) in set(_port_files())
+    kernels.reset_launches()
+    monkeypatch.setattr(sys, "argv", [
+        "het_tpu_torch.train", "--model", "HGT", "-d", "mag",
+        "--dataset_scale", "0.002", "--num_heads", "4", "--num_layers", "2",
+        "--multiply_among_weights_first_flag", "--n_infeat", "8",
+        "--hidden", "8", "-e", "2", "--device", "cpu", *flags])
+    main()
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["model"] == "HGT" and len(metrics["loss_list"]) == 2
+    assert all(map(math.isfinite, metrics["loss_list"]))
+    assert metrics["flags"]["compact"] == bool(flags)
+    assert not any(kernels.launch_counts().values())
+
+
 def test_unported_model_raises():
     from het_tpu_torch.train import TrainConfig, train
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(TrainConfig(model="HGT", dataset="aifb", dataset_scale=0.01,
+        train(TrainConfig(model="GAT", dataset="aifb", dataset_scale=0.01,
                           compact=True, multiply_first=True, num_epochs=1,
                           device="cpu"), log=lambda s: None)
 

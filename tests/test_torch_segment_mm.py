@@ -266,6 +266,10 @@ PLAN_SHAPES = [
     (1000192, 4, 1, 1, 64, 64), (1034496, 535, 1, 1, 64, 64),
     (960, 3, 3, 1, 70, 30), (47, 2, 1, 1, 1, 65), (960, 3, 2, 2, 70, 5),
     (0, 3, 2, 2, 4, 3), (304, 1, 1, 1, 64, 64), (40, 4, 2, 2, 8, 1),
+    # HGT's per-head typed linears on rank 0's shard: compact and edge
+    # rows, d_k = 16 and 2
+    (527360, 4, 4, 4, 16, 16), (312064, 4, 4, 4, 2, 2),
+    (1056896, 4, 4, 4, 16, 16), (1056896, 4, 4, 4, 2, 2),
 ]
 
 
@@ -340,6 +344,9 @@ FWD_PLAN_SHAPES = [
     (960, 3, 1, 1, 1, 64), (960, 3, 2, 1, 8, 1), (1208, 3, 4, 4, 16, 5),
     (0, 3, 2, 2, 3, 1), (4000, 3, 4, 1, 63, 17), (4000, 3, 4, 1, 63, 1),
     (4000, 3, 2, 1, 64, 100), (1000, 3, 4, 1, 700, 100), (7, 1, 3, 3, 129, 2),
+    # HGT's per-head typed linears (d_k = 16 and 2)
+    (527360, 4, 4, 4, 16, 16), (312064, 4, 4, 4, 2, 2),
+    (1056896, 4, 4, 4, 2, 2),
 ]
 
 
@@ -403,6 +410,8 @@ DX_PLAN_SHAPES = [
     (1208, 3, 4, 4, 17, 5), (4000, 3, 4, 1, 130, 1), (4000, 3, 2, 1, 64, 100),
     (4000, 3, 4, 1, 63, 17), (47, 2, 1, 1, 1, 65), (0, 3, 2, 2, 3, 1),
     (7, 1, 3, 3, 129, 2),
+    # HGT's per-head typed linears (d_k = 16 and 2)
+    (527360, 4, 4, 4, 16, 16), (1056896, 4, 4, 4, 2, 2),
 ]
 
 

@@ -2,8 +2,9 @@
 het_tpu's own initialisation (``PRNGKey(seed)`` split three ways,
 ``embed.init``, ``model.init``) carried over by ``params_from_jax``, at
 dropout 0 on a tiny synthetic mag: RGAT compact multiply-first, and
-``--model RGCN`` plain and compact (given the same heads, layers and
-multiply-first flags, which both trainers ignore for RGCN).  Both take
+``--model RGCN`` and ``--model HGT`` plain and compact (given the same
+heads, layers and multiply-first flag, which both trainers ignore for
+RGCN and HGT; HGT takes the heads and layers).  Both take
 their warm-up Adam steps before the timed ones (or none with
 ``no_warm_up``); the timed losses and the final parameters (het_tpu's
 from its end-of-run checkpoint) must agree.  Tolerance: rtol 1e-4 /
@@ -50,6 +51,8 @@ def _jax_initial_params(cfg, data):
     pytest.param({}, True, id="True"),
     pytest.param(dict(model="RGCN", compact=False), False, id="RGCN-plain"),
     pytest.param(dict(model="RGCN", compact=True), False, id="RGCN-compact"),
+    pytest.param(dict(model="HGT", compact=False), False, id="HGT-plain"),
+    pytest.param(dict(model="HGT", compact=True), False, id="HGT-compact"),
 ])
 def test_trainer_matches_het_tpu(tmp_path, model, no_warm_up):
     shared = dict(SHARED, **model)
