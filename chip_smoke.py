@@ -14,9 +14,11 @@ Phases, each of which fails the run:
    packed run):
    * ``seg_sum_sorted`` at every shape the compact multiply-first, the
      packed, the union and the plain RGAT steps, the plain and compact
-     RGCN steps and the plain, compact and compact stable="max" HGT
-     steps give it, on one card and on rank 0's shard of each
-     data-parallel run (the boundary halo's exchange backward included),
+     RGCN steps, the plain, compact and compact stable="max" HGT steps
+     and the GAT steps (mag at 0.1 and the arxiv stand-in; C = 256 and
+     4, then the classes, 8 or 40, and 1) give it, on one card and on
+     rank 0's shard of each data-parallel run (the boundary halo's
+     exchange backward included),
      plus edge cases, among them a hub row
      of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
      without perm, each launched twice and compared bit for bit;
@@ -69,6 +71,12 @@ Phases, each of which fails the run:
    in 64, hidden 64, 8 classes), plain and compact; five of the 2-layer
    HGT (``--model HGT``, heads 4, in 64, hidden 64, 8 classes: d_k 16
    and 2), plain and compact, and two of compact HGT with stable="max";
+   five of the 2-layer GAT (``--model GAT``, heads 4 of 64 from in 64,
+   then one head of 8 classes, raw softmax: layer 0 the fused core,
+   layer 1 the node-sided op) at 0.1 and two on the arxiv stand-in at
+   its published size (169,343 nodes, 1,166,243 edges, R = 1); every
+   run's launches include the trainer's accuracy pass, and it prints
+   the trainer's report (accuracy, forward/backward means, memory);
    then the packed max path at the published size (scale 1.0, 21.1M
    edges), three steps through the kernels, and compact RGCN and
    compact HGT on the same graph, two steps each,
@@ -111,6 +119,10 @@ TOL_RTOL = 1e-5  # f32 sums in another order
 # to TF32 (10-bit mantissa) do not
 DW_TOL = 1e-6
 TRAIN_RTOL = 1e-4
+# the trainer's report (het_tpu's schema) printed beside each run's times
+REPORT_KEYS = ("train_acc", "test_acc", "mean_forward_time",
+               "mean_backward_time", "mean_training_time",
+               "max_memory_usage (mb)")
 SCALE = 0.1  # synthetic ogbn-mag at the reference's ogbn_mag_0.1 size
 # the slice's packed run: the smallest tenth whose source compact rows
 # (1,348,864) pass het_tpu's packed gate of 1M rows (the port takes the
@@ -121,20 +133,25 @@ FULL_STEPS = 3
 
 
 def _run(compact, multiply_first, steps, launches, *, union=False,
-         stable="clip", scale=SCALE, model="RGAT"):
+         stable="clip", scale=SCALE, model="RGAT", dataset="mag",
+         classes=CLASSES, in_feat=IN_FEAT):
     return dict(compact=compact, multiply_first=multiply_first, steps=steps,
                 launches=launches, union=union, stable=stable, scale=scale,
-                model=model)
+                model=model, dataset=dataset, classes=classes,
+                in_feat=in_feat)
 
 
 # training runs: name -> the branch, its softmax, its graph's scale, its
 # steps and the launches a step of each kernel (the ones not named launch
-# none).  Per layer: the dual-list compact branches reduce 5 times
-# (forward aggregation, the (dst, rel) and the src-compact backward
-# reductions, two compact-gather backwards; the packed form the same),
-# the union ones 4 times (one compact gather: one projection serves both
-# sides), the plain ones 3 times (forward aggregation, two edge-gather
-# backwards; the per-edge fused backward is gathers only); every branch
+# none).  Every fused attention op sums its narrow and wide per-edge terms
+# apart (z and z*feat forward, draw and dfeat at the source side: two
+# segment sums and no [narrow | wide] buffer, PERF.md's GAT findings).
+# Per layer: the dual-list compact branches reduce 7 times (z and z*feat,
+# the (dst, rel) draw, the src-compact draw and dfeat, two compact-gather
+# backwards; the packed form the same), the union ones 6 times (one
+# compact gather: one projection serves both sides), the plain ones 4
+# times (z and z*feat, two edge-gather backwards; the per-edge fused
+# backward is gathers only); every branch
 # without multiply-first takes two attention-vector dW a layer, and
 # stable="max" one destination max a layer in the forward (the backward
 # reuses it).  RGCN (2 layers from the learned embeddings, no heads)
@@ -142,49 +159,64 @@ def _run(compact, multiply_first, steps, launches, *, union=False,
 # edge-gather backward; the aggregation's backward is a gather) and 3
 # times compact (compact_weighted_agg forward and backward through
 # edge_sort_perm, the compact-gather backward).  HGT (2 layers from the
-# learned embeddings, heads 4: d_k 16 in layer 0, 2 in layer 1) reduces 3
-# times a layer plain (the fused core's forward aggregation, d_q, d_k with
-# d_v in one) and 6 times compact (the fused attention's forward
-# aggregation, its source-compact, source-node and (dst, rel)-run reduces,
-# and the two compact-gather backwards); compact with stable="max" takes
-# the unfused chain, also 6 (the aggregation, the message expansion's
-# backward, the score's two and the two gathers), and one destination max
+# learned embeddings, heads 4: d_k 16 in layer 0, 2 in layer 1) reduces 4
+# times a layer plain (the fused core's z and z*msg, d_q, d_k with d_v in
+# one) and 7 times compact (the fused attention's z and z*msg, its
+# source-compact, source-node and (dst, rel)-run reduces, and the two
+# compact-gather backwards); compact with stable="max" takes the unfused
+# chain, 6 (one [z | z*msg] sum: its backward is autograd's gather of that
+# buffer, the message expansion's backward, the score's two and the two
+# gathers), and one destination max
 # a layer.  relation_pri's gradient (score * mu[rel] is a per-relation
 # scaling) is one grouped dW a layer over the relation-sorted edge rows
-# (K = O = 1 a head).  Host-known offsets: the typed linears take
-# per-relation matmuls.
+# (K = O = 1 a head).  GAT (heads 4 of 64, then one head of 8 classes,
+# raw softmax, the graph read as one relation; on the arxiv stand-in from
+# its 128 features to its 40 classes) reduces 5 times a layer: z and
+# z*feat over in_row_ptr, d_er over in_row_ptr, and draw and dfeat over
+# out_row_ptr through out_perm (layer 0 the fused
+# core, layer 1 the projection then the node-sided op); its projections
+# are torch.matmul.  Host-known offsets: the typed linears take per-relation
+# matmuls.  Each run's trainer adds its accuracy pass, a forward without
+# the backward (_eval_launches).
 RUNS = {
     "compact_multiply_first": _run(True, True, STEPS,
-                                   dict(seg_sum_sorted=10)),
-    "plain": _run(False, False, STEPS, dict(seg_sum_sorted=6,
+                                   dict(seg_sum_sorted=14)),
+    "plain": _run(False, False, STEPS, dict(seg_sum_sorted=8,
                                             segment_matmul_dw=4)),
     "plain_multiply_first": _run(False, True, SHORT_STEPS,
-                                 dict(seg_sum_sorted=6)),
-    "compact": _run(True, False, SHORT_STEPS, dict(seg_sum_sorted=10,
+                                 dict(seg_sum_sorted=8)),
+    "compact": _run(True, False, SHORT_STEPS, dict(seg_sum_sorted=14,
                                                    segment_matmul_dw=4)),
     "compact_multiply_first_packed_max": _run(
-        True, True, STEPS, dict(seg_sum_sorted=10, seg_max_sorted=2),
+        True, True, STEPS, dict(seg_sum_sorted=14, seg_max_sorted=2),
         stable="max", scale=PACKED_SCALE),
     "union_compact_multiply_first": _run(True, True, SHORT_STEPS,
-                                         dict(seg_sum_sorted=8), union=True),
+                                         dict(seg_sum_sorted=12), union=True),
     "union_compact": _run(True, False, SHORT_STEPS, dict(
-        seg_sum_sorted=8, segment_matmul_dw=4), union=True),
+        seg_sum_sorted=12, segment_matmul_dw=4), union=True),
     "plain_max": _run(False, False, SHORT_STEPS, dict(
-        seg_sum_sorted=6, segment_matmul_dw=4, seg_max_sorted=2),
+        seg_sum_sorted=8, segment_matmul_dw=4, seg_max_sorted=2),
         stable="max"),
     "rgcn_plain": _run(False, False, STEPS, dict(seg_sum_sorted=4),
                        model="RGCN"),
     "rgcn_compact": _run(True, False, STEPS, dict(seg_sum_sorted=6),
                          model="RGCN"),
-    "hgt_plain": _run(False, False, STEPS, dict(seg_sum_sorted=6,
+    "hgt_plain": _run(False, False, STEPS, dict(seg_sum_sorted=8,
                                                 segment_matmul_dw=2),
                       model="HGT"),
-    "hgt_compact": _run(True, False, STEPS, dict(seg_sum_sorted=12,
+    "hgt_compact": _run(True, False, STEPS, dict(seg_sum_sorted=14,
                                                  segment_matmul_dw=2),
                         model="HGT"),
     "hgt_compact_max": _run(True, False, SHORT_STEPS, dict(
         seg_sum_sorted=12, seg_max_sorted=2, segment_matmul_dw=2),
         stable="max", model="HGT"),
+    "gat": _run(False, False, STEPS, dict(seg_sum_sorted=10), stable="raw",
+                model="GAT"),
+    # the family's own homogeneous graph at its published size (R = 1)
+    # and widths (128 features, 40 classes)
+    "gat_arxiv": _run(False, False, SHORT_STEPS, dict(seg_sum_sorted=10),
+                      stable="raw", scale=1.0, model="GAT",
+                      dataset="arxiv", classes=40, in_feat=128),
 }
 # the single-card plain RGAT path, whose launches the dW reports
 MAIN = "plain"
@@ -205,10 +237,10 @@ MM_TOL = 1e-5
 # the device on a shard (one forward each, one dX each where the layer's
 # input needs a gradient: layer 1, not layer 0, whose input is the fixed
 # features) and whose weight gradients are grouped dWs; the plain branch
-# adds two attention-vector dWs.  Segment sums: the compact branches 3 in
-# layer 0 (the two compact-gather backwards need an input gradient) and 5
-# in layer 1; the plain branch 1 in layer 0 (the edge-gather backwards
-# need one too) and 3 in layer 1, plus, with the boundary halo, one for
+# adds two attention-vector dWs.  Segment sums: the compact branches 5 in
+# layer 0 (no compact-gather backward: its input needs no gradient) and 7
+# in layer 1; the plain branch 2 in layer 0 (no edge-gather backward
+# either) and 4 in layer 1, plus, with the boundary halo, one for
 # layer 1's exchange backward (layer 0 exchanges the fixed features).
 # Compact RGCN makes one typed linear a layer (H = 1) and reduces twice in
 # layer 0 (compact_weighted_agg forward and backward) and 3 times in
@@ -232,19 +264,19 @@ def _dp_run(compact, multiply_first, steps, halo, launches, model="RGAT"):
 
 DP_RUNS = {
     "dp_compact_multiply_first": _dp_run(True, True, STEPS, "auto", dict(
-        seg_sum_sorted=8, segment_matmul_fwd=4, segment_matmul_dx=2,
+        seg_sum_sorted=12, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=4)),
     "dp_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
-        seg_sum_sorted=5, segment_matmul_fwd=4, segment_matmul_dx=2,
+        seg_sum_sorted=7, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=8)),
     "dp_rgcn_compact": _dp_run(True, False, STEPS, "auto", dict(
         seg_sum_sorted=5, segment_matmul_fwd=2, segment_matmul_dx=1,
         segment_matmul_dw=2), model="RGCN"),
     "dp_hgt_compact": _dp_run(True, False, STEPS, "auto", dict(
-        seg_sum_sorted=12, segment_matmul_fwd=4, segment_matmul_dx=4,
+        seg_sum_sorted=14, segment_matmul_fwd=4, segment_matmul_dx=4,
         segment_matmul_dw=6), model="HGT"),
     "dp_hgt_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
-        seg_sum_sorted=10, segment_matmul_fwd=8, segment_matmul_dx=4,
+        seg_sum_sorted=12, segment_matmul_fwd=8, segment_matmul_dx=4,
         segment_matmul_dw=6), model="HGT"),
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
@@ -258,6 +290,34 @@ def _spec(run):
 def _per_step(run):
     """Each kernel's launches a step (a rank) of a training run."""
     return _spec(run)["launches"]
+
+
+def _eval_launches(r):
+    """The launches of the trainer's accuracy pass after its steps (``r`` a
+    ``RUNS`` value): a step's forward without its backward, one segment
+    sums a layer (the fused attention ops' z and z*feat; one for RGCN's
+    aggregation and HGT's unfused stable="max" chain) and, under
+    stable="max", one segment max a layer."""
+    one = r["model"] == "RGCN" or (r["model"] == "HGT"
+                                   and r["stable"] == "max")
+    return dict(seg_sum_sorted=LAYERS * (1 if one else 2),
+                seg_max_sorted=LAYERS if r["stable"] == "max" else 0)
+
+
+def _train_launches(r, steps):
+    """Each kernel's launches in one ``train`` call of ``r`` (a ``RUNS``
+    value) with ``steps`` timed steps: the warm-up and timed steps and the
+    accuracy pass."""
+    from het_tpu_torch.ops.kernels import KERNELS
+
+    ev = _eval_launches(r)
+    return {k: r["launches"].get(k, 0) * (WARMUP + steps) + ev.get(k, 0)
+            for k in KERNELS}
+
+
+def _data_key(r):
+    """The synthetic stand-in a ``RUNS`` value trains on."""
+    return (r["dataset"], r["scale"], r["union"], r["classes"])
 
 
 def _check_shape_count(kernel, shapes_per_run):
@@ -315,8 +375,8 @@ def _dims():
 def _seg_sum_shapes(g, compact, first_input_grad):
     """[(label, rows of vals, C, row_ptr, perm)] of every seg_sum_sorted
     launch of one training step of the compact branches (the reductions
-    of both, and of the packed form, whose [draw | dfeat] is as wide) or
-    the plain ones on ``g``.  Layer 0's gather backwards run only where
+    of both, and of the packed form, the same) or the plain ones on
+    ``g``.  Layer 0's gather backwards run only where
     its input needs a gradient: the learned embeddings of a single-card
     run, not the fixed features of a data-parallel one.  A union-list
     graph has one compact gather a layer (one projection).  A shard with
@@ -328,15 +388,19 @@ def _seg_sum_shapes(g, compact, first_input_grad):
     dims = _dims()
     shapes = []
     for layer in range(LAYERS):
-        width = HEADS + dims[layer + 1]  # [z | z*feat], [draw | dfeat]
+        width = dims[layer + 1]  # z*feat, dfeat
         gathers = layer > 0 or first_input_grad
-        shapes.append((f"l{layer} fwd dst [z|z*feat]", EP, width,
-                       g.in_row_ptr, None))
+        shapes += [
+            (f"l{layer} fwd dst z", EP, HEADS, g.in_row_ptr, None),
+            (f"l{layer} fwd dst z*feat", EP, width, g.in_row_ptr, None),
+        ]
         if compact:
             shapes += [
                 (f"l{layer} bwd (dst,rel) runs draw", EP, HEADS,
                  D.canon_ptr, None),
-                (f"l{layer} bwd src-compact [draw|dfeat]", EP, width,
+                (f"l{layer} bwd src-compact draw", EP, HEADS,
+                 S.edge_row_ptr, S.edge_sort_perm),
+                (f"l{layer} bwd src-compact dfeat", EP, width,
                  S.edge_row_ptr, S.edge_sort_perm),
             ]
             if gathers:
@@ -408,10 +472,10 @@ def _hgt_seg_sum_shapes(g, compact, stable):
     shapes = []
     for layer in range(LAYERS):
         out = dims[layer + 1]
-        shapes.append((f"l{layer} fwd dst [z|z*msg]", EP, HEADS + out,
-                       g.in_row_ptr, None))
         if compact and stable == "max":
             shapes += [
+                (f"l{layer} fwd dst [z|z*msg]", EP, HEADS + out,
+                 g.in_row_ptr, None),
                 (f"l{layer} bwd msg expansion into src compact", EP, out,
                  S.edge_row_ptr, S.edge_sort_perm),
                 (f"l{layer} bwd score (dst,rel) runs", EP, out, D.canon_ptr,
@@ -421,6 +485,8 @@ def _hgt_seg_sum_shapes(g, compact, stable):
             ]
         elif compact:
             shapes += [
+                (f"l{layer} fwd dst z", EP, HEADS, g.in_row_ptr, None),
+                (f"l{layer} fwd dst z*msg", EP, out, g.in_row_ptr, None),
                 (f"l{layer} bwd src-compact [dmsg|dscore*attq]", EP, 2 * out,
                  S.edge_row_ptr, S.edge_sort_perm),
                 (f"l{layer} bwd src-compact rows -> k", S.seg.n_rows, out,
@@ -430,6 +496,8 @@ def _hgt_seg_sum_shapes(g, compact, stable):
             ]
         else:
             shapes += [
+                (f"l{layer} fwd dst z", EP, HEADS, g.in_row_ptr, None),
+                (f"l{layer} fwd dst z*msg", EP, out, g.in_row_ptr, None),
                 (f"l{layer} bwd q edge rows", E.n_rows, out, g.in_row_ptr,
                  E.inv),
                 (f"l{layer} bwd [k|v] edge rows", E.n_rows, 2 * out,
@@ -449,10 +517,33 @@ def _hgt_seg_sum_shapes(g, compact, stable):
     return shapes
 
 
+def _gat_seg_sum_shapes(g, classes):
+    """The same list for a step of the GAT runs: per layer ``z`` and
+    ``z*feat`` over ``in_row_ptr``, ``d_er`` (``draw``) over it, and
+    ``draw`` and ``dfeat`` over ``out_row_ptr`` through ``out_perm``, at H
+    lanes (4, then 1) or H*D (256, then the ``classes``)."""
+    EP = g.num_padded_edges
+    shapes = []
+    for layer, (heads, width) in enumerate(((HEADS, HEADS * HIDDEN),
+                                            (1, classes))):
+        shapes += [
+            (f"l{layer} fwd dst z", EP, heads, g.in_row_ptr, None),
+            (f"l{layer} fwd dst z*feat", EP, width, g.in_row_ptr, None),
+            (f"l{layer} bwd d_er draw", EP, heads, g.in_row_ptr, None),
+            (f"l{layer} bwd src draw", EP, heads, g.out_row_ptr,
+             g.out_perm),
+            (f"l{layer} bwd src dfeat", EP, width, g.out_row_ptr,
+             g.out_perm),
+        ]
+    return shapes
+
+
 def _run_seg_sum_shapes(run, g):
     """Every seg_sum_sorted launch of a step of ``run`` on ``g`` (rank 0's
     shard for a data-parallel run, whose layer 0 reads fixed features)."""
     spec = _spec(run)
+    if spec["model"] == "GAT":
+        return _gat_seg_sum_shapes(g, spec["classes"])
     if spec["model"] == "HGT":
         return _hgt_seg_sum_shapes(g, spec["compact"],
                                    spec.get("stable", "clip"))
@@ -1785,8 +1876,8 @@ def _config(r, dev, steps):
     from het_tpu_torch.train import TrainConfig
 
     return TrainConfig(
-        model=r["model"], dataset="mag", dataset_scale=r["scale"],
-        n_infeat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+        model=r["model"], dataset=r["dataset"], dataset_scale=r["scale"],
+        n_infeat=r["in_feat"], hidden=HIDDEN, num_classes=r["classes"],
         num_heads=HEADS, num_layers=LAYERS, compact=r["compact"],
         compact_union=r["union"], multiply_first=r["multiply_first"],
         dropout=0.0, stable_softmax=r["stable"], num_epochs=steps,
@@ -1803,8 +1894,8 @@ def _check_losses(run, impl, losses, steps, falling):
 
 def _check_packed(run, r, calls, steps):
     """Dual-list compact multiply-first (``r`` a ``RUNS`` value) took the
-    packed form on every layer of every step (``steps`` counting the
-    warm-up); any other branch never took it."""
+    packed form on every layer of every forward (``steps`` counting the
+    warm-up and the accuracy pass); any other branch never took it."""
     packed = r["compact"] and r["multiply_first"] and not r["union"]
     want = LAYERS * steps if packed else 0
     if calls != want:
@@ -1820,7 +1911,7 @@ def check_training(data, dev, card, run):
     from het_tpu_torch.ops import kernels
     from het_tpu_torch.train import build_model, train
 
-    steps, per_step = RUNS[run]["steps"], RUNS[run]["launches"]
+    steps = RUNS[run]["steps"]
     cfg = _config(RUNS[run], dev, steps)
     state = _initial_state(build_model(cfg, data))
     runs = {}
@@ -1832,7 +1923,7 @@ def check_training(data, dev, card, run):
                       log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
         m["launches"] = kernels.launch_counts()
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        _check_packed(run, RUNS[run], packed.calls, WARMUP + steps)
+        _check_packed(run, RUNS[run], packed.calls, WARMUP + steps + 1)
         runs[impl] = m
     k, p = runs["kernel"], runs["plain"]
     for impl, m in runs.items():
@@ -1842,8 +1933,7 @@ def check_training(data, dev, card, run):
             raise AssertionError(
                 f"{run} step {step}: kernel loss {a} vs plain {b} "
                 f"(rtol {TRAIN_RTOL})")
-    want = {k: per_step.get(k, 0) * (WARMUP + steps)
-            for k in kernels.KERNELS}
+    want = _train_launches(RUNS[run], steps)
     if k["launches"] != want:
         raise AssertionError(f"{run}: kernel run launched {k['launches']},"
                              f" expected {want}")
@@ -1858,6 +1948,7 @@ def check_training(data, dev, card, run):
             "median_warm_step_ms": warm,
             "edges_per_s": E / (warm / 1e3),
             "launches": m["launches"], "peak_mem_gb": m["peak_mem_gb"],
+            **{key: m[key] for key in REPORT_KEYS},
         }
     print(f"training {run} ({card}):", json.dumps(summary))
     return k["launches"], summary
@@ -1908,11 +1999,10 @@ def check_full_scale(dev, card):
                       log=lambda s, n=name: print(f"[{n} kernel] {s}"))
         launches[name] = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        _check_packed(name, r, packed.calls, WARMUP + steps)
+        _check_packed(name, r, packed.calls, WARMUP + steps + 1)
         _check_losses(name, "kernel", m["loss_list"], steps,
                       steps == FULL_STEPS)
-        want = {k: r["launches"].get(k, 0) * (WARMUP + steps)
-                for k in kernels.KERNELS}
+        want = _train_launches(r, steps)
         if launches[name] != want:
             raise AssertionError(f"{name}: launched {launches[name]}, "
                                  f"expected {want}")
@@ -1922,7 +2012,7 @@ def check_full_scale(dev, card):
             "edges": E, "losses": m["loss_list"],
             "step_ms": m["step_ms_list"], "median_warm_step_ms": warm,
             "edges_per_s": E / (warm / 1e3), "launches": launches[name],
-            "peak_mem_gb": peak}))
+            "peak_mem_gb": peak, **{key: m[key] for key in REPORT_KEYS}}))
         del m
         gc.collect()
         torch.cuda.empty_cache()
@@ -1956,23 +2046,25 @@ def main() -> int:
         print(log)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
-    # the synthetic stand-in at each (scale, union-list) the runs take
+    # the synthetic stand-in at each (dataset, scale, union-list) the runs
+    # take
     datasets = {}
-    for key in sorted({(r["scale"], r["union"]) for r in RUNS.values()}):
+    for key in sorted({_data_key(r) for r in RUNS.values()}):
         t0 = time.perf_counter()
-        datasets[key] = load_dataset("mag", scale=key[0], num_classes=CLASSES,
-                                     seed=0, compact_union=key[1],
-                                     data_roots=())
+        datasets[key] = load_dataset(key[0], scale=key[1],
+                                     num_classes=key[3], seed=0,
+                                     compact_union=key[2], data_roots=())
         g = datasets[key].graph
-        print(f"graph (scale {key[0]}, union {key[1]}) built in "
+        print(f"graph ({key[0]}, scale {key[1]}, union {key[2]}) built in "
               f"{time.perf_counter() - t0:.1f} s: {g.describe()}, (dst, rel) "
               f"runs {g.compact_dst.canon_ptr.numel() - 1}, relation-sorted "
               f"edge rows {g.edge_rel_seg.n_rows} "
               f"{g.edge_rel_seg.seg_ptrs_static}")
-    data = datasets[(SCALE, False)]
+    data = datasets[_data_key(RUNS[MAIN])]
     gd = data.graph.to(dev)
-    gu = datasets[(SCALE, True)].graph.to(dev)
-    gp = datasets[(PACKED_SCALE, False)].graph.to(dev)
+    gu = datasets[_data_key(RUNS["union_compact"])].graph.to(dev)
+    gp = datasets[_data_key(RUNS[SLICE_MAIN])].graph.to(dev)
+    ga = datasets[_data_key(RUNS["gat_arxiv"])].graph.to(dev)
 
     parts = partition_dp(data)
     # rank 0's shard of each data-parallel run (one copy a partition)
@@ -1984,7 +2076,8 @@ def main() -> int:
         check_seg_sum({"compact_multiply_first": gd, MAIN: gd,
                        SLICE_MAIN: gp, "union_compact_multiply_first": gu,
                        "rgcn_plain": gd, "rgcn_compact": gd, "hgt_plain": gd,
-                       "hgt_compact": gd, "hgt_compact_max": gd, **shards},
+                       "hgt_compact": gd, "hgt_compact_max": gd, "gat": gd,
+                       "gat_arxiv": ga, **shards},
                       dev, flush),
         check_seg_max({SLICE_MAIN: gp, "plain_max": gd,
                        "hgt_compact_max": gd}, dev, flush),
@@ -1995,13 +2088,13 @@ def main() -> int:
     compare_fused_forms({"compact_multiply_first": gd, SLICE_MAIN: gp}, dev,
                         flush)
     check_rgcn_layer0(gd, dev)
-    del flush, gd, gu, gp, shards, on_card
+    del flush, gd, gu, gp, ga, shards, on_card
     torch.cuda.empty_cache()
 
     launches, summaries = {}, {}
     for run, r in RUNS.items():
         launches[run], summaries[run] = check_training(
-            datasets[(r["scale"], r["union"])], dev, card, run)
+            datasets[_data_key(r)], dev, card, run)
     ratio = (summaries[MAIN]["kernel"]["median_warm_step_ms"]
              / summaries["compact_multiply_first"]["kernel"]
              ["median_warm_step_ms"])
@@ -2014,7 +2107,7 @@ def main() -> int:
              / summaries["hgt_compact"]["kernel"]["median_warm_step_ms"])
     print(f"HGT plain / compact step time, kernels ({card}): {ratio:.3f}")
     for key in list(datasets):  # host memory for the full-scale graph
-        if key != (SCALE, False):
+        if key != _data_key(RUNS[MAIN]):
             del datasets[key]
     full_launches, full_totals = check_full_scale(dev, card)
     launches.update(full_launches)

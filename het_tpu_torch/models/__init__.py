@@ -1,4 +1,5 @@
 from .embed import NodeEmbed  # noqa: F401
+from .gat import GATLayer, GATModel  # noqa: F401
 from .hgt import HGTLayer, HGTModel  # noqa: F401
 from .rgat import RGATLayer, RGATModel  # noqa: F401
 from .rgcn import RGCNLayer, RGCNModel, SeastarRGCNLayer0  # noqa: F401

@@ -3,16 +3,16 @@
 ``het_tpu.train`` keeps its parameters as
 ``{"embed": {"params": {"embed"}}, "model": {"params": {group: {...}}}}``
 with one flax group a layer: ``RGATLayer_i``, ``RGCNLayer_i``,
-``HGTLayer_i`` or, for the featureless RGCN, ``SeastarRGCNLayer0_0``
-followed by ``RGCNLayer_0``.  A group may nest a submodule's own group:
-an HGT layer's ``LayerNorm_0`` (``scale``, ``bias``) is the port's
-``norm`` (``weight``, ``bias``).
+``HGTLayer_i``, ``GATLayer_i`` or, for the featureless RGCN,
+``SeastarRGCNLayer0_0`` followed by ``RGCNLayer_0``.  A group may nest a
+submodule's own group: an HGT layer's ``LayerNorm_0`` (``scale``,
+``bias``) is the port's ``norm`` (``weight``, ``bias``).
 The port keeps the same arrays under the same leaf names in a
 :class:`~het_tpu_torch.train.driver.NodeClassifier` state dict, a layer
 at its place in the model (``model.layers.{i}``), which is not always its
 flax suffix.  ``het_tpu.parallel.DPGNN.init`` returns a list of per-layer
 ``{"params": {...}}`` dicts; the port's ``DPGNN`` (and ``RGATModel``,
-``RGCNModel``, ``HGTModel``) keeps them as ``layers.{i}``.
+``RGCNModel``, ``HGTModel``, ``GATModel``) keeps them as ``layers.{i}``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 _GROUP = re.compile(
-    r"(RGATLayer|RGCNLayer|HGTLayer|SeastarRGCNLayer0)_(\d+)")
+    r"(RGATLayer|GATLayer|RGCNLayer|HGTLayer|SeastarRGCNLayer0)_(\d+)")
 # nested flax groups -> the port's submodule and its leaf names
 _NESTED = {"LayerNorm_0": ("norm", {"scale": "weight", "bias": "bias"})}
 

@@ -12,6 +12,7 @@ from .linear import (compact_dst_inner, compact_typed_linear,  # noqa: F401
                      expand_compact, ntype_linear, segment_matmul,
                      segment_rel_inner)
 from .spmm import (CLIP_LOGIT, edge_softmax,  # noqa: F401
+                   gat_layer_core, gat_node_fused, gat_node_fused2d,
                    hgt_compact_attention, hgt_edge_softmax,
                    hgt_plain_attention, hgt_plain_layer_core,
                    hgt_softmax_weighted_agg,

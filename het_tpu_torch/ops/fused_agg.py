@@ -2,7 +2,7 @@
 
 :class:`FusedGAT` is the counterpart of
 ``het_tpu/ops/pallas/fused_agg.py::_make_fused_op`` (per-edge inputs, the
-plain RGAT path): one sorted segment sum of ``[z | z*feat]`` over
+plain RGAT path): sorted segment sums of ``z`` and ``z*feat`` over
 ``in_row_ptr`` forward, gathers and elementwise work backward.
 
 :class:`CompactFusedGAT` is the counterpart of ``_make_compact_fused_op``
@@ -40,7 +40,7 @@ Backward, with ``s`` the softmax denominators:
               * act'(raw_e)
 
 ``draw`` is summed over the canonical (dst, rel) runs into destination
-compact rows (d_er); ``[draw | dfeat]`` is summed, through
+compact rows (d_er); ``draw`` and ``dfeat`` are summed, through
 ``edge_sort_perm``, into source compact rows (d_el, d_feat).
 
 :class:`CompactWeightedAgg` is the counterpart of
@@ -61,6 +61,19 @@ in one op each, with the backward above and ``d_mu``, the sum of ``draw *
 score`` a relation, the grouped dW over the relation-sorted edge rows.
 :func:`fused_softmax_agg` is :class:`FusedGAT` with the activation
 named ("identity" is a leaky ReLU of slope 1).
+
+:class:`NodeFusedGAT` and :class:`GATLayerFused` are the counterparts of
+``_make_node_fused_op`` and ``_make_gat_layer_op``, homogeneous GAT's ops
+with node-sided inputs: the logits ``el[src] + er[dst]`` and the features
+``feat[src]`` are gathered from node rows, the forward sums ``z`` and
+``z*feat`` over ``in_row_ptr`` and the backward reduces ``draw`` over it
+(d_er) and ``draw`` and ``dfeat`` over the source CSR, ``out_row_ptr``
+through ``out_perm`` (d_el, d_feat).  The layer op computes the projection
+and the logits inside and pulls their gradients back at node scale.
+
+Every op sums its narrow and wide per-edge terms (``z`` and ``z*feat``;
+``draw`` and ``dfeat`` at the source side) through one helper,
+:func:`_sum_heads`, in two segment sums.
 """
 
 from __future__ import annotations
@@ -110,16 +123,6 @@ def _softmax_num(g, raw, slope: float, stable: str, impl: str):
     return torch.exp(a - gather_dst(g, m)), m
 
 
-def _softmax_terms(raw, slope: float, stable: str, m_e):
-    """Backward: ``z`` and ``act'(raw)`` per edge, with ``m_e`` the
-    gathered destination max under ``stable == "max"``."""
-    clip = _clip(stable)
-    a = _act_apply(raw, slope, clip)
-    if m_e is not None:
-        a = a - m_e
-    return torch.exp(a), _act_deriv(raw, slope, clip)
-
-
 def _ct_pack(g, ct, s, out, m):
     """One destination gather (monotone in canonical order) of everything
     the backward reads per edge: ``ct`` (HD lanes), ``s``, ``<out, ct>``
@@ -133,6 +136,57 @@ def _ct_pack(g, ct, s, out, m):
     m_d = cpe[:, HD + 2 * H:] if m is not None else None
     return (cpe[:, :HD], cpe[:, HD:HD + H], cpe[:, HD + H:HD + 2 * H],
             m_d)
+
+
+def _softmax_backward(g, ct, s, out, raw, feat_e, slope: float,
+                      clip: Optional[float], m=None):
+    """The backward terms every fused op shares (the module docstring's):
+    one destination gather (:func:`_ct_pack`), then ``ctd`` (EP, H*D),
+    ``alpha`` and ``draw`` (EP, H).  ``ct`` and ``out`` are (N, H, D),
+    ``feat_e`` (EP, H*D) or (EP, H, D), ``raw`` (EP, H); ``slope`` is 1
+    for HGT's identity; ``m`` is the destination max (N, H) under
+    stable="max", else None."""
+    ctd, s_d, t2d, m_d = _ct_pack(g, ct.float(), s, out, m)
+    a = _act_apply(raw, slope, clip)
+    if m_d is not None:
+        a = a - m_d
+    alpha = safe_div(torch.exp(a), s_d)  # 0 on padding edges (s_d = 0)
+    n, H = alpha.shape
+    t1 = (feat_e.view(n, H, -1) * ctd.view(n, H, -1)).sum(-1)
+    draw = alpha * (t1 - t2d) * _act_deriv(raw, slope, clip)
+    return ctd, alpha, draw
+
+
+def _per_head(a, b, out=None):
+    """``a`` (n, H) times ``b`` (n, H*dk) or (n, H, dk) head by head ->
+    (n, H*dk), written into ``out`` (an (n, H*dk) view) where given: no
+    repeated (n, H*dk) copy of ``a`` and no concatenation."""
+    n, H = a.shape
+    if out is None:
+        return (a[..., None] * b.view(n, H, -1)).view(n, -1)
+    torch.mul(a[..., None], b.view(n, H, -1), out=out.view(n, H, -1))
+    return out
+
+
+def _sum_heads(n, a, b, ptr, perm, impl: str):
+    """``n`` and ``a*b`` (head by head) summed over ``ptr``, reading row
+    ``perm[e]`` where given: ``n`` and ``a`` (EP, H), ``b`` (EP, H*D) or
+    (EP, H, D), either a view -> ``(sum n (rows, H), sum a*b (rows,
+    H*D))``.  Two segment sums and no ``[n | a*b]`` buffer: building one
+    costs more than the narrow sum's walk at every width the models give
+    (PERF.md's GAT findings)."""
+    return (seg_sum_sorted(n, ptr, perm, impl=impl),
+            seg_sum_sorted(_per_head(a, b), ptr, perm, impl=impl))
+
+
+def _aggregate(g, z, feat_e, impl: str):
+    """The forward aggregation: ``s = sum z`` and ``out = sum z*feat / s``
+    over ``in_row_ptr`` (:func:`_sum_heads`), ``z`` (EP, H), ``feat_e``
+    (EP, H*D) or (EP, H, D) in canonical order.  Padding edges lie past
+    ``in_row_ptr``'s end: never reduced.  Returns ``(s, out (N, H, D))``."""
+    s, num = _sum_heads(z, z, feat_e, g.in_row_ptr, None, impl)
+    H = z.shape[1]
+    return s, safe_div(num.view(-1, H, num.shape[1] // H), s[..., None])
 
 
 def _compact_raw(el_feat_c, er_c, infoS, infoD, H):
@@ -153,15 +207,8 @@ class FusedGAT(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat2d, raw, g, slope: float, stable: str, impl: str):
-        H = raw.shape[1]
-        D = feat2d.shape[1] // H
-        # padding edges lie past in_row_ptr's end: never reduced
         z, m = _softmax_num(g, raw.float(), slope, stable, impl)
-        payload = torch.cat([z, z.repeat_interleave(D, 1) * feat2d.float()],
-                            dim=1)
-        agg = seg_sum_sorted(payload, g.in_row_ptr, impl=impl)
-        s, num = agg[:, :H], agg[:, H:]
-        out = safe_div(num.view(-1, H, D), s[..., None])
+        s, out = _aggregate(g, z, feat2d.float(), impl)
         ctx.save_for_backward(feat2d, raw, s, out, m)
         ctx.g, ctx.slope, ctx.stable = g, slope, stable
         return out.to(feat2d.dtype)
@@ -169,15 +216,10 @@ class FusedGAT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         feat2d, raw, s, out, m = ctx.saved_tensors
-        H = raw.shape[1]
-        D = feat2d.shape[1] // H
-        ctd, s_d, t2d, m_d = _ct_pack(ctx.g, ct.float(), s, out, m)
-        z, actd = _softmax_terms(raw.float(), ctx.slope, ctx.stable, m_d)
-        alpha = safe_div(z, s_d)
-        t1 = (feat2d.float() * ctd).view(-1, H, D).sum(-1)
-        draw = alpha * (t1 - t2d) * actd
-        dfeat = alpha.repeat_interleave(D, 1) * ctd
-        return (dfeat.to(feat2d.dtype), draw.to(raw.dtype),
+        ctd, alpha, draw = _softmax_backward(
+            ctx.g, ct, s, out, raw.float(), feat2d.float(), ctx.slope,
+            _clip(ctx.stable), m)
+        return (_per_head(alpha, ctd).to(feat2d.dtype), draw.to(raw.dtype),
                 None, None, None, None)
 
 
@@ -198,17 +240,11 @@ class CompactFusedGAT(torch.autograd.Function):
     def forward(ctx, feat_c2d, el_c, er_c, g, slope: float, stable: str,
                 impl: str):
         H = el_c.shape[1]
-        HD = feat_c2d.shape[1]
-        D = HD // H
         el_feat_c = torch.cat([el_c, feat_c2d], dim=1).float()
         raw, feat_e = _compact_raw(el_feat_c, er_c.float(), g.compact_src,
                                    g.compact_dst, H)
         z, m = _softmax_num(g, raw, slope, stable, impl)
-        # (EP, H) -> (EP, H*D) head-major
-        payload = torch.cat([z, z.repeat_interleave(D, 1) * feat_e], dim=1)
-        agg = seg_sum_sorted(payload, g.in_row_ptr, impl=impl)
-        s, num = agg[:, :H], agg[:, H:]
-        out = safe_div(num.view(-1, H, D), s[..., None])
+        s, out = _aggregate(g, z, feat_e, impl)
         ctx.save_for_backward(feat_c2d, el_c, er_c, s, out, m)
         ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
         return out.to(feat_c2d.dtype)
@@ -219,35 +255,26 @@ class CompactFusedGAT(torch.autograd.Function):
         g, impl = ctx.g, ctx.impl
         infoS, infoD = g.compact_src, g.compact_dst
         H = el_c.shape[1]
-        HD = feat_c2d.shape[1]
-        D = HD // H
-        ctd, s_d, t2d, m_d = _ct_pack(g, ct.float(), s, out, m)
         el_feat_c = torch.cat([el_c, feat_c2d], dim=1).float()
         raw, feat_e = _compact_raw(el_feat_c, er_c.float(), infoS, infoD, H)
-        z, actd = _softmax_terms(raw, ctx.slope, ctx.stable, m_d)
-        alpha = safe_div(z, s_d)
-        t1 = (feat_e * ctd).view(-1, H, D).sum(-1)
-        draw = alpha * (t1 - t2d) * actd
-        dfeat = alpha.repeat_interleave(D, 1) * ctd
-
+        ctd, alpha, draw = _softmax_backward(
+            g, ct, s, out, raw, feat_e, ctx.slope, _clip(ctx.stable), m)
+        del feat_e
         d_er_c = _d_er(infoD, draw, impl)
-        # source side: the canonical payload read in compact-row order
-        red_s = seg_sum_sorted(torch.cat([draw, dfeat], dim=1),
-                               infoS.edge_row_ptr, infoS.edge_sort_perm,
-                               impl=impl)
-        return (red_s[:, H:].to(feat_c2d.dtype),
-                red_s[:, :H].to(el_c.dtype),
+        # source side: draw and dfeat read in compact-row order
+        d_el_c, d_feat_c = _sum_heads(draw, alpha, ctd, infoS.edge_row_ptr,
+                                      infoS.edge_sort_perm, impl)
+        return (d_feat_c.to(feat_c2d.dtype), d_el_c.to(el_c.dtype),
                 d_er_c.to(er_c.dtype), None, None, None, None)
 
 
 class CompactFusedGATPacked(torch.autograd.Function):
     """``forward(fe2d (UCs, H*(1+D)), er_c (UCd, H), g, slope, stable,
     impl) -> (N, H, D)`` with per-head lanes ``[el | feat]`` in ``fe2d``.
-    The backward's source-side payload is built in the same per-head
-    ``[draw | dfeat]`` layout, so one segment sum through
-    ``edge_sort_perm`` returns ``d_fe`` as it is; the destination
-    (dst, rel)-run reduce takes only the ``draw`` lanes.  Five segment
-    sums a layer with the compact gathers, as the split op."""
+    The backward sums ``draw`` and ``dfeat`` through ``edge_sort_perm``
+    and lays the compact rows' sums out per head as ``[d_el | d_feat]``,
+    ``d_fe``; the destination (dst, rel)-run reduce takes ``draw``.  Seven
+    segment sums a layer with the compact gathers, as the split op."""
 
     @staticmethod
     def _edge_rows(fe2d, er_c, g, H):
@@ -261,13 +288,8 @@ class CompactFusedGATPacked(torch.autograd.Function):
     def forward(ctx, fe2d, er_c, g, slope: float, stable: str, impl: str):
         H = er_c.shape[1]
         raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
-        D = ge.shape[2] - 1
         z, m = _softmax_num(g, raw, slope, stable, impl)
-        zf = (z[..., None] * ge[..., 1:]).reshape(-1, H * D)
-        agg = seg_sum_sorted(torch.cat([z, zf], dim=1), g.in_row_ptr,
-                             impl=impl)
-        s, num = agg[:, :H], agg[:, H:]
-        out = safe_div(num.view(-1, H, D), s[..., None])
+        s, out = _aggregate(g, z, ge[..., 1:], impl)
         ctx.save_for_backward(fe2d, er_c, s, out, m)
         ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
         return out.to(fe2d.dtype)
@@ -278,18 +300,16 @@ class CompactFusedGATPacked(torch.autograd.Function):
         g, impl = ctx.g, ctx.impl
         H = er_c.shape[1]
         raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
-        D = ge.shape[2] - 1
-        ctd, s_d, t2d, m_d = _ct_pack(g, ct.float(), s, out, m)
-        ctd3 = ctd.view(-1, H, D)
-        z, actd = _softmax_terms(raw, ctx.slope, ctx.stable, m_d)
-        alpha = safe_div(z, s_d)
-        t1 = (ge[..., 1:] * ctd3).sum(-1)
-        draw = alpha * (t1 - t2d) * actd  # (EP, H)
-        pay = torch.cat([draw[..., None], alpha[..., None] * ctd3],
-                        dim=2).view(-1, H * (1 + D))
+        ctd, alpha, draw = _softmax_backward(
+            g, ct, s, out, raw, ge[..., 1:], ctx.slope, _clip(ctx.stable), m)
+        del ge
         infoS = g.compact_src
-        d_fe = seg_sum_sorted(pay, infoS.edge_row_ptr, infoS.edge_sort_perm,
-                              impl=impl)
+        d_el_c, d_feat_c = _sum_heads(draw, alpha, ctd, infoS.edge_row_ptr,
+                                      infoS.edge_sort_perm, impl)
+        del ctd, alpha
+        d_fe = torch.cat([d_el_c[..., None], d_feat_c.view(-1, H,
+                          d_feat_c.shape[1] // H)], dim=2)
+        d_fe = d_fe.view(d_fe.shape[0], -1)
         d_er_c = _d_er(g.compact_dst, draw, impl)
         return (d_fe.to(fe2d.dtype), d_er_c.to(er_c.dtype),
                 None, None, None, None)
@@ -356,42 +376,6 @@ def fused_softmax_agg(g, feat_e: torch.Tensor, raw_e: torch.Tensor, *,
 # ------------------------------------------------------------------- HGT
 
 
-def _hgt_softmax_backward(g, ct, s, out, raw, feat_e, clip, H):
-    """The backward terms the HGT ops share (the module docstring's, with
-    the identity activation and an optional clip): ``ctd`` (EP, H*dk),
-    ``alpha`` and ``draw`` (EP, H)."""
-    ctd, s_d, t2d, _ = _ct_pack(g, ct.float(), s, out, None)
-    z = torch.exp(_act_apply(raw, 1.0, clip))
-    alpha = safe_div(z, s_d)  # 0 on padding edges (s_d = 0)
-    t1 = (feat_e * ctd).view(ctd.shape[0], H, -1).sum(-1)
-    draw = alpha * (t1 - t2d) * _act_deriv(raw, 1.0, clip)
-    return ctd, alpha, draw
-
-
-def _per_head(a, b, out=None):
-    """``a`` (n, H) times ``b`` (n, H*dk) head by head -> (n, H*dk),
-    written into ``out`` (an (n, H*dk) view) where given: no repeated
-    (n, H*dk) copy of ``a`` and no concatenation."""
-    n, H = a.shape
-    if out is None:
-        return (a[..., None] * b.view(n, H, -1)).view(n, -1)
-    torch.mul(a[..., None], b.view(n, H, -1), out=out.view(n, H, -1))
-    return out
-
-
-def _hgt_aggregate(g, z, msg_e, impl):
-    """Forward aggregation: one segment sum of ``[z | z*msg]`` over
-    ``in_row_ptr``; returns ``(s, out)``."""
-    EP, H = z.shape
-    pay = z.new_empty(EP, H + msg_e.shape[1])
-    pay[:, :H] = z
-    _per_head(z, msg_e, pay[:, H:])
-    agg = seg_sum_sorted(pay, g.in_row_ptr, impl=impl)
-    s = agg[:, :H]
-    return s, safe_div(agg[:, H:].view(-1, H, msg_e.shape[1] // H),
-                       s[..., None])
-
-
 class HGTCompactAttention(torch.autograd.Function):
     """HGT's compact attention chain in one op
     (``_make_hgt_compact_attention_op``):
@@ -401,8 +385,8 @@ class HGTCompactAttention(torch.autograd.Function):
                   * msg_c[rowS(e)]
 
     ``forward(msg2d (UCs, H*dk), attq2d (UCd, H*dk), k2d (src_space,
-    H*dk), mu (R, H), g, clip, impl) -> (N, H, dk)``.  The forward is one
-    segment sum of ``[z | z*msg]`` over ``in_row_ptr`` and keeps no
+    H*dk), mu (R, H), g, clip, impl) -> (N, H, dk)``.  The forward is the
+    segment sums of ``z`` and ``z*msg`` over ``in_row_ptr`` and keeps no
     per-edge tensor: the backward recomputes the score chain from
     compact-row and node gathers.  Backward: ``[dfeat | dscore*attq]``
     summed through ``edge_sort_perm`` into source compact rows (``d_msg``
@@ -430,7 +414,7 @@ class HGTCompactAttention(torch.autograd.Function):
             msg2d, attq2d, k2d, mu, g)
         z = torch.exp(_act_apply(score * mu_e, 1.0, clip))
         # padding edges lie past in_row_ptr's end: never reduced
-        s, out = _hgt_aggregate(g, z, feat_e, impl)
+        s, out = _aggregate(g, z, feat_e, impl)
         ctx.save_for_backward(msg2d, attq2d, k2d, mu, s, out)
         ctx.g, ctx.clip, ctx.impl = g, clip, impl
         return out.to(msg2d.dtype)
@@ -444,8 +428,8 @@ class HGTCompactAttention(torch.autograd.Function):
         dk = msg2d.shape[1] // H
         attq_e, k_e, score, mu_e, feat_e = HGTCompactAttention._edge_terms(
             msg2d, attq2d, k2d, mu, g)
-        ctd, alpha, draw = _hgt_softmax_backward(
-            g, ct, s, out, score * mu_e, feat_e, ctx.clip, H)
+        ctd, alpha, draw = _softmax_backward(
+            g, ct, s, out, score * mu_e, feat_e, 1.0, ctx.clip)
         del feat_e  # the per-edge rows go as soon as they are read
         dscore = draw * mu_e
         d_mu = edge_rel_scale_grad(g, score, draw, impl=impl)
@@ -477,10 +461,11 @@ class HGTPlainFull(torch.autograd.Function):
     ``forward(v2d, q2d, k2d (rows, H*dk), w_msg, w_att (R, H, dk, dk), mu
     (R, H), g, clip, impl) -> (N, H, dk)``.  Forward: the two matmuls on
     the edge rows (:func:`~.linear.segment_matmul`, a row's input one a
-    head), one read-back of ``[score | msg]`` through ``seg.inv``, one
-    segment sum over ``in_row_ptr``.  It keeps the per-edge score (EP, H)
-    and recomputes the matmuls in the backward, which takes: their
-    pullbacks (:func:`~.linear.segment_matmul_pullback`), ``d_q`` as one
+    head), one read-back of ``[score | msg]`` through ``seg.inv``, the
+    segment sums of :func:`_aggregate` over ``in_row_ptr``.  It keeps the
+    per-edge score (EP, H) and recomputes the matmuls in the backward,
+    which takes: their pullbacks
+    (:func:`~.linear.segment_matmul_pullback`), ``d_q`` as one
     segment sum over ``in_row_ptr`` through ``seg.inv``, ``d_k`` and
     ``d_v`` together in one over ``out_row_ptr`` through
     ``seg.inv[out_perm]``, and ``d_mu`` as in :class:`HGTCompactAttention`."""
@@ -508,7 +493,7 @@ class HGTPlainFull(torch.autograd.Function):
         score = se[:, :H].contiguous()
         mu_e = take_rows(mu, g.rel).float()
         z = torch.exp(_act_apply(score * mu_e, 1.0, clip))
-        s, out = _hgt_aggregate(g, z, se[:, H:], impl)
+        s, out = _aggregate(g, z, se[:, H:], impl)
         ctx.save_for_backward(v2d, q2d, k2d, w_msg, w_att, mu, score, s, out)
         ctx.g, ctx.clip, ctx.impl = g, clip, impl
         return out.to(v2d.dtype)
@@ -524,8 +509,8 @@ class HGTPlainFull(torch.autograd.Function):
         v_rows, msg_rows = HGTPlainFull._rows(v2d, w_msg, g, "src", H, impl)
         msg_e = take_rows(msg_rows.reshape(-1, HD), seg.inv).float()
         mu_e = take_rows(mu, g.rel).float()
-        ctd, alpha, draw = _hgt_softmax_backward(
-            g, ct, s, out, score * mu_e, msg_e, ctx.clip, H)
+        ctd, alpha, draw = _softmax_backward(
+            g, ct, s, out, score * mu_e, msg_e, 1.0, ctx.clip)
         d_mu = edge_rel_scale_grad(g, score, draw, impl=impl)
         # one canonical -> rows take serves dscore and dmsg
         both = take_rows(torch.cat([draw * mu_e, _per_head(alpha, ctd)],
@@ -561,3 +546,140 @@ class HGTPlainFull(torch.autograd.Function):
                 d_v = red[:, HD:].to(v2d.dtype)
         return (d_v, d_q.to(q2d.dtype) if d_q is not None else None, d_k,
                 d_wmsg, d_watt, d_mu.to(mu.dtype), None, None, None)
+
+
+# ------------------------------------------------------------------- GAT
+
+
+def _node_logits(el, er, g):
+    """Per-edge ``raw = el[src] + er[dst]`` (EP, H) in canonical order;
+    padding edges read the sentinel rows (zeros), and no sum reads them."""
+    return gather_nodes(el, g.src).float() + gather_nodes(er, g.dst).float()
+
+
+def _node_fused_forward(feat2d, el, er, g, slope, clip, impl):
+    """The node-sided forward: ``z = exp(act(el[src] + er[dst]))``, then
+    :func:`_aggregate`.  Returns ``(feat[src] (EP, H*D), s, out)``, out
+    (N, H, D)."""
+    z = torch.exp(_act_apply(_node_logits(el, er, g), slope, clip))
+    feat_e = gather_nodes(feat2d, g.src).float()
+    return (feat_e,) + _aggregate(g, z, feat_e, impl)
+
+
+def _node_fused_backward(ct, feat_e, el, er, s, out, g, slope, clip, impl):
+    """The node-sided backward from ``feat[src]`` and the saved ``(s,
+    out)``: ``z`` and ``act'`` recomputed, ``d_er`` the segment sum of
+    ``draw`` over ``in_row_ptr``, and ``draw`` and ``dfeat`` summed over
+    ``out_row_ptr`` through ``out_perm`` into the sources (``d_el``,
+    ``d_feat``).  ``ct`` is (N, H*D); returns ``(d_feat (S, H*D), d_el
+    (S, H), d_er (N, H))``."""
+    H = el.shape[1]
+    ctd, alpha, draw = _softmax_backward(
+        g, ct.reshape(-1, H, feat_e.shape[1] // H), s, out,
+        _node_logits(el, er, g), feat_e, slope, clip)
+    d_er = seg_sum_sorted(draw, g.in_row_ptr, impl=impl)
+    d_el, d_feat = _sum_heads(draw, alpha, ctd, g.out_row_ptr, g.out_perm,
+                              impl)
+    return d_feat, d_el, d_er
+
+
+class NodeFusedGAT(torch.autograd.Function):
+    """Homogeneous GAT's fused softmax aggregation with node-sided inputs
+    (``_make_node_fused_op``):
+
+        out[v] = sum_{dst(e)=v} softmax_v(act(el[src(e)] + er[dst(e)]))
+                 * feat[src(e)]
+
+    ``forward(feat2d (S, H*D) head-major, el (S, H), er (N, H), g, slope,
+    clip, impl) -> (N, H*D)``.  The forward sums over ``in_row_ptr`` and
+    saves ``(feat2d, el, er, s, out)``, no per-edge tensor, as het_tpu;
+    the backward (:func:`_node_fused_backward`) gathers ``feat[src]``
+    again and reduces the source side over the graph's source CSR, not
+    over compact metadata."""
+
+    @staticmethod
+    def forward(ctx, feat2d, el, er, g, slope: float,
+                clip: Optional[float], impl: str):
+        _, s, out = _node_fused_forward(feat2d, el, er, g, slope, clip,
+                                        impl)
+        ctx.save_for_backward(feat2d, el, er, s, out)
+        ctx.g, ctx.slope, ctx.clip, ctx.impl = g, slope, clip, impl
+        return out.reshape(out.shape[0], -1).to(feat2d.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        feat2d, el, er, s, out = ctx.saved_tensors
+        g = ctx.g
+        d_feat, d_el, d_er = _node_fused_backward(
+            ct, gather_nodes(feat2d, g.src).float(), el, er, s, out, g,
+            ctx.slope, ctx.clip, ctx.impl)
+        return (d_feat.to(feat2d.dtype), d_el.to(el.dtype),
+                d_er.to(er.dtype), None, None, None, None)
+
+
+class GATLayerFused(torch.autograd.Function):
+    """Homogeneous GAT's layer core in one op (``_make_gat_layer_op``): the
+    projection ``feat = x W``, the logits ``el = <feat, attn_l>`` and ``er
+    = <feat, attn_r>`` a head, the softmax and the aggregation of
+    :class:`NodeFusedGAT`.
+
+    ``forward(x2d (N, F), w (F, H*D), attn_l, attn_r (H, D), g, slope,
+    clip, impl) -> (N, H*D)``, for a graph whose source space is its
+    destinations.  It saves ``x2d``, the parameters, ``feat[src]`` (EP,
+    H*D) and ``(s, out)``, and recomputes the projection (a node-scale
+    matmul) in the backward, which takes :func:`_node_fused_backward`'s
+    sums and pulls ``d_feat`` and the logits' gradients back through the
+    projection at node scale: ``dx = d_feat' W^T``, ``dW = x^T d_feat'``
+    with ``d_feat' = d_feat + d_el attn_l + d_er attn_r`` a head.
+
+    Two choices differ from het_tpu's, each measured on the card at GAT's
+    widths (PERF.md's GAT findings): het_tpu reassociates the backward (dW
+    one contraction over the edges, dx a head-mixed F-lane payload) to keep
+    wide payloads out of its source-side passes, which is slower here; and
+    it gathers
+    ``feat[src]`` again above 512 MB, where saving it is faster here and
+    leaves the step's peak as it was (the backward holds those rows
+    either way)."""
+
+    @staticmethod
+    def _node_terms(x2d, w, attn_l, attn_r):
+        """``feat`` (N, H, D) and the logits ``el``, ``er`` (N, H)."""
+        H, D = attn_l.shape
+        f3 = (x2d.float() @ w.float()).view(-1, H, D)
+        return (f3, (f3 * attn_l.float()).sum(-1),
+                (f3 * attn_r.float()).sum(-1))
+
+    @staticmethod
+    def forward(ctx, x2d, w, attn_l, attn_r, g, slope: float,
+                clip: Optional[float], impl: str):
+        f3, el, er = GATLayerFused._node_terms(x2d, w, attn_l, attn_r)
+        feat_e, s, out = _node_fused_forward(f3.view(f3.shape[0], -1), el,
+                                             er, g, slope, clip, impl)
+        ctx.save_for_backward(x2d, w, attn_l, attn_r, feat_e, s, out)
+        ctx.g, ctx.slope, ctx.clip, ctx.impl = g, slope, clip, impl
+        return out.reshape(out.shape[0], -1).to(x2d.dtype)
+
+    @staticmethod
+    def _pullback(x2d, w, attn_l, attn_r, f3, d_feat, d_el, d_er):
+        """The gradients of ``(x2d, w, attn_l, attn_r)`` from those of
+        ``feat`` (N, H*D), ``el`` and ``er`` (N, H), at node scale."""
+        n, H, D = f3.shape
+        d_f3 = (d_feat.view(n, H, D) + d_el[..., None] * attn_l.float()
+                + d_er[..., None] * attn_r.float())
+        d_al = (d_el[..., None] * f3).sum(0)
+        d_ar = (d_er[..., None] * f3).sum(0)
+        d_f2 = d_f3.view(n, H * D)
+        dx = d_f2 @ w.float().t()
+        dw = x2d.float().t() @ d_f2
+        return (dx.to(x2d.dtype), dw.to(w.dtype), d_al.to(attn_l.dtype),
+                d_ar.to(attn_r.dtype), None, None, None, None)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x2d, w, attn_l, attn_r, feat_e, s, out = ctx.saved_tensors
+        f3, el, er = GATLayerFused._node_terms(x2d, w, attn_l, attn_r)
+        d_feat, d_el, d_er = _node_fused_backward(
+            ct, feat_e, el, er, s, out, ctx.g, ctx.slope, ctx.clip,
+            ctx.impl)
+        return GATLayerFused._pullback(x2d, w, attn_l, attn_r, f3, d_feat,
+                                       d_el, d_er)

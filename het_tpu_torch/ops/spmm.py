@@ -1,5 +1,5 @@
 """Relational fused GAT aggregation, per edge and over compact rows, the
-RGCN ops and the HGT ops.
+RGCN ops, the HGT ops and the homogeneous GAT ops.
 
 Counterparts of ``het_tpu/ops/spmm.py::relational_fused_gat``,
 ``::relational_fused_gat_compact`` and
@@ -15,6 +15,9 @@ ops (``inner_product_edge_node``, ``edge_softmax``, ``hgt_edge_softmax``,
 fused ops of ``fused_agg`` under "raw" and "clip" and the unfused chain
 under "max"; ``score * mu[rel]`` is ``edge_rel_inner`` at D = 1, whose
 ``mu`` gradient is the grouped dW over the relation-sorted edge rows.
+The homogeneous GAT ops (``gat_node_fused``, ``gat_node_fused2d`` and
+``gat_layer_core``) likewise take the node-sided fused ops under "raw"
+and "clip" and the per-edge op on gathered inputs under "max".
 
 The edge softmax is a raw ``exp`` with no max subtraction by default, as
 in the reference (``stable=False`` or ``"raw"``); ``stable="clip"``
@@ -30,12 +33,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import (gather_dst, gather_nodes, safe_div, scatter_sum_dst,
-                     scatter_sum_src, sorted_gather)
+from .common import (gather_dst, gather_nodes, gather_src, safe_div,
+                     scatter_sum_dst, scatter_sum_src, sorted_gather)
 from .fused_agg import (CLIP_LOGIT, STABLE_MODES,  # noqa: F401
                         CompactFusedGAT, CompactFusedGATPacked,
-                        HGTCompactAttention, HGTPlainFull,
-                        compact_weighted_agg, fused_softmax_agg)
+                        GATLayerFused, HGTCompactAttention, HGTPlainFull,
+                        NodeFusedGAT, _clip, compact_weighted_agg,
+                        fused_softmax_agg)
 from .kernels import seg_max_sorted
 from .linear import (compact_dst_inner, edge_rel_inner, edge_typed_linear,
                      expand_compact)
@@ -283,7 +287,10 @@ def hgt_softmax_weighted_agg(g, message_e: torch.Tensor,
     backend computes it: the fused per-edge op with the identity
     activation (:func:`~.fused_agg.fused_softmax_agg`) under "raw" and
     "clip"; under "max" one segment sum of ``[z | z*msg]`` after the
-    max-subtracted ``exp``."""
+    max-subtracted ``exp``.  The fused ops sum ``z`` and ``z*msg`` apart;
+    this chain keeps one buffer because its backward is autograd's, whose
+    destination gather follows the buffer: two sums cost a narrow (EP, H)
+    gather more, slower on the card (PERF.md's GAT findings)."""
     mode = _mode(stable)
     raw = _typed_logits(g, score_e, mu, impl)
     if mode != "max":
@@ -368,3 +375,60 @@ def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
         q_nodes.reshape(q_nodes.shape[0], H * dk),
         k_nodes.reshape(k_nodes.shape[0], H * dk), w_msg, w_att, mu, g,
         CLIP_LOGIT if mode == "clip" else None, impl)
+
+
+# ------------------------------------------------------------------- GAT
+
+
+def gat_node_fused(g, feat: torch.Tensor, el: torch.Tensor,
+                   er: torch.Tensor, slope: float, *, stable=False,
+                   impl: str = "kernel") -> torch.Tensor:
+    """Homogeneous GAT's softmax aggregation with node-level inputs: feat
+    (src_space, H, D), el (src_space, H), er (N, H) -> (N, H, D).  "raw"
+    and "clip" take :class:`~.fused_agg.NodeFusedGAT`, which keeps no
+    per-edge tensor; "max" the per-edge op on the gathered inputs, as
+    het_tpu's pallas backend does."""
+    mode = _mode(stable)
+    if mode == "max":
+        return relational_fused_gat(
+            g, gather_src(g, feat, impl=impl), gather_src(g, el, impl=impl),
+            gather_dst(g, er, impl=impl), slope, stable=mode, impl=impl)
+    ns, H, D = feat.shape
+    out = NodeFusedGAT.apply(feat.reshape(ns, H * D), el, er, g,
+                             float(slope), _clip(mode), impl)
+    return out.view(-1, H, D)
+
+
+def gat_node_fused2d(g, feat2d: torch.Tensor, el: torch.Tensor,
+                     er: torch.Tensor, slope: float, *, num_heads: int,
+                     stable=False, impl: str = "kernel") -> torch.Tensor:
+    """:func:`gat_node_fused` on head-major rows: feat2d (src_space,
+    H*D) -> (N, H*D)."""
+    out = gat_node_fused(g, feat2d.view(feat2d.shape[0], num_heads, -1),
+                         el, er, slope, stable=stable, impl=impl)
+    return out.reshape(out.shape[0], -1)
+
+
+def gat_layer_core(g, x2d: torch.Tensor, w: torch.Tensor,
+                   attn_l: torch.Tensor, attn_r: torch.Tensor, slope: float,
+                   *, stable=False, impl: str = "kernel") -> torch.Tensor:
+    """Homogeneous GAT's layer core: the projection ``x W``, the logits a
+    head, the softmax and the aggregation -> (N, H*D) head-major; x2d
+    (rows, F), w (F, H*D), attn_l/attn_r (H, D).  het_tpu's gate: "raw" or
+    "clip", F <= H*D and one node space (x2d's rows, the source space and
+    the destinations alike) take :class:`~.fused_agg.GATLayerFused`;
+    otherwise the composed path, the projection and the logits by
+    autograd, then :func:`gat_node_fused2d`."""
+    mode = _mode(stable)
+    H, D = attn_l.shape
+    N = g.num_nodes
+    if (mode != "max" and x2d.shape[1] <= H * D and g.src_space == N
+            and x2d.shape[0] == N):
+        return GATLayerFused.apply(x2d, w, attn_l, attn_r, g, float(slope),
+                                   _clip(mode), impl)
+    feat2d = x2d @ w
+    f3 = feat2d.view(-1, H, D)
+    el = (f3 * attn_l).sum(-1)
+    er = (f3[:N] * attn_r).sum(-1)
+    return gat_node_fused2d(g, feat2d, el, er, slope, num_heads=H,
+                            stable=mode, impl=impl)

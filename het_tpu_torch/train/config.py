@@ -1,8 +1,9 @@
 """Trainer configuration with the reference's flag spellings.
 
 The subset of ``het_tpu/train/config.py`` that the port runs so far, plus
-``--device``.  A model the port does not support yet raises when the
-trainer builds it, naming its ROADMAP item.
+``--device``.  ``--model`` is RGAT, RGCN, HGT or GAT, as in het_tpu;
+``--logfile_enabled`` appends the run's metrics to ``--logfilename`` as
+one JSON line.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ class TrainConfig:
     dataset_scale: float = 1.0  # synthetic stand-in scale (1.0 = published)
     seed: int = 0
     device: str = "cuda"
+    logfile_enabled: bool = False
+    logfilename: str = "metrics.json"
 
 
 def add_args(parser: argparse.ArgumentParser) -> None:
@@ -68,6 +71,8 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset_scale", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--logfile_enabled", action="store_true")
+    p.add_argument("--logfilename", type=str, default="metrics.json")
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:

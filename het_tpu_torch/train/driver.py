@@ -4,18 +4,23 @@ Node embeddings feed the model; the loss is the NLL of ``log_softmax`` on
 the training nodes; the optimizer is Adam, whose defaults (eps outside the
 square root, bias correction) are ``optax.adam``'s.  The run is f32 with
 TF32 off.  Each step's loss is printed with its time: CUDA events on the
-card, the host clock on the CPU.
+card, the host clock on the CPU.  ``train`` returns het_tpu's metrics
+(the reference's schema: means over the last 3/4 of the timed steps, the
+forward/backward split, memory, train and test accuracy) beside the
+port's own keys.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+import json
+import warnings
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
 
 from ..data.loaders import Dataset, load_dataset
-from ..models import HGTModel, NodeEmbed, RGATModel, RGCNModel
+from ..models import GATModel, HGTModel, NodeEmbed, RGATModel, RGCNModel
 from ..utils.misc import nll_loss, resolve_device
 from .config import TrainConfig
 from .loop import train_steps
@@ -40,7 +45,11 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
     """The model ``cfg`` names, with parameters drawn from ``generator``.
     RGCN is het_tpu's trainer's: two layers from the embeddings, whatever
     ``--num_layers`` and ``--num_heads`` say.  HGT is too: neither
-    multiply-first nor ``use_norm`` (het_tpu's trainer passes neither)."""
+    multiply-first nor ``use_norm`` (het_tpu's trainer passes neither).
+    GAT is too: at least two layers (``max(--num_layers, 2)``), and
+    neither ``--dropout`` nor ``--stable_softmax`` reaches it, so its
+    ``feat_drop`` is 0 and its softmax raw; the relational flags change
+    nothing."""
     g = data.graph
     name = cfg.model.upper()
     if name == "RGAT":
@@ -65,14 +74,22 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
             stable_softmax=cfg.stable_softmax, impl=impl,
             generator=generator,
         )
-    else:
-        raise NotImplementedError(
-            f"--model {cfg.model}: only RGAT, RGCN and HGT are ported so "
-            "far (ROADMAP.md queue 1 lists GAT)"
+    elif name == "GAT":
+        model = GATModel(
+            cfg.n_infeat, cfg.hidden, data.num_classes, cfg.num_heads,
+            max(cfg.num_layers, 2), impl=impl, generator=generator,
         )
+    else:
+        raise ValueError(f"--model {cfg.model}: RGAT, RGCN, HGT or GAT")
     return NodeClassifier(
         NodeEmbed(g.num_nodes, cfg.n_infeat, generator=generator), model
     )
+
+
+def _mean_after_first_quarter(xs: List[float]) -> float:
+    """The reference's mean over the last 3/4 of the timed steps."""
+    tail = xs[len(xs) // 4:]
+    return sum(tail) / len(tail) if tail else float("nan")
 
 
 def train(
@@ -86,9 +103,20 @@ def train(
 ) -> Dict[str, Any]:
     """Train full-graph: ``cfg.warmup_epochs`` untimed Adam steps (none
     with ``cfg.no_warm_up``), as het_tpu's trainer takes them, then
-    ``cfg.num_epochs`` timed ones, whose losses and times are returned
-    with the metrics.  The warm-up draws its dropout masks from the same
-    generator, so a run still repeats exactly.
+    ``cfg.num_epochs`` timed ones.  The warm-up draws its dropout masks
+    from the same generator, so a run still repeats exactly.
+
+    Returns het_tpu's metrics: the losses; the step, forward and backward
+    times (CUDA events around the step and at the loss; the backward is
+    the rest of the step, Adam included) with their means over the last
+    3/4 of the steps; ``train_acc`` / ``test_acc``, the argmax of the
+    final logits in eval mode (het_tpu's accuracy applies dropout, so the
+    two agree where dropout is 0); the peak device memory and its rise
+    over the memory held before the first step, in MB (``None`` on the
+    CPU); the graph's sizes and flags.  Beside them the port's own keys:
+    ``device``, ``step_ms_list``, ``timer`` and ``flags["impl"]``.  With
+    ``cfg.logfile_enabled`` the metrics are appended to
+    ``cfg.logfilename`` as one JSON line.
 
     ``state`` (a state dict) replaces the seeded initial parameters;
     ``impl="plain"`` runs every kernel's plain PyTorch version on the card
@@ -96,6 +124,7 @@ def train(
     the model trained in place of a new one (``impl`` is then its own), so
     that the caller holds the final parameters."""
     dev = resolve_device(cfg.device)
+    on_card = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if data is None:
@@ -103,6 +132,17 @@ def train(
                             num_classes=cfg.num_classes, seed=cfg.seed,
                             build_compact=cfg.compact,
                             compact_union=cfg.compact_union)
+    if cfg.compact:
+        dup = data.graph.compact_duplication("src")
+        if dup is not None and dup < 1.5:
+            warnings.warn(
+                f"--compact_as_of_node_flag: duplication factor {dup:.2f} "
+                "(edges per unique (rel, node) pair) is < 1.5 on this "
+                "graph; compact materialization mostly adds the expand "
+                "indirection here and measured as a net slowdown at this "
+                "regime — consider dropping the flag",
+                stacklevel=2,
+            )
     if net is None:
         net = build_model(cfg, data, impl=impl,
                           generator=torch.Generator().manual_seed(cfg.seed))
@@ -112,23 +152,54 @@ def train(
         )
     net.to(dev).train()
     g = data.graph.to(dev)
+    labels = torch.as_tensor(data.labels, device=dev).long()
     train_idx = torch.as_tensor(data.train_idx, device=dev).long()
-    labels = torch.as_tensor(data.labels, device=dev).long()[train_idx]
+    test_idx = torch.as_tensor(data.test_idx, device=dev).long()
+    train_labels = labels[train_idx]
     drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        mem_base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
 
     def step_loss():
-        loss = nll_loss(net(g, generator=drop_gen)[train_idx], labels)
+        loss = nll_loss(net(g, generator=drop_gen)[train_idx], train_labels)
         return loss, loss
 
     steps = train_steps(net, step_loss, steps=cfg.num_epochs, lr=cfg.lr,
                         device=dev, log=log,
                         warmup=0 if cfg.no_warm_up else cfg.warmup_epochs)
-    return {
+    peak_mb = rise_mb = None
+    if on_card:
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
+        rise_mb = peak_mb - mem_base / 1e6
+
+    net.eval()
+    with torch.no_grad():
+        pred = net(g).argmax(-1)
+    net.train()
+
+    def accuracy(idx):
+        return (pred[idx] == labels[idx]).float().mean().item()
+
+    total = steps["step_ms_list"]
+    fwd = steps.pop("forward_ms_list")
+    bwd = [t - f for t, f in zip(total, fwd)]
+    metrics = {
         "dataset": data.name,
         "model": cfg.model,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": (torch.cuda.get_device_name(dev) if on_card else "cpu"),
+        "mean_forward_time": _mean_after_first_quarter(fwd),
+        "mean_backward_time": _mean_after_first_quarter(bwd),
+        "mean_training_time": _mean_after_first_quarter(total),
+        "forward_time_list": fwd,
+        "backward_time_list": bwd,
+        "training_time_list": list(total),
         **steps,
+        "train_acc": accuracy(train_idx),
+        "test_acc": accuracy(test_idx),
+        "max_memory_usage (mb)": peak_mb,
+        "intermediate_memory_usage (mb)": rise_mb,
         "num_nodes": data.graph.num_nodes,
         "num_edges": data.graph.num_edges,
         "num_rels": data.graph.num_rels,
@@ -139,3 +210,7 @@ def train(
                   "impl": impl},
         "synthetic_data": data.meta.get("synthetic", False),
     }
+    if cfg.logfile_enabled:
+        with open(cfg.logfilename, "a") as f:
+            f.write(json.dumps(metrics) + "\n")
+    return metrics

@@ -12,6 +12,30 @@ import torch
 from torch import nn
 
 
+class _Clock:
+    """Marks on the card's stream (CUDA events) or on the host clock, and
+    the milliseconds between consecutive marks."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.marks: List = []
+
+    def mark(self) -> None:
+        if self.on_card:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> List[float]:
+        m = self.marks
+        if self.on_card:
+            m[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(m, m[1:])]
+        return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
+
+
 def train_steps(
     module: nn.Module,
     step_loss: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
@@ -30,14 +54,16 @@ def train_steps(
     tensor to differentiate and the loss to record (the same tensor in one
     process; on a rank of a data-parallel run, its share and the whole).
     ``after_backward`` runs between the backward and the update (the
-    gradient sum over ranks).  Returns the losses, the step times and the
+    gradient sum over ranks).  Returns the losses, the step times, the
+    forward's share of each (from the step's start to the loss) and the
     timer used."""
     opt = torch.optim.Adam(module.parameters(), lr=lr)
     on_card = device.type == "cuda"
 
-    def update():
+    def update(forward_done: Callable[[], None]):
         opt.zero_grad(set_to_none=True)
         local, value = step_loss()
+        forward_done()
         local.backward()
         if after_backward is not None:
             after_backward()
@@ -45,25 +71,20 @@ def train_steps(
         return value
 
     for _ in range(warmup):
-        update()
-    losses, step_ms = [], []
+        update(lambda: None)
+    losses, step_ms, forward_ms = [], [], []
     for step in range(steps):
-        if on_card:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-        else:
-            h0 = time.perf_counter()
-        value = update()
-        if on_card:
-            t1.record()
-            t1.synchronize()
-            ms = t0.elapsed_time(t1)
-        else:
-            ms = (time.perf_counter() - h0) * 1e3
+        clock = _Clock(on_card)
+        clock.mark()
+        value = update(clock.mark)
+        clock.mark()
+        fwd, bwd = clock.intervals_ms()
         losses.append(value.detach().item())
-        step_ms.append(ms)
+        step_ms.append(fwd + bwd)
+        forward_ms.append(fwd)
         if log is not None:
-            log(f"step {step} loss {losses[-1]:.6f} step_ms {ms:.3f}")
+            log(f"step {step} loss {losses[-1]:.6f} step_ms "
+                f"{step_ms[-1]:.3f}")
     return {"loss_list": losses, "step_ms_list": step_ms,
+            "forward_ms_list": forward_ms,
             "timer": "cuda_events" if on_card else "host_clock"}

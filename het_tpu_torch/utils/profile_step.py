@@ -6,6 +6,8 @@
         [--compact_union_flag] [--stable_softmax max]
     python -m het_tpu_torch.utils.profile_step --model RGCN -d mag \\
         --dataset_scale 0.1 [--compact_as_of_node_flag]
+    python -m het_tpu_torch.utils.profile_step --model GAT -d mag \\
+        --dataset_scale 0.1 --num_heads 4 --num_layers 2 --dropout 0
 
 Takes the trainer's flags, runs six steps and traces steps 3-5 with
 ``torch.profiler`` (the trainer's per-step log call advances the

@@ -358,6 +358,6 @@ def test_params_from_jax_maps_groups_by_module_order():
     assert sorted(sd) == ["embed.embed", "model.layers.0.bias",
                           "model.layers.1.bias"]
     assert sd["model.layers.1.bias"].eq(1).all()
-    tree["model"]["params"]["GATLayer_0"] = {}
-    with pytest.raises(KeyError, match="GATLayer_0"):
+    tree["model"]["params"]["GCNLayer_0"] = {}
+    with pytest.raises(KeyError, match="GCNLayer_0"):
         params_from_jax(tree)
