@@ -83,6 +83,21 @@ Phases, each of which fails the run:
    each with its step time, edges/s and peak device memory, after the
    segment sum and max at every shape of a packed max step, against their
    plain versions and timed beside their bounds;
+   then bf16 mixed precision (``--dtype bfloat16 --loss_scale dynamic``):
+   in phase 3 the segment sum's bf16 instantiations (bf16 rows into f32
+   and into bf16 sums) at every shape of the bf16 runs' steps and the
+   edge cases (unaligned rows too), and the bf16 dW (bf16 x and ct) at
+   plain RGAT's shapes, each launched twice bit for bit; in phase 4
+   compact multiply-first (packed) at 0.1 for five steps through the
+   kernels and the plain versions, plain RGAT (the bf16 dW), compact
+   RGCN, compact HGT and GAT at 0.1 for two steps, kernels only, and the
+   packed max path at 1.0 for three steps: each with its f32 run's
+   launches (in all, and by element types as ``_bf16_sum_pair`` says),
+   losses within BF16_F32_RTOL of the f32 run's, step ms, edges/s and
+   peak memory beside the f32 run's; then checkpoint and resume (three
+   steps, a checkpoint, three more resumed, against six straight: bit for
+   bit, in f32 and in bf16) and a ``--patience 1`` run that stops where
+   its losses say, its checkpoints in a temporary directory;
 5. data-parallel training: the graph split into P = 2 destination-range
    shards (balanced on edges), two ranks spawned as processes on cuda:0
    over gloo, five steps of compact multiply-first, of compact RGCN and
@@ -92,11 +107,14 @@ Phases, each of which fails the run:
    other and to a single-process run on the unpartitioned graph, with
    each kernel's launches a step a rank.
 
-The last two lines are a JSON object of per-kernel numbers and
+The last two lines are a JSON object of per-kernel numbers (the bf16
+instantiations as ``seg_sum_sorted[bf16->f32]``, ``seg_sum_sorted[bf16->
+bf16]`` and ``segment_matmul_dw[bf16]`` beside the f32 ones) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import statistics
@@ -113,6 +131,7 @@ STEPS, SHORT_STEPS = 5, 2
 WARMUP = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL_RTOL = 1e-5  # f32 sums in another order
 # segment_matmul_dw: |kernel - plain| <= DW_TOL * sum |x| |ct| per output.
 # f32 sums in another order stay far inside it; products of inputs rounded
@@ -586,22 +605,47 @@ def _seg_sum_edge_cases(dev):
          for C in (4, 12, 68) for p in (None, hub_perm)]
 
 
-def _compare_seg_sum(vals, ptr, perm, label):
+def _bf16_ulp(t):
+    """One bf16 unit in the last place of each entry of ``t`` (8
+    significant bits; the smallest normal's for zeros)."""
+    import torch
+
+    _, e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _compare_seg_sum(vals, ptr, perm, label, out_dtype=None):
+    """One call against the plain version (f64 sums of the same rows,
+    rounded once).  f32 sums: rtol TOL_RTOL, atol TOL_RTOL * max|plain|;
+    bf16 sums: one bf16 ulp of the plain version's rounded sum beyond
+    that f32 limit (each is an f32 sum rounded once).  Returns the
+    kernel's result and the largest |kernel - plain|."""
     import torch
     from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
 
-    got = seg_sum_sorted(vals, ptr, perm)
+    got = seg_sum_sorted(vals, ptr, perm, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    want = seg_sum_sorted_plain(vals, ptr, perm)
+    want = seg_sum_sorted_plain(vals, ptr, perm, out_dtype)
     torch.cuda.synchronize()
-    if got.shape != want.shape:
-        raise AssertionError(f"{label}: shape {tuple(got.shape)} vs "
-                             f"{tuple(want.shape)}")
-    scale = want.abs().max().item() if want.numel() else 0.0
-    torch.testing.assert_close(got, want, rtol=TOL_RTOL,
-                               atol=TOL_RTOL * max(scale, 1e-30),
-                               msg=lambda m: f"{label}: {m}")
-    return (got - want).abs().max().item() if want.numel() else 0.0
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not want.numel():
+        return got, 0.0
+    g, w = got.float(), want.float()
+    scale = w.abs().max().item()
+    if got.dtype == torch.bfloat16:
+        limit = (TOL_RTOL * w.abs() + TOL_RTOL * scale
+                 + torch.maximum(_bf16_ulp(g), _bf16_ulp(w)))
+        if not ((g - w).abs() <= limit).all():
+            raise AssertionError(f"{label}: bf16 sums differ from plain by "
+                                 f"{(g - w).abs().max().item()}, past one "
+                                 "ulp of the rounded sum")
+    else:
+        torch.testing.assert_close(got, want, rtol=TOL_RTOL,
+                                   atol=TOL_RTOL * max(scale, 1e-30),
+                                   msg=lambda m: f"{label}: {m}")
+    return got, (g - w).abs().max().item()
 
 
 def _entry_totals(totals, run):
@@ -611,56 +655,98 @@ def _entry_totals(totals, run):
                 else "operations", library_ms=t["library_ms"])
 
 
-def seg_sum_run_table(run, shapes, dev, flush, gen):
+def seg_sum_run_table(run, shapes, dev, flush, gen, pair_of=None):
     """Kernel against plain, timed beside its bound, the plain version and
     ``torch.segment_reduce``, at each of ``shapes`` (``_seg_sum_shapes``)
-    of one run.  Returns the per-step totals and the largest |error|."""
+    of one run.  ``pair_of(label)``, where given, names each shape's
+    (rows, sums) element types (a bf16 step's, ``_bf16_sum_pair``): the
+    rows are drawn in f32 and rounded to them, each call is also repeated
+    bit for bit, the bound counts 2 bytes a bf16 element and the adds at
+    the bf16 rate, and the yardstick reduces the bf16 rows.  Returns the
+    per-step totals (under ``by_dtype`` too, a bf16 run's) and the
+    largest |error|."""
     import torch
     from het_tpu_torch.ops.kernels import seg_sum_sorted, seg_sum_sorted_plain
+    from het_tpu_torch.ops.kernels.seg_reduce import dtype_key
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                 bytes_ms=0.0, ops_ms=0.0)
+    def zero():
+        return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                    bytes_ms=0.0, ops_ms=0.0)
+
+    total, by_dtype = zero(), {}
     max_err = 0.0
-    print(f"[{run}] shape | n | rows read | C | perm | kernel ms | "
+    print(f"[{run}] shape | n | rows read | C | perm | dtypes | kernel ms | "
           "bound ms | plain ms | segment_reduce ms")
     for label, rows, C, ptr, perm in shapes:
-        vals = torch.randn(rows, C, device=dev, generator=gen)
-        max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label))
+        in_dt, out_dt = (pair_of(label) if pair_of is not None
+                         else (torch.float32, torch.float32))
+        vals = torch.randn(rows, C, device=dev, generator=gen).to(in_dt)
+        got, err = _compare_seg_sum(vals, ptr, perm, label, out_dt)
+        max_err = max(max_err, err)
+        if pair_of is not None:
+            _compare_exact(got, seg_sum_sorted(vals, ptr, perm,
+                                               out_dtype=out_dt),
+                           f"{label} (repeat)")
+        del got
         n = ptr.numel() - 1
         lo, hi = int(ptr[0]), int(ptr[-1])
         read = hi - lo
-        nbytes = (read * C * 4 + (4 * read if perm is not None else 0)
-                  + (n + 1) * 4 + n * C * 4)
+        nbytes = (read * C * vals.element_size()
+                  + (4 * read if perm is not None else 0)
+                  + (n + 1) * 4 + n * C * out_dt.itemsize)
         bytes_s = nbytes / HBM_BYTES_PER_S
-        ops_s = read * C / F32_FLOP_PER_S
+        ops_s = read * C / (F32_FLOP_PER_S if in_dt == torch.float32
+                            else BF16_FLOP_PER_S)
         bound = max(bytes_s, ops_s)
-        ms = _time_ms(lambda: seg_sum_sorted(vals, ptr, perm), 20, flush)
-        plain = _time_ms(lambda: seg_sum_sorted_plain(vals, ptr, perm), 5,
-                         flush)
+        ms = _time_ms(lambda: seg_sum_sorted(vals, ptr, perm,
+                                             out_dtype=out_dt), 20, flush)
+        plain = _time_ms(lambda: seg_sum_sorted_plain(vals, ptr, perm,
+                                                      out_dt), 5, flush)
         off64 = ptr.long()
         idx = (perm[lo:hi].long() if perm is not None
                else torch.arange(lo, hi, device=dev))
 
         def library():
             # the yardstick: one PyTorch segment reduction over the rows
-            # the kernel reads (the port never calls it)
+            # the kernel reads, in their element type (the port never
+            # calls it)
             return torch.segment_reduce(vals[idx], "sum", offsets=off64 - lo)
 
         # the yardstick computes the same sums (f32 in its own order; a
-        # row such as a halo's padding row gathers thousands of terms)
+        # row such as a halo's padding row gathers thousands of terms).
+        # On bf16 rows it returns bf16 sums of its own rounding: their
+        # distance from the f32 sums is printed, not held to a limit
         want = seg_sum_sorted_plain(vals, ptr, perm)
-        torch.testing.assert_close(
-            library(), want, rtol=1e-4,
-            atol=1e-4 * max(want.abs().max().item(), 1e-30))
-        del want
+        lib_out = library().float()
+        if in_dt == torch.float32:
+            torch.testing.assert_close(
+                lib_out, want, rtol=1e-4,
+                atol=1e-4 * max(want.abs().max().item(), 1e-30))
+        elif lib_out.shape != want.shape:
+            raise AssertionError(f"{label}: segment_reduce gave "
+                                 f"{tuple(lib_out.shape)}")
+        else:
+            print(f"{label}: segment_reduce on bf16 rows, largest |diff| "
+                  f"from the f32 sums {(lib_out - want).abs().max().item()}"
+                  f" (largest |sum| {want.abs().max().item()})")
+        del want, lib_out
         lib = _time_ms(library, 5, flush)
         print(f"{label} | {n} | {read} | {C} | {perm is not None} | "
-              f"{ms:.4f} | {bound * 1e3:.4f} | {plain:.4f} | {lib:.4f}")
-        for key, v in (("ms", ms), ("plain_ms", plain),
-                       ("bound_ms", bound * 1e3), ("library_ms", lib),
-                       ("bytes_ms", bytes_s * 1e3), ("ops_ms", ops_s * 1e3)):
-            total[key] += v
+              f"{dtype_key(in_dt, out_dt)} | {ms:.4f} | {bound * 1e3:.4f} | "
+              f"{plain:.4f} | {lib:.4f}")
+        parts = [total]
+        if pair_of is not None:
+            parts.append(by_dtype.setdefault(dtype_key(in_dt, out_dt),
+                                             zero()))
+        for part in parts:
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("bound_ms", bound * 1e3), ("library_ms", lib),
+                           ("bytes_ms", bytes_s * 1e3),
+                           ("ops_ms", ops_s * 1e3)):
+                part[key] += v
         del vals, idx
+    if by_dtype:
+        total["by_dtype"] = by_dtype
     print(f"[{run}] per-step totals (ms):", json.dumps(total))
     return total, max_err
 
@@ -686,7 +772,7 @@ def check_seg_sum(graphs, dev, flush):
                  else torch.arange(rows, device=dev))
         vals[order[:int(ptr[0])]] = float("nan")
         vals[order[int(ptr[-1]):]] = float("nan")
-        max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label))
+        max_err = max(max_err, _compare_seg_sum(vals, ptr, perm, label)[1])
         _compare_exact(seg_sum_sorted(vals, ptr, perm),
                        seg_sum_sorted(vals, ptr, perm), f"{label} (repeat)")
         print(f"seg_sum edge case ok: {label}")
@@ -1954,17 +2040,445 @@ def check_training(data, dev, card, run):
     return k["launches"], summary
 
 
+# ------------------------------------------------------------------ bf16
+
+# bf16 mixed precision (--dtype bfloat16 --loss_scale dynamic): f32 master
+# parameters and Adam state, the model run on bf16 copies of the
+# parameters.  Each run mirrors an f32 run of RUNS (``f32``) and launches
+# as it does: the dtype changes no launch.  The segment sums read bf16
+# rows (het_tpu packs every payload in bf16, its ``pack_dt``) into f32
+# sums, or into bf16 sums where het_tpu passes ``out_dt=pack_dt``
+# (``_bf16_sum_pair``); plain RGAT's attention-vector dW reads bf16 x and
+# ct, HGT's relation_pri dW stays f32 (its score and logit gradient are
+# f32).  ``plain``: the run is repeated through the plain versions; the
+# others run through the kernels only.
+BF16_RUNS = {
+    "bf16_compact_multiply_first": dict(f32="compact_multiply_first",
+                                        steps=STEPS, plain=True, dw=None),
+    "bf16_plain": dict(f32="plain", steps=SHORT_STEPS, plain=False,
+                       dw="bf16"),
+    "bf16_rgcn_compact": dict(f32="rgcn_compact", steps=SHORT_STEPS,
+                              plain=False, dw=None),
+    "bf16_hgt_compact": dict(f32="hgt_compact", steps=SHORT_STEPS,
+                             plain=False, dw="f32"),
+    "bf16_gat": dict(f32="gat", steps=SHORT_STEPS, plain=False, dw=None),
+}
+BF16_MAIN = "bf16_compact_multiply_first"  # this slice's main path
+BF16_DW = "bf16_plain"  # the bf16 run that reaches the bf16 dW
+BF16_FULL = "full_scale_bf16"  # the slice's packed max path at 1.0 in bf16
+# a bf16 step through the kernels against the plain versions (f32 sums in
+# another order, each rounded once to bf16 where the sum is bf16: a unit
+# of bf16 is 0.4-0.8% of a value) and a bf16 run's losses against its f32
+# run's (het_tpu's own bf16 loss is 1.7e-4 from its f32 loss at the first
+# step; Adam's steps take the two apart further)
+BF16_TRAIN_RTOL = 1e-2
+BF16_F32_RTOL = 2e-2
+RESUME_STEPS = 3  # saved after this many timed steps, then as many more
+
+
+def _bf16_sum_pair(label):
+    """The (rows, sums) element types of the segment sum ``label`` (a
+    label of ``_run_seg_sum_shapes``) in a bf16 step: bf16 rows, summed
+    into bf16 by the backward's source-side and (dst, rel)-run reduces of
+    the fused attention ops and of compact_weighted_agg, into f32 by the
+    rest (the forward's sums, the gather backwards, HGT's compact rows
+    into k)."""
+    import torch
+
+    bf16_out = ("(dst,rel) runs" in label
+                or ("src-compact" in label and "rows -> k" not in label)
+                or label.endswith(("bwd src draw", "bwd src dfeat")))
+    return torch.bfloat16, torch.bfloat16 if bf16_out else torch.float32
+
+
+def _bf16_launches(run, steps, g):
+    """The typed kernels' launches by element types in one ``train`` call
+    of bf16 run ``run`` with ``steps`` timed steps on ``g``: the
+    warm-up and timed steps' sums by ``_bf16_sum_pair``, the accuracy
+    pass's forward sums (bf16 -> f32) and the dW's."""
+    from collections import Counter
+
+    from het_tpu_torch.ops.kernels.seg_reduce import dtype_key
+
+    spec = BF16_RUNS[run]
+    r = RUNS[spec["f32"]]
+    shapes = _run_seg_sum_shapes(spec["f32"], g)
+    sums = Counter(dtype_key(*_bf16_sum_pair(s[0])) for s in shapes)
+    sums = {k: v * (WARMUP + steps) for k, v in sums.items()}
+    sums["bf16->f32"] = (sums.get("bf16->f32", 0)
+                         + _eval_launches(r)["seg_sum_sorted"])
+    dw = r["launches"].get("segment_matmul_dw", 0) * (WARMUP + steps)
+    return {"seg_sum_sorted": sums,
+            "segment_matmul_dw": {spec["dw"]: dw} if dw else {}}
+
+
+def _bf16_seg_sum_edge_cases(dev, gen):
+    """The segment sum's edge cases (``_seg_sum_edge_cases``) in bf16 rows
+    into f32 and into bf16 sums, NaN rows outside the row pointer, each
+    launched twice and compared bit for bit; and rows one element into
+    their storage (2-byte aligned).  Returns the largest |error|."""
+    import torch
+    from het_tpu_torch.ops.kernels import seg_sum_sorted
+
+    max_err = 0.0
+    cases = _seg_sum_edge_cases(dev)
+    for label, rows, C, ptr, perm in cases:
+        for out_dt in (torch.float32, torch.bfloat16):
+            vals = torch.randn(rows, C, device=dev, generator=gen)
+            order = (perm.long() if perm is not None
+                     else torch.arange(rows, device=dev))
+            vals[order[:int(ptr[0])]] = float("nan")
+            vals[order[int(ptr[-1]):]] = float("nan")
+            vals = vals.bfloat16()
+            what = f"bf16 {label} into {out_dt}"
+            got, err = _compare_seg_sum(vals, ptr, perm, what, out_dt)
+            _compare_exact(got, seg_sum_sorted(vals, ptr, perm,
+                                               out_dtype=out_dt),
+                           f"{what} (repeat)")
+            max_err = max(max_err, err)
+    for C in (1, 4, 12, 68):  # unaligned rows: 2-, 4- or 8-byte loads
+        hub = _hub_ptr(dev)
+        rows = int(hub[-1])
+        vals = torch.randn(rows * C + 1, device=dev,
+                           generator=gen).bfloat16()[1:].view(rows, C)
+        for out_dt in (torch.float32, torch.bfloat16):
+            max_err = max(max_err, _compare_seg_sum(
+                vals, hub, None, f"bf16 unaligned C={C} into {out_dt}",
+                out_dt)[1])
+    print(f"seg_sum bf16 edge cases ok ({len(cases)} x 2 pairs, twice "
+          "each; unaligned rows)")
+    return max_err
+
+
+def check_seg_sum_bf16(graphs, dev, flush):
+    """The bf16 instantiations against their plain versions at every shape
+    of a step of each bf16 run (``graphs``: run -> its graph on the card),
+    each launched twice bit for bit, timed beside their bound, the plain
+    version and ``torch.segment_reduce`` on the bf16 rows; and the edge
+    cases.  Returns one JSON entry for each pair (bf16 -> f32 and bf16 ->
+    bf16), the per-step totals of this slice's main path."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    max_err = _bf16_seg_sum_edge_cases(dev, gen)
+    totals = {}
+    for run, g in graphs.items():
+        totals[run], err = seg_sum_run_table(
+            run, _run_seg_sum_shapes(BF16_RUNS[run]["f32"], g), dev, flush,
+            gen, pair_of=_bf16_sum_pair)
+        max_err = max(max_err, err)
+    entries = []
+    for key in ("bf16->f32", "bf16->bf16"):
+        per_run = {run: t["by_dtype"][key] for run, t in totals.items()
+                   if key in t["by_dtype"]}
+        t = per_run[BF16_MAIN]
+        entries.append({
+            "name": f"seg_sum_sorted[{key}]",
+            "route": "cuda",
+            "source": "het_tpu_torch/csrc/seg_reduce.cu",
+            "replaces": "het_tpu/ops/pallas/seg_reduce.py:360",
+            "launches": None,  # filled from the bf16 training run
+            "max_abs_err": max_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations"),
+            "library_ms": t["library_ms"],
+            "library": "torch.segment_reduce on the bf16 rows",
+            "per_run": per_run,
+        })
+    return entries
+
+
+def check_dw_bf16(g, dev, flush):
+    """The bf16 dW (bf16 x and ct, f32 dW) against its plain version (the
+    operands widened to f32 exactly) at the bf16 plain RGAT step's shapes
+    (the attention vectors' dW, two a layer over the relation-sorted edge
+    rows), the general K = O = 64, S = 4 shape and x one element off 16
+    bytes: within DW_TOL * sum |x| |ct| (each bf16 product is exact in
+    f32), each launched twice bit for bit, timed beside its bound (2
+    bytes a bf16 element, operations at the bf16 rate), the plain version
+    and a per-relation bf16 torch.matmul.  Returns the JSON entry."""
+    import numpy as np
+    import torch
+    from het_tpu_torch.ops.kernels import (segment_matmul_dw,
+                                           segment_matmul_dw_plain)
+    from het_tpu_torch.ops.kernels.segment_mm import host_seg_ptrs
+
+    E = g.edge_rel_seg
+    dims = _dims()
+    rng = np.random.default_rng(2)
+    shapes = [(f"l{layer} attn_l/attn_r dW, edge rows", 2, E, HEADS, HEADS,
+               dims[layer + 1] // HEADS, 1, True, False)
+              for layer in range(LAYERS)]
+    shapes += [
+        ("general S=4", 0, _segments(rng.multinomial(
+            1_000_000, [0.4, 0.3, 0.2, 0.1]), 128, dev), 1, 1, 64, 64,
+         False, False),
+        ("edge: x not 16-byte aligned, per head", 0, _segments(
+            (2000, 33, 0, 900), 8, dev), 4, 4, 16, 1, False, True),
+    ]
+    want_per_step = RUNS[BF16_RUNS[BF16_DW]["f32"]]["launches"][
+        "segment_matmul_dw"]
+    if sum(s[1] for s in shapes) != want_per_step:
+        raise AssertionError("bf16 dW: the shapes do not cover the run")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, yardstick_ms=0.0,
+                 bytes_ms=0.0, ops_ms=0.0)
+    max_err = 0.0
+    print("bf16 dW shape | S | rows | H | Hx | K | O | kernel share | "
+          "kernel ms | bound ms | plain ms | per-relation bf16 matmul ms")
+    for label, per_step, seg, H, Hx, K, O, mask, unaligned in shapes:
+        S, n = seg.n_segments, seg.n_rows
+        w_shape = (S, H, K, O)
+        x = torch.randn(n * Hx * K + 1, device=dev, generator=gen).bfloat16()
+        x = x[1:] if unaligned else x[:-1]
+        x = x.view(n, Hx * K)
+        assert (x.data_ptr() % 16 != 0) == unaligned, label
+        ct = torch.randn(n, H * O, device=dev, generator=gen).bfloat16()
+        if mask:
+            ct = torch.where(seg.row_valid[:, None], ct, 0.0)
+        got = segment_matmul_dw(x, ct, w_shape, seg)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.isfinite(got).all():
+            raise AssertionError(f"bf16 {label}: {got.dtype}, not finite")
+        _compare_exact(got, segment_matmul_dw(x, ct, w_shape, seg),
+                       f"bf16 {label} (repeat)")
+        want = segment_matmul_dw_plain(x, ct, w_shape, seg)
+        limit = DW_TOL * segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape,
+                                                 seg)
+        err = (got - want).abs()
+        share = _worst_share(err, limit)
+        if share > 1.0:
+            raise AssertionError(f"bf16 {label}: {share} times the limit")
+        max_err = max(max_err, err.max().item())
+        ptrs = host_seg_ptrs(seg)
+
+        def yardstick():
+            # one bf16 torch.matmul a relation (the port never calls it)
+            out = torch.zeros(w_shape, device=dev, dtype=torch.bfloat16)
+            for s in range(S):
+                lo, hi = ptrs[s], ptrs[s + 1]
+                if hi == lo:
+                    continue
+                full = x[lo:hi].t() @ ct[lo:hi]
+                if Hx == 1:
+                    out[s] = full.view(K, H, O).permute(1, 0, 2)
+                else:
+                    out[s] = full.view(H, K, H, O).diagonal(
+                        dim1=0, dim2=2).permute(2, 0, 1)
+            return out
+
+        rows = ptrs[-1] - ptrs[0]
+        nbytes = rows * (Hx * K + H * O) * 2 + S * H * K * O * 4 + (S + 1) * 4
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = 2 * rows * H * K * O / BF16_FLOP_PER_S
+        bound = max(bytes_s, ops_s)
+        ms = _time_ms(lambda: segment_matmul_dw(x, ct, w_shape, seg), 20,
+                      flush)
+        plain = _time_ms(
+            lambda: segment_matmul_dw_plain(x, ct, w_shape, seg), 5, flush)
+        yard = _time_ms(yardstick, 5, flush)
+        print(f"{label} | {S} | {rows} | {H} | {Hx} | {K} | {O} | "
+              f"{share:.4g} | {ms:.4f} | {bound * 1e3:.4f} | {plain:.4f} | "
+              f"{yard:.4f}")
+        for key, v in (("ms", ms), ("plain_ms", plain),
+                       ("bound_ms", bound * 1e3), ("yardstick_ms", yard),
+                       ("bytes_ms", bytes_s * 1e3), ("ops_ms", ops_s * 1e3)):
+            total[key] += per_step * v
+    print(f"[{BF16_DW}] bf16 segment_matmul_dw per-step totals (ms):",
+          json.dumps(total))
+    return {
+        "name": "segment_matmul_dw[bf16]",
+        "route": "cuda",
+        "source": "het_tpu_torch/csrc/segment_mm.cu",
+        "replaces": "het_tpu/ops/pallas/segment_mm.py:400,568",
+        "launches": None,  # filled from the bf16 training run
+        "max_abs_err": max_err,
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                     else "operations"),
+        "library_ms": None,  # no single PyTorch call computes a grouped dW
+        "yardstick_ms": total["yardstick_ms"],
+        "yardstick": "per-relation bf16 torch.matmul loop",
+    }
+
+
+def _bf16_config(r, dev, steps):
+    return dataclasses.replace(_config(r, dev, steps), dtype="bfloat16",
+                               loss_scale="dynamic")
+
+
+def check_bf16_training(datasets, dev, card, summaries):
+    """Every BF16_RUNS entry through the kernels (and, ``plain``, through
+    their plain versions) from its f32 run's seeded parameters: finite
+    losses (falling over STEPS), the kernels within BF16_TRAIN_RTOL of the
+    plain versions a step and within BF16_F32_RTOL of the f32 run's losses
+    (``summaries``), the f32 run's launches in all and the launches by
+    element types of ``_bf16_launches``; step ms, edges/s and peak memory
+    beside the f32 run's.  Returns {run: (launches, launches by dtype)}."""
+    import torch
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train import build_model, train
+
+    out = {}
+    for run, spec in BF16_RUNS.items():
+        r = RUNS[spec["f32"]]
+        data = datasets[_data_key(r)]
+        steps = spec["steps"]
+        cfg = _bf16_config(r, dev, steps)
+        state = _initial_state(build_model(cfg, data))
+        runs = {}
+        for impl in ("kernel", "plain") if spec["plain"] else ("kernel",):
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launches()
+            with _PackedCalls() as packed:
+                m = train(cfg, data, state=state, impl=impl,
+                          log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
+            m["launches"] = kernels.launch_counts()
+            m["launches_by_dtype"] = kernels.launch_counts_by_dtype()
+            m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            _check_packed(run, r, packed.calls, WARMUP + steps + 1)
+            _check_losses(run, impl, m["loss_list"], steps, steps == STEPS)
+            runs[impl] = m
+        k = runs["kernel"]
+        if "plain" in runs:
+            for step, (a, b) in enumerate(zip(k["loss_list"],
+                                              runs["plain"]["loss_list"])):
+                if abs(a - b) > BF16_TRAIN_RTOL * abs(b):
+                    raise AssertionError(
+                        f"{run} step {step}: kernel loss {a} vs plain {b} "
+                        f"(rtol {BF16_TRAIN_RTOL})")
+            if any(runs["plain"]["launches"].values()):
+                raise AssertionError(f"{run}: plain run launched")
+        f32 = summaries[spec["f32"]]["kernel"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(k["loss_list"],
+                                                      f32["losses"]))
+        if gap > BF16_F32_RTOL:
+            raise AssertionError(f"{run}: bf16 losses {k['loss_list']} vs "
+                                 f"f32 {f32['losses']} (rtol {BF16_F32_RTOL})")
+        want = _train_launches(r, steps)
+        if k["launches"] != want:
+            raise AssertionError(f"{run}: launched {k['launches']}, the f32 "
+                                 f"run's {want}")
+        want_by = _bf16_launches(run, steps, data.graph)
+        if k["launches_by_dtype"] != want_by:
+            raise AssertionError(f"{run}: launched by dtype "
+                                 f"{k['launches_by_dtype']}, expected "
+                                 f"{want_by}")
+        E = data.graph.num_edges
+        summary = {"losses_vs_f32_max_rel": gap,
+                   "f32": {key: f32[key] for key in (
+                       "losses", "median_warm_step_ms", "edges_per_s",
+                       "peak_mem_gb")}}
+        for impl, m in runs.items():
+            warm = statistics.median(m["step_ms_list"][1:])
+            summary[impl] = {
+                "losses": m["loss_list"], "step_ms": m["step_ms_list"],
+                "median_warm_step_ms": warm, "edges_per_s": E / (warm / 1e3),
+                "launches": m["launches"],
+                "launches_by_dtype": m["launches_by_dtype"],
+                "peak_mem_gb": m["peak_mem_gb"],
+                "loss_scale_state": m["loss_scale_state"],
+                **{key: m[key] for key in REPORT_KEYS}}
+        if "plain" in runs:
+            summary["kernel_vs_plain_max_rel"] = max(
+                abs(a - b) / abs(b) for a, b in zip(
+                    k["loss_list"], runs["plain"]["loss_list"]))
+        print(f"training {run} ({card}):", json.dumps(summary))
+        out[run] = (k["launches"], k["launches_by_dtype"])
+    return out
+
+
+def check_resume(data, dev, card):
+    """Checkpoint and resume through the trainer, in f32 and in bf16
+    (dynamic loss scale): compact multiply-first (packed) at SCALE with
+    dropout 0.3 (the dropout generator is a CUDA generator), RESUME_STEPS
+    timed steps, a checkpoint, then as many more resumed, against
+    2 * RESUME_STEPS straight steps: the resumed losses and the final
+    parameters bit for bit.  Then a --patience 1 run (lr 0.05, 8 epochs)
+    stops where EarlyStopping says on its own losses, and its last
+    checkpoint carries the epoch it reached.  Checkpoints go to a
+    temporary directory, removed after."""
+    import tempfile
+
+    import torch
+    from het_tpu_torch.train import build_model, train
+    from het_tpu_torch.train.checkpoint import latest_step, load_checkpoint
+    from het_tpu_torch.utils.misc import EarlyStopping
+
+    r = RUNS["compact_multiply_first"]
+    quiet = lambda s: None  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            base = dataclasses.replace(
+                _config(r, dev, 2 * RESUME_STEPS), dropout=0.3, dtype=dtype,
+                loss_scale="dynamic" if dtype == "bfloat16" else "none",
+                checkpoint_dir=f"{tmp}/{dtype}")
+
+            def seeded():  # the trainer's own seeded parameters
+                return build_model(base, data, generator=torch.Generator(
+                    ).manual_seed(base.seed))
+
+            net = seeded()
+            ref = train(base, data, net=net, log=quiet)
+            half = dataclasses.replace(base, num_epochs=RESUME_STEPS,
+                                       save_every=RESUME_STEPS)
+            train(half, data, log=quiet)
+            if latest_step(base.checkpoint_dir) != RESUME_STEPS:
+                raise AssertionError(f"resume {dtype}: no checkpoint")
+            net2 = seeded()
+            res = train(dataclasses.replace(base, resume=True), data,
+                        net=net2, log=quiet)
+            if res["loss_list"] != ref["loss_list"][RESUME_STEPS:]:
+                raise AssertionError(
+                    f"resume {dtype}: losses {res['loss_list']} vs the "
+                    f"uninterrupted {ref['loss_list'][RESUME_STEPS:]}")
+            want = net.state_dict()
+            for key, v in net2.state_dict().items():
+                if not torch.equal(v, want[key]):
+                    raise AssertionError(f"resume {dtype}: {key} differs")
+            print(f"resume {dtype} ({card}): {RESUME_STEPS} + "
+                  f"{RESUME_STEPS} resumed steps equal {2 * RESUME_STEPS} "
+                  "straight, losses and parameters bit for bit:",
+                  json.dumps({"straight": ref["loss_list"],
+                              "resumed": res["loss_list"]}))
+        cfg = dataclasses.replace(_config(r, dev, 8), lr=0.05, patience=1,
+                                  save_every=100,
+                                  checkpoint_dir=f"{tmp}/patience")
+        m = train(cfg, data, log=quiet)
+        losses = m["loss_list"]
+        stopper = EarlyStopping(patience=1)
+        stops = [stopper.update(v, i) for i, v in enumerate(losses)]
+        reached = stops.index(True) + 1 if True in stops else len(stops)
+        if len(losses) != reached or m["epochs_done"] != reached:
+            raise AssertionError(f"patience 1: ran {len(losses)} epochs on "
+                                 f"losses {losses}, the stopper says "
+                                 f"{reached}")
+        ck = load_checkpoint(cfg.checkpoint_dir)
+        if ck["epoch"] != reached or latest_step(
+                cfg.checkpoint_dir) != reached:
+            raise AssertionError(f"patience 1: last checkpoint {ck['epoch']}"
+                                 f", epoch reached {reached}")
+        print(f"patience 1 ({card}): stopped after epoch {reached} of "
+              f"{cfg.num_epochs} on losses {losses}; last checkpoint "
+              f"step_{reached}")
+
+
 def check_full_scale(dev, card):
     """The slice's path (compact multiply-first, packed, stable="max") on
     synthetic ogbn-mag at FULL_SCALE, FULL_STEPS steps through the kernels
     only: finite losses, the last below the first, the packed form and
     the slice's launches a step; then compact RGCN and compact HGT on
-    the same graph (``FULL_OTHERS``: finite losses, their launches); each
-    prints its
+    the same graph (``FULL_OTHERS``: finite losses, their launches), and
+    the slice's path in bf16 (BF16_FULL: the f32 run's launches, its
+    losses within BF16_F32_RTOL of the f32 run's); each prints its
     step time, edges/s and the peak device memory.  First the segment sum
     and max at every shape of a step of the slice's path there, each
-    against its plain version, timed beside its bound.  Returns each
-    run's launches and those two per-step totals."""
+    against its plain version, timed beside its bound, and the sum's bf16
+    instantiations at the same shapes.  Returns each run's launches, in
+    all and by element types, and those per-step totals."""
     import gc
 
     import torch
@@ -1985,19 +2499,28 @@ def check_full_scale(dev, card):
             FULL, _seg_sum_shapes(g, True, True), dev, flush, gen)[0],
         "seg_max_sorted": seg_max_run_table(
             FULL, _seg_max_shapes(g), dev, flush, gen)[0],
+        # the bf16 step's sums at the same shapes (the max reads f32)
+        "bf16": seg_sum_run_table(
+            BF16_FULL, _seg_sum_shapes(g, True, True), dev, flush, gen,
+            pair_of=_bf16_sum_pair)[0]["by_dtype"],
     }
     del g, flush
     torch.cuda.empty_cache()
-    launches = {}
-    for name, run, steps in ((FULL, SLICE_MAIN, FULL_STEPS), *FULL_OTHERS):
+    launches, by_dtype, f32_losses = {}, {}, None
+    for name, run, steps in ((FULL, SLICE_MAIN, FULL_STEPS),
+                             (BF16_FULL, SLICE_MAIN, FULL_STEPS),
+                             *FULL_OTHERS):
         r = RUNS[run]
         cfg = _config(dict(r, scale=FULL_SCALE), dev, steps)
+        if name == BF16_FULL:
+            cfg = _bf16_config(dict(r, scale=FULL_SCALE), dev, steps)
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         with _PackedCalls() as packed:
             m = train(cfg, data,
                       log=lambda s, n=name: print(f"[{n} kernel] {s}"))
         launches[name] = kernels.launch_counts()
+        by_dtype[name] = kernels.launch_counts_by_dtype()
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         _check_packed(name, r, packed.calls, WARMUP + steps + 1)
         _check_losses(name, "kernel", m["loss_list"], steps,
@@ -2006,19 +2529,35 @@ def check_full_scale(dev, card):
         if launches[name] != want:
             raise AssertionError(f"{name}: launched {launches[name]}, "
                                  f"expected {want}")
+        extra = {}
+        if name == FULL:
+            f32_losses = m["loss_list"]
+        if name == BF16_FULL:
+            sums = by_dtype[name]["seg_sum_sorted"]
+            if set(sums) != {"bf16->f32", "bf16->bf16"} or sum(
+                    sums.values()) != want["seg_sum_sorted"]:
+                raise AssertionError(f"{name}: sums by dtype {sums}")
+            extra["losses_vs_f32_max_rel"] = gap = max(
+                abs(a - b) / abs(b) for a, b in zip(m["loss_list"],
+                                                    f32_losses))
+            if gap > BF16_F32_RTOL:
+                raise AssertionError(f"{name}: bf16 losses {m['loss_list']}"
+                                     f" vs f32 {f32_losses}")
         E = data.graph.num_edges
         warm = statistics.median(m["step_ms_list"][1:])
         print(f"training {name} ({card}):", json.dumps({
             "edges": E, "losses": m["loss_list"],
             "step_ms": m["step_ms_list"], "median_warm_step_ms": warm,
             "edges_per_s": E / (warm / 1e3), "launches": launches[name],
-            "peak_mem_gb": peak, **{key: m[key] for key in REPORT_KEYS}}))
+            "launches_by_dtype": by_dtype[name], "dtype": cfg.dtype,
+            "peak_mem_gb": peak, **extra,
+            **{key: m[key] for key in REPORT_KEYS}}))
         del m
         gc.collect()
         torch.cuda.empty_cache()
     del data
     gc.collect()
-    return launches, totals
+    return launches, by_dtype, totals
 
 
 def main() -> int:
@@ -2034,6 +2573,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS reduces bf16 products in bf16 unless told not to; het_tpu's
+    # dots accumulate in f32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     card = _card_line()
     name = torch.cuda.get_device_name(0)
@@ -2084,6 +2626,8 @@ def main() -> int:
         check_dw(gd, gu, shards, dev, flush),
         *check_fwd_dx(shards, dev, flush),
         check_force_rowmajor(gp, dev, flush),
+        *check_seg_sum_bf16({run: gd for run in BF16_RUNS}, dev, flush),
+        check_dw_bf16(gd, dev, flush),
     ]
     compare_fused_forms({"compact_multiply_first": gd, SLICE_MAIN: gp}, dev,
                         flush)
@@ -2106,14 +2650,31 @@ def main() -> int:
     ratio = (summaries["hgt_plain"]["kernel"]["median_warm_step_ms"]
              / summaries["hgt_compact"]["kernel"]["median_warm_step_ms"])
     print(f"HGT plain / compact step time, kernels ({card}): {ratio:.3f}")
+    bf16 = check_bf16_training(datasets, dev, card, summaries)
+    check_resume(data, dev, card)
     for key in list(datasets):  # host memory for the full-scale graph
         if key != _data_key(RUNS[MAIN]):
             del datasets[key]
-    full_launches, full_totals = check_full_scale(dev, card)
+    full_launches, full_by_dtype, full_totals = check_full_scale(dev, card)
     launches.update(full_launches)
     launches.update(check_dp(data, parts, dev, card))
+    # the bf16 instantiations' launches: each typed kernel's count by
+    # element types, on this slice's bf16 main path (the dW's on the bf16
+    # plain RGAT run, the only one that reaches it)
+    by_dtype = {run: counts for run, (_, counts) in bf16.items()}
+    by_dtype.update(full_by_dtype)
+    launches.update({run: counts for run, (counts, _) in bf16.items()})
     for entry in entries:
         kernel = entry["name"]
+        if "[" in kernel:
+            base, key = kernel[:-1].split("[")
+            main = BF16_DW if base == "segment_matmul_dw" else BF16_MAIN
+            entry["launches"] = by_dtype[main][base].get(key, 0)
+            entry["launches_by_run"] = {r: c[base].get(key, 0)
+                                        for r, c in by_dtype.items()}
+            if key in full_totals["bf16"]:
+                entry["per_run"][BF16_FULL] = full_totals["bf16"][key]
+            continue
         if kernel in full_totals:
             entry["per_run"][FULL] = full_totals[kernel]
         # each kernel's launches on its own main path: this slice's path

@@ -78,7 +78,17 @@
 //  * accumulation is in f32, all row and column offsets are 64-bit, no row
 //    of vals outside [row_ptr[0], row_ptr[n]) is read (through perm too),
 //    and empty rows store the reduction's empty value, finished (0), so
-//    the caller may allocate the output uninitialised.
+//    the caller may allocate the output uninitialised;
+//  * the sum also reads bf16 rows (het_tpu's mixed-precision payloads,
+//    its pack_dt) into f32 or bf16 sums.  A bf16 row is loaded 8, 4, 2 or
+//    1 elements at a time (16, 8, 4 or 2 bytes: the widest that C and the
+//    addresses allow), widened to f32 as it is added (a bf16's bits are
+//    the high half of the f32 it equals), and accumulated in f32 as an
+//    f32 row is, partials and carries included; a bf16 sum is rounded
+//    once, to nearest even, where it is stored.  A split row's first part
+//    then waits in f32 scratch (head) rather than in the bf16 output, so
+//    the fixup rounds the whole row's sum once.  Bound: the same bytes at
+//    2 bytes a bf16 element.
 //
 // 3. Row copy: a 2-D or 3-D f32 tensor of any strides into a contiguous
 // one of the same shape.  Replaces het_tpu/ops/pallas/seg_reduce.py::
@@ -94,6 +104,7 @@
 // element pays a division.  Stores are coalesced; loads are wherever the
 // innermost stride is 1.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -116,51 +127,178 @@ struct MaxOp {
   __device__ static float finish(float a) { return isfinite(a) ? a : 0.f; }
 };
 
+// A lane's V neighbouring columns of a row, accumulated in f32.
 template <int V>
-struct Vec;
+struct Acc {
+  float v[V];
+};
+
+// Loads of V neighbouring elements of In: f32 (16 or 4 bytes) or bf16
+// (16, 8, 4 or 2 bytes), combined into an f32 accumulator as they are
+// read (a bf16's bits are the high half of the f32 it equals).
+template <class In, int V>
+struct Ld;
 
 template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T fill(float v) { return make_float4(v, v, v, v); }
-  __device__ static T load(const float* p) {
+struct Ld<float, 4> {
+  using Raw = float4;
+  __device__ static Raw load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
   }
-  template <class R>
-  __device__ static void combine(T& a, const T& b) {
-    a.x = R::op(a.x, b.x); a.y = R::op(a.y, b.y);
-    a.z = R::op(a.z, b.z); a.w = R::op(a.w, b.w);
-  }
-  template <class R>
-  __device__ static T finish(const T& a) {
-    return make_float4(R::finish(a.x), R::finish(a.y), R::finish(a.z),
-                       R::finish(a.w));
-  }
-  __device__ static T shfl_xor(unsigned mask, const T& a, int off) {
-    return make_float4(__shfl_xor_sync(mask, a.x, off),
-                       __shfl_xor_sync(mask, a.y, off),
-                       __shfl_xor_sync(mask, a.z, off),
-                       __shfl_xor_sync(mask, a.w, off));
-  }
-  __device__ static void store(float* p, const T& a) {
-    *reinterpret_cast<float4*>(p) = a;
+  __device__ static Raw fill(float v) { return make_float4(v, v, v, v); }
+  __device__ static void get(const Raw& r, float (&f)[4]) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
   }
 };
 
 template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T fill(float v) { return v; }
-  __device__ static T load(const float* p) { return __ldg(p); }
-  template <class R>
-  __device__ static void combine(T& a, const T& b) { a = R::op(a, b); }
-  template <class R>
-  __device__ static T finish(const T& a) { return R::finish(a); }
-  __device__ static T shfl_xor(unsigned mask, const T& a, int off) {
-    return __shfl_xor_sync(mask, a, off);
-  }
-  __device__ static void store(float* p, const T& a) { *p = a; }
+struct Ld<float, 1> {
+  using Raw = float;
+  __device__ static Raw load(const float* p) { return __ldg(p); }
+  __device__ static Raw fill(float v) { return v; }
+  __device__ static void get(const Raw& r, float (&f)[1]) { f[0] = r; }
 };
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// the bf16 pair in a 32-bit word, low half first
+__device__ __forceinline__ void bf16_pair(uint32_t w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+template <>
+struct Ld<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static Raw fill(float v) {
+    const uint32_t w = bf16_bits(v) * 0x10001u;
+    return make_uint4(w, w, w, w);
+  }
+  __device__ static void get(const Raw& r, float (&f)[8]) {
+    bf16_pair(r.x, f[0], f[1]); bf16_pair(r.y, f[2], f[3]);
+    bf16_pair(r.z, f[4], f[5]); bf16_pair(r.w, f[6], f[7]);
+  }
+};
+
+template <>
+struct Ld<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static Raw fill(float v) {
+    const uint32_t w = bf16_bits(v) * 0x10001u;
+    return make_uint2(w, w);
+  }
+  __device__ static void get(const Raw& r, float (&f)[4]) {
+    bf16_pair(r.x, f[0], f[1]); bf16_pair(r.y, f[2], f[3]);
+  }
+};
+
+template <>
+struct Ld<__nv_bfloat16, 2> {
+  using Raw = uint32_t;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ static Raw fill(float v) { return bf16_bits(v) * 0x10001u; }
+  __device__ static void get(const Raw& r, float (&f)[2]) {
+    bf16_pair(r, f[0], f[1]);
+  }
+};
+
+template <>
+struct Ld<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static Raw fill(float v) {
+    return static_cast<unsigned short>(bf16_bits(v));
+  }
+  __device__ static void get(const Raw& r, float (&f)[1]) {
+    f[0] = __uint_as_float(static_cast<uint32_t>(r) << 16);
+  }
+};
+
+template <class R, int V>
+__device__ __forceinline__ void acc_fill(Acc<V>& a, float v) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) a.v[j] = v;
+}
+
+template <class R, class In, int V>
+__device__ __forceinline__ void acc_add(Acc<V>& a,
+                                        const typename Ld<In, V>::Raw& r) {
+  float f[V];
+  Ld<In, V>::get(r, f);
+#pragma unroll
+  for (int j = 0; j < V; ++j) a.v[j] = R::op(a.v[j], f[j]);
+}
+
+template <class R, int V>
+__device__ __forceinline__ void acc_shfl_combine(Acc<V>& a, unsigned mask,
+                                                 int off) {
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    a.v[j] = R::op(a.v[j], __shfl_xor_sync(mask, a.v[j], off));
+}
+
+// V floats stored as they are (16, 8 or 4 bytes a store)
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float (&f)[V]) {
+  if constexpr (V == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
+  } else {
+    *p = f[0];
+  }
+}
+
+// V floats rounded once to bf16 (round to nearest even) and stored (16,
+// 8, 4 or 2 bytes a store)
+template <int V>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* p,
+                                           const float (&f)[V]) {
+  if constexpr (V == 1) {
+    *reinterpret_cast<unsigned short*>(p) =
+        static_cast<unsigned short>(bf16_bits(f[0]));
+  } else {
+    uint32_t w[V / 2];
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j)
+      w[j] = bf16_bits(f[2 * j]) | (bf16_bits(f[2 * j + 1]) << 16);
+    if constexpr (V == 8) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+    }
+  }
+}
+
+// The reduction's final map applied and the result stored as Out.
+template <class R, class Out, int V>
+__device__ __forceinline__ void store_finished(Out* p, const Acc<V>& a) {
+  float f[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) f[j] = R::finish(a.v[j]);
+  if constexpr (sizeof(Out) == 4) {
+    store_f32<V>(p, f);
+  } else {
+    store_bf16<V>(p, f);
+  }
+}
 
 constexpr int kThreads = 256;
 // 4 blocks of 256 threads an SM at least: the registers a thread may hold
@@ -169,43 +307,34 @@ constexpr int kMinBlocks = 4;
 // row_ptr entries a helper block samples before its tasks search
 constexpr int kSample = 1024;
 
-// Store one lane's columns of a row: raw, or through the final map.
-template <class R, int V, int NC>
-__device__ __forceinline__ void store_cols(
-    float* p, const int (&off)[NC], const bool (&act)[NC],
-    const typename Vec<V>::T (&acc)[NC], bool raw) {
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    if (act[k]) {
-      Vec<V>::store(p + off[k],
-                    raw ? acc[k] : Vec<V>::template finish<R>(acc[k]));
-    }
-  }
-}
-
-// R: the reduction.  V: floats a vector load (4 or 1).  S: lanes an edge
+// R: the reduction.  In, Out: the element types of vals and out (f32 or
+// bf16; the sums are f32 either way, rounded once where Out is bf16).  V:
+// elements a load (f32: 4 or 1; bf16: 8, 4, 2 or 1).  S: lanes an edge
 // slot (a power of two, 1..32).  NC: columns a lane (1 or 2).  G: edge
 // slots a task (S * G <= 32), taking every G-th edge of the task's range
 // and meeting in a fixed shuffle at its end.  Blocks below
 // `helper_blocks` run the helper tasks (one a chunk of L edges), the rest
-// one task a row.
-template <class R, int V, int S, int NC, int G>
+// one task a row.  A split row's first part is stored raw (f32) in out
+// where Out is f32, else in head[h] for its first helper h, so that a
+// bf16 result is rounded once, after the parts are combined.
+template <class R, class In, class Out, int V, int S, int NC, int G>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-seg_reduce_kernel(const float* __restrict__ vals,
+seg_reduce_kernel(const In* __restrict__ vals,
                   const int32_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ perm,
-                  float* __restrict__ out, int32_t* __restrict__ carry_row,
+                  Out* __restrict__ out, float* __restrict__ head,
+                  int32_t* __restrict__ carry_row,
                   float* __restrict__ carry, int64_t n, int C, int64_t L,
                   int64_t helpers, int64_t helper_blocks) {
-  using Op = Vec<V>;
-  using T = typename Op::T;
+  using Raw = typename Ld<In, V>::Raw;
   constexpr int U = 8 / NC;                   // edges a batch of a slot
   constexpr int kTasks = kThreads / (S * G);  // tasks a block
   const int sub = threadIdx.x % S;
   const int slot = (threadIdx.x / S) % G;
   const int32_t lo = __ldg(row_ptr);
   int64_t a, b;  // the task's edges, counted from row_ptr[0]
-  float* dst;
+  float* raw_dst = nullptr;  // where a raw (f32) partial goes
+  Out* dst = nullptr;        // where a finished row goes
   bool raw;
   if (blockIdx.x < helper_blocks) {
     // helper h: the edges [h L, (h + 1) L) of a row longer than L that
@@ -257,7 +386,7 @@ seg_reduce_kernel(const float* __restrict__ vals,
     }
     if (sub == 0 && slot == 0) carry_row[h] = static_cast<int32_t>(row);
     if (row < 0) return;
-    dst = carry + h * C;
+    raw_dst = carry + h * C;
     raw = true;
   } else {
     // row r: all its edges, or for a row longer than L those before the
@@ -271,26 +400,31 @@ seg_reduce_kernel(const float* __restrict__ vals,
     raw = end - start > L;
     a = start;
     b = end;
+    dst = out + row * C;
     if (raw) {  // rare: no division on the common path
       const int64_t cut = (start / L + 1) * L;
       if (cut < end) b = cut;
+      if constexpr (sizeof(Out) == 4) {
+        raw_dst = reinterpret_cast<float*>(dst);
+      } else {
+        raw_dst = head + (b / L) * C;  // b is the row's first helper's edge
+      }
     }
-    dst = out + row * C;
   }
   const int cv = C / V;  // vector columns a row
   for (int c0 = 0; c0 < cv; c0 += S * NC) {
     int off[NC];
     bool act[NC];
-    T acc[NC];
+    Acc<V> acc[NC];
 #pragma unroll
     for (int k = 0; k < NC; ++k) {
       const int col = c0 + sub + k * S;
       act[k] = col < cv;
       off[k] = col * V;
-      acc[k] = Op::fill(R::empty());
+      acc_fill<R, V>(acc[k], R::empty());
     }
     for (int64_t e = a + slot; e < b; e += U * G) {
-      T v[U][NC];
+      Raw v[U][NC];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int64_t k = e + u * G;
@@ -300,14 +434,14 @@ seg_reduce_kernel(const float* __restrict__ vals,
                   : -1;
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          v[u][c] = (r >= 0 && act[c]) ? Op::load(vals + r * C + off[c])
-                                       : Op::fill(R::empty());
+          v[u][c] = (r >= 0 && act[c]) ? Ld<In, V>::load(vals + r * C + off[c])
+                                       : Ld<In, V>::fill(R::empty());
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) Op::template combine<R>(acc[c], v[u][c]);
+        for (int c = 0; c < NC; ++c) acc_add<R, In, V>(acc[c], v[u][c]);
       }
     }
     if (G > 1) {
@@ -319,23 +453,33 @@ seg_reduce_kernel(const float* __restrict__ vals,
 #pragma unroll
       for (int o = S; o < S * G; o <<= 1) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          Op::template combine<R>(acc[c], Op::shfl_xor(mask, acc[c], o));
+        for (int c = 0; c < NC; ++c) acc_shfl_combine<R, V>(acc[c], mask, o);
+      }
+    }
+    if (slot == 0) {
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        if (!act[k]) continue;
+        if (raw) {
+          store_f32<V>(raw_dst + off[k], acc[k].v);
+        } else {
+          store_finished<R, Out, V>(dst + off[k], acc[k]);
         }
       }
     }
-    if (slot == 0) store_cols<R, V, NC>(dst, off, act, acc, raw);
   }
 }
 
-// Last pass, one thread a (helper, column): at the first helper of each
-// split row, the column's first part (stored raw in out) combined with
-// the helpers' partials in edge order, stored finished.
-template <class R>
+// Last pass, one thread a (helper, column): at the first helper h of
+// each split row, the column's first part (stored raw in out where Out is
+// f32, else in head[h]) combined with the helpers' partials in edge
+// order, stored finished.
+template <class R, class Out>
 __global__ void __launch_bounds__(kThreads)
 seg_reduce_fixup_kernel(const int32_t* __restrict__ carry_row,
                         const float* __restrict__ carry,
-                        float* __restrict__ out, int C, int64_t helpers) {
+                        const float* __restrict__ head,
+                        Out* __restrict__ out, int C, int64_t helpers) {
   const int64_t t =
       static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= helpers * C) return;
@@ -343,39 +487,49 @@ seg_reduce_fixup_kernel(const int32_t* __restrict__ carry_row,
   const int c = static_cast<int>(t - h * C);
   const int32_t r = carry_row[h];
   if (r < 0 || (h > 0 && carry_row[h - 1] == r)) return;
-  float* o = out + static_cast<int64_t>(r) * C + c;
-  float acc = *o;
+  Out* o = out + static_cast<int64_t>(r) * C + c;
+  float acc;
+  if constexpr (sizeof(Out) == 4) {
+    acc = *o;
+  } else {
+    acc = head[h * C + c];
+  }
   for (int64_t k = h; k < helpers && carry_row[k] == r; ++k) {
     acc = R::op(acc, carry[k * C + c]);
   }
-  *o = R::finish(acc);
+  if constexpr (sizeof(Out) == 4) {
+    *o = R::finish(acc);
+  } else {
+    *o = __float2bfloat16_rn(R::finish(acc));
+  }
 }
 
-template <class R, int V, int S, int NC, int G>
-cudaError_t launch_rows(const float* vals, const int32_t* row_ptr,
-                        const int32_t* perm, float* out, int32_t* carry_row,
-                        float* carry, int64_t n, int C, int64_t L,
-                        int64_t helpers, cudaStream_t stream) {
+template <class R, class In, class Out, int V, int S, int NC, int G>
+cudaError_t launch_rows(const In* vals, const int32_t* row_ptr,
+                        const int32_t* perm, Out* out, float* head,
+                        int32_t* carry_row, float* carry, int64_t n, int C,
+                        int64_t L, int64_t helpers, cudaStream_t stream) {
   constexpr int kTasks = kThreads / (S * G);
   const int64_t helper_blocks = (helpers + kTasks - 1) / kTasks;
   const int64_t blocks = helper_blocks + (n + kTasks - 1) / kTasks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  seg_reduce_kernel<R, V, S, NC, G><<<static_cast<unsigned>(blocks),
-                                      kThreads, 0, stream>>>(
-      vals, row_ptr, perm, out, carry_row, carry, n, C, L, helpers,
-      helper_blocks);
+  seg_reduce_kernel<R, In, Out, V, S, NC, G>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          vals, row_ptr, perm, out, head, carry_row, carry, n, C, L,
+          helpers, helper_blocks);
   return cudaGetLastError();
 }
 
-template <class R, int V>
-cudaError_t launch_v(const float* vals, const int32_t* row_ptr,
-                     const int32_t* perm, float* out, int32_t* carry_row,
-                     float* carry, int64_t n, int C, int64_t L,
-                     int64_t helpers, cudaStream_t s) {
+template <class R, class In, class Out, int V>
+cudaError_t launch_v(const In* vals, const int32_t* row_ptr,
+                     const int32_t* perm, Out* out, float* head,
+                     int32_t* carry_row, float* carry, int64_t n, int C,
+                     int64_t L, int64_t helpers, cudaStream_t s) {
   const int cv = C / V;
-#define HET_ROWS(S_, NC_, G_)                                          \
-  launch_rows<R, V, S_, NC_, G_>(vals, row_ptr, perm, out, carry_row,   \
-                                 carry, n, C, L, helpers, s)
+#define HET_ROWS(S_, NC_, G_)                                              \
+  launch_rows<R, In, Out, V, S_, NC_, G_>(vals, row_ptr, perm, out, head,   \
+                                          carry_row, carry, n, C, L,        \
+                                          helpers, s)
   // S: the smallest power of two covering cv up to 16; past that 16
   // lanes with two columns each (cv = 17: no lane without a column), and
   // past 32 columns 32 lanes with two (past 64, passes of 64)
@@ -393,27 +547,49 @@ cudaError_t launch_v(const float* vals, const int32_t* row_ptr,
 #undef HET_ROWS
 }
 
-template <class R>
-cudaError_t launch(const float* vals, const int32_t* row_ptr,
-                   const int32_t* perm, float* out, int32_t* carry_row,
-                   float* carry, int64_t n, int C, int64_t L,
-                   int64_t helpers, cudaStream_t s) {
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The widest load of V elements that C and the pointers allow: f32 rows
+// read 4 floats (16 bytes) or 1; bf16 rows 8, 4, 2 or 1 elements (16, 8,
+// 4 or 2 bytes), the output stored V elements at a time as well.
+template <class R, class In, class Out>
+cudaError_t launch(const In* vals, const int32_t* row_ptr,
+                   const int32_t* perm, Out* out, float* head,
+                   int32_t* carry_row, float* carry, int64_t n, int C,
+                   int64_t L, int64_t helpers, cudaStream_t s) {
   if (L <= 0 || helpers <= 0 || n > 0x7ffffffeLL)
     return cudaErrorInvalidValue;
-  const bool vec4 = (C % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(vals) % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(carry) % 16 == 0);
-  cudaError_t err =
-      vec4 ? launch_v<R, 4>(vals, row_ptr, perm, out, carry_row, carry, n,
-                            C, L, helpers, s)
-           : launch_v<R, 1>(vals, row_ptr, perm, out, carry_row, carry, n,
-                            C, L, helpers, s);
+  // V elements a load where C, vals, out and the f32 scratch allow it
+  const auto fits = [&](int V) {
+    return C % V == 0 && aligned(vals, V * sizeof(In)) &&
+           aligned(out, V * sizeof(Out)) &&
+           aligned(carry, 4 * V < 16 ? 4 * V : 16) &&
+           (head == nullptr || aligned(head, 4 * V < 16 ? 4 * V : 16));
+  };
+  cudaError_t err;
+  if constexpr (sizeof(In) == 4) {
+    err = fits(4) ? launch_v<R, In, Out, 4>(vals, row_ptr, perm, out, head,
+                                            carry_row, carry, n, C, L,
+                                            helpers, s)
+                  : launch_v<R, In, Out, 1>(vals, row_ptr, perm, out, head,
+                                            carry_row, carry, n, C, L,
+                                            helpers, s);
+  } else {
+#define HET_V(V_)                                                          \
+  launch_v<R, In, Out, V_>(vals, row_ptr, perm, out, head, carry_row,      \
+                           carry, n, C, L, helpers, s)
+    err = fits(8) ? HET_V(8) : fits(4) ? HET_V(4) : fits(2) ? HET_V(2)
+                                                            : HET_V(1);
+#undef HET_V
+  }
   if (err != cudaSuccess) return err;
   const int64_t blocks = (helpers * C + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  seg_reduce_fixup_kernel<R><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               s>>>(carry_row, carry, out, C, helpers);
+  seg_reduce_fixup_kernel<R, Out><<<static_cast<unsigned>(blocks), kThreads,
+                                    0, s>>>(carry_row, carry, head, out, C,
+                                            helpers);
   return cudaGetLastError();
 }
 
@@ -527,7 +703,34 @@ int het_seg_sum_sorted_f32(const float* vals, const int32_t* row_ptr,
                            float* carry, void* stream) {
   if (n <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   return static_cast<int>(launch<SumOp>(
-      vals, row_ptr, perm, out, carry_row, carry, n, C, L, helpers,
+      vals, row_ptr, perm, out, static_cast<float*>(nullptr), carry_row,
+      carry, n, C, L, helpers, static_cast<cudaStream_t>(stream)));
+}
+
+// The same contract with vals bf16: the sums are f32, out f32.
+int het_seg_sum_sorted_bf16_f32(const __nv_bfloat16* vals,
+                                const int32_t* row_ptr, const int32_t* perm,
+                                float* out, int64_t n, int C, int64_t L,
+                                int64_t helpers, int32_t* carry_row,
+                                float* carry, void* stream) {
+  if (n <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch<SumOp>(
+      vals, row_ptr, perm, out, static_cast<float*>(nullptr), carry_row,
+      carry, n, C, L, helpers, static_cast<cudaStream_t>(stream)));
+}
+
+// The same contract with vals and out bf16: the sums are f32, each rounded
+// once (to nearest even) where it is stored.  Scratch head (helpers, C)
+// f32, 16-byte aligned, holds the first part of each split row.
+int het_seg_sum_sorted_bf16_bf16(const __nv_bfloat16* vals,
+                                 const int32_t* row_ptr, const int32_t* perm,
+                                 __nv_bfloat16* out, int64_t n, int C,
+                                 int64_t L, int64_t helpers,
+                                 int32_t* carry_row, float* carry,
+                                 float* head, void* stream) {
+  if (n <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch<SumOp>(
+      vals, row_ptr, perm, out, head, carry_row, carry, n, C, L, helpers,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -539,8 +742,8 @@ int het_seg_max_sorted_f32(const float* vals, const int32_t* row_ptr,
                            void* stream) {
   if (n <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   return static_cast<int>(launch<MaxOp>(
-      vals, row_ptr, nullptr, out, carry_row, carry, n, C, L, helpers,
-      static_cast<cudaStream_t>(stream)));
+      vals, row_ptr, nullptr, out, static_cast<float*>(nullptr), carry_row,
+      carry, n, C, L, helpers, static_cast<cudaStream_t>(stream)));
 }
 
 // x: (R, A, B) f32 elements at element strides (s0, s1, s2) (a 2-D tensor

@@ -169,7 +169,21 @@
 // otherwise (K or NC not a multiple of 4, x a view that starts off 16
 // bytes) the same kernels load 4 bytes at a time.  Plain f32 FMAs, no
 // tensor cores: their f32 path is TF32, which fails the port's limit.
+//
+// bf16 x and ct (het_tpu's mixed-precision step: plain RGAT's
+// attention-vector dW, _dw_resident on bf16 operands) take the same
+// kernels instantiated on __nv_bfloat16: the narrow kernel reads 4
+// elements a load (8 bytes) where the f32 one reads a float4, the wide
+// kernel stages the rows as they are, 16-byte cp.async of 8 elements
+// where K, NC and H*O are multiples of 8 and the rows 16-byte aligned,
+// else 2-byte loads and stores, and both widen each value to f32 where
+// the FMA reads it.  A product of two bf16 values is exact in f32, so
+// partials, sums and dW are f32 as for f32 operands and the f32 limit
+// holds.  Bound: the same bytes at 2 bytes a bf16 input element, the
+// operations at the bf16 rate.  A tensor-core (mma.sync / wgmma) bf16 dW
+// is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -250,11 +264,13 @@ constexpr int kNarrowThreads = 128;
 constexpr int kNarrowWarps = kNarrowThreads / 32;
 constexpr int kNarrowInFlight = 4;  // rows of loads a lane keeps in flight
 
-template <int V>
+// Loads of V neighbouring elements of In (f32, or bf16 widened to f32 as
+// they are read: a bf16's bits are the high half of the f32 it equals).
+template <class In, int V>
 struct Vec;
 
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
   __device__ static T load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
@@ -265,20 +281,53 @@ struct Vec<4> {
 };
 
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
   __device__ static T load(const float* p) { return __ldg(p); }
   __device__ static float get(const T& a, int) { return a; }
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+template <>
+struct Vec<__nv_bfloat16, 4> {  // 8 bytes
+  using T = uint2;
+  __device__ static T load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static float get(const T& a, int e) {
+    const uint32_t w = e < 2 ? a.x : a.y;
+    return e % 2 ? bf16_hi(w) : bf16_lo(w);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  using T = unsigned short;
+  __device__ static T load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static float get(const T& a, int) {
+    return __uint_as_float(static_cast<uint32_t>(a) << 16);
+  }
 };
 
 // The ct values of one row that a lane's x columns meet: cv[e][o] =
 // ct_row[coff[e] + o] for o < ncl, zero past it.  Per head (CE = V) each
 // x column e has its head's offset; neighbouring columns of one head
 // (`same`) share the first one's values.
-template <int NCP, bool kCtVec, int CE>
-__device__ __forceinline__ void load_ct(const float* __restrict__ row,
+template <class In, int NCP, bool kCtVec, int CE>
+__device__ __forceinline__ void load_ct(const In* __restrict__ row,
                                         const int (&coff)[CE], int ncl,
                                         bool same, float (&cv)[CE][NCP]) {
+  using Q = Vec<In, 4>;
+  using E = Vec<In, 1>;
 #pragma unroll
   for (int e = 0; e < CE; ++e) {
     if (e > 0 && same) {
@@ -287,31 +336,29 @@ __device__ __forceinline__ void load_ct(const float* __restrict__ row,
     } else if (kCtVec) {
 #pragma unroll
       for (int q = 0; q < NCP / 4; ++q) {
-        const float4 f =
-            __ldg(reinterpret_cast<const float4*>(row + coff[e]) + q);
-        cv[e][4 * q] = f.x;
-        cv[e][4 * q + 1] = f.y;
-        cv[e][4 * q + 2] = f.z;
-        cv[e][4 * q + 3] = f.w;
+        const typename Q::T f = Q::load(row + coff[e] + 4 * q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cv[e][4 * q + j] = Q::get(f, j);
       }
     } else {
 #pragma unroll
       for (int o = 0; o < NCP; ++o)
-        cv[e][o] = o < ncl ? __ldg(row + coff[e] + o) : 0.f;
+        cv[e][o] = o < ncl ? E::get(E::load(row + coff[e] + o), 0) : 0.f;
     }
   }
 }
 
+// In: the element type of x and ct (f32, or bf16 widened where read).
 // NCP: the ct columns an x column meets (NCL = O per head, H * O for
-// shared x), rounded up to 1, 4, 8, 12 or 16.  kVec: x read as float4
-// (Hx*K % 4 == 0, x 16-byte aligned); kCtVec: ct read as float4 (shared
-// x, NCL == NCP, ct 16-byte aligned); kPerHead: Hx = H.  L: lanes a row
+// shared x), rounded up to 1, 4, 8, 12 or 16.  kVec: x read 4 elements a
+// load (Hx*K % 4 == 0, x 16-byte aligned); kCtVec: ct read 4 elements a
+// load (shared x, NCL == NCP, ct 16-byte aligned); kPerHead: Hx = H.  L: lanes a row
 // (a power of two; 32 / L rows a warp); a lane holds V neighbouring x
 // columns and every pass of the block covers L * V of the Hx*K columns.
-template <int NCP, bool kVec, bool kCtVec, bool kPerHead>
+template <class In, int NCP, bool kVec, bool kCtVec, bool kPerHead>
 __global__ void __launch_bounds__(kNarrowThreads)
-segment_matmul_dw_narrow_kernel(const float* __restrict__ x,
-                                const float* __restrict__ ct,
+segment_matmul_dw_narrow_kernel(const In* __restrict__ x,
+                                const In* __restrict__ ct,
                                 const int32_t* __restrict__ seg_ptrs,
                                 int32_t* __restrict__ chunk_ptr,
                                 float* __restrict__ partial, int S, int H,
@@ -319,7 +366,7 @@ segment_matmul_dw_narrow_kernel(const float* __restrict__ x,
   constexpr int V = kVec ? 4 : 1;
   constexpr int CE = kPerHead ? V : 1;  // ct offsets a lane holds a row
   constexpr int UN = kNarrowInFlight;
-  using Op = Vec<V>;
+  using Op = Vec<In, V>;
   __shared__ float red[32 * V * NCP];
   Chunk c;
   if (!find_chunk<kNarrowThreads>(seg_ptrs, chunk_ptr, S, rows, &c)) return;
@@ -345,7 +392,7 @@ segment_matmul_dw_narrow_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int o = 0; o < NCP; ++o) acc[e][o] = 0.f;
     if (active) {
-      const float* xp = x + j;
+      const In* xp = x + j;
       int64_t i = c.lo + warp * G + grp;
       for (; i + (UN - 1) * NG < c.hi; i += UN * NG) {
         typename Op::T xv[UN];
@@ -354,7 +401,8 @@ segment_matmul_dw_narrow_kernel(const float* __restrict__ x,
         for (int u = 0; u < UN; ++u) {
           const int64_t r = i + u * NG;
           xv[u] = Op::load(xp + r * XW);
-          load_ct<NCP, kCtVec, CE>(ct + r * HO, coff, ncl, same, cv[u]);
+          load_ct<In, NCP, kCtVec, CE>(ct + r * HO, coff, ncl, same,
+                                       cv[u]);
         }
 #pragma unroll
         for (int u = 0; u < UN; ++u)
@@ -368,7 +416,7 @@ segment_matmul_dw_narrow_kernel(const float* __restrict__ x,
       for (; i < c.hi; i += NG) {
         const typename Op::T xv = Op::load(xp + i * XW);
         float cv[CE][NCP];
-        load_ct<NCP, kCtVec, CE>(ct + i * HO, coff, ncl, same, cv);
+        load_ct<In, NCP, kCtVec, CE>(ct + i * HO, coff, ncl, same, cv);
 #pragma unroll
         for (int e = 0; e < V; ++e)
 #pragma unroll
@@ -413,9 +461,9 @@ constexpr int kWideK = 64;     // k extent of a block's output tile
 constexpr int kWideRows = 32;  // rows a stage
 constexpr int kWideStages = 3;
 
-template <int BN>
+template <class In, int BN>
 __host__ __device__ constexpr int wide_smem_bytes() {
-  return kWideStages * kWideRows * (kWideK + BN) * 4;
+  return kWideStages * kWideRows * (kWideK + BN) * static_cast<int>(sizeof(In));
 }
 
 template <int BN>
@@ -449,24 +497,69 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A stage's copy of V elements: cp.async of 16 bytes (through L2 only)
+// or of one f32 (4 bytes); a bf16 element alone (2 bytes, below cp.async's
+// smallest size) is loaded and stored.  `ok` false fills zeros and reads
+// nothing.
+template <class In, int V>
+__device__ __forceinline__ void stage_copy(In* smem, const In* gmem,
+                                           bool ok) {
+  if constexpr (sizeof(In) * V == 16) {
+    cp_async<4>(reinterpret_cast<float*>(smem),
+                reinterpret_cast<const float*>(gmem), ok);
+  } else if constexpr (sizeof(In) == 4) {
+    cp_async<1>(reinterpret_cast<float*>(smem),
+                reinterpret_cast<const float*>(gmem), ok);
+  } else {
+    *reinterpret_cast<unsigned short*>(smem) =
+        ok ? __ldg(reinterpret_cast<const unsigned short*>(gmem)) : 0;
+  }
+}
+
+// 8 neighbouring k of a staged x row and 4 neighbouring columns of a
+// staged ct row, as f32.
+template <class In>
+__device__ __forceinline__ void stage_read(const In* xr, const In* cr,
+                                           float (&av)[8], float (&bv)[4]) {
+  if constexpr (sizeof(In) == 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(xr);
+    const float4 a1 = *reinterpret_cast<const float4*>(xr + 4);
+    const float4 b = *reinterpret_cast<const float4*>(cr);
+    av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+    av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+    bv[0] = b.x; bv[1] = b.y; bv[2] = b.z; bv[3] = b.w;
+  } else {
+    const uint4 a = *reinterpret_cast<const uint4*>(xr);
+    const uint2 b = *reinterpret_cast<const uint2*>(cr);
+    av[0] = bf16_lo(a.x); av[1] = bf16_hi(a.x);
+    av[2] = bf16_lo(a.y); av[3] = bf16_hi(a.y);
+    av[4] = bf16_lo(a.z); av[5] = bf16_hi(a.z);
+    av[6] = bf16_lo(a.w); av[7] = bf16_hi(a.w);
+    bv[0] = bf16_lo(b.x); bv[1] = bf16_hi(b.x);
+    bv[2] = bf16_lo(b.y); bv[3] = bf16_hi(b.y);
+  }
+}
+
 // blockIdx.y enumerates (head, k tile, column pass); 8 x (BN / 4) threads
 // each own 8 x 4 outputs (k = k0 + 8 ty + p, column c = c0 + 4 tx + q).
 // A pass's columns are head h's o (Hx = H) or ct's h * O + o (Hx = 1,
-// h = 0).  kVec: 16-byte copies (K, NC and H*O multiples of 4, x and ct
-// 16-byte aligned).
-template <int BN, bool kVec>
+// h = 0).  In: the element type of x and ct, staged as it is and widened
+// to f32 where the FMAs read it.  kVec: 16-byte copies (K, NC and H*O
+// multiples of 16 bytes' elements, x and ct 16-byte aligned).
+template <class In, int BN, bool kVec>
 __global__ void __launch_bounds__(wide_threads<BN>())
-segment_matmul_dw_wide_kernel(const float* __restrict__ x,
-                              const float* __restrict__ ct,
+segment_matmul_dw_wide_kernel(const In* __restrict__ x,
+                              const In* __restrict__ ct,
                               const int32_t* __restrict__ seg_ptrs,
                               int32_t* __restrict__ chunk_ptr,
                               float* __restrict__ partial, int S, int H,
                               int Hx, int K, int O, int rows) {
-  constexpr int T = wide_threads<BN>(), TX = BN / 4, V = kVec ? 4 : 1;
+  constexpr int T = wide_threads<BN>(), TX = BN / 4;
+  constexpr int V = kVec ? 16 / static_cast<int>(sizeof(In)) : 1;
   constexpr int XS = kWideRows * kWideK, CS = kWideRows * BN;  // a stage
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* cs = smem + kWideStages * XS;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  In* xs = reinterpret_cast<In*>(smem_bytes);
+  In* cs = xs + kWideStages * XS;
   Chunk c;
   if (!find_chunk<T>(seg_ptrs, chunk_ptr, S, rows, &c)) return;
   const int NC = Hx > 1 ? O : H * O;
@@ -479,28 +572,28 @@ segment_matmul_dw_wide_kernel(const float* __restrict__ x,
   const int kw = min(kWideK, K - k0), cw = min(BN, NC - c0);
   const int64_t xld = static_cast<int64_t>(Hx) * K;
   const int64_t cld = static_cast<int64_t>(H) * O;
-  const float* xb = x + static_cast<int64_t>(h) * K + k0;
-  const float* cb = ct + static_cast<int64_t>(h) * O + c0;
+  const In* xb = x + static_cast<int64_t>(h) * K + k0;
+  const In* cb = ct + static_cast<int64_t>(h) * O + c0;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
 
   // rows [r0, r0 + kWideRows) into ring slot `buf`, zeros past the chunk
   // and past the tile's k and column extents
   auto stage = [&](int buf, int64_t r0) {
-    float* xd = xs + buf * XS;
-    float* cd = cs + buf * CS;
+    In* xd = xs + buf * XS;
+    In* cd = cs + buf * CS;
 #pragma unroll
     for (int e = threadIdx.x; e < XS / V; e += T) {
       const int r = e / (kWideK / V), q = e % (kWideK / V) * V;
       const int64_t i = r0 + r;
       const bool ok = i < c.hi && q < kw;
-      cp_async<V>(xd + r * kWideK + q, ok ? xb + i * xld + q : x, ok);
+      stage_copy<In, V>(xd + r * kWideK + q, ok ? xb + i * xld + q : x, ok);
     }
 #pragma unroll
     for (int e = threadIdx.x; e < CS / V; e += T) {
       const int r = e / (BN / V), q = e % (BN / V) * V;
       const int64_t i = r0 + r;
       const bool ok = i < c.hi && q < cw;
-      cp_async<V>(cd + r * BN + q, ok ? cb + i * cld + q : ct, ok);
+      stage_copy<In, V>(cd + r * BN + q, ok ? cb + i * cld + q : ct, ok);
     }
   };
 
@@ -523,15 +616,12 @@ segment_matmul_dw_wide_kernel(const float* __restrict__ x,
     cp_async_commit();
     cp_async_wait<kWideStages - 1>();  // stage st has landed
     __syncthreads();
-    const float* xd = xs + st % kWideStages * XS + ty * 8;
-    const float* cd = cs + st % kWideStages * CS + tx * 4;
+    const In* xd = xs + st % kWideStages * XS + ty * 8;
+    const In* cd = cs + st % kWideStages * CS + tx * 4;
 #pragma unroll 8
     for (int r = 0; r < kWideRows; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(xd + r * kWideK);
-      const float4 a1 = *reinterpret_cast<const float4*>(xd + r * kWideK + 4);
-      const float4 b = *reinterpret_cast<const float4*>(cd + r * BN);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      float av[8], bv[4];
+      stage_read<In>(xd + r * kWideK, cd + r * BN, av, bv);
 #pragma unroll
       for (int p = 0; p < 8; ++p)
 #pragma unroll
@@ -612,49 +702,50 @@ segment_matmul_dw_reduce_kernel(const float* __restrict__ partial,
 // ------------------------------------------------------------ launches
 
 // Calls fn(kernel) with the chunk kernel a plan names (see
-// het_segment_matmul_dw_f32); cudaErrorInvalidValue where none is built.
-template <int NCP, bool kPerHead, class Fn>
+// het_segment_matmul_dw_f32), on elements In; cudaErrorInvalidValue where
+// none is built.
+template <class In, int NCP, bool kPerHead, class Fn>
 cudaError_t with_narrow_ncp(bool vec, bool ct_vec, Fn fn) {
   if (ct_vec) {
     if constexpr (NCP % 4 == 0 && !kPerHead) {
-      return vec ? fn(segment_matmul_dw_narrow_kernel<NCP, true, true, false>)
-                 : fn(segment_matmul_dw_narrow_kernel<NCP, false, true, false>);
+      return vec ? fn(segment_matmul_dw_narrow_kernel<In, NCP, true, true, false>)
+                 : fn(segment_matmul_dw_narrow_kernel<In, NCP, false, true, false>);
     }
     return cudaErrorInvalidValue;
   }
-  return vec ? fn(segment_matmul_dw_narrow_kernel<NCP, true, false, kPerHead>)
-             : fn(segment_matmul_dw_narrow_kernel<NCP, false, false, kPerHead>);
+  return vec ? fn(segment_matmul_dw_narrow_kernel<In, NCP, true, false, kPerHead>)
+             : fn(segment_matmul_dw_narrow_kernel<In, NCP, false, false, kPerHead>);
 }
 
-template <bool kPerHead, class Fn>
+template <class In, bool kPerHead, class Fn>
 cudaError_t with_narrow(int cols, bool vec, bool ct_vec, Fn fn) {
   switch (cols) {
-    case 1: return with_narrow_ncp<1, kPerHead>(vec, ct_vec, fn);
-    case 4: return with_narrow_ncp<4, kPerHead>(vec, ct_vec, fn);
-    case 8: return with_narrow_ncp<8, kPerHead>(vec, ct_vec, fn);
-    case 12: return with_narrow_ncp<12, kPerHead>(vec, ct_vec, fn);
-    case 16: return with_narrow_ncp<16, kPerHead>(vec, ct_vec, fn);
+    case 1: return with_narrow_ncp<In, 1, kPerHead>(vec, ct_vec, fn);
+    case 4: return with_narrow_ncp<In, 4, kPerHead>(vec, ct_vec, fn);
+    case 8: return with_narrow_ncp<In, 8, kPerHead>(vec, ct_vec, fn);
+    case 12: return with_narrow_ncp<In, 12, kPerHead>(vec, ct_vec, fn);
+    case 16: return with_narrow_ncp<In, 16, kPerHead>(vec, ct_vec, fn);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // fn(kernel, threads, dynamic shared bytes) for the wide kernel of column
-// tile `cols`, after allowing it that much shared memory
-template <bool kVec, int BN, class Fn>
+// tile `cols` on elements In, after allowing it that much shared memory
+template <class In, bool kVec, int BN, class Fn>
 cudaError_t with_wide_bn(Fn fn) {
-  constexpr int smem = wide_smem_bytes<BN>();
-  const auto kernel = segment_matmul_dw_wide_kernel<BN, kVec>;
+  constexpr int smem = wide_smem_bytes<In, BN>();
+  const auto kernel = segment_matmul_dw_wide_kernel<In, BN, kVec>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return err != cudaSuccess ? err : fn(kernel, wide_threads<BN>(), smem);
 }
 
-template <class Fn>
+template <class In, class Fn>
 cudaError_t with_wide(int cols, bool vec, Fn fn) {
   switch (cols) {
-    case 64: return vec ? with_wide_bn<true, 64>(fn) : with_wide_bn<false, 64>(fn);
-    case 80: return vec ? with_wide_bn<true, 80>(fn) : with_wide_bn<false, 80>(fn);
-    case 96: return vec ? with_wide_bn<true, 96>(fn) : with_wide_bn<false, 96>(fn);
+    case 64: return vec ? with_wide_bn<In, true, 64>(fn) : with_wide_bn<In, false, 64>(fn);
+    case 80: return vec ? with_wide_bn<In, true, 80>(fn) : with_wide_bn<In, false, 80>(fn);
+    case 96: return vec ? with_wide_bn<In, true, 96>(fn) : with_wide_bn<In, false, 96>(fn);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1304,19 +1395,14 @@ cudaError_t with_fwd(int cols, int depth, bool vec, bool dx, Fn fn) {
             : with_fwd_dir<false>(cols, vec, fn);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Blocks of the chunk kernel that `wide`, `cols`, `vec`, `ct_vec` and
-// `per_head` name (as in het_segment_matmul_dw_f32) that one SM of the
-// current device holds at once; 0 if there is no such kernel.
-int het_segment_matmul_dw_resident(int wide, int cols, int vec, int ct_vec,
-                                   int per_head) {
+// Blocks of a dW chunk kernel on elements In that one SM holds at once
+// (see het_segment_matmul_dw_resident).
+template <class In>
+int dw_resident(int wide, int cols, int vec, int ct_vec, int per_head) {
   int n = 0;
   cudaError_t err;
   if (wide) {
-    err = with_wide(cols, vec, [&](auto kernel, int threads, int smem) {
+    err = with_wide<In>(cols, vec, [&](auto kernel, int threads, int smem) {
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
                                                            threads, smem);
     });
@@ -1325,38 +1411,29 @@ int het_segment_matmul_dw_resident(int wide, int cols, int vec, int ct_vec,
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, kernel, kNarrowThreads, 0);
     };
-    err = per_head ? with_narrow<true>(cols, vec, ct_vec, query)
-                   : with_narrow<false>(cols, vec, ct_vec, query);
+    err = per_head ? with_narrow<In, true>(cols, vec, ct_vec, query)
+                   : with_narrow<In, false>(cols, vec, ct_vec, query);
   }
   return err == cudaSuccess ? n : 0;
 }
 
-// x (n_rows, Hx*K) f32 and ct (n_rows, H*O) f32, row-major; seg_ptrs
-// (S + 1,) int32 on the device, non-decreasing, seg_ptrs[S] <= n_rows; out
-// (S, H, K, O) f32; Hx is 1 or H.  The launch plan comes from the wrapper
-// (het_tpu_torch/ops/kernels/segment_mm.py::dw_plan): segments are cut
-// into chunks of `chunk_rows` rows; the grid takes `chunks` >=
-// ceil(n_rows / chunk_rows) + S blocks; `wide` picks the kernel, `cols`
-// its ct columns (narrow: 1, 4, 8, 12 or 16, at least NC; wide: the
-// column tile, 64, 80 or 96), `lanes` the narrow kernel's lanes a row,
-// `vec` and `ct_vec` its 16-byte loads.  Scratch: chunk_ptr (S + 1,) int32
-// and partial (chunks * H*K*O,) f32.  Launches on `stream` and returns the
-// first launch error, cudaErrorInvalidValue for a plan the operands do not
-// allow (0 on success).
-int het_segment_matmul_dw_f32(const float* x, const float* ct,
+// The grouped dW on elements In (see het_segment_matmul_dw_f32).
+template <class In>
+cudaError_t segment_matmul_dw(const In* x, const In* ct,
                               const int32_t* seg_ptrs, int32_t* chunk_ptr,
                               float* partial, float* out, int64_t n_rows,
                               int S, int H, int Hx, int K, int O,
                               int chunk_rows, int64_t chunks, int wide,
                               int cols, int lanes, int vec, int ct_vec,
-                              void* stream) {
+                              cudaStream_t st) {
+  // elements a 16-byte copy of the wide kernel
+  constexpr int kWideVec = 16 / static_cast<int>(sizeof(In));
   if (S <= 0 || H <= 0 || K <= 0 || O <= 0) return cudaSuccess;
   if (n_rows < 0 || (Hx != 1 && Hx != H) || chunk_rows <= 0 ||
       chunks < (n_rows + chunk_rows - 1) / chunk_rows + S ||
       chunks > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool per_head = Hx > 1;
   const int NC = per_head ? O : H * O;
   const int64_t NJ = static_cast<int64_t>(H) * K * O;
@@ -1366,13 +1443,13 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
                           ((K + kWideK - 1) / kWideK) *
                           ((NC + cols - 1) / cols);
     if (cols <= 0 || tiles > 65535 ||
-        (vec && (K % 4 || NC % 4 || (H * O) % 4 || !aligned16(x) ||
-                 !aligned16(ct)))) {
+        (vec && (K % kWideVec || NC % kWideVec || (H * O) % kWideVec ||
+                 !aligned16(x) || !aligned16(ct)))) {
       return cudaErrorInvalidValue;
     }
     const dim3 grid(static_cast<unsigned>(chunks),
                     static_cast<unsigned>(tiles));
-    err = with_wide(cols, vec, [&](auto kernel, int threads, int smem) {
+    err = with_wide<In>(cols, vec, [&](auto kernel, int threads, int smem) {
       kernel<<<grid, threads, smem, st>>>(x, ct, seg_ptrs, chunk_ptr,
                                           partial, S, H, Hx, K, O,
                                           chunk_rows);
@@ -1391,8 +1468,8 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
                                               chunk_rows, lanes);
       return cudaGetLastError();
     };
-    err = per_head ? with_narrow<true>(cols, vec, ct_vec, launch)
-                   : with_narrow<false>(cols, vec, ct_vec, launch);
+    err = per_head ? with_narrow<In, true>(cols, vec, ct_vec, launch)
+                   : with_narrow<In, false>(cols, vec, ct_vec, launch);
   }
   if (err != cudaSuccess) return err;
 
@@ -1415,6 +1492,63 @@ int het_segment_matmul_dw_f32(const float* x, const float* ct,
     segment_matmul_dw_reduce_kernel<32><<<rgrid, kThreads, 0, st>>>(
         partial, chunk_ptr, out, NJ, K, O, shared_nc);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks of the chunk kernel that `wide`, `cols`, `vec`, `ct_vec`,
+// `per_head` (as in het_segment_matmul_dw_f32) and `bf16` (the operands'
+// element type) name that one SM of the current device holds at once; 0
+// if there is no such kernel.
+int het_segment_matmul_dw_resident(int wide, int cols, int vec, int ct_vec,
+                                   int per_head, int bf16) {
+  return bf16 ? dw_resident<__nv_bfloat16>(wide, cols, vec, ct_vec, per_head)
+              : dw_resident<float>(wide, cols, vec, ct_vec, per_head);
+}
+
+// x (n_rows, Hx*K) f32 and ct (n_rows, H*O) f32, row-major; seg_ptrs
+// (S + 1,) int32 on the device, non-decreasing, seg_ptrs[S] <= n_rows; out
+// (S, H, K, O) f32; Hx is 1 or H.  The launch plan comes from the wrapper
+// (het_tpu_torch/ops/kernels/segment_mm.py::dw_plan): segments are cut
+// into chunks of `chunk_rows` rows; the grid takes `chunks` >=
+// ceil(n_rows / chunk_rows) + S blocks; `wide` picks the kernel, `cols`
+// its ct columns (narrow: 1, 4, 8, 12 or 16, at least NC; wide: the
+// column tile, 64, 80 or 96), `lanes` the narrow kernel's lanes a row,
+// `vec` and `ct_vec` its wide loads (16 bytes, or 4 elements for the
+// narrow kernel).  Scratch: chunk_ptr (S + 1,) int32 and partial (chunks
+// * H*K*O,) f32.  Launches on `stream` and returns the first launch error,
+// cudaErrorInvalidValue for a plan the operands do not allow (0 on
+// success).
+int het_segment_matmul_dw_f32(const float* x, const float* ct,
+                              const int32_t* seg_ptrs, int32_t* chunk_ptr,
+                              float* partial, float* out, int64_t n_rows,
+                              int S, int H, int Hx, int K, int O,
+                              int chunk_rows, int64_t chunks, int wide,
+                              int cols, int lanes, int vec, int ct_vec,
+                              void* stream) {
+  return static_cast<int>(segment_matmul_dw<float>(
+      x, ct, seg_ptrs, chunk_ptr, partial, out, n_rows, S, H, Hx, K, O,
+      chunk_rows, chunks, wide, cols, lanes, vec, ct_vec,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The same with x and ct bf16 (each product exact in f32; partials and
+// out f32).  The wide kernel's 16-byte copies (`vec`) take K, NC and H*O
+// multiples of 8.
+int het_segment_matmul_dw_bf16(const __nv_bfloat16* x,
+                               const __nv_bfloat16* ct,
+                               const int32_t* seg_ptrs, int32_t* chunk_ptr,
+                               float* partial, float* out, int64_t n_rows,
+                               int S, int H, int Hx, int K, int O,
+                               int chunk_rows, int64_t chunks, int wide,
+                               int cols, int lanes, int vec, int ct_vec,
+                               void* stream) {
+  return static_cast<int>(segment_matmul_dw<__nv_bfloat16>(
+      x, ct, seg_ptrs, chunk_ptr, partial, out, n_rows, S, H, Hx, K, O,
+      chunk_rows, chunks, wide, cols, lanes, vec, ct_vec,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Blocks of the forward (dx 0) or dX (dx 1) kernel of column tile `cols`,

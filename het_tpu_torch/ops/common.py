@@ -7,7 +7,9 @@ gradient has the sorted transpose as its backward, never
 ``index_select``'s atomic scatter: the edge gathers at destinations and
 sources sum into the nodes over ``in_row_ptr`` and ``out_row_ptr``
 (``scatter_sum_dst`` / ``scatter_sum_src``), the injective gathers by the
-inverse gather.
+inverse gather.  A backward's segment sum reads the cotangent in its own
+dtype (bf16 in a bf16 run) into f32 sums, cast back to that dtype, as
+het_tpu's ``seg_sum_sorted_packed`` callers pass ``pack_dt = ct.dtype``.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ class _SortedGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         ptr, perm = ctx.saved_tensors
-        flat = ct.reshape(ct.shape[0], -1).float().contiguous()
+        flat = ct.reshape(ct.shape[0], -1).contiguous()
         dx = seg_sum_sorted(flat, ptr, perm, impl=ctx.impl)
         return dx.view(ctx.x_shape).to(ct.dtype), None, None, None, None
 
@@ -115,15 +117,15 @@ def _sum_dst(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
     """(EP, C) rows in canonical order summed into their destinations:
     one sorted segment sum over ``in_row_ptr`` (canonical order is
     destination-sorted; padding edges lie past its end)."""
-    return seg_sum_sorted(flat.float().contiguous(), g.in_row_ptr, impl=impl)
+    return seg_sum_sorted(flat.contiguous(), g.in_row_ptr, impl=impl)
 
 
 def _sum_src(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
     """(EP, C) rows in canonical order summed into their sources: one
     sorted segment sum over ``out_row_ptr``, reading the rows through
     ``out_perm`` (padding edges lie past its end)."""
-    return seg_sum_sorted(flat.float().contiguous(), g.out_row_ptr,
-                          g.out_perm, impl=impl)
+    return seg_sum_sorted(flat.contiguous(), g.out_row_ptr, g.out_perm,
+                          impl=impl)
 
 
 class _GatherSide(torch.autograd.Function):

@@ -74,6 +74,13 @@ and the logits inside and pulls their gradients back at node scale.
 Every op sums its narrow and wide per-edge terms (``z`` and ``z*feat``;
 ``draw`` and ``dfeat`` at the source side) through one helper,
 :func:`_sum_heads`, in two segment sums.
+
+Element types follow het_tpu's: the logits, ``z`` and the backward's
+terms are f32, and every per-edge payload is summed in the dtype het_tpu
+packs it in, ``pack_dt`` (:func:`_pack_dt`: bf16 where the op's feature
+input is bf16, else f32), into f32 sums forward and into ``pack_dt`` sums
+where het_tpu passes ``out_dt=pack_dt`` (the source-side and (dst, rel)
+reduces of the backward).  In f32 every sum is f32 -> f32.
 """
 
 from __future__ import annotations
@@ -110,6 +117,19 @@ def _act_deriv(raw, slope: float, clip: Optional[float]):
 
 def _clip(stable: str) -> Optional[float]:
     return CLIP_LOGIT if stable == "clip" else None
+
+
+def _pack_dt(x: torch.Tensor) -> torch.dtype:
+    """The payload dtype het_tpu sums for an op whose feature input is
+    ``x`` (``fused_agg.py::_pack_dt``)."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+
+def _sum(vals, ptr, perm, impl: str, dt, out_dt=None):
+    """``vals`` cast to ``dt`` (het_tpu's ``pack_dt``) summed over ``ptr``
+    through ``perm`` into ``out_dt`` (f32 by default)."""
+    return seg_sum_sorted(vals.to(dt).contiguous(), ptr, perm,
+                          out_dtype=out_dt, impl=impl)
 
 
 def _softmax_num(g, raw, slope: float, stable: str, impl: str):
@@ -157,34 +177,42 @@ def _softmax_backward(g, ct, s, out, raw, feat_e, slope: float,
     return ctd, alpha, draw
 
 
-def _per_head(a, b, out=None):
+def _per_head(a, b, out=None, dtype=None):
     """``a`` (n, H) times ``b`` (n, H*dk) or (n, H, dk) head by head ->
-    (n, H*dk), written into ``out`` (an (n, H*dk) view) where given: no
-    repeated (n, H*dk) copy of ``a`` and no concatenation."""
+    (n, H*dk), written into ``out`` (an (n, H*dk) view) where given, else
+    into a new tensor of ``dtype`` (the operands' by default; the product
+    is rounded once to it): no repeated (n, H*dk) copy of ``a`` and no
+    concatenation."""
     n, H = a.shape
     if out is None:
-        return (a[..., None] * b.view(n, H, -1)).view(n, -1)
+        if dtype is None:
+            return (a[..., None] * b.view(n, H, -1)).view(n, -1)
+        out = torch.empty(n, b.numel() // n, dtype=dtype, device=b.device)
     torch.mul(a[..., None], b.view(n, H, -1), out=out.view(n, H, -1))
     return out
 
 
-def _sum_heads(n, a, b, ptr, perm, impl: str):
+def _sum_heads(n, a, b, ptr, perm, impl: str, dt=torch.float32,
+               out_dt=None):
     """``n`` and ``a*b`` (head by head) summed over ``ptr``, reading row
     ``perm[e]`` where given: ``n`` and ``a`` (EP, H), ``b`` (EP, H*D) or
     (EP, H, D), either a view -> ``(sum n (rows, H), sum a*b (rows,
-    H*D))``.  Two segment sums and no ``[n | a*b]`` buffer: building one
-    costs more than the narrow sum's walk at every width the models give
-    (PERF.md's GAT findings)."""
-    return (seg_sum_sorted(n, ptr, perm, impl=impl),
-            seg_sum_sorted(_per_head(a, b), ptr, perm, impl=impl))
+    H*D))``, each payload cast to ``dt`` (``pack_dt``, the product written
+    in it) and summed into ``out_dt`` (f32 by default).  Two segment sums
+    and no ``[n | a*b]`` buffer: building one costs more than the narrow
+    sum's walk at every width the models give (PERF.md's GAT findings)."""
+    return (_sum(n, ptr, perm, impl, dt, out_dt),
+            seg_sum_sorted(_per_head(a, b, dtype=dt), ptr, perm,
+                           out_dtype=out_dt, impl=impl))
 
 
-def _aggregate(g, z, feat_e, impl: str):
+def _aggregate(g, z, feat_e, impl: str, dt=torch.float32):
     """The forward aggregation: ``s = sum z`` and ``out = sum z*feat / s``
-    over ``in_row_ptr`` (:func:`_sum_heads`), ``z`` (EP, H), ``feat_e``
-    (EP, H*D) or (EP, H, D) in canonical order.  Padding edges lie past
-    ``in_row_ptr``'s end: never reduced.  Returns ``(s, out (N, H, D))``."""
-    s, num = _sum_heads(z, z, feat_e, g.in_row_ptr, None, impl)
+    over ``in_row_ptr`` (:func:`_sum_heads`, payloads in ``dt``, f32
+    sums), ``z`` (EP, H), ``feat_e`` (EP, H*D) or (EP, H, D) in canonical
+    order.  Padding edges lie past ``in_row_ptr``'s end: never reduced.
+    Returns ``(s, out (N, H, D))``."""
+    s, num = _sum_heads(z, z, feat_e, g.in_row_ptr, None, impl, dt)
     H = z.shape[1]
     return s, safe_div(num.view(-1, H, num.shape[1] // H), s[..., None])
 
@@ -208,7 +236,7 @@ class FusedGAT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat2d, raw, g, slope: float, stable: str, impl: str):
         z, m = _softmax_num(g, raw.float(), slope, stable, impl)
-        s, out = _aggregate(g, z, feat2d.float(), impl)
+        s, out = _aggregate(g, z, feat2d.float(), impl, _pack_dt(feat2d))
         ctx.save_for_backward(feat2d, raw, s, out, m)
         ctx.g, ctx.slope, ctx.stable = g, slope, stable
         return out.to(feat2d.dtype)
@@ -223,11 +251,12 @@ class FusedGAT(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _d_er(infoD, draw, impl: str):
+def _d_er(infoD, draw, impl: str, dt=torch.float32):
     """d_er on destination compact rows: ``draw`` summed over the
-    canonical (dst, rel) runs, contiguous in canonical order; padding
-    compact rows map to the sentinel run (a zero row)."""
-    red_d = seg_sum_sorted(draw, infoD.canon_ptr, impl=impl)
+    canonical (dst, rel) runs, contiguous in canonical order, in ``dt``
+    (``pack_dt``) into ``dt``; padding compact rows map to the sentinel
+    run (a zero row)."""
+    red_d = _sum(draw, infoD.canon_ptr, None, impl, dt, dt)
     return gather_nodes(red_d, infoD.canon_to_row)
 
 
@@ -244,7 +273,7 @@ class CompactFusedGAT(torch.autograd.Function):
         raw, feat_e = _compact_raw(el_feat_c, er_c.float(), g.compact_src,
                                    g.compact_dst, H)
         z, m = _softmax_num(g, raw, slope, stable, impl)
-        s, out = _aggregate(g, z, feat_e, impl)
+        s, out = _aggregate(g, z, feat_e, impl, _pack_dt(feat_c2d))
         ctx.save_for_backward(feat_c2d, el_c, er_c, s, out, m)
         ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
         return out.to(feat_c2d.dtype)
@@ -260,10 +289,11 @@ class CompactFusedGAT(torch.autograd.Function):
         ctd, alpha, draw = _softmax_backward(
             g, ct, s, out, raw, feat_e, ctx.slope, _clip(ctx.stable), m)
         del feat_e
-        d_er_c = _d_er(infoD, draw, impl)
+        dt = _pack_dt(feat_c2d)
+        d_er_c = _d_er(infoD, draw, impl, dt)
         # source side: draw and dfeat read in compact-row order
         d_el_c, d_feat_c = _sum_heads(draw, alpha, ctd, infoS.edge_row_ptr,
-                                      infoS.edge_sort_perm, impl)
+                                      infoS.edge_sort_perm, impl, dt, dt)
         return (d_feat_c.to(feat_c2d.dtype), d_el_c.to(el_c.dtype),
                 d_er_c.to(er_c.dtype), None, None, None, None)
 
@@ -289,7 +319,7 @@ class CompactFusedGATPacked(torch.autograd.Function):
         H = er_c.shape[1]
         raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
         z, m = _softmax_num(g, raw, slope, stable, impl)
-        s, out = _aggregate(g, z, ge[..., 1:], impl)
+        s, out = _aggregate(g, z, ge[..., 1:], impl, _pack_dt(fe2d))
         ctx.save_for_backward(fe2d, er_c, s, out, m)
         ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
         return out.to(fe2d.dtype)
@@ -304,13 +334,14 @@ class CompactFusedGATPacked(torch.autograd.Function):
             g, ct, s, out, raw, ge[..., 1:], ctx.slope, _clip(ctx.stable), m)
         del ge
         infoS = g.compact_src
+        dt = _pack_dt(fe2d)
         d_el_c, d_feat_c = _sum_heads(draw, alpha, ctd, infoS.edge_row_ptr,
-                                      infoS.edge_sort_perm, impl)
+                                      infoS.edge_sort_perm, impl, dt, dt)
         del ctd, alpha
         d_fe = torch.cat([d_el_c[..., None], d_feat_c.view(-1, H,
                           d_feat_c.shape[1] // H)], dim=2)
         d_fe = d_fe.view(d_fe.shape[0], -1)
-        d_er_c = _d_er(g.compact_dst, draw, impl)
+        d_er_c = _d_er(g.compact_dst, draw, impl, dt)
         return (d_fe.to(fe2d.dtype), d_er_c.to(er_c.dtype),
                 None, None, None, None)
 
@@ -323,8 +354,8 @@ class CompactWeightedAgg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat_c, w_e, g, impl: str):
         feat_e = take_rows(feat_c, g.compact_src.edge_map).float()
-        out = seg_sum_sorted(feat_e * w_e.float()[:, None], g.in_row_ptr,
-                             impl=impl)
+        out = _sum(feat_e * w_e.float()[:, None], g.in_row_ptr, None, impl,
+                   _pack_dt(feat_c))
         ctx.save_for_backward(feat_c, w_e)
         ctx.g, ctx.impl = g, impl
         return out.to(feat_c.dtype)
@@ -336,9 +367,10 @@ class CompactWeightedAgg(torch.autograd.Function):
         ct_e = gather_dst(g, ct.float())  # zero on padding edges
         d_feat = d_w = None
         if ctx.needs_input_grad[0]:
-            d_feat = seg_sum_sorted(ct_e * w_e.float()[:, None],
-                                    infoS.edge_row_ptr, infoS.edge_sort_perm,
-                                    impl=ctx.impl).to(feat_c.dtype)
+            dt = _pack_dt(feat_c)
+            d_feat = _sum(ct_e * w_e.float()[:, None], infoS.edge_row_ptr,
+                          infoS.edge_sort_perm, ctx.impl, dt,
+                          dt).to(feat_c.dtype)
         if ctx.needs_input_grad[1]:
             feat_e = take_rows(feat_c, infoS.edge_map).float()
             d_w = (feat_e * ct_e).sum(-1).to(w_e.dtype)
@@ -414,7 +446,7 @@ class HGTCompactAttention(torch.autograd.Function):
             msg2d, attq2d, k2d, mu, g)
         z = torch.exp(_act_apply(score * mu_e, 1.0, clip))
         # padding edges lie past in_row_ptr's end: never reduced
-        s, out = _aggregate(g, z, feat_e, impl)
+        s, out = _aggregate(g, z, feat_e, impl, _pack_dt(msg2d))
         ctx.save_for_backward(msg2d, attq2d, k2d, mu, s, out)
         ctx.g, ctx.clip, ctx.impl = g, clip, impl
         return out.to(msg2d.dtype)
@@ -434,18 +466,19 @@ class HGTCompactAttention(torch.autograd.Function):
         dscore = draw * mu_e
         d_mu = edge_rel_scale_grad(g, score, draw, impl=impl)
         HD = H * dk
+        dt = _pack_dt(msg2d)
         # d_msg and each source compact row's part of d_k in one sum
-        pay = ctd.new_empty(ctd.shape[0], 2 * HD)
+        pay = torch.empty(ctd.shape[0], 2 * HD, dtype=dt, device=ctd.device)
         _per_head(alpha, ctd, pay[:, :HD])
         _per_head(dscore, attq_e, pay[:, HD:])
         del ctd, attq_e
         red_s = seg_sum_sorted(pay, infoS.edge_row_ptr, infoS.edge_sort_perm,
-                               impl=impl)
+                               out_dtype=dt, impl=impl)
         del pay
         d_k = seg_sum_sorted(red_s[:, HD:].contiguous(), infoS.node_row_ptr,
                              infoS.node_sort_perm, impl=impl)
-        red_d = seg_sum_sorted(_per_head(dscore, k_e), infoD.canon_ptr,
-                               impl=impl)
+        red_d = seg_sum_sorted(_per_head(dscore, k_e, dtype=dt),
+                               infoD.canon_ptr, out_dtype=dt, impl=impl)
         d_attq = gather_nodes(red_d, infoD.canon_to_row)
         return (red_s[:, :HD].to(msg2d.dtype), d_attq.to(attq2d.dtype),
                 d_k.to(k2d.dtype), d_mu.to(mu.dtype), None, None, None)
@@ -493,7 +526,7 @@ class HGTPlainFull(torch.autograd.Function):
         score = se[:, :H].contiguous()
         mu_e = take_rows(mu, g.rel).float()
         z = torch.exp(_act_apply(score * mu_e, 1.0, clip))
-        s, out = _aggregate(g, z, se[:, H:], impl)
+        s, out = _aggregate(g, z, se[:, H:], impl, _pack_dt(v2d))
         ctx.save_for_backward(v2d, q2d, k2d, w_msg, w_att, mu, score, s, out)
         ctx.g, ctx.clip, ctx.impl = g, clip, impl
         return out.to(v2d.dtype)
@@ -521,20 +554,25 @@ class HGTPlainFull(torch.autograd.Function):
         dscore_rows = both[:, :H]
         k_rows = gather_nodes(k2d, _edge_row_idx(g, "src")).float()
         need = ctx.needs_input_grad
+        dt = _pack_dt(v2d)
+        # the matmuls' cotangents in their outputs' dtype, as het_tpu's
+        # pullbacks take them
         d_q_rows, d_watt = segment_matmul_pullback(
-            q_rows, w_att, seg, _per_head(dscore_rows, k_rows),
+            q_rows, w_att, seg,
+            _per_head(dscore_rows, k_rows, dtype=attq_rows.dtype),
             need_dx=need[1], need_dw=need[4], impl=impl)
         del k_rows
         d_v_rows, d_wmsg = segment_matmul_pullback(
-            v_rows, w_msg, seg, both[:, H:], need_dx=need[0],
-            need_dw=need[3], impl=impl)
+            v_rows, w_msg, seg, both[:, H:].to(msg_rows.dtype),
+            need_dx=need[0], need_dw=need[3], impl=impl)
         d_q = d_k = d_v = None
         if need[1]:
-            d_q = seg_sum_sorted(d_q_rows.reshape(-1, HD).float().contiguous(),
-                                 g.in_row_ptr, seg.inv, impl=impl)
+            d_q = _sum(d_q_rows.reshape(-1, HD), g.in_row_ptr, seg.inv,
+                       impl, dt)
         if need[0] or need[2]:
             # d_k and d_v share one source-sorted reduce of the rows
-            pay = both.new_empty(both.shape[0], 2 * HD if need[0] else HD)
+            pay = torch.empty(both.shape[0], 2 * HD if need[0] else HD,
+                              dtype=dt, device=both.device)
             _per_head(dscore_rows, attq_rows.reshape(-1, HD).float(),
                       pay[:, :HD])
             if need[0]:
@@ -557,29 +595,31 @@ def _node_logits(el, er, g):
     return gather_nodes(el, g.src).float() + gather_nodes(er, g.dst).float()
 
 
-def _node_fused_forward(feat2d, el, er, g, slope, clip, impl):
+def _node_fused_forward(feat2d, el, er, g, slope, clip, impl, dt):
     """The node-sided forward: ``z = exp(act(el[src] + er[dst]))``, then
-    :func:`_aggregate`.  Returns ``(feat[src] (EP, H*D), s, out)``, out
-    (N, H, D)."""
+    :func:`_aggregate` (payloads in ``dt``).  Returns ``(feat[src] (EP,
+    H*D), s, out)``, out (N, H, D)."""
     z = torch.exp(_act_apply(_node_logits(el, er, g), slope, clip))
     feat_e = gather_nodes(feat2d, g.src).float()
-    return (feat_e,) + _aggregate(g, z, feat_e, impl)
+    return (feat_e,) + _aggregate(g, z, feat_e, impl, dt)
 
 
-def _node_fused_backward(ct, feat_e, el, er, s, out, g, slope, clip, impl):
+def _node_fused_backward(ct, feat_e, el, er, s, out, g, slope, clip, impl,
+                         dt):
     """The node-sided backward from ``feat[src]`` and the saved ``(s,
     out)``: ``z`` and ``act'`` recomputed, ``d_er`` the segment sum of
-    ``draw`` over ``in_row_ptr``, and ``draw`` and ``dfeat`` summed over
-    ``out_row_ptr`` through ``out_perm`` into the sources (``d_el``,
-    ``d_feat``).  ``ct`` is (N, H*D); returns ``(d_feat (S, H*D), d_el
-    (S, H), d_er (N, H))``."""
+    ``draw`` over ``in_row_ptr`` (into f32), and ``draw`` and ``dfeat``
+    summed over ``out_row_ptr`` through ``out_perm`` into the sources
+    (``d_el``, ``d_feat``, into ``dt``), every payload in ``dt``.  ``ct``
+    is (N, H*D); returns ``(d_feat (S, H*D), d_el (S, H), d_er (N,
+    H))``."""
     H = el.shape[1]
     ctd, alpha, draw = _softmax_backward(
         g, ct.reshape(-1, H, feat_e.shape[1] // H), s, out,
         _node_logits(el, er, g), feat_e, slope, clip)
-    d_er = seg_sum_sorted(draw, g.in_row_ptr, impl=impl)
+    d_er = _sum(draw, g.in_row_ptr, None, impl, dt)
     d_el, d_feat = _sum_heads(draw, alpha, ctd, g.out_row_ptr, g.out_perm,
-                              impl)
+                              impl, dt, dt)
     return d_feat, d_el, d_er
 
 
@@ -601,7 +641,7 @@ class NodeFusedGAT(torch.autograd.Function):
     def forward(ctx, feat2d, el, er, g, slope: float,
                 clip: Optional[float], impl: str):
         _, s, out = _node_fused_forward(feat2d, el, er, g, slope, clip,
-                                        impl)
+                                        impl, _pack_dt(feat2d))
         ctx.save_for_backward(feat2d, el, er, s, out)
         ctx.g, ctx.slope, ctx.clip, ctx.impl = g, slope, clip, impl
         return out.reshape(out.shape[0], -1).to(feat2d.dtype)
@@ -612,7 +652,7 @@ class NodeFusedGAT(torch.autograd.Function):
         g = ctx.g
         d_feat, d_el, d_er = _node_fused_backward(
             ct, gather_nodes(feat2d, g.src).float(), el, er, s, out, g,
-            ctx.slope, ctx.clip, ctx.impl)
+            ctx.slope, ctx.clip, ctx.impl, _pack_dt(feat2d))
         return (d_feat.to(feat2d.dtype), d_el.to(el.dtype),
                 d_er.to(er.dtype), None, None, None, None)
 
@@ -654,7 +694,8 @@ class GATLayerFused(torch.autograd.Function):
                 clip: Optional[float], impl: str):
         f3, el, er = GATLayerFused._node_terms(x2d, w, attn_l, attn_r)
         feat_e, s, out = _node_fused_forward(f3.view(f3.shape[0], -1), el,
-                                             er, g, slope, clip, impl)
+                                             er, g, slope, clip, impl,
+                                             _pack_dt(x2d))
         ctx.save_for_backward(x2d, w, attn_l, attn_r, feat_e, s, out)
         ctx.g, ctx.slope, ctx.clip, ctx.impl = g, slope, clip, impl
         return out.reshape(out.shape[0], -1).to(x2d.dtype)
@@ -680,6 +721,6 @@ class GATLayerFused(torch.autograd.Function):
         f3, el, er = GATLayerFused._node_terms(x2d, w, attn_l, attn_r)
         d_feat, d_el, d_er = _node_fused_backward(
             ct, feat_e, el, er, s, out, ctx.g, ctx.slope, ctx.clip,
-            ctx.impl)
+            ctx.impl, _pack_dt(x2d))
         return GATLayerFused._pullback(x2d, w, attn_l, attn_r, f3, d_feat,
                                        d_el, d_er)

@@ -14,6 +14,13 @@ and their plain versions.
   view copied into a contiguous tensor.  het_tpu has no caller for it, and
   neither has the port.
 
+The segment sum takes the (rows, output) element types of
+:data:`SUM_DTYPES`, the pairs het_tpu's ``seg_sum_sorted_packed`` sums in
+f32 and bf16 training (its payload ``parts`` cast to ``pack_dt``, its
+``out_dtype``): f32 rows into f32 sums, and bf16 rows into f32 or into
+bf16 sums, each a sum in f32 rounded once, as het_tpu's "cast of the f32
+result".  Anything else raises ``TypeError``.
+
 Rows of ``vals`` outside ``[row_ptr[0], row_ptr[n])`` (through ``perm``
 when given) are never read, which is how padding edges and padding
 compact rows drop out.  The kernels are ``csrc/seg_reduce.cu``; its
@@ -35,13 +42,21 @@ import torch
 
 from . import _dispatch
 
+# the segment sum's (rows, output) element types
+SUM_DTYPES = ((torch.float32, torch.float32),
+              (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
+
 
 def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
-                         perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         perm: Optional[torch.Tensor] = None,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """Plain PyTorch version: segment ids by ``repeat_interleave``, then
-    ``index_add_`` in f64, rounded to f32 once: on the card the adds are
-    atomic, in no fixed order, and a hub row of 10^5 edges summed so in
-    f32 strays further from the exact sum than the kernel's limit."""
+    ``index_add_`` in f64, rounded once to ``out_dtype`` (f32 by
+    default): on the card the adds are atomic, in no fixed order, and a
+    hub row of 10^5 edges summed so in f32 strays further from the exact
+    sum than the kernel's limit."""
     n = row_ptr.numel() - 1
     lo, hi = int(row_ptr[0]), int(row_ptr[-1])
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
@@ -54,7 +69,7 @@ def seg_sum_sorted_plain(vals: torch.Tensor, row_ptr: torch.Tensor,
     out = torch.zeros(n, vals.shape[1], dtype=torch.float64,
                       device=vals.device)
     out.index_add_(0, seg, vals.index_select(0, idx).double())
-    return out.float()
+    return out.to(out_dtype or torch.float32)
 
 
 def seg_max_sorted_plain(vals: torch.Tensor,
@@ -83,10 +98,13 @@ def force_rowmajor_plain(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _check(vals, row_ptr, perm):
-    if vals.dtype != torch.float32 or vals.dim() != 2:
-        raise TypeError(f"vals must be 2-D float32, got {vals.dtype} "
-                        f"{tuple(vals.shape)}")
+def _check(vals, row_ptr, perm, out_dtype=torch.float32,
+           pairs=((torch.float32, torch.float32),)):
+    if (vals.dtype, out_dtype) not in pairs or vals.dim() != 2:
+        raise TypeError(
+            f"vals {vals.dtype} {tuple(vals.shape)} into {out_dtype}: the "
+            "kernel takes 2-D " + ", ".join(
+                f"{str(a)[6:]} -> {str(b)[6:]}" for a, b in pairs))
     if not vals.is_contiguous():
         raise ValueError("vals must be contiguous")
     for name, t in (("row_ptr", row_ptr), ("perm", perm)):
@@ -117,17 +135,28 @@ def split_helpers(rows_bound: int, L: int) -> int:
     return max(1, -(-rows_bound // L))
 
 
-def _seg_reduce_cuda(symbol, what, vals, row_ptr, perm):
+_SUM_SYMBOLS = {
+    (torch.float32, torch.float32): "het_seg_sum_sorted_f32",
+    (torch.bfloat16, torch.float32): "het_seg_sum_sorted_bf16_f32",
+    (torch.bfloat16, torch.bfloat16): "het_seg_sum_sorted_bf16_bf16",
+}
+
+
+def _seg_reduce_cuda(symbol, what, vals, row_ptr, perm,
+                     out_dtype=torch.float32):
     """Launch ``symbol`` (the sum or the max) with its scratch: a row id
-    and a (C,) partial a helper.  Returns the output."""
+    and a (C,) f32 partial a helper, and for a bf16 output the f32 first
+    part of each split row.  Returns the output."""
     args = [ctypes.c_void_p, ctypes.c_void_p] + (
         [ctypes.c_void_p] if what == "seg_sum_sorted" else [])
+    head_arg = [ctypes.c_void_p] if out_dtype == torch.bfloat16 else []
     fn = _dispatch.bind("seg_reduce", symbol, args + [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p] + head_arg + [
+        ctypes.c_void_p])
     n = row_ptr.numel() - 1
     C = vals.shape[1]
-    out = torch.empty(n, C, dtype=torch.float32, device=vals.device)
+    out = torch.empty(n, C, dtype=out_dtype, device=vals.device)
     if n == 0 or C == 0:
         return out
     L = split_len(C)
@@ -135,22 +164,35 @@ def _seg_reduce_cuda(symbol, what, vals, row_ptr, perm):
                             else vals.shape[0], L)
     carry_row = torch.empty(helpers, dtype=torch.int32, device=vals.device)
     carry = torch.empty(helpers, C, dtype=torch.float32, device=vals.device)
+    scratch = [carry_row.data_ptr(), carry.data_ptr()]
+    if head_arg:
+        head = torch.empty(helpers, C, dtype=torch.float32,
+                           device=vals.device)
+        scratch.append(head.data_ptr())
     ptrs = [vals.data_ptr(), row_ptr.data_ptr()]
     if what == "seg_sum_sorted":
         ptrs.append(perm.data_ptr() if perm is not None else None)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = fn(*ptrs, out.data_ptr(), n, C, L, helpers,
-                 carry_row.data_ptr(), carry.data_ptr(), stream)
+        err = fn(*ptrs, out.data_ptr(), n, C, L, helpers, *scratch, stream)
     _dispatch.check_launch("seg_reduce", err, what)
     return out
 
 
-def _seg_sum_sorted_cuda(vals, row_ptr, perm):
-    out = _seg_reduce_cuda("het_seg_sum_sorted_f32", "seg_sum_sorted", vals,
-                           row_ptr, perm)
+def dtype_key(*dtypes: torch.dtype) -> str:
+    """"bf16->f32"-style name of an instantiation's element types."""
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    return "->".join(short[d] for d in dtypes)
+
+
+def _seg_sum_sorted_cuda(vals, row_ptr, perm, out_dtype=torch.float32):
+    out = _seg_reduce_cuda(_SUM_SYMBOLS[vals.dtype, out_dtype],
+                           "seg_sum_sorted", vals, row_ptr, perm, out_dtype)
     if out.numel():
         seg_sum_sorted.launches += 1
+        key = dtype_key(vals.dtype, out_dtype)
+        by = seg_sum_sorted.launches_by_dtype
+        by[key] = by.get(key, 0) + 1
     return out
 
 
@@ -185,19 +227,25 @@ def _force_rowmajor_cuda(x):
 
 def seg_sum_sorted(vals: torch.Tensor, row_ptr: torch.Tensor,
                    perm: Optional[torch.Tensor] = None, *,
+                   out_dtype: Optional[torch.dtype] = None,
                    impl: str = "kernel") -> torch.Tensor:
-    """Sum rows of ``vals`` (rows, C) f32 over the sorted segmentation
-    ``row_ptr`` (n + 1,) int32, reading row ``perm[e]`` for edge ``e`` when
-    ``perm`` (int32) is given.  Returns (n, C) f32."""
+    """Sum rows of ``vals`` (rows, C) f32 or bf16 over the sorted
+    segmentation ``row_ptr`` (n + 1,) int32, reading row ``perm[e]`` for
+    edge ``e`` when ``perm`` (int32) is given.  Returns (n, C) in
+    ``out_dtype`` (f32 by default; bf16 for bf16 rows): a pair of
+    :data:`SUM_DTYPES`, summed in f32."""
     plain = _dispatch.takes_plain(vals, impl, "seg_sum_sorted")
-    _check(vals, row_ptr, perm)
+    out_dtype = out_dtype or torch.float32
+    _check(vals, row_ptr, perm, out_dtype, SUM_DTYPES)
     if plain:
-        return seg_sum_sorted_plain(vals, row_ptr, perm)
-    return _seg_sum_sorted_cuda(vals, row_ptr, perm)
+        return seg_sum_sorted_plain(vals, row_ptr, perm, out_dtype)
+    return _seg_sum_sorted_cuda(vals, row_ptr, perm, out_dtype)
 
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0, in all
+# and by (rows -> sums) element types
 seg_sum_sorted.launches = 0
+seg_sum_sorted.launches_by_dtype = {}
 
 
 def seg_max_sorted(vals: torch.Tensor, row_ptr: torch.Tensor, *,

@@ -82,7 +82,8 @@ def _operands(x_rows, ct_rows, w_shape) -> Tuple[torch.Tensor, torch.Tensor,
 def segment_matmul_dw_plain(x_rows: torch.Tensor, ct_rows: torch.Tensor,
                             w_shape, seg) -> torch.Tensor:
     """Plain PyTorch version: one f32 ``einsum`` per segment over the host
-    slices of the offsets (:func:`host_seg_ptrs`)."""
+    slices of the offsets (:func:`host_seg_ptrs`), bf16 operands widened
+    to f32 first (exactly)."""
     S, H, K, O = w_shape
     x2, ct2, Hx = _operands(x_rows, ct_rows, w_shape)
     ptrs = host_seg_ptrs(seg)
@@ -127,11 +128,14 @@ class DwPlan(NamedTuple):
 
 def dw_plan(n_rows: int, S: int, H: int, Hx: int, K: int, O: int,
             x_aligned: bool, ct_aligned: bool, sms: int,
-            resident: Callable[[DwPlan], int]) -> DwPlan:
+            resident: Callable[[DwPlan], int], bf16: bool = False) -> DwPlan:
     """The launch plan of the dW kernel for x (n_rows, Hx*K) and ct
-    (n_rows, H*O) whose first rows are 16-byte aligned or not, on a card
-    with ``sms`` SMs, where ``resident(plan)`` is the number of blocks of
-    the plan's chunk kernel one SM holds at once.
+    (n_rows, H*O), f32 or (``bf16``) bf16, whose first rows are 16-byte
+    aligned or not, on a card with ``sms`` SMs, where ``resident(plan)``
+    is the number of blocks of the plan's chunk kernel one SM holds at
+    once.  The narrow kernel reads 4 elements a load where it can (16
+    bytes of f32, 8 of bf16); the wide kernel's copies are 16 bytes, 4 f32
+    or 8 bf16.
 
     NC, the ct columns an x column meets, is O per head (Hx = H) or H*O
     (Hx = 1): up to 16 take the narrow kernel, more the wide one, whose
@@ -155,7 +159,8 @@ def dw_plan(n_rows: int, S: int, H: int, Hx: int, K: int, O: int,
     else:
         passes = -(-nc // WIDE_COLS[-1])
         cols = next(c for c in WIDE_COLS if c >= -(-nc // passes))
-        vec = (K % 4 == 0 and nc % 4 == 0 and (H * O) % 4 == 0
+        m = 8 if bf16 else 4
+        vec = (K % m == 0 and nc % m == 0 and (H * O) % m == 0
                and x_aligned and ct_aligned)
         tiles = (H if per_head else 1) * -(-K // WIDE_K) * -(-nc // cols)
         plan = DwPlan(True, cols, 0, vec, False, tiles)
@@ -172,14 +177,14 @@ def dw_plan(n_rows: int, S: int, H: int, Hx: int, K: int, O: int,
 _PLANS: Dict[tuple, DwPlan] = {}
 
 
-def _resident(index: int, plan: DwPlan, per_head: bool) -> int:
+def _resident(index: int, plan: DwPlan, per_head: bool, bf16: bool) -> int:
     """Blocks of ``plan``'s chunk kernel one SM of device ``index`` holds
     (CUDA's occupancy calculator)."""
     fn = _dispatch.bind("segment_mm", "het_segment_matmul_dw_resident",
-                        [ctypes.c_int] * 5)
+                        [ctypes.c_int] * 6)
     with torch.cuda.device(index):
         return fn(int(plan.wide), plan.cols, int(plan.vec), int(plan.ct_vec),
-                  int(per_head))
+                  int(per_head), int(bf16))
 
 
 def card_dw_plan(x_rows: torch.Tensor, ct_rows: torch.Tensor,
@@ -190,20 +195,23 @@ def card_dw_plan(x_rows: torch.Tensor, ct_rows: torch.Tensor,
     dev = x2.device
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
+    bf16 = x2.dtype == torch.bfloat16
     key = (index, x2.shape[0], S, H, Hx, K, O, x2.data_ptr() % 16 == 0,
            ct2.data_ptr() % 16 == 0)
-    plan = _PLANS.get(key)
+    plan = _PLANS.get(key + (bf16,))
     if plan is None:  # a training step asks for the same few each time
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        plan = _PLANS[key] = dw_plan(*key[1:], sms,
-                                     lambda p: _resident(index, p, Hx > 1))
+        plan = _PLANS[key + (bf16,)] = dw_plan(
+            *key[1:], sms, lambda p: _resident(index, p, Hx > 1, bf16), bf16)
     return plan
 
 
 def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
     S, H, K, O = w_shape
     n_rows = x2.shape[0]
-    fn = _dispatch.bind("segment_mm", "het_segment_matmul_dw_f32", [
+    symbol = ("het_segment_matmul_dw_bf16" if x2.dtype == torch.bfloat16
+              else "het_segment_matmul_dw_f32")
+    fn = _dispatch.bind("segment_mm", symbol, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -227,6 +235,9 @@ def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
                  int(plan.ct_vec), stream)
     _dispatch.check_launch("segment_mm", err, "segment_matmul_dw")
     segment_matmul_dw.launches += 1
+    key = "bf16" if x2.dtype == torch.bfloat16 else "f32"
+    by = segment_matmul_dw.launches_by_dtype
+    by[key] = by.get(key, 0) + 1
     return out
 
 
@@ -257,15 +268,28 @@ def _check_f32(**tensors) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
+# the grouped dW's operand element types (x and ct alike; dW is f32):
+# het_tpu's ``_dw_resident`` meets both, bf16 in bf16 training
+DW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dw_dtypes(x_rows, ct_rows) -> None:
+    if x_rows.dtype != ct_rows.dtype or x_rows.dtype not in DW_DTYPES:
+        raise TypeError(f"x_rows {x_rows.dtype} and ct_rows {ct_rows.dtype}:"
+                        " the dW takes both float32 or both bfloat16")
+
+
 def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
                       seg, *, impl: str = "kernel") -> torch.Tensor:
     """dW (S, H, K, O) f32 of ``y[i, h] = x_rows[i, h|0] @ W[seg(i), h]``
     for the cotangent ``ct_rows``.  ``x_rows`` is (n_rows, K),
     (n_rows, Hx*K) or (n_rows, Hx, K) with Hx in {1, H}; ``ct_rows`` is
-    (n_rows, H*O) or (n_rows, H, O); both f32 in the row space of the
-    :class:`~het_tpu_torch.graph.structures.Segments` ``seg``."""
+    (n_rows, H*O) or (n_rows, H, O); both f32 or both bf16
+    (:data:`DW_DTYPES`; each product exact in f32, the sums f32) in the
+    row space of the :class:`~het_tpu_torch.graph.structures.Segments`
+    ``seg``."""
     plain = _dispatch.takes_plain(x_rows, impl, "segment_matmul_dw")
-    _check_f32(x_rows=x_rows, ct_rows=ct_rows)
+    _check_dw_dtypes(x_rows, ct_rows)
     x2, ct2, Hx = _operands(x_rows, ct_rows, w_shape)
     _check_seg(seg, w_shape[0], x2.shape[0])
     if plain:
@@ -275,8 +299,10 @@ def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
 
 
 # launches of the CUDA kernel since the count was last set to 0 (one a
-# call: the chunk and reduce passes of csrc/segment_mm.cu)
+# call: the chunk and reduce passes of csrc/segment_mm.cu), in all and by
+# the operands' element type
 segment_matmul_dw.launches = 0
+segment_matmul_dw.launches_by_dtype = {}
 
 
 # ------------------------------------------------------------ forward, dX

@@ -66,9 +66,15 @@ def _as_heads(x_rows: torch.Tensor, H: int) -> torch.Tensor:
 
 def _static_fwd(x3, w, ptrs):
     """Forward on host-known offsets: one ``torch.matmul`` a relation over
-    its row slice, batched over the heads where x has a row a head."""
+    its row slice, batched over the heads where x has a row a head.  The
+    output takes x's dtype; x and w of two dtypes (an f32 activation
+    against a bf16 weight) are multiplied in f32, as JAX promotes them
+    (``_static_mix_fwd_impl``)."""
     S, H, _, O = w.shape
     Hx = x3.shape[1]
+    y_dtype = x3.dtype
+    if w.dtype != x3.dtype:
+        x3, w = x3.float(), w.float()
     # the slices tile [0, n_rows) exactly, so every row is written
     y = x3.new_empty(x3.shape[0], H, O)
     for r in range(S):
@@ -81,14 +87,17 @@ def _static_fwd(x3, w, ptrs):
         else:  # (H, n, K) @ (H, K, O)
             y[lo:hi] = torch.matmul(x3[lo:hi].transpose(0, 1),
                                     w[r]).transpose(0, 1)
-    return y
+    return y.to(y_dtype)
 
 
 def _static_bwd(x3, w, ptrs, ct, need_dx: bool, need_dw: bool):
-    """The pullback of :func:`_static_fwd`: each slice's dx into its
-    disjoint rows and dW per relation (``_static_mix_bwd_impl``)."""
+    """The pullback of :func:`_static_fwd` for an f32 cotangent: each
+    slice's dx into its disjoint rows and dW per relation, both f32
+    (``_static_mix_bwd_impl``, whose mixed bf16 x f32 products promote
+    to f32)."""
     S, H, K, O = w.shape
     Hx = x3.shape[1]
+    x3, w = x3.float(), w.float()
     dx = torch.empty_like(x3) if need_dx else None
     dw = torch.zeros_like(w) if need_dw else None
     for r in range(S):
@@ -276,7 +285,7 @@ class _EdgeRowGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_rows):
         g, seg = ctx.g, ctx.g.edge_rel_seg
-        flat = ct_rows.reshape(ct_rows.shape[0], -1).float().contiguous()
+        flat = ct_rows.reshape(ct_rows.shape[0], -1).contiguous()
         if ctx.side == "src":
             perm = take_rows(seg.inv, g.out_perm)
             dx = seg_sum_sorted(flat, g.out_row_ptr, perm, impl=ctx.impl)
@@ -372,23 +381,26 @@ class _RelInner(torch.autograd.Function):
                 impl: str):
         ctx.save_for_backward(feat, a, rel)
         ctx.seg, ctx.perm, ctx.impl = seg, perm, impl
-        return (feat * take_rows(a, rel)).sum(-1)
+        # a dot product: f32 products and sums, rounded once (bf16 runs)
+        return (feat.float() * take_rows(a, rel).float()).sum(-1).to(
+            feat.dtype)
 
     @staticmethod
     def backward(ctx, ct):
         feat, a, rel = ctx.saved_tensors
-        ct = ct.float()
         d_feat = (ct[..., None] * take_rows(a, rel)).to(feat.dtype)
-        da = _rel_inner_da(feat, ct, a.shape[0], ctx.seg, ctx.perm, ctx.impl)
+        da = _rel_inner_da(feat, ct.to(feat.dtype), a.shape[0], ctx.seg,
+                           ctx.perm, ctx.impl)
         return d_feat, da.to(a.dtype), None, None, None, None
 
 
 def _rel_inner_da(feat, ct, R: int, seg, perm, impl: str) -> torch.Tensor:
     """``d_a[r, h] = sum_{i in segment r} feat[i, h] * ct[i, h]`` (R, H,
-    D): the grouped dW over the segments of ``seg``, rows taken in segment
-    order through ``perm`` (None when they already are) and ``ct`` zeroed
-    on invalid rows."""
-    fr, cr = feat.float(), ct.float()
+    D) f32: the grouped dW over the segments of ``seg`` on ``feat`` and
+    ``ct`` in their dtype (f32, or bf16 as het_tpu's ``_eri_bwd`` sends
+    them), rows taken in segment order through ``perm`` (None when they
+    already are) and ``ct`` zeroed on invalid rows."""
+    fr, cr = feat, ct
     if perm is not None:
         fr, cr = take_rows(fr, perm), take_rows(cr, perm)
     cr = torch.where(seg.row_valid[:, None], cr, torch.zeros_like(cr))

@@ -3,7 +3,11 @@
 The subset of ``het_tpu/train/config.py`` that the port runs so far, plus
 ``--device``.  ``--model`` is RGAT, RGCN, HGT or GAT, as in het_tpu;
 ``--logfile_enabled`` appends the run's metrics to ``--logfilename`` as
-one JSON line.
+one JSON line.  ``--dtype bfloat16`` trains in mixed precision (f32
+master parameters, the model in bf16) with ``--loss_scale`` none, dynamic
+or a number; ``--patience`` stops on the training loss;
+``--save_every`` / ``--checkpoint_dir`` / ``--resume`` checkpoint and
+resume (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,17 @@ class TrainConfig:
     # "max" (the exact max-subtracted softmax) or "raw" (reference parity)
     stable_softmax: str = "clip"
     dataset_scale: float = 1.0  # synthetic stand-in scale (1.0 = published)
+    # float32 | bfloat16 (mixed: f32 master parameters, the model in bf16)
+    dtype: str = "float32"
+    # bf16 loss scaling: "none" | "dynamic" | a number (static)
+    loss_scale: str = "none"
+    # early stopping on the training loss (0 = off)
+    patience: int = 0
+    # checkpoint every N timed epochs (0 = off) into checkpoint_dir;
+    # --resume restarts from its latest step
+    save_every: int = 0
+    checkpoint_dir: str = "checkpoints"
+    resume: bool = False
     seed: int = 0
     device: str = "cuda"
     logfile_enabled: bool = False
@@ -69,6 +84,17 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--stable_softmax", type=str, default="clip",
                    choices=["clip", "max", "raw"])
     p.add_argument("--dataset_scale", type=float, default=1.0)
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--loss_scale", type=str, default="none",
+                   help="bf16 loss scaling: none | dynamic | <float>")
+    p.add_argument("--patience", type=int, default=0)
+    p.add_argument("--save_every", type=int, default=0,
+                   help="checkpoint every N epochs (0 = off)")
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint_dir")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--logfile_enabled", action="store_true")

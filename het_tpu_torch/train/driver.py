@@ -3,7 +3,13 @@
 Node embeddings feed the model; the loss is the NLL of ``log_softmax`` on
 the training nodes; the optimizer is Adam, whose defaults (eps outside the
 square root, bias correction) are ``optax.adam``'s.  The run is f32 with
-TF32 off.  Each step's loss is printed with its time: CUDA events on the
+TF32 off, or with ``--dtype bfloat16`` mixed: f32 master parameters and
+Adam state, the model run on bf16 copies of the parameters, the loss head
+in f32, under ``--loss_scale`` (``scaling.py``), with cuBLAS's reduced-
+precision bf16 reductions off (het_tpu's dots accumulate in f32).
+``--save_every`` writes checkpoints (``checkpoint.py``), ``--resume``
+continues from the latest one, ``--patience`` stops on the training
+loss.  Each step's loss is printed with its time: CUDA events on the
 card, the host clock on the CPU.  ``train`` returns het_tpu's metrics
 (the reference's schema: means over the last 3/4 of the timed steps, the
 forward/backward split, memory, train and test accuracy) beside the
@@ -21,9 +27,11 @@ from torch import nn
 
 from ..data.loaders import Dataset, load_dataset
 from ..models import GATModel, HGTModel, NodeEmbed, RGATModel, RGCNModel
-from ..utils.misc import nll_loss, resolve_device
+from ..utils.misc import EarlyStopping, nll_loss, resolve_device
+from .checkpoint import load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .loop import train_steps
+from .scaling import cast_floating
 
 
 class NodeClassifier(nn.Module):
@@ -92,6 +100,25 @@ def _mean_after_first_quarter(xs: List[float]) -> float:
     return sum(tail) / len(tail) if tail else float("nan")
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def model_forward(net: nn.Module, dtype: torch.dtype):
+    """``net``'s forward on its parameters and buffers cast to ``dtype``
+    (``torch.func.functional_call``: the cast is differentiable, so the
+    gradients reach the f32 masters as f32), or ``net`` itself for f32."""
+    if dtype == torch.float32:
+        return net
+
+    def forward(*args, **kwargs):
+        tensors = cast_floating(
+            {**dict(net.named_parameters()), **dict(net.named_buffers())},
+            dtype)
+        return torch.func.functional_call(net, tensors, args, kwargs)
+
+    return forward
+
+
 def train(
     cfg: TrainConfig,
     data: Optional[Dataset] = None,
@@ -102,9 +129,20 @@ def train(
     net: Optional[NodeClassifier] = None,
 ) -> Dict[str, Any]:
     """Train full-graph: ``cfg.warmup_epochs`` untimed Adam steps (none
-    with ``cfg.no_warm_up``), as het_tpu's trainer takes them, then
-    ``cfg.num_epochs`` timed ones.  The warm-up draws its dropout masks
-    from the same generator, so a run still repeats exactly.
+    with ``cfg.no_warm_up`` or ``cfg.resume``), as het_tpu's trainer takes
+    them, then the timed epochs up to ``cfg.num_epochs``.  The warm-up
+    draws its dropout masks from the same generator, so a run still
+    repeats exactly.
+
+    With ``cfg.dtype == "bfloat16"`` every forward (the accuracy pass
+    too) runs on bf16 copies of the f32 parameters and ``cfg.loss_scale``
+    scales the loss.  ``cfg.save_every > 0`` saves a checkpoint every
+    ``save_every`` epochs and at the end, under the epoch reached (also
+    after an early stop); ``cfg.resume`` restores the latest checkpoint of
+    ``cfg.checkpoint_dir`` (parameters, Adam, loss scale, dropout
+    generator) and trains the epochs after it, so that the run repeats
+    the uninterrupted one; ``cfg.patience > 0`` stops when the step's
+    loss has not improved for that many epochs, checked after the save.
 
     Returns het_tpu's metrics: the losses; the step, forward and backward
     times (CUDA events around the step and at the loss; the backward is
@@ -114,7 +152,8 @@ def train(
     two agree where dropout is 0); the peak device memory and its rise
     over the memory held before the first step, in MB (``None`` on the
     CPU); the graph's sizes and flags.  Beside them the port's own keys:
-    ``device``, ``step_ms_list``, ``timer`` and ``flags["impl"]``.  With
+    ``device``, ``step_ms_list``, ``timer``, ``epochs_done``,
+    ``loss_scale_state`` and ``flags["impl"]``.  With
     ``cfg.logfile_enabled`` the metrics are appended to
     ``cfg.logfilename`` as one JSON line.
 
@@ -125,8 +164,10 @@ def train(
     that the caller holds the final parameters."""
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
+    dtype = DTYPES[cfg.dtype]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if data is None:
         data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
                             num_classes=cfg.num_classes, seed=cfg.seed,
@@ -150,25 +191,48 @@ def train(
         net.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()}
         )
+    drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    resumed = None
+    if cfg.resume:
+        resumed = load_checkpoint(cfg.checkpoint_dir)
+        net.load_state_dict(resumed["model"])
+        drop_gen.set_state(resumed["generator"])
     net.to(dev).train()
+    forward = model_forward(net, dtype)
     g = data.graph.to(dev)
     labels = torch.as_tensor(data.labels, device=dev).long()
     train_idx = torch.as_tensor(data.train_idx, device=dev).long()
     test_idx = torch.as_tensor(data.test_idx, device=dev).long()
     train_labels = labels[train_idx]
-    drop_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     if on_card:
         torch.cuda.synchronize(dev)
         mem_base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
 
     def step_loss():
-        loss = nll_loss(net(g, generator=drop_gen)[train_idx], train_labels)
+        loss = nll_loss(forward(g, generator=drop_gen)[train_idx],
+                        train_labels)
         return loss, loss
 
-    steps = train_steps(net, step_loss, steps=cfg.num_epochs, lr=cfg.lr,
-                        device=dev, log=log,
-                        warmup=0 if cfg.no_warm_up else cfg.warmup_epochs)
+    stopper = (EarlyStopping(patience=cfg.patience, mode="min")
+               if cfg.patience > 0 else None)
+
+    def stop(epoch, loss, snapshot):
+        done = stopper is not None and stopper.update(loss, epoch)
+        if cfg.save_every > 0 and ((epoch + 1) % cfg.save_every == 0 or done
+                                   or epoch + 1 == cfg.num_epochs):
+            save_checkpoint(cfg.checkpoint_dir, {
+                "model": net.state_dict(), **snapshot(),
+                "generator": drop_gen.get_state(), "epoch": epoch + 1,
+            }, epoch + 1)
+        return done
+
+    steps = train_steps(
+        net, step_loss, steps=cfg.num_epochs, lr=cfg.lr, device=dev, log=log,
+        warmup=0 if (cfg.no_warm_up or cfg.resume) else cfg.warmup_epochs,
+        start=resumed["epoch"] if resumed is not None else 0,
+        loss_scale=cfg.loss_scale if dtype == torch.bfloat16 else "none",
+        resume=resumed, stop=stop)
     peak_mb = rise_mb = None
     if on_card:
         peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
@@ -176,7 +240,7 @@ def train(
 
     net.eval()
     with torch.no_grad():
-        pred = net(g).argmax(-1)
+        pred = forward(g).argmax(-1)
     net.train()
 
     def accuracy(idx):
@@ -207,6 +271,8 @@ def train(
                   "compact_union": cfg.compact_union,
                   "multiply_first": cfg.multiply_first,
                   "stable_softmax": cfg.stable_softmax,
+                  "dtype": cfg.dtype,
+                  "loss_scale": cfg.loss_scale,
                   "impl": impl},
         "synthetic_data": data.meta.get("synthetic", False),
     }

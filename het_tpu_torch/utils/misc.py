@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -22,3 +24,37 @@ def resolve_device(device="cuda") -> torch.device:
             "to run the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+class EarlyStopping:
+    """Stop when the monitored value fails to improve for ``patience``
+    checks; keeps the best value and step (a copy of
+    ``het_tpu/utils/misc.py::EarlyStopping``)."""
+
+    def __init__(self, patience: int = 10, min_delta: float = 0.0,
+                 mode: str = "min"):
+        assert mode in ("min", "max")
+        self.patience = patience
+        self.min_delta = min_delta
+        self.mode = mode
+        self.best: Optional[float] = None
+        self.best_step = -1
+        self.bad = 0
+        self.stopped = False
+
+    def update(self, value: float, step: int = 0) -> bool:
+        """Returns True when training should stop."""
+        better = (
+            self.best is None
+            or (self.mode == "min" and value < self.best - self.min_delta)
+            or (self.mode == "max" and value > self.best + self.min_delta)
+        )
+        if better:
+            self.best = value
+            self.best_step = step
+            self.bad = 0
+        else:
+            self.bad += 1
+            if self.bad >= self.patience:
+                self.stopped = True
+        return self.stopped

@@ -8,8 +8,13 @@
         --dataset_scale 0.1 [--compact_as_of_node_flag]
     python -m het_tpu_torch.utils.profile_step --model GAT -d mag \\
         --dataset_scale 0.1 --num_heads 4 --num_layers 2 --dropout 0
+    python -m het_tpu_torch.utils.profile_step --model RGAT -d mag \\
+        --dataset_scale 0.1 --num_heads 4 --num_layers 2 \\
+        --compact_as_of_node_flag --multiply_among_weights_first_flag \\
+        --dropout 0 --dtype bfloat16 --loss_scale dynamic
 
-Takes the trainer's flags, runs six steps and traces steps 3-5 with
+Takes the trainer's flags (``--dtype bfloat16`` profiles a mixed-precision
+step), runs six steps and traces steps 3-5 with
 ``torch.profiler`` (the trainer's per-step log call advances the
 profiler's schedule).  Prints each kernel's device time per step
 (averaged over the traced steps), the traced steps' own times (CUDA

@@ -116,6 +116,103 @@ def test_seg_sum_rejects_cpu_index_for_cuda_values(cuda):
         seg_sum_sorted(vals, ptr)
 
 
+def _bf16_ulp(t):
+    """One bf16 unit in the last place of each entry of ``t`` (8
+    significant bits; the smallest normal's for zeros)."""
+    _, e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _check_sum(vals, ptr, perm=None, out_dtype=torch.float32):
+    """One segment-sum launch against the plain version (the same rows
+    summed in f64, rounded once to ``out_dtype``).  f32 sums: rtol 1e-5,
+    atol 1e-5 * max|out|.  bf16 sums: within one bf16 ulp of the plain
+    version's rounded sum past that f32 limit, since each is a sum in f32
+    rounded once.  Returns the kernel's result."""
+    seg_sum_sorted.launches = 0
+    got = seg_sum_sorted(vals, ptr, perm, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert seg_sum_sorted.launches == 1 and got.dtype == out_dtype
+    want = seg_sum_sorted_plain(vals, ptr, perm, out_dtype)
+    g, w = got.float(), want.float()
+    limit = 1e-5 * w.abs() + 1e-5 * w.abs().max().item()
+    if out_dtype == torch.bfloat16:
+        limit = limit + torch.maximum(_bf16_ulp(g), _bf16_ulp(w))
+    assert got.shape == want.shape
+    assert ((g - w).abs() <= limit).all(), (g - w).abs().max()
+    return got
+
+
+# the segment sum's (rows, sums) element types
+SUM_PAIRS = [pytest.param((torch.float32, torch.float32), id="f32-f32"),
+             pytest.param((torch.bfloat16, torch.float32), id="bf16-f32"),
+             pytest.param((torch.bfloat16, torch.bfloat16), id="bf16-bf16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", SUM_PAIRS)
+@pytest.mark.parametrize("C", [1, 4, 8, 16, 64, 68, 256])
+def test_seg_sum_kernel_dtype_pairs_match_plain(cuda, C, pair):
+    """Every (rows, sums) pair at the widths the models give (C = 1-8 the
+    narrow terms, 16 and 64 the wide ones, 68 a row of 17 four-element
+    loads, 256 GAT's), over the destination CSR (empty rows included) and
+    through ``perm``, then a hub row of 100,000 edges among short rows,
+    with NaN rows outside the row pointer that the kernel must not read.
+    Twice each, bit for bit."""
+    in_dt, out_dt = pair
+    g = random_heterograph(num_nodes=300, num_edges=5000, num_rels=4,
+                           power_law=True).to(cuda)
+    counts = g.in_row_ptr[1:] - g.in_row_ptr[:-1]
+    assert (counts == 0).any()  # empty rows
+    info = g.compact_src
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    vals = torch.randn(g.num_padded_edges, C, device=cuda,
+                       generator=gen).to(in_dt)
+    for ptr, perm in ((g.in_row_ptr, None),
+                      (info.edge_row_ptr, info.edge_sort_perm)):
+        got = _check_sum(vals, ptr, perm, out_dt)
+        assert torch.equal(got, seg_sum_sorted(vals, ptr, perm,
+                                               out_dtype=out_dt))
+    for perm in (False, True):
+        hv, hp, order = _hub_rows(cuda, C, perm=perm)
+        hv = hv.to(in_dt)
+        got = _check_sum(hv, hp, order, out_dt)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, seg_sum_sorted(hv, hp, order,
+                                               out_dtype=out_dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", SUM_PAIRS[1:])
+@pytest.mark.parametrize("C", [1, 3, 4, 6, 12, 64, 68])
+def test_seg_sum_kernel_unaligned_bf16_rows(cuda, C, pair):
+    """bf16 rows that start 2 bytes into their storage (a contiguous
+    view), so the loads narrow to what the address allows (C % 8 != 0
+    and unaligned bases: 8-, 4- or 2-byte loads), into f32 or bf16 sums."""
+    in_dt, out_dt = pair
+    g = random_heterograph(num_nodes=300, num_edges=5000, num_rels=4,
+                           power_law=True).to(cuda)
+    n = g.num_padded_edges
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    flat = torch.randn(n * C + 1, device=cuda, generator=gen).to(in_dt)
+    vals = flat[1:].view(n, C)
+    assert vals.is_contiguous() and vals.data_ptr() % 4 != 0
+    _check_sum(vals, g.in_row_ptr, None, out_dt)
+    _check_sum(vals, g.compact_src.edge_row_ptr, g.compact_src.edge_sort_perm,
+               out_dt)
+
+
+def test_seg_sum_rejects_other_dtype_pairs():
+    """The pairs outside SUM_DTYPES raise before any launch: f32 rows into
+    bf16 sums, f16 or f64 rows, f32 sums of f64."""
+    ptr = torch.tensor([0, 2, 3], dtype=torch.int32)
+    for dt, out in ((torch.float32, torch.bfloat16),
+                    (torch.float16, None), (torch.float64, None),
+                    (torch.bfloat16, torch.float16)):
+        with pytest.raises(TypeError):
+            seg_sum_sorted(torch.ones(3, 4, dtype=dt), ptr, out_dtype=out)
+
+
 def _tf32(t):
     """``t`` rounded to TF32 (10-bit mantissa, to nearest)."""
     bits = t.contiguous().view(torch.int32)
@@ -248,6 +345,61 @@ def test_segment_matmul_dw_kernel_is_deterministic(cuda, H, Hx, K, O):
     a = segment_matmul_dw(x, ct, (3, H, K, O), seg)
     for _ in range(2):
         assert torch.equal(a, segment_matmul_dw(x, ct, (3, H, K, O), seg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,H,Hx,K,O", [
+    ((5000, 0, 3000, 17), 4, 4, 16, 1),  # plain RGAT's a_l/a_r, layer 0
+    ((5000, 0, 3000, 17), 4, 4, 2, 1),  # the same at layer 1
+    ((5000, 0, 3000, 17), 4, 4, 1, 1),  # HGT's relation_pri: K = O = 1
+    ((4100, 0, 70, 9000), 1, 1, 64, 64),  # the general K = O = 64, S = 4
+    ((4100, 0, 70, 9000), 2, 2, 70, 5),  # ragged k tiles, 2-byte copies
+    ((5000, 0, 3000, 17), 4, 1, 64, 17),  # 68 columns: 2-byte copies
+    ((5000, 0, 3000, 17), 4, 1, 64, 3),  # shared x, narrow, NC = 12
+    ((2000, 33, 0, 900), 4, 4, 16, 1),  # x not 16-byte aligned, per head
+    ((2000, 33, 0, 900), 1, 1, 64, 64),  # x not 16-byte aligned, wide
+    ((0, 0, 0), 2, 2, 3, 1),  # every segment empty
+])
+def test_segment_matmul_dw_bf16_kernel_matches_plain(cuda, sizes, H, Hx, K,
+                                                     O):
+    """bf16 x and ct into the f32 dW, against the plain version (the
+    operands widened to f32 exactly).  Tolerance DW_TOL * sum |x| |ct| as
+    for f32: each product of two bf16 values is exact in f32.  (The TF32
+    control of f32 does not apply: bf16 values are exact in TF32.)  Twice
+    each, bit for bit."""
+    seg = _segments(sizes, tile=8).to(cuda)
+    n = seg.n_rows
+    gen = torch.Generator(device=cuda).manual_seed(n + K + O)
+    x = torch.randn(n, Hx * K, device=cuda, generator=gen).bfloat16()
+    if 33 in sizes:  # a contiguous view one element into its storage
+        x = torch.randn(n * Hx * K + 1, device=cuda,
+                        generator=gen).bfloat16()[1:].view(n, Hx * K)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    ct = torch.randn(n, H * O, device=cuda, generator=gen).bfloat16()
+    w_shape = (len(sizes), H, K, O)
+    segment_matmul_dw.launches = 0
+    got = segment_matmul_dw(x, ct, w_shape, seg)
+    torch.cuda.synchronize()
+    assert segment_matmul_dw.launches == 1 and got.dtype == torch.float32
+    want = segment_matmul_dw_plain(x, ct, w_shape, seg)
+    scale = segment_matmul_dw_plain(x.abs(), ct.abs(), w_shape, seg)
+    assert ((got - want).abs() <= DW_TOL * scale).all()
+    for s, size in enumerate(sizes):
+        if size == 0:
+            assert (got[s] == 0).all()
+    assert torch.equal(got, segment_matmul_dw(x, ct, w_shape, seg))
+
+
+def test_segment_matmul_dw_rejects_mixed_dtypes():
+    """x and ct must share f32 or bf16."""
+    import numpy as np
+    from het_tpu_torch.graph.build import build_segments
+
+    seg = build_segments(np.repeat(np.arange(2), (3, 5)), 2, 8)
+    x = torch.ones(seg.n_rows, 4)
+    for a, b in ((x, x.bfloat16()), (x.bfloat16(), x), (x.half(), x.half())):
+        with pytest.raises(TypeError):
+            segment_matmul_dw(a, b[:, :1], (2, 1, 4, 1), seg)
 
 
 # 200 segments of 0-19 rows (padded to 0-24): 64-row tiles cross many

@@ -145,3 +145,30 @@ def test_logfile_appends_one_json_line(tmp_path):
     assert [json.loads(line) for line in lines] == [
         json.loads(json.dumps(m)) for m in runs]
     assert runs[0]["loss_list"] == runs[1]["loss_list"]
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--dtype", "bfloat16", "--loss_scale", "dynamic"],
+    ["--dtype", "bfloat16", "--loss_scale", "1024", "--patience", "3"],
+    ["--save_every", "2", "--checkpoint_dir", "ck", "--resume",
+     "--patience", "1", "-e", "7"],
+])
+def test_new_flags_parse_as_het_tpus(argv):
+    """``--dtype``, ``--loss_scale``, ``--patience``, ``--save_every``,
+    ``--checkpoint_dir`` and ``--resume`` parse to het_tpu's values for the
+    same argv, defaults included."""
+    import argparse
+
+    from het_tpu.train.config import add_args as j_add_args
+    from het_tpu.train.config import config_from_args as j_config_from_args
+    from het_tpu_torch.train.config import add_args, config_from_args
+
+    jp, p = argparse.ArgumentParser(), argparse.ArgumentParser()
+    j_add_args(jp)
+    add_args(p)
+    want = j_config_from_args(jp.parse_args(argv))
+    got = config_from_args(p.parse_args(argv))
+    for name in ("dtype", "loss_scale", "patience", "save_every",
+                 "checkpoint_dir", "resume", "num_epochs"):
+        assert getattr(got, name) == getattr(want, name), name
