@@ -18,16 +18,26 @@ Phases, each of which fails the run:
      and the GAT steps (mag at 0.1 and the arxiv stand-in; C = 256 and
      4, then the classes, 8 or 40, and 1) give it, on one card and on
      rank 0's shard of each data-parallel run (the boundary halo's
-     exchange backward included),
+     exchange backward included), at every shape of a minibatch step on
+     the first sampled batch of each minibatch run (1024 seeds, fanout 10,
+     2 hops: the model's sums on the padded subgraph, whose compact
+     tables are forced to their worst case, and the trainable table's
+     gradient, 113,664 gathered rows into every node's row, mostly empty
+     segments; at 0.1 and at 1.0) and of a link epoch on the fb15k
+     stand-in (the encoder's sums on the message graph, DistMult's entity
+     gradient, 620,230 rows into 14,541 nodes, and its relation gradient,
+     310,115 rows into 474 relations),
      plus edge cases, among them a hub row
      of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
-     without perm, each launched twice and compared bit for bit;
+     without perm; every shape launched twice and compared bit for bit;
    * ``seg_max_sorted`` bit for bit at every shape the stable="max" steps
      give it (packed at 0.2, plain RGAT and compact HGT at 0.1), plus
      edge cases, among them a
      hub row with a NaN and a +inf in different workers' chunks;
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
-     the union steps give it, and the data-parallel runs (RGAT, compact
+     the union steps give it, the plain minibatch step's and the plain
+     link epoch's (S = 474 relations), and the data-parallel runs (RGAT,
+     compact
      RGCN, and HGT's per-head typed linears, x a row a head at K = O =
      16 and 2) give rank 0's shard, at the general segment-matmul
      shapes (Hx = 1, K = O = 64, S =
@@ -77,9 +87,22 @@ Phases, each of which fails the run:
    its published size (169,343 nodes, 1,166,243 edges, R = 1); every
    run's launches include the trainer's accuracy pass, and it prints
    the trainer's report (accuracy, forward/backward means, memory);
+   then neighbour-sampled minibatch training (``train_minibatch``, het_tpu's
+   defaults: 1024 seeds a batch, fanout 10, 2 hops, the trainable table)
+   of compact multiply-first RGAT at 0.1 for five batches through the
+   kernels and the plain versions (same parameters and batches, per-batch
+   agreement), plain RGAT and compact RGCN for two batches, kernels only,
+   each with its accuracy passes (at most 32 training batches, the whole
+   test split) and its launches, each batch's draw, build, copy and step
+   ms, seeds/s and peak memory; link prediction (``train_link``: the RGAT
+   encoder and DistMult) on the fb15k stand-in at its published size,
+   compact multiply-first for five epochs through the kernels and the
+   plain versions and plain RGAT for two, kernels only, with losses, MRR,
+   Hits@10, step ms, peak memory and launches;
    then the packed max path at the published size (scale 1.0, 21.1M
    edges), three steps through the kernels, and compact RGCN and
-   compact HGT on the same graph, two steps each,
+   compact HGT on the same graph, two steps each, and three minibatch
+   batches of compact multiply-first on it,
    each with its step time, edges/s and peak device memory, after the
    segment sum and max at every shape of a packed max step, against their
    plain versions and timed beside their bounds;
@@ -300,10 +323,66 @@ DP_RUNS = {
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
 
+# neighbour-sampled minibatch runs (--minibatch at het_tpu's defaults:
+# BATCH seeds a batch, FANOUT in-edges a node a hop, HOPS hops) on mag at
+# SCALE, each training the model of a full-graph run (``base``) on the
+# batches' subgraphs from the trainable table: a batch launches that
+# run's step plus one segment sum, the table's gradient (its gathered
+# rows summed into the table's rows); each evaluation batch launches the
+# run's forward (_eval_launches).  ``plain``: the run is repeated through
+# the plain versions from the same parameters and batches
+BATCH, FANOUT, HOPS = 1024, 10, 2
+
+
+def _mb_run(base, batches, plain):
+    launches = dict(RUNS[base]["launches"])
+    launches["seg_sum_sorted"] += 1
+    return dict(RUNS[base], steps=batches, launches=launches, base=base,
+                plain=plain)
+
+
+MB_RUNS = {
+    "minibatch_compact_multiply_first": _mb_run("compact_multiply_first",
+                                                STEPS, True),
+    "minibatch_plain": _mb_run("plain", SHORT_STEPS, False),
+    "minibatch_rgcn_compact": _mb_run("rgcn_compact", SHORT_STEPS, False),
+}
+MB_MAIN = "minibatch_compact_multiply_first"  # this slice's main path
+# MB_MAIN at FULL_SCALE, on check_full_scale's graph, kernels only
+MB_FULL, MB_FULL_BATCHES = "minibatch_full_scale", 3
+# link prediction (--task link) on the fb15k stand-in at LINK_SCALE (its
+# published size: 14,541 nodes, 620,232 edges, R = 474): the RGAT encoder
+# (its output HIDDEN wide) takes a full-graph step an epoch on the message
+# graph (9/10 of the edges) and the DistMult decoder adds two segment
+# sums, the entity rows' and the relation rows' gradients; the ranking
+# after the epochs launches one forward
+LINK_SCALE = 1.0
+
+
+def _link_run(compact, multiply_first, epochs, launches, plain):
+    return dict(_run(compact, multiply_first, epochs, launches,
+                     dataset="fb15k", scale=LINK_SCALE, classes=HIDDEN),
+                plain=plain)
+
+
+LINK_RUNS = {
+    "link_compact_multiply_first": _link_run(True, True, STEPS,
+                                             dict(seg_sum_sorted=16), True),
+    # kernel 7 at S = 474 relations
+    "link_plain": _link_run(False, False, SHORT_STEPS, dict(
+        seg_sum_sorted=10, segment_matmul_dw=4), False),
+}
+
 
 def _spec(run):
-    """The ``RUNS`` or ``DP_RUNS`` entry of a run."""
-    return RUNS[run] if run in RUNS else DP_RUNS[run]
+    """The ``RUNS``, ``DP_RUNS``, ``MB_RUNS`` or ``LINK_RUNS`` entry of a
+    run (``MB_FULL``: ``MB_MAIN``'s)."""
+    for runs in (RUNS, DP_RUNS, MB_RUNS, LINK_RUNS):
+        if run in runs:
+            return runs[run]
+    if run == MB_FULL:
+        return MB_RUNS[MB_MAIN]
+    raise KeyError(run)
 
 
 def _per_step(run):
@@ -384,14 +463,14 @@ def _time_ms(fn, reps, flush):
     return statistics.median(times)
 
 
-def _dims():
-    return [IN_FEAT] + [HIDDEN] * (LAYERS - 1) + [CLASSES]
+def _dims(classes=CLASSES):
+    return [IN_FEAT] + [HIDDEN] * (LAYERS - 1) + [classes]
 
 
 # ------------------------------------------------------------ seg_sum_sorted
 
 
-def _seg_sum_shapes(g, compact, first_input_grad):
+def _seg_sum_shapes(g, compact, first_input_grad, classes=CLASSES):
     """[(label, rows of vals, C, row_ptr, perm)] of every seg_sum_sorted
     launch of one training step of the compact branches (the reductions
     of both, and of the packed form, the same) or the plain ones on
@@ -404,7 +483,7 @@ def _seg_sum_shapes(g, compact, first_input_grad):
     S, D = g.compact_src, g.compact_dst
     E = g.edge_rel_seg
     EP = g.num_padded_edges
-    dims = _dims()
+    dims = _dims(classes)
     shapes = []
     for layer in range(LAYERS):
         width = dims[layer + 1]  # z*feat, dfeat
@@ -558,17 +637,20 @@ def _gat_seg_sum_shapes(g, classes):
 
 
 def _run_seg_sum_shapes(run, g):
-    """Every seg_sum_sorted launch of a step of ``run`` on ``g`` (rank 0's
-    shard for a data-parallel run, whose layer 0 reads fixed features)."""
+    """Every seg_sum_sorted launch of a step of ``run``'s model on ``g``
+    (rank 0's shard for a data-parallel run, whose layer 0 reads fixed
+    features; a sampled subgraph for a minibatch run; the message graph
+    for a link run, whose last layer is HIDDEN wide)."""
     spec = _spec(run)
     if spec["model"] == "GAT":
         return _gat_seg_sum_shapes(g, spec["classes"])
     if spec["model"] == "HGT":
         return _hgt_seg_sum_shapes(g, spec["compact"],
                                    spec.get("stable", "clip"))
-    shapes = (_rgcn_seg_sum_shapes if spec["model"] == "RGCN"
-              else _seg_sum_shapes)
-    return shapes(g, spec["compact"], run in RUNS)
+    if spec["model"] == "RGCN":
+        return _rgcn_seg_sum_shapes(g, spec["compact"], run not in DP_RUNS)
+    return _seg_sum_shapes(g, spec["compact"], run not in DP_RUNS,
+                           spec.get("classes", CLASSES))
 
 
 def _hub_ptr(dev, hub=100_000, short=20_000, at=1, seed=0):
@@ -658,11 +740,11 @@ def _entry_totals(totals, run):
 def seg_sum_run_table(run, shapes, dev, flush, gen, pair_of=None):
     """Kernel against plain, timed beside its bound, the plain version and
     ``torch.segment_reduce``, at each of ``shapes`` (``_seg_sum_shapes``)
-    of one run.  ``pair_of(label)``, where given, names each shape's
-    (rows, sums) element types (a bf16 step's, ``_bf16_sum_pair``): the
-    rows are drawn in f32 and rounded to them, each call is also repeated
-    bit for bit, the bound counts 2 bytes a bf16 element and the adds at
-    the bf16 rate, and the yardstick reduces the bf16 rows.  Returns the
+    of one run, each call also repeated bit for bit.  ``pair_of(label)``,
+    where given, names each shape's (rows, sums) element types (a bf16
+    step's, ``_bf16_sum_pair``): the rows are drawn in f32 and rounded to
+    them, the bound counts 2 bytes a bf16 element and the adds at the bf16
+    rate, and the yardstick reduces the bf16 rows.  Returns the
     per-step totals (under ``by_dtype`` too, a bf16 run's) and the
     largest |error|."""
     import torch
@@ -683,10 +765,8 @@ def seg_sum_run_table(run, shapes, dev, flush, gen, pair_of=None):
         vals = torch.randn(rows, C, device=dev, generator=gen).to(in_dt)
         got, err = _compare_seg_sum(vals, ptr, perm, label, out_dt)
         max_err = max(max_err, err)
-        if pair_of is not None:
-            _compare_exact(got, seg_sum_sorted(vals, ptr, perm,
-                                               out_dtype=out_dt),
-                           f"{label} (repeat)")
+        _compare_exact(got, seg_sum_sorted(vals, ptr, perm, out_dtype=out_dt),
+                       f"{label} (repeat)")
         del got
         n = ptr.numel() - 1
         lo, hi = int(ptr[0]), int(ptr[-1])
@@ -751,13 +831,14 @@ def seg_sum_run_table(run, shapes, dev, flush, gen, pair_of=None):
     return total, max_err
 
 
-def check_seg_sum(graphs, dev, flush):
+def check_seg_sum(graphs, dev, flush, extra=None):
     """Kernel against plain at every shape of a step of each run in
     ``graphs`` (run -> graph on the card; rank 0's shard for a
-    data-parallel run), and at the edge cases (each also launched twice,
-    bit for bit); per-shape times.  Returns the kernel's JSON entry:
-    per-step totals of the slice's path, and of every run under
-    ``per_run``."""
+    data-parallel run), plus ``extra`` (run -> more shapes of its step:
+    the minibatch table's gradient, the DistMult gradients), and at the
+    edge cases (each also launched twice, bit for bit); per-shape times.
+    Returns the kernel's JSON entry: per-step totals of the slice's main
+    path (MB_MAIN), and of every run under ``per_run``."""
     import torch
     from het_tpu_torch.ops.kernels import seg_sum_sorted
 
@@ -777,7 +858,8 @@ def check_seg_sum(graphs, dev, flush):
                        seg_sum_sorted(vals, ptr, perm), f"{label} (repeat)")
         print(f"seg_sum edge case ok: {label}")
 
-    runs = {run: _run_seg_sum_shapes(run, g) for run, g in graphs.items()}
+    runs = {run: _run_seg_sum_shapes(run, g) + (extra or {}).get(run, [])
+            for run, g in graphs.items()}
     _check_shape_count("seg_sum_sorted",
                        {run: len(shapes) for run, shapes in runs.items()})
     totals = {}
@@ -791,7 +873,7 @@ def check_seg_sum(graphs, dev, flush):
         "replaces": "het_tpu/ops/pallas/seg_reduce.py:360",
         "launches": None,  # filled from the training run
         "max_abs_err": max_err,
-        **_entry_totals(totals, SLICE_MAIN),
+        **_entry_totals(totals, MB_MAIN),
         "per_run": totals,
     }
 
@@ -1179,7 +1261,7 @@ def _runs_of(run):
     return run if isinstance(run, tuple) else (run,)
 
 
-def _dw_shapes(g, gu, shards, dev):
+def _dw_shapes(g, gu, shards, dev, edge_graphs):
     """(label, run(s) or None, launches per step, seg, H, Hx, K, O, zero
     ct on invalid rows[, operand form: "nan_outside" for NaN rows before
     and past the segments, "unaligned" for x one float off 16 bytes]):
@@ -1190,7 +1272,10 @@ def _dw_shapes(g, gu, shards, dev):
     union rows of ``gu``); on rank 0's shard, whose offsets live only on
     the device, the
     typed-linear dWs of both data-parallel runs and the plain one's
-    attention-vector dWs; the general segment-matmul dW and edge cases."""
+    attention-vector dWs; the attention-vector dWs of the plain RGAT steps
+    on ``edge_graphs`` (run -> graph on the card: the minibatch run's
+    sampled subgraph, the link run's message graph at S = 474); the
+    general segment-matmul dW and edge cases."""
     import numpy as np
 
     E = g.edge_rel_seg
@@ -1235,6 +1320,12 @@ def _dw_shapes(g, gu, shards, dev):
              "union_compact", 2, gu.compact_src.seg, HEADS, HEADS, K, 1,
              True),
         ]
+    for run, ge in edge_graphs.items():
+        for layer in range(LAYERS):
+            K = _dims(_spec(run)["classes"])[layer + 1] // HEADS
+            shapes.append((f"l{layer} attn_l/attn_r dW, edge rows, {run}",
+                           run, 2, ge.edge_rel_seg, HEADS, HEADS, K, 1,
+                           True))
     for layer in range(LAYERS):
         K, D = dims[layer], dims[layer + 1] // HEADS
         shapes += [
@@ -1318,10 +1409,11 @@ def _worst_share(diff, limit):
     return share.max().item() if share.numel() else 0.0
 
 
-def check_dw(g, gu, shards, dev, flush):
+def check_dw(g, gu, shards, dev, flush, edge_graphs):
     """segment_matmul_dw against its plain version at every shape (``g``
     the single-card graph, ``gu`` its union-list form, ``shards`` rank 0's
-    shard of each data-parallel run, all on the card), within
+    shard of each data-parallel run, ``edge_graphs`` the minibatch and
+    link plain runs' graphs, all on the card), within
     |kernel - plain| <= DW_TOL * sum |x| |ct| (the plain version on
     absolute values), and a control: the plain version on inputs rounded to
     TF32 must fail that limit at every shape that has rows, so the check
@@ -1341,8 +1433,9 @@ def check_dw(g, gu, shards, dev, flush):
     print("shape | run | S | rows | H | Hx | K | O | kernel share | TF32 "
           "control share | kernel ms | bound ms | bound / kernel | plain ms "
           "| per-relation torch.matmul ms")
-    shapes = _dw_shapes(g, gu, shards, dev)
-    counts = dict.fromkeys(list(RUNS) + list(DP_RUNS), 0)
+    shapes = _dw_shapes(g, gu, shards, dev, edge_graphs)
+    counts = dict.fromkeys(
+        list(RUNS) + list(DP_RUNS) + list(MB_RUNS) + list(LINK_RUNS), 0)
     for shape in shapes:
         for run in _runs_of(shape[1]):
             counts[run] += shape[2]
@@ -1989,6 +2082,20 @@ def _check_packed(run, r, calls, steps):
                              f"times, expected {want}")
 
 
+def _check_agreement(run, runs, what="step"):
+    """The kernel run's losses (``runs["kernel"]``) within TRAIN_RTOL of
+    the plain versions' at every ``what``, and the plain run launched no
+    kernel."""
+    k, p = runs["kernel"], runs["plain"]
+    for step, (a, b) in enumerate(zip(k["loss_list"], p["loss_list"])):
+        if abs(a - b) > TRAIN_RTOL * abs(b):
+            raise AssertionError(
+                f"{run} {what} {step}: kernel loss {a} vs plain {b} "
+                f"(rtol {TRAIN_RTOL})")
+    if any(p["launches"].values()):
+        raise AssertionError(f"{run}: plain run launched {p['launches']}")
+
+
 def check_training(data, dev, card, run):
     """One ``RUNS`` entry through the kernels and through the plain
     versions from the same parameters.  Returns the kernel run's launches
@@ -2011,20 +2118,13 @@ def check_training(data, dev, card, run):
         m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         _check_packed(run, RUNS[run], packed.calls, WARMUP + steps + 1)
         runs[impl] = m
-    k, p = runs["kernel"], runs["plain"]
     for impl, m in runs.items():
         _check_losses(run, impl, m["loss_list"], steps, steps == STEPS)
-    for step, (a, b) in enumerate(zip(k["loss_list"], p["loss_list"])):
-        if abs(a - b) > TRAIN_RTOL * abs(b):
-            raise AssertionError(
-                f"{run} step {step}: kernel loss {a} vs plain {b} "
-                f"(rtol {TRAIN_RTOL})")
+    _check_agreement(run, runs)
     want = _train_launches(RUNS[run], steps)
-    if k["launches"] != want:
-        raise AssertionError(f"{run}: kernel run launched {k['launches']},"
-                             f" expected {want}")
-    if any(p["launches"].values()):
-        raise AssertionError(f"{run}: plain run launched {p['launches']}")
+    if runs["kernel"]["launches"] != want:
+        raise AssertionError(f"{run}: kernel run launched "
+                             f"{runs['kernel']['launches']}, expected {want}")
     E = data.graph.num_edges
     summary = {}
     for impl, m in runs.items():
@@ -2037,7 +2137,238 @@ def check_training(data, dev, card, run):
             **{key: m[key] for key in REPORT_KEYS},
         }
     print(f"training {run} ({card}):", json.dumps(summary))
-    return k["launches"], summary
+    return runs["kernel"]["launches"], summary
+
+
+# ------------------------------------------------- minibatch and link
+
+
+def _mb_config(r, dev, batches, scale=SCALE):
+    """The minibatch trainer's configuration of run ``r`` (an ``MB_RUNS``
+    value): ``batches`` batches at het_tpu's sampling defaults."""
+    from het_tpu_torch.train import TrainConfig
+
+    return TrainConfig(
+        model=r["model"], dataset="mag", dataset_scale=scale,
+        n_infeat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+        num_heads=HEADS, num_layers=LAYERS, compact=r["compact"],
+        multiply_first=r["multiply_first"], dropout=0.0,
+        stable_softmax=r["stable"], num_epochs=10, max_batches=batches,
+        batch_size=BATCH, fanout=FANOUT, num_hops=HOPS,
+        full_graph_training=False, device=str(dev))
+
+
+def _link_config(r, dev):
+    """The link trainer's configuration of run ``r`` (a ``LINK_RUNS``
+    value)."""
+    from het_tpu_torch.train import TrainConfig
+
+    return TrainConfig(
+        model="RGAT", task="link", dataset="fb15k", dataset_scale=r["scale"],
+        n_infeat=IN_FEAT, hidden=HIDDEN, num_heads=HEADS, num_layers=LAYERS,
+        compact=r["compact"], multiply_first=r["multiply_first"],
+        dropout=0.0, stable_softmax=r["stable"], num_epochs=r["steps"],
+        device=str(dev))
+
+
+def minibatch_inputs(data, run, dev, scale=SCALE):
+    """The first batch ``run``'s trainer draws (the same seeds and sampler
+    seed), on the card, and the shape of the table's gradient: its
+    subgraph and [(label, rows, C, ptr, perm)]."""
+    import numpy as np
+    from het_tpu_torch.data.sampling import NeighborSampler
+    from het_tpu_torch.train.minibatch import make_batch
+
+    cfg = _mb_config(_spec(run), dev, 1, scale)
+    g = data.graph
+    E = g.num_edges
+    sampler = NeighborSampler(g.src[:E].numpy(), g.dst[:E].numpy(),
+                              g.rel[:E].numpy(), g.num_nodes, g.num_rels,
+                              fanout=FANOUT, num_hops=HOPS, seed=cfg.seed)
+    order = np.random.default_rng(cfg.seed).permutation(len(data.train_idx))
+    batch = make_batch(sampler, data.train_idx[order[:BATCH]], cfg,
+                       g.num_nodes, dev)
+    sub = batch.graph
+    print(f"[{run}] sampled batch: draw {batch.draw_ms:.1f} ms, build "
+          f"{batch.build_ms:.1f} ms, copy {batch.copy_ms:.1f} ms; "
+          f"{sub.describe()}")
+    return sub, [("table gradient", batch.nodes.numel(), IN_FEAT, batch.ptr,
+                  batch.perm)]
+
+
+def link_inputs(data, dev):
+    """The link runs' message graph on the card (with compact rows: the
+    plain run reads none of them) and the shapes of DistMult's two
+    gradients, the entity rows (positive and corrupted triples, one
+    gather) and the relation rows."""
+    import torch
+    from het_tpu_torch.train.link import NEG_RATIO, message_graph, sort_ptr
+
+    t0 = time.perf_counter()
+    cfg = _link_config(LINK_RUNS["link_compact_multiply_first"], dev)
+    g, triples = message_graph(data, cfg)
+    print(f"[link] message graph built in {time.perf_counter() - t0:.1f} s: "
+          f"{g.describe()}, relation-sorted edge rows "
+          f"{g.edge_rel_seg.n_rows}")
+    g = g.to(dev)
+    s, r, o = (torch.from_numpy(a).long().to(dev) for a in triples)
+    N, R = g.num_nodes, g.num_rels
+    gen = torch.Generator(device=dev).manual_seed(0)
+    neg_o = torch.randint(0, N, (s.numel() * NEG_RATIO,), device=dev,
+                          generator=gen)
+    ent = torch.cat([s, o, s.repeat_interleave(NEG_RATIO), neg_o])
+    rel = torch.cat([r, r.repeat_interleave(NEG_RATIO)])
+    return g, [("DistMult entity rows", ent.numel(), HIDDEN,
+                *sort_ptr(ent, N)),
+               ("DistMult relation rows", rel.numel(), HIDDEN,
+                *sort_ptr(rel, R))]
+
+
+def _mb_launches(r, batches, data):
+    """Each kernel's launches in one minibatch run of ``r`` (an
+    ``MB_RUNS`` value) with ``batches`` batches: their steps, then the
+    accuracy passes (at most 32 batches of training seeds, every batch of
+    the test split), a forward each."""
+    from het_tpu_torch.ops.kernels import KERNELS
+    from het_tpu_torch.train.minibatch import TRAIN_ACC_BATCHES
+
+    evals = (min(TRAIN_ACC_BATCHES, -(-len(data.train_idx) // BATCH))
+             + -(-len(data.test_idx) // BATCH))
+    ev = _eval_launches(r)
+    return {k: r["launches"].get(k, 0) * batches + ev.get(k, 0) * evals
+            for k in KERNELS}
+
+
+def _host_summary(m):
+    """A minibatch run's host and device ms a batch (medians past the
+    first batch), its seeds/s and host share."""
+    tail = slice(1, None) if len(m["step_ms_list"]) > 1 else slice(None)
+    host = [a + b + c for a, b, c in zip(
+        m["sample_ms_list"], m["build_ms_list"], m["copy_ms_list"])]
+    med = {key: statistics.median(m[key][tail]) for key in (
+        "sample_ms_list", "build_ms_list", "copy_ms_list", "step_ms_list")}
+    host_ms = statistics.median(host[tail])
+    step = med["step_ms_list"]
+    return {"median_draw_ms": med["sample_ms_list"],
+            "median_build_ms": med["build_ms_list"],
+            "median_copy_ms": med["copy_ms_list"],
+            "median_step_ms": step, "median_host_ms": host_ms,
+            "host_share": host_ms / (host_ms + step),
+            "seeds_per_s_device": BATCH / (step / 1e3),
+            "seeds_per_s_end_to_end": BATCH / ((host_ms + step) / 1e3)}
+
+
+def check_minibatch(data, dev, card, run, *, scale=SCALE, name=None,
+                    batches=None, plain=None):
+    """One ``MB_RUNS`` entry through ``train_minibatch``: ``batches``
+    batches through the kernels and, where the run says, through the
+    plain versions (``plain``, the run's own choice by default) from the
+    same seeded parameters and batches; finite
+    losses, per-batch agreement within TRAIN_RTOL, every kernel's
+    launches (steps and accuracy passes), accuracies in [0, 1].  Prints
+    each batch's draw, build, copy and step ms and the run's summary
+    (seeds/s, host share, peak memory).  Returns the kernel run's
+    launches and the summary."""
+    import torch
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train.minibatch import train_minibatch
+
+    r = MB_RUNS[run]
+    name = name or run
+    batches = batches or r["steps"]
+    cfg = _mb_config(r, dev, batches, scale)
+    runs = {}
+    plain = r["plain"] if plain is None else plain
+    for impl in ("kernel", "plain") if plain else ("kernel",):
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        m = train_minibatch(cfg, data, impl=impl,
+                            log=lambda s, i=impl: print(f"[{name} {i}] {s}"))
+        m["launches"] = kernels.launch_counts()
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        runs[impl] = m
+    for impl, m in runs.items():
+        _check_losses(name, impl, m["loss_list"], batches, False)
+        if not (0.0 <= m["train_acc"] <= 1.0 and 0.0 <= m["test_acc"] <= 1.0
+                and m["embed_trained_delta"] > 0.0):
+            raise AssertionError(f"{name} {impl}: report {m}")
+    if "plain" in runs:
+        _check_agreement(name, runs, "batch")
+    want = _mb_launches(r, batches, data)
+    if runs["kernel"]["launches"] != want:
+        raise AssertionError(f"{name}: kernel run launched "
+                             f"{runs['kernel']['launches']}, expected {want}")
+    summary = {}
+    for impl, m in runs.items():
+        summary[impl] = {
+            "losses": m["loss_list"], "step_ms": m["step_ms_list"],
+            "draw_ms": m["sample_ms_list"], "build_ms": m["build_ms_list"],
+            "copy_ms": m["copy_ms_list"],
+            "seeds_per_s_end_to_end_list": [
+                BATCH / ((a + b + c + t) / 1e3) for a, b, c, t in zip(
+                    m["sample_ms_list"], m["build_ms_list"],
+                    m["copy_ms_list"], m["step_ms_list"])],
+            **_host_summary(m),
+            "launches": m["launches"], "peak_mem_gb": m["peak_mem_gb"],
+            **{key: m[key] for key in (
+                "train_acc", "test_acc", "embed_trained_delta", "wall_s",
+                "sample_wall_s", "mean_forward_time", "mean_backward_time",
+                "mean_training_time", "max_memory_usage (mb)")}}
+    print(f"training {name} ({card}):", json.dumps(summary))
+    return runs["kernel"]["launches"], summary
+
+
+def check_link(data, dev, card, run):
+    """One ``LINK_RUNS`` entry through ``train_link``: its epochs through
+    the kernels and, where the run says, through the plain versions from
+    the same seeded parameters and negatives; finite losses (falling over
+    STEPS epochs), per-epoch agreement within TRAIN_RTOL, every kernel's
+    launches (the epochs and the ranking's forward).  Prints the losses,
+    MRR, Hits@10, step ms and peak memory.  Returns the kernel run's
+    launches and the summary."""
+    import torch
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.ops.kernels import KERNELS
+    from het_tpu_torch.train.link import train_link
+
+    r = LINK_RUNS[run]
+    cfg = _link_config(r, dev)
+    runs = {}
+    for impl in ("kernel", "plain") if r["plain"] else ("kernel",):
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        m = train_link(cfg, data, impl=impl,
+                       log=lambda s, i=impl: print(f"[{run} {i}] {s}"))
+        m["launches"] = kernels.launch_counts()
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        runs[impl] = m
+    for impl, m in runs.items():
+        _check_losses(run, impl, m["loss_list"], r["steps"],
+                      r["steps"] == STEPS)
+        if not (0.0 < m["mrr"] <= 1.0 and 0.0 <= m["hits@10"] <= 1.0):
+            raise AssertionError(f"{run} {impl}: MRR {m['mrr']}, Hits@10 "
+                                 f"{m['hits@10']}")
+    if "plain" in runs:
+        _check_agreement(run, runs, "epoch")
+    ev = _eval_launches(r)
+    want = {k: r["launches"].get(k, 0) * r["steps"] + ev.get(k, 0)
+            for k in KERNELS}
+    if runs["kernel"]["launches"] != want:
+        raise AssertionError(f"{run}: kernel run launched "
+                             f"{runs['kernel']['launches']}, expected {want}")
+    E = data.graph.num_edges - runs["kernel"]["num_supervision_edges"]
+    summary = {}
+    for impl, m in runs.items():
+        warm = statistics.median(m["step_ms_list"][1:])
+        summary[impl] = {
+            "losses": m["loss_list"], "step_ms": m["step_ms_list"],
+            "median_warm_step_ms": warm,
+            "message_edges_per_s": E / (warm / 1e3),
+            "mrr": m["mrr"], "hits@10": m["hits@10"],
+            "launches": m["launches"], "peak_mem_gb": m["peak_mem_gb"],
+            "wall_s": m["wall_s"]}
+    print(f"training {run} ({card}):", json.dumps(summary))
+    return runs["kernel"]["launches"], summary
 
 
 # ------------------------------------------------------------------ bf16
@@ -2477,8 +2808,11 @@ def check_full_scale(dev, card):
     step time, edges/s and the peak device memory.  First the segment sum
     and max at every shape of a step of the slice's path there, each
     against its plain version, timed beside its bound, and the sum's bf16
-    instantiations at the same shapes.  Returns each run's launches, in
-    all and by element types, and those per-step totals."""
+    instantiations at the same shapes.  Last the minibatch path on the
+    same graph (MB_FULL): the segment sum at every shape of a sampled
+    batch's step, then MB_FULL_BATCHES batches through the kernels
+    (``check_minibatch``).  Returns each run's launches, in all and by
+    element types, and those per-step totals."""
     import gc
 
     import torch
@@ -2555,6 +2889,19 @@ def check_full_scale(dev, card):
         del m
         gc.collect()
         torch.cuda.empty_cache()
+    # the minibatch path on the same graph: the segment sum at every shape
+    # of one sampled batch's step (the table's gradient over all the
+    # graph's nodes among them), then MB_FULL_BATCHES batches
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    sub, table = minibatch_inputs(data, MB_MAIN, dev, scale=FULL_SCALE)
+    totals["minibatch"] = seg_sum_run_table(
+        MB_FULL, _run_seg_sum_shapes(MB_MAIN, sub) + table, dev, flush,
+        gen)[0]
+    del sub, table, flush
+    torch.cuda.empty_cache()
+    launches[MB_FULL], totals["minibatch_summary"] = check_minibatch(
+        data, dev, card, MB_MAIN, scale=FULL_SCALE, name=MB_FULL,
+        batches=MB_FULL_BATCHES, plain=False)
     del data
     gc.collect()
     return launches, by_dtype, totals
@@ -2603,6 +2950,12 @@ def main() -> int:
               f"edge rows {g.edge_rel_seg.n_rows} "
               f"{g.edge_rel_seg.seg_ptrs_static}")
     data = datasets[_data_key(RUNS[MAIN])]
+    t0 = time.perf_counter()
+    # the link runs' stand-in: their trainer builds the message graph
+    link_data = load_dataset("fb15k", scale=LINK_SCALE, num_classes=CLASSES,
+                             seed=0, build_compact=False, data_roots=())
+    print(f"graph (fb15k, scale {LINK_SCALE}) built in "
+          f"{time.perf_counter() - t0:.1f} s: {link_data.graph.describe()}")
     gd = data.graph.to(dev)
     gu = datasets[_data_key(RUNS["union_compact"])].graph.to(dev)
     gp = datasets[_data_key(RUNS[SLICE_MAIN])].graph.to(dev)
@@ -2613,17 +2966,26 @@ def main() -> int:
     on_card = {}
     shards = {run: on_card.setdefault(id(s), s[0].to(dev))
               for run, (s, _) in parts.items()}
+    # each minibatch run's first batch and the link runs' message graph
+    mb = {run: minibatch_inputs(data, run, dev) for run in MB_RUNS}
+    gl, link_shapes = link_inputs(link_data, dev)
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     entries = [
         check_seg_sum({"compact_multiply_first": gd, MAIN: gd,
                        SLICE_MAIN: gp, "union_compact_multiply_first": gu,
                        "rgcn_plain": gd, "rgcn_compact": gd, "hgt_plain": gd,
                        "hgt_compact": gd, "hgt_compact_max": gd, "gat": gd,
-                       "gat_arxiv": ga, **shards},
-                      dev, flush),
+                       "gat_arxiv": ga, **shards,
+                       **{run: sub for run, (sub, _) in mb.items()},
+                       **dict.fromkeys(LINK_RUNS, gl)},
+                      dev, flush,
+                      extra={**{run: t for run, (_, t) in mb.items()},
+                             **dict.fromkeys(LINK_RUNS, link_shapes)}),
         check_seg_max({SLICE_MAIN: gp, "plain_max": gd,
                        "hgt_compact_max": gd}, dev, flush),
-        check_dw(gd, gu, shards, dev, flush),
+        check_dw(gd, gu, shards, dev, flush,
+                 {"minibatch_plain": mb["minibatch_plain"][0],
+                  "link_plain": gl}),
         *check_fwd_dx(shards, dev, flush),
         check_force_rowmajor(gp, dev, flush),
         *check_seg_sum_bf16({run: gd for run in BF16_RUNS}, dev, flush),
@@ -2632,7 +2994,7 @@ def main() -> int:
     compare_fused_forms({"compact_multiply_first": gd, SLICE_MAIN: gp}, dev,
                         flush)
     check_rgcn_layer0(gd, dev)
-    del flush, gd, gu, gp, ga, shards, on_card
+    del flush, gd, gu, gp, ga, shards, on_card, mb, gl, link_shapes
     torch.cuda.empty_cache()
 
     launches, summaries = {}, {}
@@ -2650,6 +3012,11 @@ def main() -> int:
     ratio = (summaries["hgt_plain"]["kernel"]["median_warm_step_ms"]
              / summaries["hgt_compact"]["kernel"]["median_warm_step_ms"])
     print(f"HGT plain / compact step time, kernels ({card}): {ratio:.3f}")
+    for run in MB_RUNS:
+        launches[run], summaries[run] = check_minibatch(data, dev, card, run)
+    for run in LINK_RUNS:
+        launches[run], summaries[run] = check_link(link_data, dev, card, run)
+    del link_data
     bf16 = check_bf16_training(datasets, dev, card, summaries)
     check_resume(data, dev, card)
     for key in list(datasets):  # host memory for the full-scale graph
@@ -2677,12 +3044,16 @@ def main() -> int:
             continue
         if kernel in full_totals:
             entry["per_run"][FULL] = full_totals[kernel]
-        # each kernel's launches on its own main path: this slice's path
-        # for the segment sum and max, the single-card plain RGAT for
-        # the dW, the data-parallel run for the forward and dX, whose only
-        # caller is a shard; no path calls the row copy (nor does het_tpu)
+        if kernel == "seg_sum_sorted":
+            entry["per_run"][MB_FULL] = full_totals["minibatch"]
+        # each kernel's launches on its own main path: this slice's
+        # minibatch path for the segment sum, the packed max path for the
+        # segment max, the single-card plain RGAT for the dW, the
+        # data-parallel run for the forward and dX, whose only caller is a
+        # shard; no path calls the row copy (nor does het_tpu)
         main = {"segment_matmul_fwd": DP_MAIN, "segment_matmul_dx": DP_MAIN,
-                "segment_matmul_dw": MAIN}.get(kernel, SLICE_MAIN)
+                "segment_matmul_dw": MAIN,
+                "seg_sum_sorted": MB_MAIN}.get(kernel, SLICE_MAIN)
         entry["launches"] = launches[main][kernel]
         entry["launches_by_run"] = {r: counts[kernel]
                                     for r, counts in launches.items()}

@@ -5,7 +5,10 @@ published scale (times ``scale``): the same ``(name, scale, seed)`` gives
 the same graph, labels and split as ``het_tpu.data.loaders._synthetic``.
 Real data in the reference's on-disk format (a directory of per-relation
 ``(2, E)`` COO ``.npy`` shards) loads from directories the caller names
-in ``data_roots``; nothing is searched by default.
+in ``data_roots``; nothing is searched by default.  Beside the shards,
+``labels.npy`` (one label a node), ``train_idx.npy`` / ``test_idx.npy``
+and ``features.npy`` make the labels, split and features real, as
+``het_tpu/data/loaders.py`` reads them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ SYNTH_SCALES = {
     "reddit": (232965, 114615892, 1),
 }
 
+# the files beside the COO shards that are not shards
+SIDE_FILES = ("labels.npy", "train_idx.npy", "test_idx.npy", "features.npy")
+
 
 @dataclass
 class Dataset:
@@ -47,6 +53,8 @@ class Dataset:
     train_idx: np.ndarray
     test_idx: np.ndarray
     num_classes: int
+    # node features read beside real COO shards (features.npy), else None
+    features: Optional[np.ndarray] = None
     meta: Dict = field(default_factory=dict)
 
 
@@ -110,10 +118,12 @@ def load_npy_shards(root: str, *, tile: int = 128,
                     build_compact: bool = True,
                     compact_union: bool = False) -> Optional[HeteroGraph]:
     """Load a directory of per-relation ``(2, E)`` COO ``.npy`` shards,
-    one relation per file in sorted file-name order."""
+    one relation per file in sorted file-name order: the ``*_coo_*.npy``
+    files, else every ``.npy`` file but the label, split and feature
+    files (``SIDE_FILES``)."""
     files = sorted(glob.glob(os.path.join(root, "*_coo_*.npy"))) or sorted(
-        glob.glob(os.path.join(root, "*.npy"))
-    )
+        f for f in glob.glob(os.path.join(root, "*.npy"))
+        if os.path.basename(f) not in SIDE_FILES)
     if not files:
         return None
     srcs, dsts, rels, names = [], [], [], []
@@ -133,6 +143,51 @@ def load_npy_shards(root: str, *, tile: int = 128,
                              compact_union=compact_union)
 
 
+def _seeded_split(num_nodes: int, seed: int):
+    """The seeded 80/20 train/test split of the nodes."""
+    idx = np.random.default_rng(seed).permutation(num_nodes)
+    split = int(0.8 * num_nodes)
+    return idx[:split], idx[split:]
+
+
+def _shard_dataset(name: str, root: str, g: HeteroGraph, num_classes: int,
+                   seed: int) -> Dataset:
+    """The dataset of COO shards under ``root``: with ``labels.npy`` beside
+    them, its labels (one a node; as many classes as its largest label
+    plus one), ``train_idx.npy`` (else the seeded split; ``test_idx.npy``,
+    else the nodes not in training) and ``features.npy`` where present;
+    without it, planted labels and the seeded split."""
+    labels_f = os.path.join(root, "labels.npy")
+    if not os.path.exists(labels_f):
+        train_idx, test_idx = _seeded_split(g.num_nodes, seed)
+        return Dataset(name=name, graph=g,
+                       labels=_planted_labels(g, num_classes, seed),
+                       train_idx=train_idx, test_idx=test_idx,
+                       num_classes=num_classes,
+                       meta={"synthetic": False, "path": root,
+                             "synthetic_labels": True})
+    labels = np.load(labels_f).astype(np.int64)
+    if labels.shape[0] != g.num_nodes:
+        raise ValueError(f"labels.npy has {labels.shape[0]} rows for "
+                         f"{g.num_nodes} nodes")
+    train_f = os.path.join(root, "train_idx.npy")
+    test_f = os.path.join(root, "test_idx.npy")
+    if os.path.exists(train_f):
+        train_idx = np.load(train_f).astype(np.int64)
+        test_idx = (np.load(test_f).astype(np.int64)
+                    if os.path.exists(test_f)
+                    else np.setdiff1d(np.arange(g.num_nodes), train_idx))
+    else:
+        train_idx, test_idx = _seeded_split(g.num_nodes, seed)
+    feat_f = os.path.join(root, "features.npy")
+    return Dataset(name=name, graph=g, labels=labels, train_idx=train_idx,
+                   test_idx=test_idx, num_classes=int(labels.max()) + 1,
+                   features=(np.load(feat_f) if os.path.exists(feat_f)
+                             else None),
+                   meta={"synthetic": False, "path": root,
+                         "synthetic_labels": False})
+
+
 def load_dataset(
     name: str,
     *,
@@ -144,8 +199,9 @@ def load_dataset(
     compact_union: bool = False,
     data_roots: Sequence[str] = (),
 ) -> Dataset:
-    """Load ``name`` from COO shards under one of ``data_roots`` (with
-    planted labels and a seeded 80/20 split), else synthesize it."""
+    """Load ``name`` from COO shards under one of ``data_roots`` (their
+    label, split and feature files where present, else planted labels and
+    a seeded 80/20 split: ``_shard_dataset``), else synthesize it."""
     name = name.lower()
     for root in data_roots:
         for cand in (os.path.join(root, name),
@@ -157,19 +213,7 @@ def load_dataset(
                                 compact_union=compact_union)
             if g is None:
                 continue
-            rng = np.random.default_rng(seed)
-            idx = rng.permutation(g.num_nodes)
-            split = int(0.8 * g.num_nodes)
-            return Dataset(
-                name=name,
-                graph=g,
-                labels=_planted_labels(g, num_classes, seed),
-                train_idx=idx[:split],
-                test_idx=idx[split:],
-                num_classes=num_classes,
-                meta={"synthetic": False, "path": cand,
-                      "synthetic_labels": True},
-            )
+            return _shard_dataset(name, cand, g, num_classes, seed)
     if name not in SYNTH_SCALES:
         raise ValueError(
             f"unknown dataset {name!r}; known: {sorted(SYNTH_SCALES)}"

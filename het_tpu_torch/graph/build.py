@@ -17,7 +17,7 @@ import torch
 from .convert import canonical_sort, counting_argsort, unique_pairs
 from .structures import CompactInfo, HeteroGraph, Segments
 
-__all__ = ["build_segments", "build_heterograph"]
+__all__ = ["build_segments", "build_heterograph", "reverse_heterograph"]
 
 # canonical edge arrays: padded to a multiple of EDGE_PAD, plus EDGE_EXTRA
 # sentinel rows, as the JAX package pads them (its Pallas DMA guard rows)
@@ -367,3 +367,16 @@ def build_heterograph(
         num_src_space=0 if src_space == num_nodes else int(src_space),
         compact_shared=bool(build_compact and compact_union),
     )
+
+
+def reverse_heterograph(g: HeteroGraph, **kw) -> HeteroGraph:
+    """``g`` with every edge reversed, every derived structure built anew
+    (``het_tpu/graph/build.py::reverse_heterograph``): the same nodes,
+    relations, node types, relation names and tile; ``kw`` goes to
+    :func:`build_heterograph` (``build_compact``, ...)."""
+    E = g.num_edges
+    return build_heterograph(
+        g.dst[:E].cpu().numpy(), g.src[:E].cpu().numpy(),
+        g.rel[:E].cpu().numpy(), g.num_nodes, g.num_rels,
+        ntype_offsets=g.ntype_offsets, rel_names=g.rel_names,
+        tile=g.edge_rel_seg.tile, **kw)

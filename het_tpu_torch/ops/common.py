@@ -85,32 +85,36 @@ def gather_rows_injective(x: torch.Tensor, perm: torch.Tensor,
 
 
 class _SortedGather(torch.autograd.Function):
-    """``x[idx]`` with the sentinel reading a zero row.  Backward: the
-    cotangent rows summed into ``x``'s rows by one sorted segment sum over
-    ``ptr``, reading them through ``perm`` (the gather's transpose in a
-    fixed order, not ``index_select``'s atomic scatter)."""
+    """``x[idx]`` (with ``sentinel``, the sentinel reading a zero row).
+    Backward: the cotangent rows summed into ``x``'s rows by one sorted
+    segment sum over ``ptr``, reading them through ``perm`` (the gather's
+    transpose in a fixed order, not ``index_select``'s atomic scatter)."""
 
     @staticmethod
-    def forward(ctx, x, idx, ptr, perm, impl: str):
+    def forward(ctx, x, idx, ptr, perm, impl: str, sentinel: bool):
         ctx.save_for_backward(ptr, perm)
         ctx.impl, ctx.x_shape = impl, x.shape
-        return gather_nodes(x, idx)
+        return gather_nodes(x, idx) if sentinel else take_rows(x, idx)
 
     @staticmethod
     def backward(ctx, ct):
         ptr, perm = ctx.saved_tensors
         flat = ct.reshape(ct.shape[0], -1).contiguous()
         dx = seg_sum_sorted(flat, ptr, perm, impl=ctx.impl)
-        return dx.view(ctx.x_shape).to(ct.dtype), None, None, None, None
+        return (dx.view(ctx.x_shape).to(ct.dtype), None, None, None, None,
+                None)
 
 
 def sorted_gather(x: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
-                  perm: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+                  perm: torch.Tensor, *, impl: str = "kernel",
+                  sentinel: bool = True) -> torch.Tensor:
     """``x[idx]`` (sentinel ``x.shape[0]`` -> zero row) whose gradient is
     ``seg_sum_sorted(ct, ptr, perm)``: ``perm`` lists the gathered rows
     grouped by the row of ``x`` they read, ``ptr`` (``x.shape[0] + 1``,)
-    the start of each group; sentinel rows lie past ``ptr[-1]``."""
-    return _SortedGather.apply(x, idx, ptr, perm, impl)
+    the start of each group; sentinel rows lie past ``ptr[-1]``.  With
+    ``sentinel=False`` every index is a row of ``x``, and the gather reads
+    ``x`` without the copy that appends the zero row (a large table)."""
+    return _SortedGather.apply(x, idx, ptr, perm, impl, sentinel)
 
 
 def _sum_dst(g, flat: torch.Tensor, impl: str) -> torch.Tensor:

@@ -1,7 +1,12 @@
 """Trainer configuration with the reference's flag spellings.
 
-The subset of ``het_tpu/train/config.py`` that the port runs so far, plus
-``--device``.  ``--model`` is RGAT, RGCN, HGT or GAT, as in het_tpu;
+``het_tpu/train/config.py``'s flags but ``--backend`` and
+``--use_compiler``, plus ``--device``.  ``--task link`` trains link
+prediction (``link.py``), ``--minibatch`` neighbour-sampled minibatches
+(``minibatch.py``: ``--batch_size``, ``--fanout``, ``--num_hops``,
+``--max_batches``), else full-graph (``driver.py``); ``--tile`` is the
+graphs' relation-segment padding.  ``--model`` is RGAT, RGCN, HGT or
+GAT, as in het_tpu;
 ``--logfile_enabled`` appends the run's metrics to ``--logfilename`` as
 one JSON line.  ``--dtype bfloat16`` trains in mixed precision (f32
 master parameters, the model in bf16) with ``--loss_scale`` none, dynamic
@@ -20,6 +25,7 @@ from dataclasses import dataclass
 @dataclass
 class TrainConfig:
     model: str = "RGAT"
+    task: str = "entity"  # entity (node classification) | link
     dataset: str = "aifb"
     n_infeat: int = 64
     num_classes: int = 8
@@ -55,6 +61,13 @@ class TrainConfig:
     checkpoint_dir: str = "checkpoints"
     resume: bool = False
     seed: int = 0
+    # False: neighbour-sampled minibatches (--minibatch)
+    full_graph_training: bool = True
+    batch_size: int = 1024  # seeds a batch
+    fanout: int = 10  # in-edges a node takes a hop
+    num_hops: int = 2
+    max_batches: int = 100  # across epochs
+    tile: int = 128  # relation-segment padding of the graphs
     device: str = "cuda"
     logfile_enabled: bool = False
     logfilename: str = "metrics.json"
@@ -63,6 +76,8 @@ class TrainConfig:
 def add_args(parser: argparse.ArgumentParser) -> None:
     p = parser
     p.add_argument("--model", type=str, default="RGAT")
+    p.add_argument("--task", type=str, default="entity",
+                   choices=["entity", "link"])
     p.add_argument("--dataset", "-d", type=str, default="aifb")
     p.add_argument("--n_infeat", type=int, default=64)
     p.add_argument("--num_classes", type=int, default=8)
@@ -96,6 +111,16 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                    help="resume from the latest checkpoint in "
                         "--checkpoint_dir")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--full_graph_training", action="store_true",
+                   default=True)
+    p.add_argument("--minibatch", action="store_false",
+                   dest="full_graph_training",
+                   help="neighbor-sampled minibatch training")
+    p.add_argument("--batch_size", type=int, default=1024)
+    p.add_argument("--fanout", type=int, default=10)
+    p.add_argument("--num_hops", type=int, default=2)
+    p.add_argument("--max_batches", type=int, default=100)
+    p.add_argument("--tile", type=int, default=128)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--logfile_enabled", action="store_true")
     p.add_argument("--logfilename", type=str, default="metrics.json")

@@ -171,7 +171,7 @@ def train(
     if data is None:
         data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
                             num_classes=cfg.num_classes, seed=cfg.seed,
-                            build_compact=cfg.compact,
+                            tile=cfg.tile, build_compact=cfg.compact,
                             compact_union=cfg.compact_union)
     if cfg.compact:
         dup = data.graph.compact_duplication("src")

@@ -12,9 +12,15 @@
         --dataset_scale 0.1 --num_heads 4 --num_layers 2 \\
         --compact_as_of_node_flag --multiply_among_weights_first_flag \\
         --dropout 0 --dtype bfloat16 --loss_scale dynamic
+    python -m het_tpu_torch.utils.profile_step --minibatch -d mag \
+        --dataset_scale 0.1 --num_heads 4 --num_layers 2 \
+        --compact_as_of_node_flag --multiply_among_weights_first_flag
+    python -m het_tpu_torch.utils.profile_step --task link -d fb15k \
+        --num_heads 4 --num_layers 2
 
 Takes the trainer's flags (``--dtype bfloat16`` profiles a mixed-precision
-step), runs six steps and traces steps 3-5 with
+step; ``--minibatch`` a minibatch batch's step, ``--task link`` a link
+epoch), runs six steps and traces steps 3-5 with
 ``torch.profiler`` (the trainer's per-step log call advances the
 profiler's schedule).  Prints each kernel's device time per step
 (averaged over the traced steps), the traced steps' own times (CUDA
@@ -32,6 +38,8 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from ..train.config import add_args, config_from_args
 from ..train.driver import train
+from ..train.link import train_link
+from ..train.minibatch import train_minibatch
 
 STEPS, WAIT, WARMUP, ACTIVE = 6, 1, 1, 3
 TOP = 30  # kernels listed by name
@@ -71,12 +79,16 @@ def main() -> None:
     add_args(parser)
     cfg = config_from_args(parser.parse_args())
     cfg.num_epochs = STEPS
+    if not cfg.full_graph_training:  # six batches, in one epoch or more
+        cfg.max_batches = STEPS
     if torch.device(cfg.device).type != "cuda":
         raise SystemExit("profile_step measures the card: --device cuda")
+    trainer = (train_link if cfg.task == "link" else
+               train if cfg.full_graph_training else train_minibatch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=WAIT, warmup=WARMUP,
                                    active=ACTIVE, repeat=1)) as prof:
-        metrics = train(cfg, log=lambda s: (print(s), prof.step()))
+        metrics = trainer(cfg, log=lambda s: (print(s), prof.step()))
     traced = metrics["step_ms_list"][WAIT + WARMUP: WAIT + WARMUP + ACTIVE]
     # kernel rows only: operator rows and annotations (the optimizer's
     # step range) carry their kernels' time again
