@@ -26,7 +26,8 @@ Phases, each of which fails the run:
      segments; at 0.1 and at 1.0) and of a link epoch on the fb15k
      stand-in (the encoder's sums on the message graph, DistMult's entity
      gradient, 620,230 rows into 14,541 nodes, and its relation gradient,
-     310,115 rows into 474 relations),
+     310,115 rows into 474 relations), and at every shape a step of each
+     compiled run (``--use_compiler``, H = 1) gives it,
      plus edge cases, among them a hub row
      of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
      without perm; every shape launched twice and compared bit for bit;
@@ -36,7 +37,10 @@ Phases, each of which fails the run:
      hub row with a NaN and a +inf in different workers' chunks;
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
      the union steps give it, the plain minibatch step's and the plain
-     link epoch's (S = 474 relations), and the data-parallel runs (RGAT,
+     link epoch's (S = 474 relations), the compiled runs' (the
+     relation-typed inner products' dW at H = 1, O = 1, and under
+     gather_einsum the typed linears' W over the edge rows), and the
+     data-parallel runs (RGAT,
      compact
      RGCN, and HGT's per-head typed linears, x a row a head at K = O =
      16 and 2) give rank 0's shard, at the general segment-matmul
@@ -49,7 +53,8 @@ Phases, each of which fails the run:
      a share of its bound;
    * ``segment_matmul_fwd`` and ``segment_matmul_dx`` at every shape the
      data-parallel runs give rank 0's shard (HGT's per head at K = O = 16
-     and 2 among them), at the general shapes (S =
+     and 2 among them) and the compiled gather_einsum run gives the edge
+     rows (K = 64, O = 64 then 8, H = 1), at the general shapes (S =
      535: W is 8.8 MB) and edge cases (among them 300 short segments, three
      column passes, K = 63, the dX's reductions of 3, 16 and 17 columns
      and a per-head dX of 17 columns, one tile, NaN rows before and past
@@ -99,10 +104,21 @@ Phases, each of which fails the run:
    compact multiply-first for five epochs through the kernels and the
    plain versions and plain RGAT for two, kernels only, with losses, MRR,
    Hits@10, step ms, peak memory and launches;
+   then the compiled runs (``--use_compiler``: each layer core a compiled
+   Inter-Op DSL program, H = 1, raw softmax, in 64, hidden 64, 8 classes
+   at 0.1): compact multiply-first RGAT five steps through the kernels and
+   the plain versions, per-step agreement; the three other RGAT branches,
+   HGT plain and compact and RGCN plain and compact two steps each, both
+   ways; plain RGAT with every GEMM spec flipped to gather_einsum (the
+   segment-matmul forward, dX and dW kernels) two steps, held per step to
+   the default schedule's run; each with its launches a step asserted, its
+   step ms and, beside it, the hand-written model's at H = 1 on the same
+   graph and flags (its launches asserted too) and their ratio;
    then the packed max path at the published size (scale 1.0, 21.1M
    edges), three steps through the kernels, and compact RGCN and
-   compact HGT on the same graph, two steps each, and three minibatch
-   batches of compact multiply-first on it,
+   compact HGT on the same graph, two steps each, compiled compact
+   multiply-first (two steps, beside the hand-written H = 1 model), and
+   three minibatch batches of compact multiply-first on it,
    each with its step time, edges/s and peak device memory, after the
    segment sum and max at every shape of a packed max step, against their
    plain versions and timed beside their bounds;
@@ -374,14 +390,86 @@ LINK_RUNS = {
 }
 
 
+# compiled runs (--use_compiler: each layer core a compiled Inter-Op DSL
+# program lowered onto the port's ops, train/compiled.py) on mag at SCALE,
+# 2 layers from in 64 through hidden 64 to 8 classes, H = 1 (the DSL has
+# no head axis), the raw softmax: name -> the family and flags, its steps,
+# the launches a step, whether the plain versions run too, the GEMM specs'
+# strategy, and the RUNS entry whose branch the hand-written model at
+# H = 1 (the step-time ratio's other side) takes.  Per layer: compiled
+# RGAT sums as its hand-written branch does (compact: the fused op's z and
+# z*feat forward, its (dst, rel)-run and two source-side backward sums,
+# and the two compact gathers' backwards, the dst one under the er inner
+# product's rows with multiply-first; plain: z and z*feat, and the two
+# node gathers' backwards, the edge row gather's or, with multiply-first,
+# the destination gather of er's inner product), and every branch takes
+# the grouped dW for the relation-typed inner products (attn_l and attn_r,
+# or W.a_r and, plain, attn_l with multiply-first; compact multiply-first
+# folds el into the projection: one).  Compiled HGT: plain, the fused
+# per-edge op's z and z*msg, the two typed linears' edge row gathers and
+# the destination gather of ht_attn (5); compact, the source-compact fused
+# op's z, z*msg and d_feat_c, the two compact gathers, the expansion of
+# k.W_att and the destination gather (7).  Compiled RGCN: as hand-written
+# (2 / 3).  "gather_einsum" (het_tpu's name for one launch over all
+# relations) flips every GEMM spec to device offsets: the typed linears
+# take the segment-matmul forward, dX (layer 0's input, the embeddings,
+# needs a gradient too) and dW kernels.  The accuracy pass launches a
+# step's forward (_eval_launches).
+def _compiled_run(model, compact, multiply_first, steps, launches, base, *,
+                  plain=True, strategy="host_offsets", same_as=None):
+    return dict(_run(compact, multiply_first, steps, launches, stable="raw",
+                     model=model), compiled=True, base=base, plain=plain,
+                strategy=strategy, same_as=same_as)
+
+
+COMPILED_RUNS = {
+    "compiled_compact_multiply_first": _compiled_run(
+        "RGAT", True, True, STEPS, dict(seg_sum_sorted=14,
+                                        segment_matmul_dw=2),
+        "compact_multiply_first"),
+    "compiled_plain": _compiled_run("RGAT", False, False, SHORT_STEPS, dict(
+        seg_sum_sorted=8, segment_matmul_dw=4), "plain"),
+    "compiled_plain_multiply_first": _compiled_run(
+        "RGAT", False, True, SHORT_STEPS, dict(seg_sum_sorted=8,
+                                               segment_matmul_dw=4),
+        "plain_multiply_first"),
+    "compiled_compact": _compiled_run("RGAT", True, False, SHORT_STEPS, dict(
+        seg_sum_sorted=14, segment_matmul_dw=4), "compact"),
+    "compiled_hgt_plain": _compiled_run("HGT", False, False, SHORT_STEPS,
+                                        dict(seg_sum_sorted=10), "hgt_plain"),
+    "compiled_hgt_compact": _compiled_run("HGT", True, False, SHORT_STEPS,
+                                          dict(seg_sum_sorted=14),
+                                          "hgt_compact"),
+    "compiled_rgcn_plain": _compiled_run("RGCN", False, False, SHORT_STEPS,
+                                         dict(seg_sum_sorted=4),
+                                         "rgcn_plain"),
+    "compiled_rgcn_compact": _compiled_run("RGCN", True, False, SHORT_STEPS,
+                                           dict(seg_sum_sorted=6),
+                                           "rgcn_compact"),
+    # the same function as compiled_plain through kernels 4, 6 and 7,
+    # held per step to compiled_plain's kernel run
+    "compiled_plain_gather_einsum": _compiled_run(
+        "RGAT", False, False, SHORT_STEPS, dict(
+            seg_sum_sorted=8, segment_matmul_fwd=4, segment_matmul_dx=4,
+            segment_matmul_dw=8), "plain", plain=False,
+        strategy="gather_einsum", same_as="compiled_plain"),
+}
+COMPILED_MAIN = "compiled_compact_multiply_first"  # this slice's main path
+# COMPILED_MAIN at FULL_SCALE, on check_full_scale's graph, kernels only
+COMPILED_FULL, COMPILED_FULL_STEPS = "compiled_full_scale", 2
+
+
 def _spec(run):
-    """The ``RUNS``, ``DP_RUNS``, ``MB_RUNS`` or ``LINK_RUNS`` entry of a
-    run (``MB_FULL``: ``MB_MAIN``'s)."""
-    for runs in (RUNS, DP_RUNS, MB_RUNS, LINK_RUNS):
+    """The ``RUNS``, ``DP_RUNS``, ``MB_RUNS``, ``LINK_RUNS`` or
+    ``COMPILED_RUNS`` entry of a run (``MB_FULL``: ``MB_MAIN``'s,
+    ``COMPILED_FULL``: ``COMPILED_MAIN``'s)."""
+    for runs in (RUNS, DP_RUNS, MB_RUNS, LINK_RUNS, COMPILED_RUNS):
         if run in runs:
             return runs[run]
     if run == MB_FULL:
         return MB_RUNS[MB_MAIN]
+    if run == COMPILED_FULL:
+        return COMPILED_RUNS[COMPILED_MAIN]
     raise KeyError(run)
 
 
@@ -395,11 +483,14 @@ def _eval_launches(r):
     ``RUNS`` value): a step's forward without its backward, one segment
     sums a layer (the fused attention ops' z and z*feat; one for RGCN's
     aggregation and HGT's unfused stable="max" chain) and, under
-    stable="max", one segment max a layer."""
+    stable="max", one segment max a layer; a compiled run on device
+    offsets also its step's segment-matmul forwards."""
     one = r["model"] == "RGCN" or (r["model"] == "HGT"
                                    and r["stable"] == "max")
     return dict(seg_sum_sorted=LAYERS * (1 if one else 2),
-                seg_max_sorted=LAYERS if r["stable"] == "max" else 0)
+                seg_max_sorted=LAYERS if r["stable"] == "max" else 0,
+                segment_matmul_fwd=(r["launches"].get("segment_matmul_fwd", 0)
+                                    if r.get("compiled") else 0))
 
 
 def _train_launches(r, steps):
@@ -636,12 +727,82 @@ def _gat_seg_sum_shapes(g, classes):
     return shapes
 
 
+def _compiled_seg_sum_shapes(g, spec):
+    """The same list for a step of a compiled run (``COMPILED_RUNS``: H =
+    1, every layer's input needing a gradient, the learned embeddings
+    layer 0's).  The fused ops' narrow sums are one lane wide; the
+    gathers' backwards sum rows as wide as what they gather: the layer's
+    input for RGAT's and RGCN's node features, its output for HGT's
+    projections (hs, hs_attn, ht_attn)."""
+    S, D, E = g.compact_src, g.compact_dst, g.edge_rel_seg
+    EP = g.num_padded_edges
+    src_perm = E.inv.index_select(0, g.out_perm)  # edge rows -> src order
+    dims = _dims()
+    compact, mf = spec["compact"], spec["multiply_first"]
+    shapes = []
+    for layer in range(LAYERS):
+        fi, fo = dims[layer], dims[layer + 1]
+        fwd = [(f"l{layer} fwd dst z", EP, 1, g.in_row_ptr, None),
+               (f"l{layer} fwd dst z*feat", EP, fo, g.in_row_ptr, None)]
+        if spec["model"] == "RGCN":
+            shapes.append((f"l{layer} fwd dst aggregate", EP, fo,
+                           g.in_row_ptr, None))
+            if compact:
+                shapes += [
+                    (f"l{layer} bwd m expansion into src compact", EP, fo,
+                     S.edge_row_ptr, S.edge_sort_perm),
+                    (f"l{layer} bwd src compact gather", S.seg.n_rows, fi,
+                     S.node_row_ptr, S.node_sort_perm)]
+            else:
+                shapes.append((f"l{layer} bwd src edge gather", E.n_rows, fi,
+                               g.out_row_ptr, src_perm))
+        elif spec["model"] == "HGT":
+            shapes += fwd + [(f"l{layer} bwd ht_attn dst gather", EP, fo,
+                              g.in_row_ptr, None)]
+            if compact:
+                shapes += [
+                    (f"l{layer} bwd src-compact d_msg", EP, fo,
+                     S.edge_row_ptr, S.edge_sort_perm),
+                    (f"l{layer} bwd hs_attn.W_att expansion", EP, fo,
+                     S.edge_row_ptr, S.edge_sort_perm)] + [
+                    (f"l{layer} bwd {t} src compact gather", S.seg.n_rows,
+                     fo, S.node_row_ptr, S.node_sort_perm)
+                    for t in ("hs", "hs_attn")]
+            else:
+                shapes += [(f"l{layer} bwd {t} src edge gather", E.n_rows,
+                            fo, g.out_row_ptr, src_perm)
+                           for t in ("hs", "hs_attn")]
+        elif compact:
+            shapes += fwd + [
+                (f"l{layer} bwd (dst,rel) runs draw", EP, 1, D.canon_ptr,
+                 None),
+                (f"l{layer} bwd src-compact draw", EP, 1, S.edge_row_ptr,
+                 S.edge_sort_perm),
+                (f"l{layer} bwd src-compact dfeat", EP, fo, S.edge_row_ptr,
+                 S.edge_sort_perm),
+                (f"l{layer} bwd src compact gather", S.seg.n_rows, fi,
+                 S.node_row_ptr, S.node_sort_perm),
+                (f"l{layer} bwd dst compact gather", D.seg.n_rows, fi,
+                 D.node_row_ptr, D.node_sort_perm)]
+        else:
+            shapes += fwd + [
+                (f"l{layer} bwd src edge gather", E.n_rows, fi,
+                 g.out_row_ptr, src_perm),
+                (f"l{layer} bwd dst gather of er's input", EP, fi,
+                 g.in_row_ptr, None) if mf else
+                (f"l{layer} bwd dst edge gather", E.n_rows, fi, g.in_row_ptr,
+                 E.inv)]
+    return shapes
+
+
 def _run_seg_sum_shapes(run, g):
     """Every seg_sum_sorted launch of a step of ``run``'s model on ``g``
     (rank 0's shard for a data-parallel run, whose layer 0 reads fixed
     features; a sampled subgraph for a minibatch run; the message graph
     for a link run, whose last layer is HIDDEN wide)."""
     spec = _spec(run)
+    if spec.get("compiled"):
+        return _compiled_seg_sum_shapes(g, spec)
     if spec["model"] == "GAT":
         return _gat_seg_sum_shapes(g, spec["classes"])
     if spec["model"] == "HGT":
@@ -1326,6 +1487,31 @@ def _dw_shapes(g, gu, shards, dev, edge_graphs):
             shapes.append((f"l{layer} attn_l/attn_r dW, edge rows, {run}",
                            run, 2, ge.edge_rel_seg, HEADS, HEADS, K, 1,
                            True))
+    # the compiled runs (H = 1): the relation-typed inner products' dW
+    # (attn_l and attn_r per edge or per compact row at the layer's output
+    # width, or W.a_r at its input width), and under gather_einsum the
+    # typed linears' W dW over the edge rows, read on device offsets
+    cr = dict(plain="compiled_plain", mf="compiled_plain_multiply_first",
+              compact="compiled_compact", cmf=COMPILED_MAIN,
+              einsum="compiled_plain_gather_einsum")
+    for layer in range(LAYERS):
+        fi, fo = dims[layer], dims[layer + 1]
+        shapes += [
+            (f"l{layer} compiled attn_l/attn_r dW, edge rows",
+             (cr["plain"], cr["einsum"]), 2, E, 1, 1, fo, 1, True),
+            (f"l{layer} compiled attn_l dW, edge rows", cr["mf"], 1, E, 1, 1,
+             fo, 1, True),
+            (f"l{layer} compiled W.a_r dW, edge rows", cr["mf"], 1, E, 1, 1,
+             fi, 1, True),
+            (f"l{layer} compiled attn_l dW, src compact rows",
+             cr["compact"], 1, g.compact_src.seg, 1, 1, fo, 1, True),
+            (f"l{layer} compiled attn_r dW, dst compact rows",
+             cr["compact"], 1, g.compact_dst.seg, 1, 1, fo, 1, True),
+            (f"l{layer} compiled W.a_r dW, dst compact rows", cr["cmf"], 1,
+             g.compact_dst.seg, 1, 1, fi, 1, True),
+            (f"l{layer} compiled W dW (src, dst), edge rows, device offsets",
+             cr["einsum"], 2, E, 1, 1, fi, fo, False),
+        ]
     for layer in range(LAYERS):
         K, D = dims[layer], dims[layer + 1] // HEADS
         shapes += [
@@ -1435,7 +1621,8 @@ def check_dw(g, gu, shards, dev, flush, edge_graphs):
           "| per-relation torch.matmul ms")
     shapes = _dw_shapes(g, gu, shards, dev, edge_graphs)
     counts = dict.fromkeys(
-        list(RUNS) + list(DP_RUNS) + list(MB_RUNS) + list(LINK_RUNS), 0)
+        list(RUNS) + list(DP_RUNS) + list(MB_RUNS) + list(LINK_RUNS)
+        + list(COMPILED_RUNS), 0)
     for shape in shapes:
         for run in _runs_of(shape[1]):
             counts[run] += shape[2]
@@ -1556,13 +1743,14 @@ def check_dw(g, gu, shards, dev, flush, edge_graphs):
 # ------------------------------------------- segment_matmul_fwd / _dx
 
 
-def _mm_shapes(shards, dev):
+def _mm_shapes(shards, dev, g):
     """(label, run or None, forward launches a step, dX launches a step,
     seg, S, H, Hx, K, O[, operand form: "nan_outside" for NaN rows before
     and past the segments, "unaligned" for an operand one float off 16
     bytes]) of every forward and dX the data-parallel runs give rank 0's
-    shard (on the card), the general shapes and edge cases.  Offsets live
-    only on the device, as on a shard."""
+    shard (on the card), the compiled gather_einsum run gives ``g``'s
+    relation-sorted edge rows, the general shapes and edge cases.  Offsets
+    live only on the device, as on a shard."""
     import dataclasses
 
     import numpy as np
@@ -1601,6 +1789,15 @@ def _mm_shapes(shards, dev):
             (f"l{layer} edge rows W (src, dst)", "dp_plain", 2, 2 * dx,
              ps.edge_rel_seg, R, HEADS, 1, K, D),
         ]
+
+    # compiled plain RGAT with every GEMM spec on device offsets (H = 1):
+    # both typed linears of a layer (the edges' source and destination
+    # rows), a dX each in both layers (the embeddings need a gradient)
+    E = dataclasses.replace(g.edge_rel_seg, seg_ptrs_static=None)
+    for layer in range(LAYERS):
+        shapes.append((f"l{layer} compiled edge rows W (src, dst)",
+                       "compiled_plain_gather_einsum", 2, 2, E, g.num_rels,
+                       1, 1, dims[layer], dims[layer + 1]))
 
     def general(sizes, tile):
         return dataclasses.replace(_segments(sizes, tile, dev),
@@ -1693,7 +1890,7 @@ def _bare_cublas(direction, a, w, ptrs, Hx):
     return run
 
 
-def check_fwd_dx(shards, dev, flush):
+def check_fwd_dx(shards, dev, flush, g):
     """segment_matmul_fwd and segment_matmul_dx against their plain
     versions at every shape, within |kernel - plain| <= MM_TOL * sum |x|
     |W| (the plain version on absolute values), with the control that the
@@ -1722,9 +1919,9 @@ def check_fwd_dx(shards, dev, flush):
                "dx": (segment_matmul_dx, segment_matmul_dx_plain)}
     totals = {"fwd": {}, "dx": {}}
     max_err = {"fwd": 0.0, "dx": 0.0}
-    shapes = _mm_shapes(shards, dev)
+    shapes = _mm_shapes(shards, dev, g)
     for i, name in ((2, "segment_matmul_fwd"), (3, "segment_matmul_dx")):
-        counts = dict.fromkeys(DP_RUNS, 0)
+        counts = dict.fromkeys(list(DP_RUNS) + list(COMPILED_RUNS), 0)
         for shape in shapes:
             if shape[1] is not None:
                 counts[shape[1]] += shape[i]
@@ -2006,7 +2203,8 @@ def check_dp(data, parts, dev, card):
 def _initial_state(net, seed=0):
     """Initial parameters from a numpy seed: embeddings uniform on [0, 1),
     weights Glorot-uniform (flax's fan convention), biases zero, HGT's
-    ``relation_pri`` and ``skip`` one (as flax initializes them)."""
+    ``relation_pri`` (the compiled model's ``rel_pri``) and ``skip`` one
+    (as flax initializes them)."""
     import numpy as np
     import torch
 
@@ -2018,7 +2216,7 @@ def _initial_state(net, seed=0):
             a = rng.uniform(0.0, 1.0, shape)
         elif name.endswith(("h_bias", ".bias")):
             a = np.zeros(shape)
-        elif name.endswith((".relation_pri", ".skip")):
+        elif name.endswith((".relation_pri", ".rel_pri", ".skip")):
             a = np.ones(shape)
         else:
             rf = math.prod(shape[:-2])
@@ -2125,18 +2323,110 @@ def check_training(data, dev, card, run):
     if runs["kernel"]["launches"] != want:
         raise AssertionError(f"{run}: kernel run launched "
                              f"{runs['kernel']['launches']}, expected {want}")
-    E = data.graph.num_edges
-    summary = {}
-    for impl, m in runs.items():
-        warm = statistics.median(m["step_ms_list"][1:])
-        summary[impl] = {
-            "losses": m["loss_list"], "step_ms": m["step_ms_list"],
-            "median_warm_step_ms": warm,
-            "edges_per_s": E / (warm / 1e3),
-            "launches": m["launches"], "peak_mem_gb": m["peak_mem_gb"],
-            **{key: m[key] for key in REPORT_KEYS},
-        }
+    summary = {impl: _run_summary(m, data.graph.num_edges)
+               for impl, m in runs.items()}
     print(f"training {run} ({card}):", json.dumps(summary))
+    return runs["kernel"]["launches"], summary
+
+
+# ------------------------------------------------------------- compiled
+
+
+def _compiled_config(r, dev, steps, *, compiler=True):
+    """The trainer's configuration of compiled run ``r`` (a
+    ``COMPILED_RUNS`` value): H = 1 (the DSL has no head axis) and the
+    raw softmax; with ``compiler=False`` the hand-written model on the
+    same graph, flags, heads and softmax."""
+    return dataclasses.replace(_config(r, dev, steps), num_heads=1,
+                               stable_softmax="raw", use_compiler=compiler)
+
+
+def _compiled_train(cfg, data, dev, r, impl, label):
+    """One ``train`` call of compiled run ``r``'s model (its GEMM specs
+    flipped to ``r["strategy"]``) from ``_initial_state``'s parameters,
+    with its kernel launches and peak memory."""
+    import torch
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train import build_model, train
+
+    net = build_model(cfg, data, impl=impl)
+    if r["strategy"] != "host_offsets":
+        net.model.reschedule(strategy=r["strategy"])
+    net.load_state_dict(_initial_state(net))
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    m = train(cfg, data, impl=impl, net=net,
+              log=lambda s: print(f"[{label} {impl}] {s}"))
+    m["launches"] = kernels.launch_counts()
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return m
+
+
+def _run_summary(m, E):
+    warm = statistics.median(m["step_ms_list"][1:])
+    return {"losses": m["loss_list"], "step_ms": m["step_ms_list"],
+            "median_warm_step_ms": warm, "edges_per_s": E / (warm / 1e3),
+            "launches": m["launches"], "peak_mem_gb": m["peak_mem_gb"],
+            **{key: m[key] for key in REPORT_KEYS}}
+
+
+def check_compiled(data, dev, card, run, summaries, *, r=None, name=None):
+    """Compiled run ``run`` (``r``, a ``COMPILED_RUNS`` value, as ``name``)
+    through the kernels and, where ``r["plain"]``, the plain versions from
+    the same seeded parameters: finite losses (falling over STEPS steps),
+    per-step agreement within TRAIN_RTOL, every kernel's launches; a run
+    with ``same_as`` held per step to that run's kernel losses
+    (``summaries``).  Then the hand-written model at H = 1 on the same
+    graph and flags (its branch's launches asserted) for the step-time
+    ratio.  Returns the kernel run's launches and the summary printed."""
+    r = r or COMPILED_RUNS[run]
+    name = name or run
+    steps = r["steps"]
+    E = data.graph.num_edges
+    cfg = _compiled_config(r, dev, steps)
+    runs = {impl: _compiled_train(cfg, data, dev, r, impl, name)
+            for impl in (("kernel", "plain") if r["plain"] else ("kernel",))}
+    for impl, m in runs.items():
+        _check_losses(name, impl, m["loss_list"], steps, steps == STEPS)
+    if "plain" in runs:
+        _check_agreement(name, runs)
+    if r["same_as"] is not None:
+        _check_agreement(name, {"kernel": runs["kernel"], "plain": {
+            "loss_list": summaries[r["same_as"]]["kernel"]["losses"],
+            "launches": {}}}, "step against " + r["same_as"])
+    want = _train_launches(r, steps)
+    if runs["kernel"]["launches"] != want:
+        raise AssertionError(f"{name}: kernel run launched "
+                             f"{runs['kernel']['launches']}, expected {want}")
+    # the hand-written model at H = 1, its branch's launches a step
+    import torch
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.train import train
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    hm = train(_compiled_config(r, dev, steps, compiler=False), data,
+               log=lambda s: print(f"[{name} hand-written H=1] {s}"))
+    hm["launches"] = kernels.launch_counts()
+    hm["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    _check_losses(name + " hand-written", "kernel", hm["loss_list"], steps,
+                  False)
+    hw_want = _train_launches(dict(RUNS[r["base"]], stable="raw"), steps)
+    if hm["launches"] != hw_want:
+        raise AssertionError(f"{name} hand-written H=1: launched "
+                             f"{hm['launches']}, expected {hw_want}")
+    summary = {impl: _run_summary(m, E) for impl, m in runs.items()}
+    summary["launches_a_step"] = r["launches"]
+    summary["strategy"] = r["strategy"]
+    summary["handwritten_h1"] = _run_summary(hm, E)
+    summary["compiled_over_handwritten"] = (
+        summary["kernel"]["median_warm_step_ms"]
+        / summary["handwritten_h1"]["median_warm_step_ms"])
+    print(f"compiled {name} ({card}):", json.dumps(summary))
+    print(f"compiled {name}: step {summary['kernel']['median_warm_step_ms']:.3f}"
+          f" ms, hand-written H=1 "
+          f"{summary['handwritten_h1']['median_warm_step_ms']:.3f} ms, "
+          f"ratio {summary['compiled_over_handwritten']:.3f} ({card})")
     return runs["kernel"]["launches"], summary
 
 
@@ -2889,6 +3179,14 @@ def check_full_scale(dev, card):
         del m
         gc.collect()
         torch.cuda.empty_cache()
+    # this slice's compiled path on the same graph, kernels only, beside
+    # the hand-written model at H = 1
+    r = dict(COMPILED_RUNS[COMPILED_MAIN], scale=FULL_SCALE,
+             steps=COMPILED_FULL_STEPS, plain=False)
+    launches[COMPILED_FULL], totals["compiled_summary"] = check_compiled(
+        data, dev, card, COMPILED_MAIN, {}, r=r, name=COMPILED_FULL)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the minibatch path on the same graph: the segment sum at every shape
     # of one sampled batch's step (the table's gradient over all the
     # graph's nodes among them), then MB_FULL_BATCHES batches
@@ -2976,6 +3274,7 @@ def main() -> int:
                        "rgcn_plain": gd, "rgcn_compact": gd, "hgt_plain": gd,
                        "hgt_compact": gd, "hgt_compact_max": gd, "gat": gd,
                        "gat_arxiv": ga, **shards,
+                       **dict.fromkeys(COMPILED_RUNS, gd),
                        **{run: sub for run, (sub, _) in mb.items()},
                        **dict.fromkeys(LINK_RUNS, gl)},
                       dev, flush,
@@ -2986,7 +3285,7 @@ def main() -> int:
         check_dw(gd, gu, shards, dev, flush,
                  {"minibatch_plain": mb["minibatch_plain"][0],
                   "link_plain": gl}),
-        *check_fwd_dx(shards, dev, flush),
+        *check_fwd_dx(shards, dev, flush, gd),
         check_force_rowmajor(gp, dev, flush),
         *check_seg_sum_bf16({run: gd for run in BF16_RUNS}, dev, flush),
         check_dw_bf16(gd, dev, flush),
@@ -3012,6 +3311,9 @@ def main() -> int:
     ratio = (summaries["hgt_plain"]["kernel"]["median_warm_step_ms"]
              / summaries["hgt_compact"]["kernel"]["median_warm_step_ms"])
     print(f"HGT plain / compact step time, kernels ({card}): {ratio:.3f}")
+    for run in COMPILED_RUNS:
+        launches[run], summaries[run] = check_compiled(data, dev, card, run,
+                                                       summaries)
     for run in MB_RUNS:
         launches[run], summaries[run] = check_minibatch(data, dev, card, run)
     for run in LINK_RUNS:

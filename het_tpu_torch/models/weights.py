@@ -12,7 +12,9 @@ The port keeps the same arrays under the same leaf names in a
 at its place in the model (``model.layers.{i}``), which is not always its
 flax suffix.  ``het_tpu.parallel.DPGNN.init`` returns a list of per-layer
 ``{"params": {...}}`` dicts; the port's ``DPGNN`` (and ``RGATModel``,
-``RGCNModel``, ``HGTModel``, ``GATModel``) keeps them as ``layers.{i}``.
+``RGCNModel``, ``HGTModel``, ``GATModel``) keeps them as ``layers.{i}``.  het_tpu's compiled models (``--use_compiler``) keep a
+plain dict, ``{"layer_{i}": {...}}`` with no ``params`` level, which the
+port's compiled models keep as ``model.layer_{i}.{leaf}``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 _GROUP = re.compile(
     r"(RGATLayer|GATLayer|RGCNLayer|HGTLayer|SeastarRGCNLayer0)_(\d+)")
+_COMPILED = re.compile(r"layer_\d+")
 # nested flax groups -> the port's submodule and its leaf names
 _NESTED = {"LayerNorm_0": ("norm", {"scale": "weight", "bias": "bias"})}
 
@@ -47,6 +50,12 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     -> the port's state dict (``embed.embed``, ``model.layers.{i}.{leaf}``
     with het_tpu's leaf names)."""
     out = {"embed.embed": _tensor(tree["embed"]["params"]["embed"])}
+    if "params" not in tree["model"]:  # a compiled model's plain dict
+        for name, leaves in tree["model"].items():
+            if _COMPILED.fullmatch(name) is None:
+                raise KeyError(f"unexpected parameter group {name!r}")
+            out.update(_leaves(f"model.{name}", leaves))
+        return out
     groups = tree["model"]["params"]
     for name, leaves in groups.items():
         i = _layer_index(name, groups)

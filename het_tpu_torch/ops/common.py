@@ -10,6 +10,8 @@ sources sum into the nodes over ``in_row_ptr`` and ``out_row_ptr``
 inverse gather.  A backward's segment sum reads the cotangent in its own
 dtype (bf16 in a bf16 run) into f32 sums, cast back to that dtype, as
 het_tpu's ``seg_sum_sorted_packed`` callers pass ``pack_dt = ct.dtype``.
+The compiler's sums over relations and node types (``edge_rel_sum``,
+``edge_rel_gather``'s gradient, ``ntype_sum``) are sorted segment sums too.
 """
 
 from __future__ import annotations
@@ -203,3 +205,107 @@ def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     ok = den != 0
     return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
                        torch.zeros_like(num))
+
+
+def _edge_valid(g) -> torch.Tensor:
+    """(EP,) True on real edges, False on padding edges."""
+    return g.dst < g.num_nodes
+
+
+def _masked_edges(g, vals: torch.Tensor) -> torch.Tensor:
+    """``vals`` (EP, ...) with the padding edges' rows zeroed."""
+    mask = _edge_valid(g).view((-1,) + (1,) * (vals.dim() - 1))
+    return torch.where(mask, vals, torch.zeros_like(vals))
+
+
+def _sum_rel(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
+    """(EP, C) rows in canonical order summed over each relation's real
+    edges: one sorted segment sum over ``edge_rel_seg``'s row pointer
+    through its ``perm``, padding rows (and the padding edges, which the
+    relation-sorted rows mark invalid) reading an appended zero row."""
+    seg = g.edge_rel_seg
+    EP = flat.shape[0]
+    perm = torch.where(seg.row_valid, seg.perm, torch.full_like(seg.perm, EP))
+    rows = torch.cat([flat, flat.new_zeros(1, flat.shape[1])])
+    return seg_sum_sorted(rows.contiguous(), seg.seg_ptrs, perm, impl=impl)
+
+
+class _EdgeRelSum(torch.autograd.Function):
+    """Per-edge rows summed into their relations (padding edges add
+    nothing); backward the read of each real edge's relation row."""
+
+    @staticmethod
+    def forward(ctx, vals, g, impl: str):
+        ctx.g = g
+        out = _sum_rel(g, vals.reshape(vals.shape[0], -1), impl)
+        return out.view((g.num_rels,) + vals.shape[1:]).to(vals.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _masked_edges(ctx.g, take_rows(ct, ctx.g.rel)), None, None
+
+
+def edge_rel_sum(g, edge_vals: torch.Tensor, *,
+                 impl: str = "kernel") -> torch.Tensor:
+    """``out[r] = sum_{rel(e) = r} edge_vals[e]`` over the real edges:
+    edge_vals (EP, ...) in canonical order -> (num_rels, ...), one sorted
+    segment sum over the relation-sorted edge rows, not a scatter-add
+    (``jax.ops.segment_sum(edge_mask(v), rel)`` in het_tpu's lowering)."""
+    return _EdgeRelSum.apply(edge_vals, g, impl)
+
+
+class _EdgeRelGather(torch.autograd.Function):
+    """``w[rel]`` per canonical edge; backward :func:`edge_rel_sum`."""
+
+    @staticmethod
+    def forward(ctx, w, g, impl: str):
+        ctx.g, ctx.impl = g, impl
+        return take_rows(w, g.rel)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ctx.g
+        dw = _sum_rel(g, ct.reshape(ct.shape[0], -1), ctx.impl)
+        return dw.view((g.num_rels,) + ct.shape[1:]).to(ct.dtype), None, None
+
+
+def edge_rel_gather(g, w: torch.Tensor, *,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Each canonical edge's row of a relation-typed tensor, ``w[rel]``
+    (EP, ...), whose gradient is :func:`edge_rel_sum` (the padding edges'
+    cotangent dropped), not ``index_select``'s atomic scatter."""
+    return _EdgeRelGather.apply(w, g, impl)
+
+
+def _ntype_ptr(g, device) -> torch.Tensor:
+    return torch.tensor(g.ntype_offsets, dtype=torch.int32, device=device)
+
+
+class _NtypeSum(torch.autograd.Function):
+    """Node rows summed into their node types (each type a contiguous
+    range of node ids); backward the read of each node's type row."""
+
+    @staticmethod
+    def forward(ctx, vals, g, impl: str):
+        ctx.g = g
+        flat = vals.reshape(vals.shape[0], -1).contiguous()
+        out = seg_sum_sorted(flat, _ntype_ptr(g, vals.device), impl=impl)
+        return out.view((g.num_ntypes,) + vals.shape[1:]).to(vals.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ctx.g
+        ptr = _ntype_ptr(g, ct.device).long()
+        types = torch.repeat_interleave(
+            torch.arange(g.num_ntypes, device=ct.device), ptr[1:] - ptr[:-1],
+            output_size=g.num_nodes)
+        return take_rows(ct, types), None, None
+
+
+def ntype_sum(g, node_vals: torch.Tensor, *,
+              impl: str = "kernel") -> torch.Tensor:
+    """``out[t] = sum of node_vals over the nodes of type t``: node_vals
+    (num_nodes, ...) -> (num_ntypes, ...), one sorted segment sum over
+    ``ntype_offsets`` (het_tpu's lowering: ``jax.ops.segment_sum`` over
+    each node's type)."""
+    return _NtypeSum.apply(node_vals, g, impl)

@@ -61,6 +61,11 @@ in one op each, with the backward above and ``d_mu``, the sum of ``draw *
 score`` a relation, the grouped dW over the relation-sorted edge rows.
 :func:`fused_softmax_agg` is :class:`FusedGAT` with the activation
 named ("identity" is a leaky ReLU of slope 1).
+:class:`SrcCompactFusedSoftmaxAgg` is the counterpart of
+``_make_src_compact_fused_op``, the compiler's softmax aggregation of
+source-compact messages with per-edge logits: the forward of
+:class:`FusedGAT` on messages gathered from compact rows, and
+``d_feat_c`` one segment sum through ``edge_sort_perm``.
 
 :class:`NodeFusedGAT` and :class:`GATLayerFused` are the counterparts of
 ``_make_node_fused_op`` and ``_make_gat_layer_op``, homogeneous GAT's ops
@@ -403,6 +408,71 @@ def fused_softmax_agg(g, feat_e: torch.Tensor, raw_e: torch.Tensor, *,
     return FusedGAT.apply(feat_e.reshape(EP, H * D), raw_e, g,
                           1.0 if act == "identity" else float(slope), stable,
                           impl)
+
+
+class SrcCompactFusedSoftmaxAgg(torch.autograd.Function):
+    """The softmax aggregation of source-compact features with per-edge
+    logits (``_make_src_compact_fused_op``, the target of the compiler's
+    ``fuse_compact_agg``):
+
+        out[v] = sum_{dst(e)=v} softmax_v(act(raw_e)) * feat_c[rowS(e)]
+
+    ``forward(feat_c2d (UCs, H*D), raw (EP, H), g, slope, clip, impl) ->
+    (N, H, D)``: ``z`` and ``z*feat`` summed over ``in_row_ptr``
+    (:func:`_aggregate`, two sums).  It saves the compact rows, the
+    logits, ``s`` and ``out``, no (EP, H*D) message tensor: the backward
+    gathers the rows again.  Backward: ``d_feat_c`` one segment sum of
+    ``alpha*ct[dst]`` through ``edge_sort_perm`` into the source compact
+    rows, ``d_raw`` elementwise (``draw``)."""
+
+    @staticmethod
+    def forward(ctx, feat_c2d, raw, g, slope: float, clip: Optional[float],
+                impl: str):
+        z = torch.exp(_act_apply(raw.float(), slope, clip))
+        feat_e = take_rows(feat_c2d, g.compact_src.edge_map).float()
+        # padding edges lie past in_row_ptr's end: never reduced
+        s, out = _aggregate(g, z, feat_e, impl, _pack_dt(feat_c2d))
+        ctx.save_for_backward(feat_c2d, raw, s, out)
+        ctx.g, ctx.slope, ctx.clip, ctx.impl = g, slope, clip, impl
+        return out.to(feat_c2d.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        feat_c2d, raw, s, out = ctx.saved_tensors
+        g, infoS = ctx.g, ctx.g.compact_src
+        feat_e = take_rows(feat_c2d, infoS.edge_map).float()
+        ctd, alpha, draw = _softmax_backward(
+            g, ct, s, out, raw.float(), feat_e, ctx.slope, ctx.clip)
+        del feat_e
+        dt = _pack_dt(feat_c2d)
+        d_feat_c = seg_sum_sorted(_per_head(alpha, ctd, dtype=dt),
+                                  infoS.edge_row_ptr, infoS.edge_sort_perm,
+                                  out_dtype=dt, impl=ctx.impl)
+        return (d_feat_c.to(feat_c2d.dtype), draw.to(raw.dtype), None, None,
+                None, None)
+
+
+def fused_softmax_agg_src_compact(g, feat_c: torch.Tensor,
+                                  raw_e: torch.Tensor, *,
+                                  act: str = "identity", slope: float = 0.2,
+                                  stable: str = "raw",
+                                  impl: str = "kernel") -> torch.Tensor:
+    """``sum_dst softmax(act(raw)) * feat_c[rowS]``: feat_c (UCs, H, D) on
+    source compact rows, raw_e (EP, H) -> (N, H, D), by
+    :class:`SrcCompactFusedSoftmaxAgg` with ``act`` "leaky_relu" (of
+    ``slope``) or "identity" and ``stable`` "raw" or "clip"
+    (``het_tpu/ops/pallas/fused_agg.py::fused_softmax_agg_src_compact``)."""
+    if act not in ("leaky_relu", "identity"):
+        raise ValueError(f"act must be leaky_relu or identity, got {act!r}")
+    if stable not in ("raw", "clip"):
+        raise ValueError(f"stable must be raw or clip, got {stable!r}")
+    if g.compact_src is None:
+        raise ValueError("graph built without compact indices")
+    UC, H, D = feat_c.shape
+    out = SrcCompactFusedSoftmaxAgg.apply(
+        feat_c.reshape(UC, H * D), raw_e, g,
+        1.0 if act == "identity" else float(slope), _clip(stable), impl)
+    return out.view(-1, H, D)
 
 
 # ------------------------------------------------------------------- HGT

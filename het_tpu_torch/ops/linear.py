@@ -39,6 +39,7 @@ runs; see ``kernels/_dispatch.py``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -212,6 +213,21 @@ def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
     return _SegmentMatmul.apply(x_rows, w, seg, impl)
 
 
+OFFSETS = ("host", "device")
+
+
+def _offsets(seg, offsets: str):
+    """``seg`` as a typed linear's matmul reads it: with its host offsets
+    (one ``torch.matmul`` a relation) where ``offsets`` is "host" and it
+    has them, on the device only (the segment-matmul kernels, one launch
+    over all relations, as on a shard) where ``offsets`` is "device"."""
+    if offsets not in OFFSETS:
+        raise ValueError(f"offsets must be one of {OFFSETS}, got {offsets!r}")
+    if offsets == "device" and seg.seg_ptrs_static is not None:
+        return dataclasses.replace(seg, seg_ptrs_static=None)
+    return seg
+
+
 def ntype_linear(g, x: torch.Tensor, w: torch.Tensor, *,
                  impl: str = "kernel") -> torch.Tensor:
     """Per-node-type linear ``y_n = x[n] @ W[ntype(n)]``: x (N, K), w (T,
@@ -229,24 +245,35 @@ def ntype_linear(g, x: torch.Tensor, w: torch.Tensor, *,
 
 
 def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
-                         side: str = "src", *,
-                         impl: str = "kernel") -> torch.Tensor:
+                         side: str = "src", *, impl: str = "kernel",
+                         offsets: str = "host") -> torch.Tensor:
     """Typed linear over unique (relation, node) rows of one side:
     returns (compact n_rows, H, O), one row per (relation, node) pair,
-    zero on padding rows."""
+    zero on padding rows.  ``offsets="device"`` multiplies on the
+    segment-matmul kernels whatever offsets the host knows
+    (:func:`_offsets`)."""
+    seg = g.compact_src.seg if side == "src" else g.compact_dst.seg
+    return segment_matmul(compact_rows(g, x, side, impl=impl), w,
+                          _offsets(seg, offsets), impl=impl)
+
+
+def compact_rows(g, x: torch.Tensor, side: str = "src", *,
+                 impl: str = "kernel") -> torch.Tensor:
+    """Node rows ``x`` (the side's rows, ...) gathered into the side's
+    unique (relation, node) compact rows, zero on padding rows; the
+    gradient is the sorted segment sum over ``node_row_ptr`` through
+    ``node_sort_perm`` (``_compact_gather``)."""
     info = g.compact_src if side == "src" else g.compact_dst
     if info is None:
         raise ValueError("graph built without compact indices")
-    seg = info.seg
     rows = _side_rows(g, side)
     if x.shape[0] != rows:
         raise ValueError(f"x has {x.shape[0]} rows, the graph's {side} "
                          f"side {rows}")
-    row_idx = torch.where(seg.row_valid, info.node_ids,
+    row_idx = torch.where(info.seg.row_valid, info.node_ids,
                           torch.full_like(info.node_ids, rows))
-    x_rows = sorted_gather(x, row_idx, info.node_row_ptr,
-                           info.node_sort_perm, impl=impl)
-    return segment_matmul(x_rows, w, seg, impl=impl)
+    return sorted_gather(x, row_idx, info.node_row_ptr, info.node_sort_perm,
+                         impl=impl)
 
 
 def _side_rows(g, side: str) -> int:
@@ -295,15 +322,30 @@ class _EdgeRowGather(torch.autograd.Function):
 
 
 def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
-                      side: str = "src", *,
-                      impl: str = "kernel") -> torch.Tensor:
+                      side: str = "src", *, impl: str = "kernel",
+                      offsets: str = "host") -> torch.Tensor:
     """Per-edge typed linear ``y_e = x[side(e)] @ W[rel(e)]``: x (N, K),
     w (R, H, K, O) -> (num_padded_edges, H, O) in canonical edge order,
-    exactly zero on padding edges."""
+    exactly zero on padding edges.  ``offsets="device"`` multiplies on the
+    segment-matmul kernels whatever offsets the host knows
+    (:func:`_offsets`)."""
     seg = g.edge_rel_seg
     x_rows = _EdgeRowGather.apply(x, g, side, impl)
-    return take_rows_injective(segment_matmul(x_rows, w, seg, impl=impl),
-                               seg.inv, seg.perm, seg.row_valid)
+    y = segment_matmul(x_rows, w, _offsets(seg, offsets), impl=impl)
+    return take_rows_injective(y, seg.inv, seg.perm, seg.row_valid)
+
+
+def edge_rows_typed_linear(g, x_e: torch.Tensor, w: torch.Tensor, *,
+                           impl: str = "kernel",
+                           offsets: str = "host") -> torch.Tensor:
+    """Per-edge typed linear of per-edge rows, ``y_e = x_e @ W[rel(e)]``:
+    x_e (EP, K) in canonical order, w (R, H, K, O) -> (EP, H, O), zero on
+    padding edges.  The rows are arranged into ``edge_rel_seg`` and read
+    back by injective gathers, whose transposes are masked gathers."""
+    seg = g.edge_rel_seg
+    rows = gather_rows_injective(x_e, seg.perm, seg.inv, seg.row_valid)
+    y = segment_matmul(rows, w, _offsets(seg, offsets), impl=impl)
+    return take_rows_injective(y, seg.inv, seg.perm, seg.row_valid)
 
 
 def expand_compact(g, c: torch.Tensor, side: str = "src", *,

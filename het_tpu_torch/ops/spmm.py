@@ -17,7 +17,10 @@ under "max"; ``score * mu[rel]`` is ``edge_rel_inner`` at D = 1, whose
 ``mu`` gradient is the grouped dW over the relation-sorted edge rows.
 The homogeneous GAT ops (``gat_node_fused``, ``gat_node_fused2d`` and
 ``gat_layer_core``) likewise take the node-sided fused ops under "raw"
-and "clip" and the per-edge op on gathered inputs under "max".
+and "clip" and the per-edge op on gathered inputs under "max".  The
+compiler's generic softmax aggregations, ``edge_softmax_weighted_sum``
+and ``edge_softmax_weighted_sum_compact`` (source-compact messages), do
+the same with the identity activation.
 
 The edge softmax is a raw ``exp`` with no max subtraction by default, as
 in the reference (``stable=False`` or ``"raw"``); ``stable="clip"``
@@ -33,13 +36,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import (gather_dst, gather_nodes, gather_src, safe_div,
-                     scatter_sum_dst, scatter_sum_src, sorted_gather)
+from .common import (_edge_valid, gather_dst, gather_nodes, gather_src,
+                     safe_div, scatter_sum_dst, scatter_sum_src,
+                     sorted_gather)
 from .fused_agg import (CLIP_LOGIT, STABLE_MODES,  # noqa: F401
                         CompactFusedGAT, CompactFusedGATPacked,
                         GATLayerFused, HGTCompactAttention, HGTPlainFull,
                         NodeFusedGAT, _clip, compact_weighted_agg,
-                        fused_softmax_agg)
+                        fused_softmax_agg, fused_softmax_agg_src_compact)
 from .kernels import seg_max_sorted
 from .linear import (compact_dst_inner, edge_rel_inner, edge_typed_linear,
                      expand_compact)
@@ -221,10 +225,6 @@ def inner_product_edge_node(g, left_e: torch.Tensor, right: torch.Tensor,
     return _InnerProduct.apply(left_e, right, g, side, impl)
 
 
-def _edge_valid(g) -> torch.Tensor:
-    return g.dst < g.num_nodes
-
-
 def _stabilize(g, logits: torch.Tensor, mode: str,
                impl: str) -> torch.Tensor:
     """Overflow protection of the raw-exp softmax: none ("raw"), logits
@@ -291,17 +291,8 @@ def hgt_softmax_weighted_agg(g, message_e: torch.Tensor,
     this chain keeps one buffer because its backward is autograd's, whose
     destination gather follows the buffer: two sums cost a narrow (EP, H)
     gather more, slower on the card (PERF.md's GAT findings)."""
-    mode = _mode(stable)
-    raw = _typed_logits(g, score_e, mu, impl)
-    if mode != "max":
-        return fused_softmax_agg(g, message_e, raw, act="identity",
-                                 stable=mode, impl=impl)
-    z = _masked_exp(g, _stabilize(g, raw, mode, impl))
-    EP, H = z.shape
-    D = message_e.shape[-1]
-    zf = (message_e * z[..., None]).reshape(EP, H * D)
-    agg = scatter_sum_dst(g, torch.cat([z, zf], dim=1), impl=impl)
-    return safe_div(agg[:, H:].view(-1, H, D), agg[:, :H, None])
+    return edge_softmax_weighted_sum(g, _typed_logits(g, score_e, mu, impl),
+                                     message_e, stable=stable, impl=impl)
 
 
 def hgt_softmax_weighted_agg_compact(g, message_c: torch.Tensor,
@@ -375,6 +366,63 @@ def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
         q_nodes.reshape(q_nodes.shape[0], H * dk),
         k_nodes.reshape(k_nodes.shape[0], H * dk), w_msg, w_att, mu, g,
         CLIP_LOGIT if mode == "clip" else None, impl)
+
+
+def edge_softmax_weighted_sum(g, logits: torch.Tensor,
+                              vec_e: torch.Tensor, *, stable=False,
+                              impl: str = "kernel") -> torch.Tensor:
+    """``out[dst] = sum_e softmax_dst(logits)_e * vec_e``, the generic
+    fused softmax aggregation (the compiler's ``FusedEdgeSoftmaxAgg``):
+    logits (EP, H) or (EP,), vec_e (EP, [H,] D) in canonical order ->
+    (N, [H,] D).  As het_tpu's pallas backend (``het_tpu/ops/spmm.py::
+    edge_softmax_weighted_sum``): "raw" and "clip" take the fused per-edge
+    op with the identity activation (:func:`~.fused_agg.
+    fused_softmax_agg`); "max" the unfused chain, one segment sum of
+    ``[z | z*vec]`` after the max-subtracted ``exp``.  That chain keeps one
+    buffer because its backward is autograd's, whose destination gather
+    follows the buffer: two sums cost a narrow (EP, H) gather more,
+    slower on the card (PERF.md's GAT findings)."""
+    squeeze = logits.dim() == 1
+    if squeeze:
+        logits, vec_e = logits[:, None], vec_e[:, None, :]
+    mode = _mode(stable)
+    if mode != "max":
+        out = fused_softmax_agg(g, vec_e, logits, act="identity",
+                                stable=mode, impl=impl)
+    else:
+        z = _masked_exp(g, _stabilize(g, logits, mode, impl))
+        EP, H = z.shape
+        D = vec_e.shape[-1]
+        zf = (vec_e * z[..., None]).reshape(EP, H * D)
+        agg = scatter_sum_dst(g, torch.cat([z, zf], dim=1), impl=impl)
+        out = safe_div(agg[:, H:].view(-1, H, D), agg[:, :H, None])
+    return out[:, 0, :] if squeeze else out
+
+
+def edge_softmax_weighted_sum_compact(g, logits: torch.Tensor,
+                                      msg_c: torch.Tensor, *, stable=False,
+                                      impl: str = "kernel") -> torch.Tensor:
+    """:func:`edge_softmax_weighted_sum` of source-compact messages, ``out
+    [dst] = sum_e softmax_dst(logits)_e * msg_c[compact_src_row(e)]``:
+    logits (EP, H) or (EP,), msg_c (UCs, [H,] D) -> (N, [H,] D) (the
+    compiler's ``FusedEdgeSoftmaxAggCompact``).  "raw" and "clip" take
+    :class:`~.fused_agg.SrcCompactFusedSoftmaxAgg`, which keeps no
+    per-edge message tensor; "max" expands the messages
+    (:func:`~.linear.expand_compact`) into the unfused chain, as
+    het_tpu's pallas backend does (``het_tpu/ops/spmm.py::
+    edge_softmax_weighted_sum_compact``)."""
+    squeeze = logits.dim() == 1
+    if squeeze:
+        logits, msg_c = logits[:, None], msg_c[:, None, :]
+    mode = _mode(stable)
+    if mode != "max":
+        out = fused_softmax_agg_src_compact(g, msg_c, logits, act="identity",
+                                            stable=mode, impl=impl)
+    else:
+        out = edge_softmax_weighted_sum(
+            g, logits, expand_compact(g, msg_c, "src", impl=impl),
+            stable=mode, impl=impl)
+    return out[:, 0, :] if squeeze else out
 
 
 # ------------------------------------------------------------------- GAT

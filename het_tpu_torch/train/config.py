@@ -1,7 +1,8 @@
 """Trainer configuration with the reference's flag spellings.
 
-``het_tpu/train/config.py``'s flags but ``--backend`` and
-``--use_compiler``, plus ``--device``.  ``--task link`` trains link
+``het_tpu/train/config.py``'s flags but ``--backend`` (the TPU
+backend), plus ``--device``.  ``--use_compiler`` trains RGAT, HGT or
+RGCN through the compiled Inter-Op DSL programs (``compiled.py``).  ``--task link`` trains link
 prediction (``link.py``), ``--minibatch`` neighbour-sampled minibatches
 (``minibatch.py``: ``--batch_size``, ``--fanout``, ``--num_hops``,
 ``--max_batches``), else full-graph (``driver.py``); ``--tile`` is the
@@ -55,6 +56,10 @@ class TrainConfig:
     loss_scale: str = "none"
     # early stopping on the training loss (0 = off)
     patience: int = 0
+    # run the model THROUGH the compiler (train/compiled.py): each layer
+    # core a compiled Inter-Op DSL program (parse -> passes -> flag
+    # rewrites -> fuse -> Op-Spec schedule -> lowering onto the port's ops)
+    use_compiler: bool = False
     # checkpoint every N timed epochs (0 = off) into checkpoint_dir;
     # --resume restarts from its latest step
     save_every: int = 0
@@ -104,6 +109,8 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--loss_scale", type=str, default="none",
                    help="bf16 loss scaling: none | dynamic | <float>")
     p.add_argument("--patience", type=int, default=0)
+    p.add_argument("--use_compiler", action="store_true",
+                   help="run the model through the compiled DSL pipeline")
     p.add_argument("--save_every", type=int, default=0,
                    help="checkpoint every N epochs (0 = off)")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")

@@ -29,6 +29,7 @@ from ..data.loaders import Dataset, load_dataset
 from ..models import GATModel, HGTModel, NodeEmbed, RGATModel, RGCNModel
 from ..utils.misc import EarlyStopping, nll_loss, resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
+from .compiled import build_compiled_model
 from .config import TrainConfig
 from .loop import train_steps
 from .scaling import cast_floating
@@ -57,10 +58,14 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
     GAT is too: at least two layers (``max(--num_layers, 2)``), and
     neither ``--dropout`` nor ``--stable_softmax`` reaches it, so its
     ``feat_drop`` is 0 and its softmax raw; the relational flags change
-    nothing."""
+    nothing.  With ``--use_compiler`` RGAT, HGT and RGCN are the compiled
+    models (``compiled.py``), and any other family raises."""
     g = data.graph
     name = cfg.model.upper()
-    if name == "RGAT":
+    if cfg.use_compiler:
+        model = build_compiled_model(cfg, g, data.num_classes, impl=impl,
+                                     generator=generator)
+    elif name == "RGAT":
         model = RGATModel(
             cfg.n_infeat, cfg.hidden, data.num_classes, g.num_rels,
             cfg.num_heads, max(cfg.num_layers, 1), compact=cfg.compact,

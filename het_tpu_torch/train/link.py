@@ -124,6 +124,7 @@ def check_link_config(cfg: TrainConfig) -> None:
         ("--dtype bfloat16", cfg.dtype != "float32"),
         ("--save_every", cfg.save_every > 0), ("--resume", cfg.resume),
         ("--patience", cfg.patience > 0),
+        ("--use_compiler", cfg.use_compiler),
         ("--compact_union_flag", cfg.compact_union)) if on]
     if bad:
         raise ValueError(f"--task link does not take {', '.join(bad)}")

@@ -17,14 +17,20 @@
         --compact_as_of_node_flag --multiply_among_weights_first_flag
     python -m het_tpu_torch.utils.profile_step --task link -d fb15k \
         --num_heads 4 --num_layers 2
+    python -m het_tpu_torch.utils.profile_step --model RGAT -d mag \
+        --dataset_scale 0.1 --num_layers 2 --use_compiler \
+        --compact_as_of_node_flag --multiply_among_weights_first_flag \
+        --dropout 0
 
 Takes the trainer's flags (``--dtype bfloat16`` profiles a mixed-precision
 step; ``--minibatch`` a minibatch batch's step, ``--task link`` a link
-epoch), runs six steps and traces steps 3-5 with
+epoch; ``--use_compiler`` a compiled model's step), runs six steps and
+traces steps 3-5 with
 ``torch.profiler`` (the trainer's per-step log call advances the
 profiler's schedule).  Prints each kernel's device time per step
 (averaged over the traced steps), the traced steps' own times (CUDA
-events) and the device's busy share of them.
+events), the device's busy share of them and the rest, the host's share
+(the card idle, waiting for the host to issue work).
 """
 
 from __future__ import annotations
@@ -103,7 +109,8 @@ def main() -> None:
     print(f"device: {metrics['device']}")
     print(f"traced steps (CUDA events, ms): {traced}")
     print(f"device busy per step: {busy:.3f} ms of {step:.3f} ms "
-          f"({100 * busy / step:.1f}%)")
+          f"({100 * busy / step:.1f}%); host share (device idle) "
+          f"{100 * (1 - busy / step):.1f}%")
     cats = {}
     for key, ms, calls in rows:
         c = cats.setdefault(category(key), [0.0, 0])
@@ -116,6 +123,7 @@ def main() -> None:
     for key, ms, calls in rows[:TOP]:
         print(f"{key[:110]} | {ms:.4f} | {calls}")
     print(json.dumps({"step_ms": step, "device_busy_ms": busy,
+                      "host_share": 1 - busy / step,
                       "categories": {k: v[0] for k, v in cats.items()}}))
 
 
