@@ -6,8 +6,19 @@
 Phases, each of which fails the run:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel from ``het_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once);
+2. build the host library (``csrc/graphops.cpp``, ``g++``: the graph
+   builder's sorts and the neighbour sampler), then every CUDA kernel from
+   ``het_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), each
+   with its build time; then host graph I/O on the synthetic ogbn-mag
+   stand-in at scale 0.1: the graph built through the host library and
+   through its plain (numpy) sorts, equal field for field, both timed;
+   each sort against its plain version at the sizes that build gives it,
+   equal bit for bit, both timed; ``save_heterograph`` /
+   ``load_heterograph`` in a temporary directory (bytes, seconds, the
+   loaded graph equal to the built one); and the sampler's draw against
+   its plain version on the minibatch runs' batches (the contract, the
+   caps, the times); at scale 1.0 the build both ways and the draws
+   again;
 3. each kernel against its plain PyTorch version, timed with CUDA events
    beside its bound and a PyTorch yardstick, on the synthetic ogbn-mag
    stand-in at scale 0.1 (dual- and union-list compact) and 0.2 (the
@@ -149,8 +160,9 @@ Phases, each of which fails the run:
 The last two lines are a JSON object of per-kernel numbers (the bf16
 instantiations as ``seg_sum_sorted[bf16->f32]``, ``seg_sum_sorted[bf16->
 bf16]`` and ``segment_matmul_dw[bf16]`` beside the f32 ones) and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-package beside it, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``, after a line with the run's total
+seconds.  Without a CUDA device, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -3087,6 +3099,200 @@ def check_resume(data, dev, card):
               f"step_{reached}")
 
 
+def _coo_of(g):
+    """The edge arrays ``g`` was built from, in their input order (the
+    canonical edges put back through ``eid_orig``), and the builder's
+    options that give ``g`` again."""
+    import numpy as np
+
+    E = g.num_edges
+    eid = g.eid_orig[:E].numpy()
+    coo = []
+    for t in (g.src, g.dst, g.rel):
+        a = np.empty(E, dtype=np.int64)
+        a[eid] = t[:E].numpy()
+        coo.append(a)
+    return coo, dict(num_nodes=g.num_nodes, num_rels=g.num_rels,
+                     ntype_offsets=g.ntype_offsets, rel_names=g.rel_names,
+                     tile=g.edge_rel_seg.tile,
+                     build_compact=g.compact_src is not None,
+                     compact_union=g.compact_shared)
+
+
+def _same_graph(a, b, where):
+    """Raise unless ``a`` and ``b`` are equal field for field: tensors in
+    dtype, shape and every value, the rest (``None`` included) equal."""
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        name = f"{where}.{f.name}"
+        if dataclasses.is_dataclass(x) and dataclasses.is_dataclass(y):
+            _same_graph(x, y, name)
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y)):
+                raise AssertionError(f"{name} differs")
+        elif type(x) is not type(y) or x != y:
+            raise AssertionError(f"{name}: {x!r} != {y!r}")
+
+
+def check_host_build(data, label, card):
+    """The graph builder through the host library and through its plain
+    (numpy) sorts on the same edges: both equal field for field, and equal
+    to the loader's graph; each timed on the host clock."""
+    from het_tpu_torch.graph.build import build_heterograph
+
+    (src, dst, rel), kw = _coo_of(data.graph)
+    seconds, built = {}, {}
+    for sorts in ("native", "plain"):
+        t0 = time.perf_counter()
+        built[sorts] = build_heterograph(src, dst, rel, sorts=sorts, **kw)
+        seconds[sorts] = time.perf_counter() - t0
+    _same_graph(built["native"], built["plain"], f"{label} native, plain")
+    _same_graph(built["native"], data.graph, f"{label} native, loader")
+    print(f"[{label}] host build of {len(src)} edges ({card}): native "
+          f"{seconds['native']:.3f} s, plain {seconds['plain']:.3f} s, "
+          f"equal field for field")
+    return seconds
+
+
+def _best_s(fn, reps):
+    """The result of ``fn`` and its least time over ``reps`` calls."""
+    best, out = math.inf, None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def check_host_sorts(data, label, card):
+    """Each host-library sort against its plain version at the sizes the
+    graph's build gives it (the canonical sort of every edge, the source
+    order, the in-degrees, the source side's unique pairs, the degree
+    order): equal bit for bit, each timed (the best of 3 calls)."""
+    import numpy as np
+    from het_tpu_torch.graph import convert, native
+
+    g = data.graph
+    E, N, R = g.num_edges, g.num_nodes, g.num_rels
+    (src, dst, rel), _ = _coo_of(g)
+    c_src, c_dst, c_rel = (t[:E].numpy().astype(np.int64)
+                           for t in (g.src, g.dst, g.rel))
+    deg = np.bincount(c_dst, minlength=N)
+    pairs = {
+        "canonical_sort": (
+            lambda: native.canonical_sort(src, dst, rel, N, R),
+            lambda: convert.canonical_sort(src, dst, rel)),
+        "counting_argsort": (lambda: native.counting_argsort(c_src, N + 1),
+                             lambda: convert.counting_argsort(c_src)),
+        "bincount": (lambda: native.bincount(c_dst, N),
+                     lambda: np.bincount(c_dst, minlength=N)),
+        "unique_pairs": (lambda: native.unique_pairs(c_rel, c_src, N, R),
+                         lambda: convert.unique_pairs(c_rel, c_src, N)),
+        "degree_sort": (lambda: native.degree_sort(deg),
+                        lambda: np.argsort(-deg, kind="stable")),
+    }
+    table = {}
+    for name, (fast, plain) in pairs.items():
+        got, t_native = _best_s(fast, 3)
+        want, t_plain = _best_s(plain, 3)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            if a.dtype != np.int64 or not np.array_equal(a, b):
+                raise AssertionError(f"{label} {name}: native differs from "
+                                     "plain")
+        table[name] = {"native_s": t_native, "plain_s": t_plain,
+                       "plain_over_native": t_plain / t_native}
+    print(f"[{label}] host sorts, {E} edges, {N} nodes ({card}):",
+          json.dumps(table))
+    return table
+
+
+def check_persist(data, label, card):
+    """``save_heterograph`` / ``load_heterograph`` of the graph in a
+    temporary directory (removed after): bytes written, save and load
+    seconds, the loaded graph equal to the built one."""
+    import os
+    import tempfile
+
+    from het_tpu_torch.graph import load_heterograph, save_heterograph
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.pt")
+        t0 = time.perf_counter()
+        save_heterograph(path, data.graph)
+        t1 = time.perf_counter()
+        size = os.path.getsize(path)
+        loaded = load_heterograph(path)
+        t2 = time.perf_counter()
+    _same_graph(loaded, data.graph, f"{label} loaded")
+    out = {"bytes": size, "save_s": t1 - t0, "load_s": t2 - t1}
+    print(f"[{label}] graph saved and loaded ({card}): {json.dumps(out)}, "
+          f"equal field for field")
+    return out
+
+
+def compare_draws(data, label, card, batches=5):
+    """The host library's draw (``NeighborSampler.draw``) and its plain
+    version (``draw_plain``) on the minibatch runs' first ``batches``
+    batches of seeds at the runs' pads, and once under small caps: each
+    keeps the contract (the seeds take the first local ids; local ids are
+    distinct nodes; every sampled edge is an edge of the graph, no edge
+    more often than the graph holds it; at most ``FANOUT`` in-edges a
+    destination; the caps hold); their times (medians)."""
+    import numpy as np
+    from het_tpu_torch.data.sampling import NeighborSampler
+    from het_tpu_torch.train.minibatch import minibatch_pads
+
+    g = data.graph
+    E, N, R = g.num_edges, g.num_nodes, g.num_rels
+    c_src, c_dst, c_rel = (t[:E].numpy().astype(np.int64)
+                           for t in (g.src, g.dst, g.rel))
+    keys, held = np.unique((c_dst * N + c_src) * R + c_rel,
+                           return_counts=True)
+    sampler = NeighborSampler(c_src, c_dst, c_rel, N, R, fanout=FANOUT,
+                              num_hops=HOPS, seed=0)
+    pad_edges, pad_nodes = minibatch_pads(_mb_config(
+        MB_RUNS[MB_MAIN], "cpu", 1))
+    order = np.random.default_rng(0).permutation(len(data.train_idx))
+    out = {}
+    for draw in ("draw", "draw_plain"):
+        ms, edges = [], []
+        for b in range(batches + 1):
+            seeds = data.train_idx[order[b * BATCH:(b + 1) * BATCH]]
+            caps = ((pad_edges, pad_nodes) if b < batches
+                    else (pad_edges // 50, pad_nodes // 100))
+            t0 = time.perf_counter()
+            es, ed, er, nm = getattr(sampler, draw)(
+                seeds, max_edges=caps[0], max_nodes=caps[1])
+            if b < batches:
+                ms.append((time.perf_counter() - t0) * 1e3)
+                edges.append(len(es))
+            k, c = np.unique((nm[ed] * N + nm[es]) * R + er,
+                             return_counts=True)
+            at = np.minimum(np.searchsorted(keys, k), len(keys) - 1)
+            ok = (len(es) <= caps[0] and len(nm) <= caps[1]
+                  and np.array_equal(nm[:min(BATCH, caps[1])],
+                                     seeds[:caps[1]])
+                  and len(np.unique(nm)) == len(nm)
+                  and (keys[at] == k).all() and (c <= held[at]).all()
+                  and np.bincount(ed, minlength=len(nm)).max(initial=0)
+                  <= FANOUT)
+            if not ok:
+                raise AssertionError(f"{label} {draw}: batch {b} breaks the "
+                                     "sampler's contract")
+        out[draw] = {"median_ms": statistics.median(ms), "ms": ms,
+                     "edges": edges}
+    out["plain_over_native"] = (out["draw_plain"]["median_ms"]
+                                / out["draw"]["median_ms"])
+    print(f"[{label}] draws of {BATCH} seeds, fanout {FANOUT}, {HOPS} hops "
+          f"({card}):", json.dumps(out))
+    return out
+
+
 def check_full_scale(dev, card):
     """The slice's path (compact multiply-first, packed, stable="max") on
     synthetic ogbn-mag at FULL_SCALE, FULL_STEPS steps through the kernels
@@ -3113,8 +3319,12 @@ def check_full_scale(dev, card):
     t0 = time.perf_counter()
     data = load_dataset("mag", scale=FULL_SCALE, num_classes=CLASSES,
                         seed=0, data_roots=())
-    print(f"[{FULL}] graph built in {time.perf_counter() - t0:.1f} s: "
-          f"{data.graph.describe()}")
+    print(f"[{FULL}] graph built (host library) in "
+          f"{time.perf_counter() - t0:.1f} s: {data.graph.describe()}")
+    # the host build both ways and the sampler's draws at this size
+    check_host_build(data, FULL, card)
+    compare_draws(data, FULL, card)
+    gc.collect()
     g = data.graph.to(dev)
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3208,6 +3418,8 @@ def check_full_scale(dev, card):
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -3228,6 +3440,11 @@ def main() -> int:
     print(f"device: {name}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
+    # the host library (graph sorts, the sampler) first, then the kernels
+    t0 = time.perf_counter()
+    for log in _build.build_all(_build.HOST_SOURCES):
+        print(log)
+    print(f"host library built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for log in _build.build_all():
         print(log)
@@ -3248,6 +3465,12 @@ def main() -> int:
               f"edge rows {g.edge_rel_seg.n_rows} "
               f"{g.edge_rel_seg.seg_ptrs_static}")
     data = datasets[_data_key(RUNS[MAIN])]
+    # host graph I/O at SCALE: the build both ways, each sort against its
+    # plain version, save and load, the sampler's draws both ways
+    check_host_build(data, f"mag {SCALE}", card)
+    check_host_sorts(data, f"mag {SCALE}", card)
+    check_persist(data, f"mag {SCALE}", card)
+    compare_draws(data, f"mag {SCALE}", card)
     t0 = time.perf_counter()
     # the link runs' stand-in: their trainer builds the message graph
     link_data = load_dataset("fb15k", scale=LINK_SCALE, num_classes=CLASSES,
@@ -3359,6 +3582,7 @@ def main() -> int:
         entry["launches"] = launches[main][kernel]
         entry["launches_by_run"] = {r: counts[kernel]
                                     for r, counts in launches.items()}
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

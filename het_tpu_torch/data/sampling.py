@@ -5,16 +5,22 @@ full graph.
 
 A batch is made in two parts, timed apart by the minibatch trainer:
 
-* :meth:`NeighborSampler.draw` walks the in-CSR hop by hop, vectorised in
-  numpy over each hop's frontier, and returns the local edge lists and
-  ``node_map`` (local id -> node id).  It keeps the contract of het_tpu's
-  native sampler (``native/graphops.cpp::hetg_sample_fanout``): the seeds
-  take the first local ids, de-duplicated in first-seen order; a node
-  with in-degree at most ``fanout`` takes all its in-edges in CSR order,
-  any other node ``fanout`` distinct ones uniformly at random (kept in
-  CSR order); new nodes take local ids in order of first appearance, hop
-  by hop; the caps ``max_edges`` / ``max_nodes`` act as the native ones
-  do.  Its random stream is its own (``np.random.Generator``).
+* :meth:`NeighborSampler.draw` walks the in-CSR hop by hop in the port's
+  host library (``graph/native.py::sample_fanout``, the counterpart of
+  het_tpu's native sampler) and returns the local edge lists and
+  ``node_map`` (local id -> node id).  The seeds take the first local
+  ids, de-duplicated in first-seen order; a node with in-degree at most
+  ``fanout`` takes all its in-edges in CSR order, any other node
+  ``fanout`` distinct ones uniformly at random (Floyd's draws); new nodes
+  take local ids in order of first appearance, hop by hop; past the caps
+  ``max_edges`` / ``max_nodes`` a hop ends or a new node is dropped.
+  Each draw seeds the library's ``mt19937_64`` with one
+  ``integers(0, 2**63 - 1)`` of the sampler's generator, as het_tpu's
+  ``sample`` does, so the two packages draw the same batches from the
+  same ``seed`` and the same calls.
+* :meth:`NeighborSampler.draw_plain` is the plain version, vectorised in
+  numpy over each hop's frontier: the same contract, a node's picks kept
+  in CSR order, its random stream its own (``rng.random``).
 * :meth:`NeighborSampler.finalize` builds the subgraph from them, padded
   to fixed sizes (``pad_nodes_to`` extra isolated nodes mapped to node 0,
   ``pad_edges_to`` padded edges, and with ``build_compact`` the compact
@@ -28,6 +34,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..graph import native
 from ..graph.build import build_heterograph
 from ..graph.convert import coo_to_csr
 from ..graph.structures import HeteroGraph
@@ -50,9 +57,9 @@ class NeighborSampler:
     def __init__(self, src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
                  num_nodes: int, num_rels: int, fanout: int = 10,
                  num_hops: int = 2, seed: int = 0):
-        src = np.asarray(src).astype(np.int64)
-        dst = np.asarray(dst).astype(np.int64)
-        rel = np.asarray(rel).astype(np.int64)
+        src = np.asarray(src).astype(np.int64).ravel()
+        dst = np.asarray(dst).astype(np.int64).ravel()
+        rel = np.asarray(rel).astype(np.int64).ravel()
         self.num_nodes = int(num_nodes)
         self.num_rels = int(num_rels)
         self.fanout = int(fanout)
@@ -63,6 +70,8 @@ class NeighborSampler:
                                          num_nodes)
         self.nbr_src = np.ascontiguousarray(packed[:, 0])
         self.nbr_rel = np.ascontiguousarray(packed[:, 1])
+        native.check_csr(self.ptr, self.nbr_src, self.nbr_rel,
+                         self.num_nodes)
         # node -> local id of the batch being drawn (-1: not in it); reset
         # after each draw on the entries it set
         self._local = np.full(self.num_nodes, -1, dtype=np.int64)
@@ -93,17 +102,39 @@ class NeighborSampler:
             pos = pos[keep]
         return pos, np.minimum(deg, self.fanout)
 
-    def draw(self, seeds: np.ndarray, *, max_edges: Optional[int] = None,
-             max_nodes: Optional[int] = None
-             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """``(edges_src, edges_dst, edges_rel, node_map)``: the sampled
-        edges in local ids (``int64``) and each local node's id.  The caps
-        default to the most a draw of ``len(seeds)`` seeds can take (plus
-        one edge, as het_tpu's)."""
+    def _caps(self, seeds, max_edges, max_nodes):
+        """The caps of a draw of ``seeds``: by default the most a draw of
+        ``len(seeds)`` seeds can take (plus one edge, as het_tpu's)."""
         seeds = np.asarray(seeds).astype(np.int64).ravel()
         cap_e = (self.max_edges(len(seeds)) + 1 if max_edges is None
                  else max_edges)
         cap_n = cap_e + len(seeds) if max_nodes is None else max_nodes
+        return seeds, cap_e, cap_n
+
+    def draw(self, seeds: np.ndarray, *, max_edges: Optional[int] = None,
+             max_nodes: Optional[int] = None
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """``(edges_src, edges_dst, edges_rel, node_map)``: the sampled
+        edges in local ids (``int64``) and each local node's id, drawn in
+        the host library."""
+        seeds, cap_e, cap_n = self._caps(seeds, max_edges, max_nodes)
+        return native.sample_fanout(
+            self.ptr, self.nbr_src, self.nbr_rel, seeds, self.fanout,
+            self.num_hops, int(self.rng.integers(0, 2**63 - 1)),
+            self.num_nodes, cap_e, cap_n, local=self._local,
+            csr_checked=True)
+
+    def draw_plain(self, seeds: np.ndarray, *,
+                   max_edges: Optional[int] = None,
+                   max_nodes: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                              np.ndarray]:
+        """:meth:`draw`'s plain version, in numpy: the same contract, its
+        own random stream."""
+        seeds, cap_e, cap_n = self._caps(seeds, max_edges, max_nodes)
+        if seeds.size and (seeds.min() < 0
+                           or seeds.max() >= self.num_nodes):
+            raise ValueError("draw_plain: a seed is not a node id")
         local = self._local
         _, first = np.unique(seeds, return_index=True)
         frontier = seeds[np.sort(first)][:cap_n]

@@ -1,20 +1,25 @@
-"""Host-side (numpy) construction of :class:`HeteroGraph`.
+"""Host-side construction of :class:`HeteroGraph`.
 
 The same layout ``het_tpu.graph.build`` produces, field for field and bit
 for bit: one canonical dst-sorted edge order, tile-padded relation
 segments and the dual-list compact materialization with its sorted
 segmentations.  The result holds CPU tensors; move it with ``.to(device)``.
+
+The sorts and counts run in the port's host library
+(``graph/native.py``) where het_tpu's builder runs its native library;
+``sorts="plain"`` takes their numpy versions (``graph/convert.py``)
+instead, for a caller comparing the two.  Both give the same graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .convert import canonical_sort, counting_argsort, unique_pairs
+from . import convert, native
 from .structures import CompactInfo, HeteroGraph, Segments
 
 __all__ = ["build_segments", "build_heterograph", "reverse_heterograph"]
@@ -22,6 +27,33 @@ __all__ = ["build_segments", "build_heterograph", "reverse_heterograph"]
 # canonical edge arrays: padded to a multiple of EDGE_PAD, plus EDGE_EXTRA
 # sentinel rows, as the JAX package pads them (its Pallas DMA guard rows)
 EDGE_PAD, EDGE_EXTRA = 128, 1024
+
+
+class HostSorts(NamedTuple):
+    """The builder's sorts and counts, each with ``graph/native.py``'s
+    signature."""
+
+    canonical_sort: Callable  # (src, dst, rel, num_nodes, num_rels)
+    counting_argsort: Callable  # (keys, num_keys)
+    unique_pairs: Callable  # (rel, node, num_nodes, num_rels)
+    bincount: Callable  # (ids, num_bins)
+
+
+SORTS = {
+    "native": HostSorts(native.canonical_sort, native.counting_argsort,
+                        native.unique_pairs, native.bincount),
+    "plain": HostSorts(
+        lambda src, dst, rel, n, r: convert.canonical_sort(src, dst, rel),
+        lambda keys, n: convert.counting_argsort(keys),
+        lambda rel, node, n, r: convert.unique_pairs(rel, node, n),
+        lambda ids, n: np.bincount(ids, minlength=n)),
+}
+
+
+def _sorts(sorts: str) -> HostSorts:
+    if sorts not in SORTS:
+        raise ValueError(f"sorts={sorts!r}: expected one of {list(SORTS)}")
+    return SORTS[sorts]
 
 
 def round_up(x: int, m: int) -> int:
@@ -33,17 +65,19 @@ def _i32(a) -> torch.Tensor:
 
 
 def build_segments(seg_of_row: np.ndarray, n_segments: int,
-                   tile: int, force_rows: Optional[int] = None) -> Segments:
+                   tile: int, force_rows: Optional[int] = None,
+                   sorts: str = "native") -> Segments:
     """Group source rows by segment id, padding each segment to a multiple
     of ``tile`` rows so every row tile is single-segment.
 
     ``force_rows`` pads the total to a fixed size (the extra invalid rows
     go to the last segment), so that the shards of a partitioned graph
     share their shapes (``het_tpu_torch.parallel.partition``)."""
+    hs = _sorts(sorts)
     seg_of_row = np.asarray(seg_of_row)
     n_src = int(seg_of_row.shape[0])
-    order = counting_argsort(seg_of_row)
-    counts = np.bincount(seg_of_row, minlength=n_segments).astype(np.int64)
+    order = hs.counting_argsort(seg_of_row, n_segments)
+    counts = hs.bincount(seg_of_row, n_segments).astype(np.int64)
     padded = ((counts + tile - 1) // tile * tile) if tile > 1 else counts
     seg_ptrs = np.zeros(n_segments + 1, dtype=np.int64)
     np.cumsum(padded, out=seg_ptrs[1:])
@@ -90,7 +124,8 @@ def build_segments(seg_of_row: np.ndarray, n_segments: int,
 def _build_compact(rel: np.ndarray, node: np.ndarray, num_nodes: int,
                    num_rels: int, tile: int, num_padded_edges: int,
                    force_rows: Optional[int] = None,
-                   force_pairs: Optional[int] = None) -> CompactInfo:
+                   force_pairs: Optional[int] = None,
+                   sorts: str = "native") -> CompactInfo:
     """Unique (relation, node) pairs, the direct-index edge map and its
     sorted segmentations (see :class:`CompactInfo`).
 
@@ -99,10 +134,12 @@ def _build_compact(rel: np.ndarray, node: np.ndarray, num_nodes: int,
     dummy row gathers the zero sentinel row and no edge refers to it, so
     its gradient is exactly zero.  ``force_rows`` is
     :func:`build_segments`'."""
-    pair_rel, pair_node, inverse = unique_pairs(rel, node, num_nodes)
+    pair_rel, pair_node, inverse = _sorts(sorts).unique_pairs(
+        rel, node, num_nodes, num_rels)
     return _compact_from_pairs(pair_rel, pair_node, inverse,
                                int(rel.shape[0]), num_nodes, num_rels, tile,
-                               num_padded_edges, force_rows, force_pairs)
+                               num_padded_edges, force_rows, force_pairs,
+                               sorts=sorts)
 
 
 def _compact_from_pairs(pair_rel, pair_node, inverse, E: int,
@@ -110,11 +147,12 @@ def _compact_from_pairs(pair_rel, pair_node, inverse, E: int,
                         num_padded_edges: int, force_rows: Optional[int],
                         force_pairs: Optional[int],
                         seg: Optional[Segments] = None,
-                        node_ids: Optional[np.ndarray] = None
-                        ) -> CompactInfo:
+                        node_ids: Optional[np.ndarray] = None,
+                        sorts: str = "native") -> CompactInfo:
     """Segment and pad the unique pairs, unless a shared ``seg`` and its
     ``node_ids`` are given (the union-list build), and attach the edge
     map and the sorted segmentations."""
+    hs = _sorts(sorts)
     if seg is None:
         pair_rel = pair_rel.astype(np.int64)
         pair_node = pair_node.astype(np.int64)
@@ -127,7 +165,8 @@ def _compact_from_pairs(pair_rel, pair_node, inverse, E: int,
                 [pair_rel, np.full(extra, num_rels - 1, dtype=np.int64)])
             pair_node = np.concatenate(
                 [pair_node, np.full(extra, num_nodes, dtype=np.int64)])
-        seg = build_segments(pair_rel, num_rels, tile, force_rows=force_rows)
+        seg = build_segments(pair_rel, num_rels, tile, force_rows=force_rows,
+                             sorts=sorts)
         node_ids = np.zeros(seg.n_rows, dtype=np.int64)
         node_ids[seg.inv.numpy()] = pair_node
     inv = seg.inv.numpy()
@@ -136,20 +175,19 @@ def _compact_from_pairs(pair_rel, pair_node, inverse, E: int,
     edge_map[:E] = inv[inverse]
     # real edges ordered by compact row, padding appended past
     # edge_row_ptr[-1], where the segment sum never reads
-    edge_sort = counting_argsort(edge_map[:E])
+    edge_sort = hs.counting_argsort(edge_map[:E], seg.n_rows)
     edge_sort_perm = np.concatenate(
         [edge_sort, np.arange(E, num_padded_edges, dtype=np.int64)]
     )
     edge_row_ptr = np.zeros(seg.n_rows + 1, dtype=np.int64)
-    np.cumsum(np.bincount(edge_map[:E], minlength=seg.n_rows),
-              out=edge_row_ptr[1:])
+    np.cumsum(hs.bincount(edge_map[:E], seg.n_rows), out=edge_row_ptr[1:])
     # compact rows ordered by node id; padding rows sort past
     # node_row_ptr[-1]
     real_node = seg.row_valid.numpy() & (node_ids < num_nodes)
     node_key = np.where(real_node, node_ids, num_nodes)
-    node_sort_perm = counting_argsort(node_key)
+    node_sort_perm = hs.counting_argsort(node_key, num_nodes + 1)
     node_row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.cumsum(np.bincount(node_ids[real_node], minlength=num_nodes),
+    np.cumsum(hs.bincount(node_ids[real_node], num_nodes),
               out=node_row_ptr[1:])
     return CompactInfo(
         seg=seg,
@@ -166,23 +204,26 @@ def _build_compact_union(rel: np.ndarray, src: np.ndarray, dst: np.ndarray,
                          num_nodes: int, num_rels: int, tile: int,
                          num_padded_edges: int,
                          force_rows: Optional[int] = None,
-                         force_pairs: Optional[int] = None):
+                         force_pairs: Optional[int] = None,
+                         sorts: str = "native"):
     """Union-list compact rows (the reference's default ``Enabled``
     kind): one unique (relation, node) row space over the sources and the
     destinations together, returned as a (source view, destination view)
     pair over the same padded rows.  One projection a union row then
     serves both attention sides.  Needs one node space."""
     E = int(rel.shape[0])
-    pair_rel, pair_node, inverse = unique_pairs(
-        np.concatenate([rel, rel]), np.concatenate([src, dst]), num_nodes)
+    pair_rel, pair_node, inverse = _sorts(sorts).unique_pairs(
+        np.concatenate([rel, rel]), np.concatenate([src, dst]), num_nodes,
+        num_rels)
     info_src = _compact_from_pairs(pair_rel, pair_node, inverse[:E], E,
                                    num_nodes, num_rels, tile,
-                                   num_padded_edges, force_rows, force_pairs)
+                                   num_padded_edges, force_rows, force_pairs,
+                                   sorts=sorts)
     info_dst = _compact_from_pairs(None, None, inverse[E:], E, num_nodes,
                                    num_rels, tile, num_padded_edges, None,
                                    None, seg=info_src.seg,
                                    node_ids=info_src.node_ids.numpy()
-                                   .astype(np.int64))
+                                   .astype(np.int64), sorts=sorts)
     return info_src, info_dst
 
 
@@ -209,7 +250,8 @@ def _canonical_runs(c_dst: np.ndarray, c_rel: np.ndarray,
     return _i32(canon_ptr), _i32(to_run)
 
 
-def _node_types(num_nodes, ntype_offsets, node_ntype, tile, force_rows):
+def _node_types(num_nodes, ntype_offsets, node_ntype, tile, force_rows,
+                sorts):
     """``ntype_offsets``, the type count and ``ntype_seg``: node types from
     contiguous id ranges, or from an explicit per-node array (a shard's
     destination range may span type boundaries)."""
@@ -228,7 +270,7 @@ def _node_types(num_nodes, ntype_offsets, node_ntype, tile, force_rows):
         for t in range(num_ntypes):
             node_ntype[ntype_offsets[t]: ntype_offsets[t + 1]] = t
     ntype_seg = build_segments(node_ntype, num_ntypes, tile,
-                               force_rows=force_rows)
+                               force_rows=force_rows, sorts=sorts)
     return ntype_offsets, num_ntypes, ntype_seg
 
 
@@ -247,6 +289,7 @@ def build_heterograph(
     force_sizes: Optional[Dict[str, int]] = None,
     src_space: Optional[int] = None,
     node_ntype: Optional[np.ndarray] = None,
+    sorts: str = "native",
 ) -> HeteroGraph:
     """Build a :class:`HeteroGraph` from COO arrays in any edge order.
 
@@ -259,7 +302,8 @@ def build_heterograph(
     (keys as ``het_tpu_torch.parallel.partition._force_size_keys``).
     ``compact_union`` builds the union-list compact kind: ``compact_src``
     and ``compact_dst`` are two views of one row space
-    (``compact_shared``)."""
+    (``compact_shared``).  ``sorts`` is "native" (the host library) or
+    "plain" (numpy); the graph is the same."""
     src = np.asarray(src).astype(np.int64).ravel()
     dst = np.asarray(dst).astype(np.int64).ravel()
     rel = np.asarray(rel).astype(np.int64).ravel()
@@ -279,8 +323,12 @@ def build_heterograph(
     if max(num_nodes, src_space) >= 2**31 or E >= 2**31:
         raise ValueError("graph too large for int32 indices")
     force = force_sizes or {}
+    hs = _sorts(sorts)
 
-    order = canonical_sort(src, dst, rel)
+    # the canonical sort's key bound: a shard's sources index its source
+    # space
+    order = hs.canonical_sort(src, dst, rel, max(num_nodes, src_space),
+                              num_rels)
     c_src, c_dst, c_rel = src[order], dst[order], rel[order]
 
     EP = max(round_up(E, EDGE_PAD), EDGE_PAD) + EDGE_EXTRA
@@ -291,14 +339,15 @@ def build_heterograph(
     p_rel = np.concatenate([c_rel, np.zeros(pad, dtype=np.int64)])
     p_eid = np.concatenate([order, np.zeros(pad, dtype=np.int64)])
 
-    in_deg = np.bincount(c_dst, minlength=num_nodes).astype(np.int64)
-    out_deg = np.bincount(c_src, minlength=src_space).astype(np.int64)
+    in_deg = hs.bincount(c_dst, num_nodes).astype(np.int64)
+    out_deg = hs.bincount(c_src, src_space).astype(np.int64)
     in_row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(in_deg, out=in_row_ptr[1:])
 
     # src-sorted canonical positions; padding slots point at padding edges
     out_perm = np.concatenate(
-        [counting_argsort(c_src), np.arange(E, EP, dtype=np.int64)]
+        [hs.counting_argsort(c_src, src_space + 1),
+         np.arange(E, EP, dtype=np.int64)]
     )
     out_row_ptr = np.zeros(src_space + 1, dtype=np.int64)
     np.cumsum(out_deg, out=out_row_ptr[1:])
@@ -306,7 +355,8 @@ def build_heterograph(
     # relation segments cover every padded edge slot (padding edges go to
     # relation 0 and are marked invalid)
     edge_rel_seg = build_segments(p_rel, num_rels, tile,
-                                  force_rows=force.get("edge_rel_rows"))
+                                  force_rows=force.get("edge_rel_rows"),
+                                  sorts=sorts)
     erv = edge_rel_seg.row_valid.numpy() & (
         p_src[edge_rel_seg.perm.numpy()] < src_space
     )
@@ -315,7 +365,8 @@ def build_heterograph(
     )
 
     ntype_offsets, num_ntypes, ntype_seg = _node_types(
-        num_nodes, ntype_offsets, node_ntype, tile, force.get("ntype_rows"))
+        num_nodes, ntype_offsets, node_ntype, tile, force.get("ntype_rows"),
+        sorts)
 
     compact_src = compact_dst = None
     if build_compact and compact_union:
@@ -326,16 +377,16 @@ def build_heterograph(
         compact_src, compact_dst = _build_compact_union(
             c_rel, c_src, c_dst, num_nodes, num_rels, tile, EP,
             force_rows=force.get("compact_src_rows"),
-            force_pairs=force.get("compact_src_pairs"))
+            force_pairs=force.get("compact_src_pairs"), sorts=sorts)
     elif build_compact:
         compact_src = _build_compact(
             c_rel, c_src, src_space, num_rels, tile, EP,
             force_rows=force.get("compact_src_rows"),
-            force_pairs=force.get("compact_src_pairs"))
+            force_pairs=force.get("compact_src_pairs"), sorts=sorts)
         compact_dst = _build_compact(
             c_rel, c_dst, num_nodes, num_rels, tile, EP,
             force_rows=force.get("compact_dst_rows"),
-            force_pairs=force.get("compact_dst_pairs"))
+            force_pairs=force.get("compact_dst_pairs"), sorts=sorts)
     if build_compact:
         canon_ptr, canon_to_row = _canonical_runs(c_dst, c_rel, compact_dst)
         compact_dst = dataclasses.replace(compact_dst, canon_ptr=canon_ptr,

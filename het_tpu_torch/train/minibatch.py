@@ -10,10 +10,14 @@ a subgraph padded to fixed sizes, the table's rows of its nodes are
 gathered (``ops.common.sorted_gather``, whose backward is one sorted
 segment sum over a host counting sort of ``node_map``: no atomic
 scatter), the model runs on the subgraph and the loss is the NLL of the
-seeds' logits.  As in het_tpu the model is built on the full graph,
-trains with no dropout (het_tpu's step applies the model
-deterministically), and a batch's padding nodes read row 0 and add zero
-rows to it.
+seeds' logits.  The draws, the subgraphs' sorts and the table's counting
+sort run in the port's host library (``graph/native.py``), and the
+sampler's generator is consumed as het_tpu's trainer consumes it (one
+draw a batch: the training batches, then the accuracy batches), so both
+trainers see the same batches from one ``seed``.  As in het_tpu the
+model is built on the full graph, trains with no dropout (het_tpu's step
+applies the model deterministically), and a batch's padding nodes read
+row 0 and add zero rows to it.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..data.loaders import Dataset, load_dataset
 from ..data.sampling import NeighborSampler
+from ..graph import native
 from ..graph.build import round_up
 from ..ops.common import sorted_gather, take_rows
 from ..utils.misc import EarlyStopping, nll_loss, resolve_device
@@ -50,10 +55,10 @@ def minibatch_pads(cfg: TrainConfig):
 def table_sort(node_map: np.ndarray, num_rows: int):
     """``(ptr, perm)`` of a gather of the table rows ``node_map``: the
     gathered rows stably sorted by table row and the start of each row's
-    group, as int32 tensors (a host counting sort)."""
+    group, as int32 tensors (the host library's counting sort)."""
     ptr = np.zeros(num_rows + 1, dtype=np.int64)
-    np.cumsum(np.bincount(node_map, minlength=num_rows), out=ptr[1:])
-    perm = np.argsort(node_map, kind="stable")
+    np.cumsum(native.bincount(node_map, num_rows), out=ptr[1:])
+    perm = native.counting_argsort(node_map, num_rows)
     return (torch.from_numpy(ptr.astype(np.int32)),
             torch.from_numpy(perm.astype(np.int32)))
 
@@ -75,9 +80,9 @@ class Batch:
 def make_batch(sampler: NeighborSampler, seeds: np.ndarray,
                cfg: TrainConfig, num_rows: int, device: torch.device,
                grad: bool = True) -> Batch:
-    """Draw, build (with the table gather's sort where ``grad``) and copy
-    one batch to ``device``, each part timed on the host clock (the copy
-    up to the card's end of it)."""
+    """Draw (in the host library), build (with the table gather's sort
+    where ``grad``) and copy one batch to ``device``, each part timed on
+    the host clock (the copy up to the card's end of it)."""
     pad_edges, pad_nodes = minibatch_pads(cfg)
     t0 = time.perf_counter()
     drawn = sampler.draw(seeds, max_edges=pad_edges, max_nodes=pad_nodes)

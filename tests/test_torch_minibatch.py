@@ -1,20 +1,26 @@
 """The port's minibatch trainer (``het_tpu_torch/train/minibatch.py``)
 against het_tpu's ``train_minibatch``, from het_tpu's initial parameters
 (``PRNGKey(seed)``: the table from its first split, ``model.init`` from
-the second) carried over by ``params_from_jax``, on the same batches:
-het_tpu's ``NeighborSampler`` is replaced (``monkeypatch``, no file
-edited) by one whose ``sample`` takes the port's draws through het_tpu's
-own ``_finalize``.  het_tpu's fwd/bwd timing (``op_time_ms``) is stubbed
-out: it times, and changes nothing.  Compared: the losses batch for
-batch, then ``train_acc``, ``test_acc`` and ``embed_trained_delta``, at
-rtol 1e-4 / atol 2e-4, for compact multiply-first RGAT, plain RGAT and
-RGCN on the aifb stand-in at 0.02 (batch 32, fanout 4, tile 8, 3
-batches).  Also: HGT and GAT train, ``--patience`` stops on the epochs'
-mean losses, the flags het_tpu drops raise, and the CLI's
-``--minibatch`` prints het_tpu's keys."""
+the second) carried over by ``params_from_jax``, on the same batches.
+Both trainers draw natively (the port's host library and het_tpu's
+``native/graphops.cpp`` share one random stream), so the port's trainer
+is held to het_tpu's unpatched ``train_minibatch`` (compact
+multiply-first RGAT), every batch's ``node_map`` too.  The plain draw is
+held the same way: het_tpu's ``NeighborSampler`` is replaced
+(``monkeypatch``, no file edited) by one whose ``sample`` takes the
+port's ``draw_plain`` through het_tpu's own ``_finalize``, and the port's
+trainer draws with ``draw_plain`` too; there het_tpu's fwd/bwd timing
+(``op_time_ms``) is stubbed out: it times, and changes nothing.
+Compared: the losses batch for batch, then ``train_acc``, ``test_acc``
+and ``embed_trained_delta``, at rtol 1e-4 / atol 2e-4, for compact
+multiply-first RGAT, plain RGAT and RGCN on the aifb stand-in at 0.02
+(batch 32, fanout 4, tile 8, 3 batches).  Also: HGT and GAT train,
+``--patience`` stops on the epochs' mean losses, the flags het_tpu drops
+raise, and the CLI's ``--minibatch`` prints het_tpu's keys."""
 
 import json
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ import pytest
 
 from het_tpu.data import load_dataset as j_load_dataset
 from het_tpu.data.sampling import NeighborSampler as JSampler
+from het_tpu.graph import native as j_native
 from het_tpu.train import TrainConfig as JTrainConfig
 from het_tpu.train import minibatch as j_minibatch
 from het_tpu.train.driver import build_model as j_build_model
@@ -48,8 +55,8 @@ HET_KEYS = ("task", "loss_list", "n_batches", "wall_s", "sample_wall_s",
 
 
 class _PortDraws(JSampler):
-    """het_tpu's sampler drawing through the port's ``draw`` (seeded as
-    the port's trainer seeds its sampler) and building through its own
+    """het_tpu's sampler drawing through the port's ``draw_plain`` (seeded
+    as the port's trainer seeds its sampler) and building through its own
     ``_finalize``."""
 
     def __init__(self, src, dst, rel, num_nodes, num_rels, **kw):
@@ -59,8 +66,8 @@ class _PortDraws(JSampler):
 
     def sample(self, seeds, *, tile=8, pad_edges_to=None, pad_nodes_to=None,
                build_compact=False):
-        drawn = self.port.draw(seeds, max_edges=pad_edges_to,
-                               max_nodes=pad_nodes_to)
+        drawn = self.port.draw_plain(seeds, max_edges=pad_edges_to,
+                                     max_nodes=pad_nodes_to)
         return self._finalize(*drawn, tile, pad_edges_to, pad_nodes_to,
                               build_compact)
 
@@ -85,19 +92,33 @@ def _port_data(cfg):
                         tile=cfg.tile, build_compact=False)
 
 
-@pytest.mark.parametrize("family", list(FAMILIES))
-def test_minibatch_matches_het_tpu(monkeypatch, family):
-    shared = dict(SHARED, **FAMILIES[family])
-    jcfg = JTrainConfig(**shared)
-    jdata = j_load_dataset(jcfg.dataset, scale=jcfg.dataset_scale,
-                           num_classes=jcfg.num_classes, seed=jcfg.seed,
-                           tile=jcfg.tile, build_compact=jcfg.compact)
-    state = _jax_initial_state(jcfg, jdata)
-    monkeypatch.setattr(j_minibatch, "NeighborSampler", _PortDraws)
-    monkeypatch.setattr("het_tpu.utils.timing.op_time_ms",
-                        lambda *a, **k: 0.0)
-    jm = j_minibatch.train_minibatch(jcfg, jdata)
+def het_tpu_native_loaded():
+    """True once het_tpu's native library is loaded.  Its loader builds
+    the library with ``make`` and gives up for good, falling back to its
+    Python sampler, when the load fails; a load can fail while another
+    test process is writing the same library, so try again."""
+    for _ in range(5):
+        if j_native.available():
+            return True
+        j_native._TRIED = False
+        time.sleep(2)
+    return False
 
+
+class _Recorded(JSampler):
+    """het_tpu's sampler as it is, recording each batch's ``node_map``."""
+
+    maps = []
+
+    def sample(self, seeds, **kw):
+        sub, node_map = super().sample(seeds, **kw)
+        self.maps.append(node_map)
+        return sub, node_map
+
+
+def _compare(shared, jm, state):
+    """The port's trainer from ``state`` against het_tpu's metrics
+    ``jm``."""
     cfg = TrainConfig(**shared, device="cpu")
     m = train_minibatch(cfg, _port_data(cfg), state=state,
                         log=lambda s: None)
@@ -108,6 +129,56 @@ def test_minibatch_matches_het_tpu(monkeypatch, family):
         np.testing.assert_allclose(m[key], jm[key], err_msg=key, **VAL)
     assert m["embed_trained_delta"] > 0
     assert len(m["build_ms_list"]) == len(m["copy_ms_list"]) == 3
+
+
+def _jax_side(shared):
+    jcfg = JTrainConfig(**shared)
+    jdata = j_load_dataset(jcfg.dataset, scale=jcfg.dataset_scale,
+                           num_classes=jcfg.num_classes, seed=jcfg.seed,
+                           tile=jcfg.tile, build_compact=jcfg.compact)
+    return jcfg, jdata, _jax_initial_state(jcfg, jdata)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_minibatch_matches_het_tpu(monkeypatch, family):
+    """The plain draw: both trainers draw with the port's
+    ``draw_plain``."""
+    shared = dict(SHARED, **FAMILIES[family])
+    jcfg, jdata, state = _jax_side(shared)
+    monkeypatch.setattr(j_minibatch, "NeighborSampler", _PortDraws)
+    monkeypatch.setattr("het_tpu.utils.timing.op_time_ms",
+                        lambda *a, **k: 0.0)
+    jm = j_minibatch.train_minibatch(jcfg, jdata)
+    monkeypatch.setattr(NeighborSampler, "draw", NeighborSampler.draw_plain)
+    _compare(shared, jm, state)
+
+
+def test_minibatch_matches_unpatched_het_tpu(monkeypatch):
+    """Both trainers as they are, drawing natively from one seed: the
+    same batches, training and accuracy ones in the same order (fanout 4
+    is below most in-degrees of the stand-in, so the draws are random),
+    the same losses.  Each side's batches are only recorded: het_tpu's
+    sampler through a subclass that calls its ``sample``, the port's
+    through a wrapper of its ``draw``."""
+    assert het_tpu_native_loaded()
+    shared = dict(SHARED, **FAMILIES["compact-multiply-first"])
+    jcfg, jdata, state = _jax_side(shared)
+    monkeypatch.setattr(_Recorded, "maps", [])
+    monkeypatch.setattr(j_minibatch, "NeighborSampler", _Recorded)
+    jm = j_minibatch.train_minibatch(jcfg, jdata)
+    drawn, draw = [], NeighborSampler.draw
+
+    def recorded_draw(self, seeds, **kw):
+        out = draw(self, seeds, **kw)
+        drawn.append(out[3])
+        return out
+
+    monkeypatch.setattr(NeighborSampler, "draw", recorded_draw)
+    _compare(shared, jm, state)
+    assert len(drawn) == len(_Recorded.maps) > 3
+    for t_map, j_map in zip(drawn, _Recorded.maps):
+        np.testing.assert_array_equal(j_map[:len(t_map)], t_map)
+        assert (j_map[len(t_map):] == 0).all()
 
 
 @pytest.mark.parametrize("model", ["HGT", "GAT"])

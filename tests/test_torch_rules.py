@@ -228,3 +228,42 @@ def test_parallel_modules_follow_the_rules(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dp.setup_rank(0, 1, init_method="file:///nonexistent/rendezvous")
     assert not torch.distributed.is_initialized()
+
+
+def test_port_builds_its_own_host_library():
+    """No file of the port names het_tpu's native library
+    (``libhetgraphops``) or loads anything from ``native/``: only
+    ``ops/kernels/_build.py`` loads a library, from the package's own
+    build directory, and the host library it loads is the port's."""
+    from het_tpu_torch.graph import native
+    from het_tpu_torch.ops.kernels import _build
+
+    pkg = os.path.join(ROOT, "het_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, dirs, names in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        files += [os.path.join(d, f) for f in names]
+    assert any(f.endswith("graphops.cpp") for f in files)
+    loaders = ("CDLL", "LoadLibrary", "dlopen", "PyDLL")
+    for path in files:
+        with open(path, errors="replace") as f:
+            text = f.read()
+        assert "libhetgraphops" not in text, path
+        if not path.endswith(".py"):
+            continue
+        for node in ast.walk(ast.parse(text, path)):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert "native/" not in node.value, (path, node.value)
+            if isinstance(node, ast.Call):
+                fn = node.func
+                name = getattr(fn, "attr", getattr(fn, "id", ""))
+                if name in loaders:
+                    assert path.endswith(os.path.join("kernels", "_build.py")
+                                         ), (path, name)
+                if name == "join":
+                    assert not any(isinstance(a, ast.Constant)
+                                   and a.value == "native"
+                                   for a in node.args), path
+    lib = native.library()
+    assert os.path.dirname(lib._name) == _build.BUILD_DIR
+    assert _build.BUILD_DIR.startswith(pkg + os.sep)

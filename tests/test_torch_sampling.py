@@ -1,11 +1,13 @@
 """The port's neighbour sampler (``het_tpu_torch/data/sampling.py``)
 against het_tpu's ``NeighborSampler`` and the native sampler's contract.
 
-Where the fanout reaches every in-degree a draw is deterministic, so the
-port's draw and build must give het_tpu's ``sample`` field for field,
-``node_map`` too.  With random draws the contract of
-``tests/test_train.py::test_native_sampler_contract`` holds, and each
-node's sampled in-edges are distinct in-edges of it, at most ``fanout``.
+The port's ``draw`` runs in its host library from het_tpu's random
+stream, so ``sample`` gives het_tpu's (native) ``sample`` field for field,
+``node_map`` too, at any fanout.  ``draw_plain``, the numpy version, has
+its own stream: it equals the native draw where the fanout reaches every
+in-degree, and with random draws both keep the contract of
+``tests/test_train.py::test_native_sampler_contract``: each node's
+sampled in-edges are distinct in-edges of it, at most ``fanout``.
 Duplicate seeds are de-duplicated in first-seen order, as the native
 sampler does (het_tpu's Python fallback gives a duplicated seed its last
 index)."""
@@ -18,6 +20,9 @@ from het_tpu.graph import native
 from het_tpu.graph import random_heterograph
 from het_tpu_torch.data.sampling import NeighborSampler
 from tests.test_torch_graph import _assert_same
+from tests.test_torch_minibatch import het_tpu_native_loaded
+
+DRAWS = ("draw", "draw_plain")
 
 
 def _edges(seed=5, n=60, e=300, r=3):
@@ -57,14 +62,15 @@ def test_caps_match_native(caps):
     src, dst, rel, n, r = _edges()
     t = NeighborSampler(src, dst, rel, n, r, fanout=100, num_hops=2)
     seeds = np.asarray([3, 7, 11, 19, 3, 7])
-    got = t.draw(seeds, max_edges=caps[0], max_nodes=caps[1])
-    if native.available():
-        want = native.sample_fanout(t.ptr, t.nbr_src, t.nbr_rel, seeds, 100,
-                                    2, 1, n, *caps)
+    assert het_tpu_native_loaded()
+    want = native.sample_fanout(t.ptr, t.nbr_src, t.nbr_rel, seeds, 100,
+                                2, 1, n, *caps)
+    for draw in DRAWS:
+        got = getattr(t, draw)(seeds, max_edges=caps[0], max_nodes=caps[1])
         for a, b in zip(got, want):
-            np.testing.assert_array_equal(a, b)
-    es, _, _, node_map = got
-    assert len(es) <= caps[0] and len(node_map) <= caps[1]
+            np.testing.assert_array_equal(a, b, err_msg=draw)
+        es, _, _, node_map = got
+        assert len(es) <= caps[0] and len(node_map) <= caps[1]
 
 
 @pytest.mark.parametrize("fanout,hops", [(3, 2), (1, 3), (5, 1)])
@@ -74,8 +80,8 @@ def test_random_draw_contract(fanout, hops):
     t = NeighborSampler(src, dst, rel, n, r, fanout=fanout, num_hops=hops,
                         seed=1)
     seeds = np.asarray([3, 7, 11, 19])
-    for _ in range(3):
-        es, ed, er, node_map = t.draw(seeds)
+    for draw in DRAWS * 3:
+        es, ed, er, node_map = getattr(t, draw)(seeds)
         assert list(node_map[:len(seeds)]) == list(seeds)
         assert len(np.unique(node_map)) == len(node_map)
         triples = [(int(node_map[a]), int(node_map[b]), int(k))
@@ -106,13 +112,15 @@ def test_uniform_choice():
     dst = np.zeros(6, dtype=np.int64)
     t = NeighborSampler(src, dst, np.zeros(6), 7, 1, fanout=2, num_hops=1,
                         seed=3)
-    counts = np.zeros(7)
     trials = 3000
-    for _ in range(trials):
-        es, ed, _, node_map = t.draw(np.asarray([0]))
-        assert len(es) == 2 and len(set(node_map[es])) == 2
-        counts[node_map[es]] += 1
-    np.testing.assert_allclose(counts[1:] / trials, 1 / 3, atol=0.04)
+    for draw in DRAWS:
+        counts = np.zeros(7)
+        for _ in range(trials):
+            es, ed, _, node_map = getattr(t, draw)(np.asarray([0]))
+            assert len(es) == 2 and len(set(node_map[es])) == 2
+            counts[node_map[es]] += 1
+        np.testing.assert_allclose(counts[1:] / trials, 1 / 3, atol=0.04,
+                                   err_msg=draw)
 
 
 def test_duplicate_seeds():
@@ -121,15 +129,40 @@ def test_duplicate_seeds():
     src, dst, rel, n, r = _edges()
     fanout = int(np.bincount(dst, minlength=n).max())
     t = NeighborSampler(src, dst, rel, n, r, fanout=fanout, num_hops=2)
-    dup = t.draw(np.asarray([1, 2, 3, 1, 1]))
-    once = t.draw(np.asarray([1, 2, 3]))
-    for a, b in zip(dup, once):
-        np.testing.assert_array_equal(a, b)
-    assert list(dup[3][:3]) == [1, 2, 3]
-    assert len(np.unique(dup[3])) == len(dup[3])
-    if native.available():
-        want = native.sample_fanout(t.ptr, t.nbr_src, t.nbr_rel,
-                                    np.asarray([1, 2, 3, 1, 1]), fanout, 2,
-                                    0, n, 10 ** 6, 10 ** 6)
-        for a, b in zip(dup, want):
-            np.testing.assert_array_equal(a, b)
+    assert het_tpu_native_loaded()
+    want = native.sample_fanout(t.ptr, t.nbr_src, t.nbr_rel,
+                                np.asarray([1, 2, 3, 1, 1]), fanout, 2,
+                                0, n, 10 ** 6, 10 ** 6)
+    for draw in DRAWS:
+        dup = getattr(t, draw)(np.asarray([1, 2, 3, 1, 1]))
+        once = getattr(t, draw)(np.asarray([1, 2, 3]))
+        for a, b, c in zip(dup, once, want):
+            np.testing.assert_array_equal(a, b, err_msg=draw)
+            np.testing.assert_array_equal(a, c, err_msg=draw)
+        assert list(dup[3][:3]) == [1, 2, 3]
+        assert len(np.unique(dup[3])) == len(dup[3])
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_random_sample_matches_het_tpu(compact):
+    """At a fanout below most in-degrees, the same ``seed`` and the same
+    calls, the port's ``sample`` gives het_tpu's native ``sample`` batch
+    for batch, field for field, ``node_map`` included."""
+    assert het_tpu_native_loaded()
+    src, dst, rel, n, r = _edges(seed=9, n=80, e=900)
+    assert np.median(np.bincount(dst, minlength=n)) > 3
+    kw = dict(fanout=3, num_hops=2, seed=11)
+    j, t = JSampler(src, dst, rel, n, r, **kw), NeighborSampler(
+        src, dst, rel, n, r, **kw)
+    for seeds in ([3, 7, 11, 19, 42], [0, 5, 5, 64], [79]):
+        seeds = np.asarray(seeds)
+        sizes = dict(tile=8, build_compact=compact, pad_edges_to=2048,
+                     pad_nodes_to=128)
+        j_sub, j_map = j.sample(seeds, **sizes)
+        t_sub, t_map = t.sample(seeds, **sizes)
+        np.testing.assert_array_equal(t_map, j_map)
+        _assert_same(t_sub, j_sub, "sub")
+    # the draws were random: a draw from another seed differs
+    other = NeighborSampler(src, dst, rel, n, r, **dict(kw, seed=12))
+    assert not np.array_equal(other.draw(np.asarray([3, 7, 11]))[0],
+                              t.draw(np.asarray([3, 7, 11]))[0])
