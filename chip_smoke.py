@@ -155,7 +155,18 @@ Phases, each of which fails the run:
    of plain HGT (halo "boundary", one partition),
    through the kernels and the plain versions, each held per step to the
    other and to a single-process run on the unpartitioned graph, with
-   each kernel's launches a step a rank.
+   each kernel's launches a step a rank;
+6. the benchmark entry points (``het_tpu_torch.bench``): ``bench.step``
+   (``bench.py``'s 1-layer RGAT forward + backward on synthetic
+   ogbn-mag at 0.018, six variants: plain and kernels, with neither
+   flag, compact multiply-first, and compact multiply-first in bf16),
+   its JSON line, each kernel variant held to its plain variant at its
+   first step, each share of the step's bounds in (0, 100] and each
+   variant's launches a step (kernels 1 and 7); then ``bench.models``,
+   ``bench.infer``, ``bench.compiled``, ``bench.sweep``,
+   ``bench.fullscale`` (at 0.1), ``bench.segmm_strategies`` and
+   ``bench.skew`` once each at their smallest form, each row's kernel
+   held to its plain version, and the phase's seconds.
 
 The last two lines are a JSON object of per-kernel numbers (the bf16
 instantiations as ``seg_sum_sorted[bf16->f32]``, ``seg_sum_sorted[bf16->
@@ -169,9 +180,15 @@ import dataclasses
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
+
+# the package beside the script: without it the run fails here
+from het_tpu_torch.bench.common import card_line as _card_line
+from het_tpu_torch.bench.common import seeded_state as _initial_state
+from het_tpu_torch.bench.common import time_call_ms
+from het_tpu_torch.utils.misc import exact_matmuls
+from het_tpu_torch.utils.profiling import H100_SXM, device_peaks
 
 # the training configuration (het_tpu's widths, 2 layers)
 HEADS, IN_FEAT, HIDDEN, CLASSES, LAYERS = 4, 64, 64, 8, 2
@@ -180,9 +197,10 @@ STEPS, SHORT_STEPS = 5, 2
 # warm-up; its default is 5): a training run launches every kernel
 # (WARMUP + steps) times its launches a step
 WARMUP = 2
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# the H100 SXM's data-sheet peaks, the port's one row of them
+HBM_BYTES_PER_S = H100_SXM["hbm_gbps"] * 1e9
+F32_FLOP_PER_S = H100_SXM["f32_tflops"] * 1e12  # outside the tensor cores
+BF16_FLOP_PER_S = H100_SXM["bf16_tflops"] * 1e12  # tensor cores, dense
 TOL_RTOL = 1e-5  # f32 sums in another order
 # segment_matmul_dw: |kernel - plain| <= DW_TOL * sum |x| |ct| per output.
 # f32 sums in another order stay far inside it; products of inputs rounded
@@ -531,39 +549,11 @@ def _check_shape_count(kernel, shapes_per_run):
                                  f"{run}, {want} launches asserted")
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    if not out:
-        raise RuntimeError("nvidia-smi printed no card")
-    return out[0].strip()
-
-
 def _time_ms(fn, reps, flush):
-    """Median ms of ``fn`` over ``reps`` launches, each timed with CUDA
-    events after overwriting a buffer larger than the L2 cache, so every
-    launch reads its inputs from device memory.  A spin of about 0.1 ms
-    on the card before each start event gives the host time to enqueue
-    ``fn``, so the time is the card's and not the host's latency."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(200_000)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+    """Median ms of ``fn`` over ``reps`` single launches, each after
+    ``flush`` is overwritten and a spin on the card
+    (``bench.common.time_call_ms``)."""
+    return time_call_ms(fn, flush.device, reps, flush)
 
 
 def _dims(classes=CLASSES):
@@ -2212,32 +2202,6 @@ def check_dp(data, parts, dev, card):
 # ------------------------------------------------------------------ training
 
 
-def _initial_state(net, seed=0):
-    """Initial parameters from a numpy seed: embeddings uniform on [0, 1),
-    weights Glorot-uniform (flax's fan convention), biases zero, HGT's
-    ``relation_pri`` (the compiled model's ``rel_pri``) and ``skip`` one
-    (as flax initializes them)."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    state = {}
-    for name, p in net.state_dict().items():
-        shape = tuple(p.shape)
-        if name == "embed.embed":
-            a = rng.uniform(0.0, 1.0, shape)
-        elif name.endswith(("h_bias", ".bias")):
-            a = np.zeros(shape)
-        elif name.endswith((".relation_pri", ".rel_pri", ".skip")):
-            a = np.ones(shape)
-        else:
-            rf = math.prod(shape[:-2])
-            lim = math.sqrt(6.0 / ((shape[-2] + shape[-1]) * rf))
-            a = rng.uniform(-lim, lim, shape)
-        state[name] = torch.from_numpy(a.astype(np.float32))
-    return state
-
-
 class _PackedCalls:
     """Counts the model's calls of the packed-form fused op while in its
     ``with`` block, so that a run can show which form it took."""
@@ -3415,6 +3379,81 @@ def check_full_scale(dev, card):
     return launches, by_dtype, totals
 
 
+# ---------------------------------------------------------------- bench
+
+# bench.step's timed steps (after its warm-up) a variant
+BENCH_WARMUP, BENCH_STEPS = 3, 10
+
+
+def check_bench(dev, card):
+    """The benchmark entry points (``het_tpu_torch.bench``).  First
+    ``bench.step`` at its default scale, the counts set to 0 just before
+    and read just after: its JSON line, all six variants, each kernel
+    variant held at its first step to its plain variant (``step.run``
+    raises otherwise), each share of the step's bounds in (0, 100], the
+    launches a step of each variant equal to ``step.LAUNCHES_A_STEP``
+    (none for the plain ones) and the run's counts their sum over its
+    steps.  Then each other module once at its smallest form, one case
+    each and ``bench.fullscale`` at 0.1; each raises where its kernel
+    disagrees with its plain version (the sweep records it: a failed case
+    fails the run here).  Prints the phase's seconds."""
+    from het_tpu_torch.bench import (compiled, fullscale, infer, models,
+                                     segmm_strategies, skew, step, sweep)
+    from het_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    res = step.run(step.DEFAULT_SCALE, str(dev), warmup=BENCH_WARMUP,
+                   steps=BENCH_STEPS)
+    counts = kernels.launch_counts()
+    print("bench.step:", json.dumps(res))
+    d = res["detail"]
+    missing = [n for n in step.VARIANTS if f"t_{n}_ms" not in d]
+    if missing:
+        raise AssertionError(f"bench.step: variants {missing} did not run")
+    held = {n for n in step.VARIANTS if n.startswith("kernel")}
+    if set(d["kernel_vs_plain_max_rel"]) != held:
+        raise AssertionError(f"bench.step: held {d['kernel_vs_plain_max_rel']}")
+    for name, shares in d["shares"].items():
+        for key, pct in shares.items():
+            if not 0.0 < pct <= 100.0:
+                raise AssertionError(f"bench.step {name}: {key} {pct}")
+    if len(d["shares"]) != 4:
+        raise AssertionError(f"bench.step: shares of {sorted(d['shares'])}")
+    want = {k: 0 for k in counts}
+    for name in step.VARIANTS:
+        per = step.LAUNCHES_A_STEP.get(name, {})
+        if d["launches_a_step"][name] != per:
+            raise AssertionError(f"bench.step {name}: launched "
+                                 f"{d['launches_a_step'][name]} a step, "
+                                 f"expected {per}")
+        for k, n in per.items():
+            want[k] += n * (1 + BENCH_WARMUP + BENCH_STEPS)
+    if counts != want:
+        raise AssertionError(f"bench.step: launched {counts}, expected "
+                             f"{want}")
+    print(f"bench.step ({card}): value {res['value']:.1f} edges/s, "
+          f"vs_baseline {res['vs_baseline']:.3f}, strict / traffic shares "
+          f"f32 {d['pct_of_roofline_strict_f32']:.3f}% / "
+          f"{d['pct_of_traffic_bound_f32']:.3f}%, bf16 "
+          f"{d['pct_of_roofline_strict_bf16']:.3f}% / "
+          f"{d['pct_of_traffic_bound_bf16']:.3f}%")
+    t1 = time.perf_counter()
+    dev = str(dev)
+    models.run(device=dev, cases=("RGAT+flags",))
+    infer.run(device=dev, cases=("RGAT+flags",))
+    compiled.run(device=dev, cases=("rgat+flags",))
+    rows = sweep.run("quick", device=dev, max_cases=1)
+    if rows[-1]["failed"]:
+        raise AssertionError(f"bench.sweep: {rows[:-1]}")
+    fullscale.run(0.1, dev)
+    segmm_strategies.run(dev, cases=("mag_like",))
+    skew.run(dev, kinds=("one_hub",))
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s (bench.step "
+          f"{t1 - t0:.1f} s, the other modules {time.perf_counter() - t1:.1f}"
+          " s)")
+
+
 def main() -> int:
     import torch
 
@@ -3424,18 +3463,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
-    # the package is imported only now: without it the run fails here
     from het_tpu_torch.data.loaders import load_dataset
     from het_tpu_torch.ops.kernels import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # cuBLAS reduces bf16 products in bf16 unless told not to; het_tpu's
-    # dots accumulate in f32
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    exact_matmuls()
     dev = torch.device("cuda", 0)
     card = _card_line()
     name = torch.cuda.get_device_name(0)
+    # every bound below counts with the H100 SXM row: another card raises
+    device_peaks(name)
     print(card)  # nvidia-smi's "name, power.limit"
     print(f"device: {name}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -3582,6 +3618,7 @@ def main() -> int:
         entry["launches"] = launches[main][kernel]
         entry["launches_by_run"] = {r: counts[kernel]
                                     for r, counts in launches.items()}
+    check_bench(dev, card)
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

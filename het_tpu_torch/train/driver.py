@@ -27,7 +27,8 @@ from torch import nn
 
 from ..data.loaders import Dataset, load_dataset
 from ..models import GATModel, HGTModel, NodeEmbed, RGATModel, RGCNModel
-from ..utils.misc import EarlyStopping, nll_loss, resolve_device
+from ..utils.misc import (EarlyStopping, exact_matmuls, nll_loss,
+                          resolve_device)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .compiled import build_compiled_model
 from .config import TrainConfig
@@ -170,9 +171,7 @@ def train(
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
     dtype = DTYPES[cfg.dtype]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    exact_matmuls()
     if data is None:
         data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
                             num_classes=cfg.num_classes, seed=cfg.seed,

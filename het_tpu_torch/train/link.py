@@ -34,7 +34,7 @@ from ..data.loaders import Dataset, load_dataset
 from ..graph.build import build_heterograph
 from ..models import NodeEmbed, RGATModel
 from ..ops.common import sorted_gather
-from ..utils.misc import resolve_device
+from ..utils.misc import exact_matmuls, resolve_device
 from .config import TrainConfig
 from .loop import _Clock
 
@@ -161,8 +161,7 @@ def train_link(
     check_link_config(cfg)
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_matmuls()
     if data is None:
         data = load_dataset(cfg.dataset, scale=cfg.dataset_scale,
                             seed=cfg.seed, tile=cfg.tile,

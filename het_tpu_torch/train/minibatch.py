@@ -34,7 +34,8 @@ from ..data.sampling import NeighborSampler
 from ..graph import native
 from ..graph.build import round_up
 from ..ops.common import sorted_gather, take_rows
-from ..utils.misc import EarlyStopping, nll_loss, resolve_device
+from ..utils.misc import (EarlyStopping, exact_matmuls, nll_loss,
+                          resolve_device)
 from .config import TrainConfig
 from .driver import _mean_after_first_quarter, build_model
 from .loop import _Clock
@@ -154,8 +155,7 @@ def train_minibatch(
     check_minibatch_config(cfg)
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_matmuls()
     if data is None:
         # the full graph's compact tables are never read: each subgraph
         # builds its own

@@ -26,6 +26,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def exact_matmuls() -> None:
+    """TF32 off, and cuBLAS's bf16 reductions in f32 (it reduces bf16
+    products in bf16 unless told not to; het_tpu's dots accumulate in
+    f32), as every run of the port trains and measures."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 class EarlyStopping:
     """Stop when the monitored value fails to improve for ``patience``
     checks; keeps the best value and step (a copy of

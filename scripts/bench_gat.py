@@ -29,7 +29,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -39,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import bench_turns  # noqa: E402
 import torch  # noqa: E402
 
+from het_tpu_torch.bench.common import card_line  # noqa: E402
 from het_tpu_torch.ops.kernels import seg_sum_sorted  # noqa: E402
 
 HEADS, HIDDEN = 4, 64
@@ -48,13 +48,6 @@ SUM_RTOL = 1e-5  # the segment sum's limit against its plain version
 WIDTHS = (("GAT l0", 4, 64), ("GAT l1 mag", 1, 8), ("GAT l1 arxiv", 1, 40),
           ("RGAT/HGT l0", 4, 16), ("RGAT/HGT l1", 4, 2))
 TURNS = 2  # of (one, two, two, one)
-
-
-def _card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def _directions(g):
@@ -175,7 +168,7 @@ def main() -> int:
         return 2
     from het_tpu_torch.data.loaders import load_dataset
 
-    card = _card_line()
+    card = card_line()
     print(card)
     dev = torch.device("cuda", 0)
     data = load_dataset("mag", scale=args.scale, num_classes=8, seed=0,

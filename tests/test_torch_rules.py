@@ -13,6 +13,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "het_tpu")
 
 
+def _port_scripts():
+    """The port's scripts under ``scripts/``: those that name its
+    package (het_tpu's own scripts there import ``het_tpu``)."""
+    d = os.path.join(ROOT, "scripts")
+    for f in sorted(os.listdir(d)):
+        path = os.path.join(d, f)
+        if f.endswith(".py"):
+            with open(path) as fh:
+                if "het_tpu_torch" in fh.read():
+                    yield path
+
+
 def _port_files():
     pkg = os.path.join(ROOT, "het_tpu_torch")
     for d, _, files in os.walk(pkg):
@@ -20,6 +32,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from _port_scripts()
 
 
 def _imports(path):
@@ -40,6 +53,47 @@ def test_port_imports_no_jax_and_no_het_tpu():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_port_scripts_and_bench_modules_are_checked():
+    """The import rule walks the bench modules (part of the package) and
+    the port's scripts under ``scripts/``."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for script in ("bench_dw", "bench_fwd", "bench_gat", "bench_minibatch",
+                   "bench_seg_sum", "bench_turns"):
+        assert f"scripts/{script}.py" in names, script
+    for mod in ("common", "step", "models", "infer", "compiled", "sweep",
+                "fullscale", "segmm_strategies", "skew"):
+        assert f"het_tpu_torch/bench/{mod}.py" in names, mod
+    assert "scripts/bench_models.py" not in names  # het_tpu's
+
+
+def _docstrings(tree):
+    """The docstring nodes of a module, its classes and functions."""
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                yield first.value
+
+
+def test_port_writes_nothing_under_docs_and_reads_no_bench_scale():
+    """het_tpu's bench scripts write ``docs/*_r2.json`` / ``*_r5.json``
+    and ``bench.py`` reads ``HET_BENCH_SCALE``; no string the port's code
+    uses (its docstrings aside) names ``docs`` or that variable."""
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        skip = {id(d) for d in _docstrings(tree)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in skip):
+                v = node.value
+                assert "HET_BENCH_SCALE" not in v, (path, v)
+                assert v != "docs" and "docs/" not in v and \
+                    "docs" + os.sep not in v, (path, v)
 
 
 def test_default_device_is_cuda_and_raises_without_gpu(monkeypatch):
