@@ -166,7 +166,18 @@ Phases, each of which fails the run:
    ``bench.infer``, ``bench.compiled``, ``bench.sweep``,
    ``bench.fullscale`` (at 0.1), ``bench.segmm_strategies`` and
    ``bench.skew`` once each at their smallest form, each row's kernel
-   held to its plain version, and the phase's seconds.
+   held to its plain version, and the phase's seconds;
+7. the breakdown phase: ``bench.breakdown --quick`` (``scripts/
+   breakdown.py``'s 16 op rows of bench.py's step and HGT's plain
+   attention at 4 heads, D = 16, on mag at 0.018, each kernel row held to
+   its plain row and timed beside its bound, and the two end-to-end
+   rows), each row's launches a call and the run's counts asserted; then
+   the fused plain HGT attention (``HGTPlainAttention``) under "raw" and
+   "clip" at the breakdown's widths on its graph (host offsets: kernels 1
+   and 7) and on rank 0's shard of the plain data-parallel runs'
+   partition (device offsets: kernels 1, 4, 6 and 7), its output and all five
+   gradients held to the plain versions', its launches asserted, and its
+   ms against the unfused chain's, forward and with every gradient.
 
 The last two lines are a JSON object of per-kernel numbers (the bf16
 instantiations as ``seg_sum_sorted[bf16->f32]``, ``seg_sum_sorted[bf16->
@@ -3454,6 +3465,146 @@ def check_bench(dev, card):
           " s)")
 
 
+# ------------------------------------------------------------ breakdown
+
+HGT_ATTENTION_REPS = 20
+
+
+def check_hgt_plain_attention(graphs, dev, flush, card):
+    """``ops.hgt_plain_attention`` under "raw" and "clip" (the fused
+    ``HGTPlainAttention``) on each of ``graphs`` ({"host": bench.
+    breakdown's graph, "device": rank 0's shard of the plain runs'
+    partition, whose relation offsets live on the card only, as
+    ``dp_hgt_plain``'s edge rows read them}) at the breakdown's widths:
+    on ``bench.breakdown.hgt_inputs``, the kernels' output and the
+    gradients of all five inputs held to the plain versions' (PERF.md §2:
+    rtol 1e-4 of the largest magnitude), the kernels' launches a forward
+    and backward equal to ``HGTPlainAttention.LAUNCHES``; then, under
+    "clip", the fused op's ms against the unfused chain's
+    (``hgt_plain_chain``), forward and with every gradient, in turns, and
+    the peak device memory of a call of each beyond what was allocated
+    before it.  Returns {label: launches}."""
+    import torch
+    from het_tpu_torch import ops
+    from het_tpu_torch.bench.breakdown import hgt_inputs
+    from het_tpu_torch.bench.common import TRAIN_RTOL, check_close, time_call
+    from het_tpu_torch.ops import kernels
+    from het_tpu_torch.ops.fused_agg import HGTPlainAttention
+    from het_tpu_torch.ops.spmm import hgt_plain_chain
+
+    def grads(fn, g, xs, mode, impl, ct):
+        args = [x.detach().requires_grad_() for x in xs]
+        out = fn(g, *args, stable=mode, impl=impl)
+        return [out.detach()] + list(torch.autograd.grad(out, args, ct))
+
+    launches, times = {}, {}
+    for offsets, g in graphs.items():
+        static = g.edge_rel_seg.seg_ptrs_static
+        if (static is None) != (offsets == "device"):
+            raise AssertionError(f"hgt_plain_attention: {offsets} offsets "
+                                 f"{static}")
+        t = hgt_inputs(g, dev)
+        xs = [t[k] for k in ("msg", "q", "k", "watt", "mu")]
+        del t
+        gen = torch.Generator().manual_seed(32)
+        ct = torch.randn(xs[1].shape, generator=gen).to(dev)
+        for mode in ("raw", "clip"):
+            label = f"hgt_plain_attention {offsets} {mode}"
+            before = kernels.launch_counts()
+            got = grads(ops.hgt_plain_attention, g, xs, mode, "kernel", ct)
+            counts = {k: n - before[k] for k, n in
+                      kernels.launch_counts().items() if n > before[k]}
+            if counts != HGTPlainAttention.LAUNCHES[offsets]:
+                raise AssertionError(f"{label}: launched {counts}, expected "
+                                     f"{HGTPlainAttention.LAUNCHES[offsets]}")
+            launches[label.replace(" ", "_")] = counts
+            want = grads(ops.hgt_plain_attention, g, xs, mode, "plain", ct)
+            gaps = [check_close(f"{label} {what}", a, b, TRAIN_RTOL)
+                    for what, a, b in zip(("out", "d_msg", "d_q", "d_k",
+                                           "d_watt", "d_mu"), got, want)]
+            print(f"{label}: kernels against plain versions, worst "
+                  f"{max(gaps):.3g} of rtol (launches {counts})")
+            del got, want
+        # in turns (fused, chain, chain, fused), each side's two medians
+        # averaged; then a call of each alone for its peak memory
+        calls = {"fwd": lambda fn: lambda: fn(g, *xs, stable="clip"),
+                 "fwd_bwd": lambda fn: lambda: grads(fn, g, xs, "clip",
+                                                     "kernel", ct)}
+        sides = {"fused": ops.hgt_plain_attention, "chain": hgt_plain_chain}
+        row = {"host_hidden": True}
+        for kind, call in calls.items():
+            for name in ("fused", "chain", "chain", "fused"):
+                key = f"{name}_{kind}_ms"
+                m = time_call(call(sides[name]), dev, HGT_ATTENTION_REPS,
+                              flush)
+                row[key] = row.get(key, 0.0) + 0.5 * m["ms"]
+                row["host_hidden"] &= m["host_hidden"]
+            for name, fn in sides.items():
+                torch.cuda.synchronize(dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                call(fn)()
+                torch.cuda.synchronize(dev)
+                row[f"{name}_{kind}_peak_mb"] = (
+                    torch.cuda.max_memory_allocated(dev) - base) / 1e6
+        row["chain_over_fused"] = {
+            k: row[f"chain_{k}_ms"] / row[f"fused_{k}_ms"] for k in calls}
+        row["edges"] = g.num_edges
+        times[offsets] = row
+        del xs, ct
+    print(f"hgt_plain_attention fused / unfused chain, clip ({card}):",
+          json.dumps(times))
+    return launches
+
+
+def check_breakdown(parts, dev, card):
+    """``bench.breakdown --quick`` (bench.py's step op by op and HGT's
+    plain attention, each kernel row held to its plain row before it is
+    timed, each share of its bound in (0, 100]), the counts set to 0 just
+    before and read just after: each kernel row's launches a call equal to
+    ``breakdown.LAUNCHES_A_CALL`` and the run's counts their sum over its
+    calls (the hold's, two untimed, the timed ones); then
+    :func:`check_hgt_plain_attention` on the breakdown's graph and on rank
+    0's shard of the plain runs' partition.  Prints the phase's
+    seconds; returns {run: launches}."""
+    import torch
+    from het_tpu_torch.bench import breakdown, step
+    from het_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    rows = breakdown.run(step.DEFAULT_SCALE, str(dev), quick=True)
+    counts = kernels.launch_counts()
+    want = {k: 0 for k in counts}
+    for r in rows[:-1]:
+        label = r.get("op", r.get("config")).split("] ", 1)[-1]
+        per = breakdown.LAUNCHES_A_CALL.get(label, {})
+        if r["impl"] != "kernel" or r["launches_a_call"] != per:
+            raise AssertionError(f"bench.breakdown {label}: {r['impl']}, "
+                                 f"launched {r['launches_a_call']} a call, "
+                                 f"expected {per}")
+        if r["kernel_vs_plain_max_rel"] is None:
+            raise AssertionError(f"bench.breakdown {label}: not held")
+        for k, n in per.items():
+            want[k] += n * (3 + breakdown.QUICK_REPS)
+    if counts != want or not counts["seg_sum_sorted"]:
+        raise AssertionError(f"bench.breakdown: launched {counts}, "
+                             f"expected {want}")
+    print(f"bench.breakdown --quick ({card}): {len(rows) - 1} rows, "
+          f"launches {json.dumps(counts)}")
+    t1 = time.perf_counter()
+    _, g, _, _ = step.load(step.DEFAULT_SCALE, dev)
+    shard = parts["dp_plain"][0][0].to(dev)
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    launches = check_hgt_plain_attention({"host": g, "device": shard}, dev,
+                                         flush, card)
+    launches["breakdown_quick"] = counts
+    print(f"breakdown phase: {time.perf_counter() - t0:.1f} s "
+          f"(bench.breakdown {t1 - t0:.1f} s, hgt_plain_attention "
+          f"{time.perf_counter() - t1:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3619,6 +3770,11 @@ def main() -> int:
         entry["launches_by_run"] = {r: counts[kernel]
                                     for r, counts in launches.items()}
     check_bench(dev, card)
+    # the breakdown phase's launches beside every other run's
+    for run, counts in check_breakdown(parts, dev, card).items():
+        for entry in entries:
+            if "[" not in entry["name"]:
+                entry["launches_by_run"][run] = counts.get(entry["name"], 0)
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

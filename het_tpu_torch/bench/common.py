@@ -122,25 +122,77 @@ def time_steps(fn: Callable[[], Any], dev: torch.device, *, warmup: int,
             "times_ms": times, "clock": clock_name(dev)}
 
 
+# the card's spin before a timed call: this much, plus SPIN_PER_HOST times
+# the host's enqueue of one call
+SPIN_MS, SPIN_PER_HOST = 0.1, 3.0
+_SLEEP_CYCLES_A_MS: Dict[int, float] = {}
+
+
+def _sleep_cycles_a_ms(dev: torch.device) -> float:
+    """``torch.cuda._sleep``'s cycles a millisecond on ``dev``'s clock,
+    measured once a device."""
+    i = torch.device(dev).index
+    i = torch.cuda.current_device() if i is None else i
+    if i not in _SLEEP_CYCLES_A_MS:
+        cycles = 2_000_000
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0.record()
+        torch.cuda._sleep(cycles)
+        t1.record()
+        t1.synchronize()
+        _SLEEP_CYCLES_A_MS[i] = cycles / t0.elapsed_time(t1)
+    return _SLEEP_CYCLES_A_MS[i]
+
+
+def time_call(fn: Callable[[], Any], dev: torch.device, reps: int = 20,
+              flush: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """``reps`` single calls of ``fn`` after two untimed ones: ``{"ms":
+    their median, "host_ms": the median of the host's enqueue of a timed
+    call, "spin_ms": the spin before each, "host_hidden": every enqueue
+    ended within its spin}``.  On the card each call reads its inputs from
+    device memory (``flush``, a buffer larger than the L2 cache, 256 MB by
+    default, is overwritten before it) and the card spins before the start
+    event for ``SPIN_MS`` plus ``SPIN_PER_HOST`` times the second untimed
+    call's enqueue, so that the host has enqueued the whole call before
+    the card reaches it: the time is the card's, not the host's (unless
+    ``fn`` waits for the card, which ``host_hidden`` then shows).  On the
+    CPU the host clock, and ``host_ms`` is None."""
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if dev.type != "cuda":
+        times = [_call_ms(fn, dev) for _ in range(reps)]
+        return {"ms": statistics.median(times), "host_ms": None,
+                "spin_ms": 0.0, "host_hidden": True}
+    if flush is None:
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    spin_ms = SPIN_MS + SPIN_PER_HOST * host_ms
+    cycles = int(spin_ms * _sleep_cycles_a_ms(dev))
+    times, hosts = [], []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        hosts.append((time.perf_counter() - h0) * 1e3)
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return {"ms": statistics.median(times),
+            "host_ms": statistics.median(hosts), "spin_ms": spin_ms,
+            "host_hidden": max(hosts) < spin_ms}
+
+
 def time_call_ms(fn: Callable[[], Any], dev: torch.device, reps: int = 20,
                  flush: Optional[torch.Tensor] = None) -> float:
-    """Median ms of ``reps`` single calls of ``fn`` after two untimed ones.
-    On the card each call reads its inputs from device memory (``flush``,
-    a buffer larger than the L2 cache, 256 MB by default, is overwritten
-    before it) and a ~0.1 ms spin on the card before the start event gives
-    the host time to enqueue ``fn``, so the time is the card's and not the
-    host's latency; on the CPU the host clock."""
-    for _ in range(2):
-        fn()
-    if dev.type == "cuda" and flush is None:
-        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    times = []
-    for _ in range(reps):
-        if dev.type == "cuda":
-            flush.zero_()
-            torch.cuda._sleep(200_000)
-        times.append(_call_ms(fn, dev))
-    return statistics.median(times)
+    """:func:`time_call`'s median ms."""
+    return time_call(fn, dev, reps, flush)["ms"]
 
 
 def reset_peak(dev: torch.device) -> None:

@@ -53,8 +53,9 @@ one segment sum over ``in_row_ptr`` forward; backward, ``d_feat_c`` one
 segment sum of ``ct[dst(e)] * w_e`` through ``edge_sort_perm`` into the
 source compact rows and ``d_w_e = <feat_c[rowS(e)], ct[dst(e)]>``.
 
-:class:`HGTCompactAttention` and :class:`HGTPlainFull` are the
-counterparts of ``_make_hgt_compact_attention_op`` and
+:class:`HGTCompactAttention`, :class:`HGTPlainAttention` and
+:class:`HGTPlainFull` are the counterparts of
+``_make_hgt_compact_attention_op``, ``_make_hgt_plain_attention_op`` and
 ``_make_hgt_plain_full_op``: HGT's score, typed softmax (the identity
 activation, an optional clip, ``raw = score * mu[rel]``) and aggregation
 in one op each, with the backward above and ``d_mu``, the sum of ``draw *
@@ -554,6 +555,50 @@ class HGTCompactAttention(torch.autograd.Function):
                 d_k.to(k2d.dtype), d_mu.to(mu.dtype), None, None, None)
 
 
+def _plain_score_rows(q2d, k2d, w_att, g, H, impl):
+    """HGT's per-edge score ``<q[dst] W_att[rel], k[src]>`` (n_rows, H)
+    f32 on the relation-sorted edge rows of ``g.edge_rel_seg``; no (rows,
+    H*dk) buffer outlives its last use (the product is taken in ``k``'s
+    gathered rows)."""
+    HD = q2d.shape[1]
+    attq_rows = HGTPlainFull._rows(q2d, w_att, g, "dst", H, impl)[1]
+    prod = gather_nodes(k2d, _edge_row_idx(g, "src")).float()
+    prod.mul_(attq_rows.reshape(-1, HD))
+    del attq_rows
+    return prod.view(-1, H, HD // H).sum(-1)
+
+
+def _plain_score_pullback(q2d, k2d, w_att, g, dscore_rows, need_q: bool,
+                          need_w: bool, impl: str, dt):
+    """The pullback of :func:`_plain_score_rows` from ``dscore_rows``
+    (n_rows, H; zero on the padding rows), ``attq`` recomputed:
+    ``(d_q, d_watt, attq_rows (n_rows, H*dk))``.  ``d_q`` is one segment
+    sum over ``in_row_ptr`` through ``seg.inv`` (payload in ``dt``), None
+    unless ``need_q``; ``d_watt`` None unless ``need_w``; the caller's
+    ``d_k`` reads ``attq_rows``.  The cotangent is taken in ``k``'s
+    gathered rows, and each (rows, H*dk) buffer is freed after its last
+    use."""
+    seg = g.edge_rel_seg
+    H, HD = dscore_rows.shape[1], q2d.shape[1]
+    q_rows, attq_rows = HGTPlainFull._rows(q2d, w_att, g, "dst", H, impl)
+    d_q = d_watt = None
+    if need_q or need_w:
+        ct = gather_nodes(k2d, _edge_row_idx(g, "src")).float()
+        n = ct.shape[0]
+        ct.view(n, H, -1).mul_(dscore_rows[..., None])
+        # the matmul's cotangent in its output's dtype, as het_tpu's
+        # pullback takes it
+        d_q_rows, d_watt = segment_matmul_pullback(
+            q_rows, w_att, seg, ct.to(attq_rows.dtype),
+            need_dx=need_q, need_dw=need_w, impl=impl)
+        del ct, q_rows
+        if need_q:
+            d_q = _sum(d_q_rows.reshape(-1, HD), g.in_row_ptr, seg.inv,
+                       impl, dt).to(q2d.dtype)
+        del d_q_rows
+    return d_q, d_watt, attq_rows.reshape(-1, HD)
+
+
 class HGTPlainFull(torch.autograd.Function):
     """HGT's plain layer core in one op (``_make_hgt_plain_full_op``):
     both per-edge typed linears over the relation-sorted edge rows
@@ -585,10 +630,7 @@ class HGTPlainFull(torch.autograd.Function):
         seg = g.edge_rel_seg
         H = mu.shape[1]
         HD = q2d.shape[1]
-        _, attq_rows = HGTPlainFull._rows(q2d, w_att, g, "dst", H, impl)
-        k_rows = gather_nodes(k2d, _edge_row_idx(g, "src")).float()
-        score_rows = (attq_rows.reshape(-1, HD) * k_rows).view(
-            -1, H, HD // H).sum(-1)
+        score_rows = _plain_score_rows(q2d, k2d, w_att, g, H, impl)
         _, msg_rows = HGTPlainFull._rows(v2d, w_msg, g, "src", H, impl)
         # one read-back to canonical order serves score and msg
         se = take_rows(torch.cat([score_rows, msg_rows.reshape(-1, HD)],
@@ -608,7 +650,6 @@ class HGTPlainFull(torch.autograd.Function):
         seg = g.edge_rel_seg
         H = mu.shape[1]
         HD = q2d.shape[1]
-        q_rows, attq_rows = HGTPlainFull._rows(q2d, w_att, g, "dst", H, impl)
         v_rows, msg_rows = HGTPlainFull._rows(v2d, w_msg, g, "src", H, impl)
         msg_e = take_rows(msg_rows.reshape(-1, HD), seg.inv).float()
         mu_e = take_rows(mu, g.rel).float()
@@ -622,29 +663,21 @@ class HGTPlainFull(torch.autograd.Function):
         both = torch.where(seg.row_valid[:, None], both,
                            torch.zeros_like(both))
         dscore_rows = both[:, :H]
-        k_rows = gather_nodes(k2d, _edge_row_idx(g, "src")).float()
         need = ctx.needs_input_grad
         dt = _pack_dt(v2d)
-        # the matmuls' cotangents in their outputs' dtype, as het_tpu's
-        # pullbacks take them
-        d_q_rows, d_watt = segment_matmul_pullback(
-            q_rows, w_att, seg,
-            _per_head(dscore_rows, k_rows, dtype=attq_rows.dtype),
-            need_dx=need[1], need_dw=need[4], impl=impl)
-        del k_rows
+        d_q, d_watt, attq_rows = _plain_score_pullback(
+            q2d, k2d, w_att, g, dscore_rows, need[1], need[4], impl, dt)
+        # the matmul's cotangent in its output's dtype, as het_tpu's
+        # pullback takes it
         d_v_rows, d_wmsg = segment_matmul_pullback(
             v_rows, w_msg, seg, both[:, H:].to(msg_rows.dtype),
             need_dx=need[0], need_dw=need[3], impl=impl)
-        d_q = d_k = d_v = None
-        if need[1]:
-            d_q = _sum(d_q_rows.reshape(-1, HD), g.in_row_ptr, seg.inv,
-                       impl, dt)
+        d_k = d_v = None
         if need[0] or need[2]:
             # d_k and d_v share one source-sorted reduce of the rows
             pay = torch.empty(both.shape[0], 2 * HD if need[0] else HD,
                               dtype=dt, device=both.device)
-            _per_head(dscore_rows, attq_rows.reshape(-1, HD).float(),
-                      pay[:, :HD])
+            _per_head(dscore_rows, attq_rows.float(), pay[:, :HD])
             if need[0]:
                 pay[:, HD:] = d_v_rows.reshape(-1, HD)
             red = seg_sum_sorted(pay, g.out_row_ptr,
@@ -652,8 +685,83 @@ class HGTPlainFull(torch.autograd.Function):
             d_k = red[:, :HD].to(k2d.dtype)
             if need[0]:
                 d_v = red[:, HD:].to(v2d.dtype)
-        return (d_v, d_q.to(q2d.dtype) if d_q is not None else None, d_k,
-                d_wmsg, d_watt, d_mu.to(mu.dtype), None, None, None)
+        return (d_v, d_q, d_k, d_wmsg, d_watt, d_mu.to(mu.dtype), None,
+                None, None)
+
+
+class HGTPlainAttention(torch.autograd.Function):
+    """HGT's plain attention in one op (``_make_hgt_plain_attention_op``):
+    :class:`HGTPlainFull` without the message transform, the messages
+    given per edge in canonical order.
+
+    ``forward(msg2d (EP, H*dk), q2d (N, H*dk), k2d (src_space, H*dk),
+    w_att (R, H, dk, dk), mu (R, H), g, clip, impl) -> (N, H, dk)``.
+    Forward: ``attq = q[dst] W_att[rel]`` on the relation-sorted edge rows
+    (:func:`~.linear.segment_matmul`), the score ``<attq, k[src]>`` read
+    back to canonical order through ``seg.inv``, ``z = exp(act(score *
+    mu[rel]))`` and the segment sums of :func:`_aggregate` over
+    ``in_row_ptr``.  It keeps the per-edge score (EP, H) and recomputes
+    ``attq`` in the backward, which takes ``d_msg = alpha * ctd``
+    elementwise, ``d_mu`` as in :class:`HGTCompactAttention`, the
+    matmul's pullback (:func:`~.linear.segment_matmul_pullback`) on
+    ``dscore`` taken to the rows through ``seg.perm``, ``d_q`` as one
+    segment sum over ``in_row_ptr`` through ``seg.inv`` and ``d_k`` as
+    one over ``out_row_ptr`` through ``seg.inv[out_perm]``; each only
+    where its input needs it.
+
+    ``LAUNCHES``: a forward and a backward into all five inputs launch,
+    on host relation offsets, the segment sums of ``z`` and ``z*msg``,
+    ``d_q`` and ``d_k`` and the grouped dW of ``d_mu``; where the offsets
+    live on the card only (a shard), also the per-head matmul's forward
+    and its recompute in the backward, its dX and its dW."""
+
+    LAUNCHES = {
+        "host": {"seg_sum_sorted": 4, "segment_matmul_dw": 1},
+        "device": {"seg_sum_sorted": 4, "segment_matmul_dw": 2,
+                   "segment_matmul_fwd": 2, "segment_matmul_dx": 1},
+    }
+
+    @staticmethod
+    def forward(ctx, msg2d, q2d, k2d, w_att, mu, g, clip: Optional[float],
+                impl: str):
+        seg = g.edge_rel_seg
+        H = mu.shape[1]
+        score = take_rows(_plain_score_rows(q2d, k2d, w_att, g, H, impl),
+                          seg.inv).float()
+        mu_e = take_rows(mu, g.rel).float()
+        z = torch.exp(_act_apply(score * mu_e, 1.0, clip))
+        s, out = _aggregate(g, z, msg2d, impl, _pack_dt(msg2d))
+        ctx.save_for_backward(msg2d, q2d, k2d, w_att, mu, score, s, out)
+        ctx.g, ctx.clip, ctx.impl = g, clip, impl
+        return out.to(msg2d.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        msg2d, q2d, k2d, w_att, mu, score, s, out = ctx.saved_tensors
+        g, impl = ctx.g, ctx.impl
+        seg = g.edge_rel_seg
+        need = ctx.needs_input_grad
+        mu_e = take_rows(mu, g.rel).float()
+        ctd, alpha, draw = _softmax_backward(
+            g, ct, s, out, score * mu_e, msg2d, 1.0, ctx.clip)
+        d_msg = _per_head(alpha, ctd).to(msg2d.dtype) if need[0] else None
+        del ctd
+        d_mu = (edge_rel_scale_grad(g, score, draw, impl=impl).to(mu.dtype)
+                if need[4] else None)
+        d_q = d_k = d_watt = None
+        if need[1] or need[2] or need[3]:
+            dscore_rows = take_rows(draw * mu_e, seg.perm)
+            dscore_rows = torch.where(seg.row_valid[:, None], dscore_rows,
+                                      torch.zeros_like(dscore_rows))
+            dt = _pack_dt(msg2d)
+            d_q, d_watt, attq_rows = _plain_score_pullback(
+                q2d, k2d, w_att, g, dscore_rows, need[1], need[3], impl, dt)
+            if need[2]:
+                d_k = seg_sum_sorted(
+                    _per_head(dscore_rows, attq_rows.float(), dtype=dt),
+                    g.out_row_ptr, take_rows(seg.inv, g.out_perm),
+                    impl=impl).to(k2d.dtype)
+        return d_msg, d_q, d_k, d_watt, d_mu, None, None, None
 
 
 # ------------------------------------------------------------------- GAT

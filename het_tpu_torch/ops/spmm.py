@@ -12,9 +12,11 @@ ops (``inner_product_edge_node``, ``edge_softmax``, ``hgt_edge_softmax``,
 ``hgt_softmax_weighted_agg`` and its compact form, and the dispatchers
 ``hgt_compact_attention``, ``hgt_plain_attention`` and
 ``hgt_plain_layer_core``) pick, as het_tpu's pallas backend does, the
-fused ops of ``fused_agg`` under "raw" and "clip" and the unfused chain
-under "max"; ``score * mu[rel]`` is ``edge_rel_inner`` at D = 1, whose
-``mu`` gradient is the grouped dW over the relation-sorted edge rows.
+fused ops of ``fused_agg`` (``HGTCompactAttention``,
+``HGTPlainAttention``, ``HGTPlainFull``) under "raw" and "clip" and the
+unfused chain (``hgt_plain_chain`` for the per-edge forms) under "max";
+``score * mu[rel]`` is ``edge_rel_inner`` at D = 1, whose ``mu``
+gradient is the grouped dW over the relation-sorted edge rows.
 The homogeneous GAT ops (``gat_node_fused``, ``gat_node_fused2d`` and
 ``gat_layer_core``) likewise take the node-sided fused ops under "raw"
 and "clip" and the per-edge op on gathered inputs under "max".  The
@@ -41,9 +43,10 @@ from .common import (_edge_valid, gather_dst, gather_nodes, gather_src,
                      sorted_gather)
 from .fused_agg import (CLIP_LOGIT, STABLE_MODES,  # noqa: F401
                         CompactFusedGAT, CompactFusedGATPacked,
-                        GATLayerFused, HGTCompactAttention, HGTPlainFull,
-                        NodeFusedGAT, _clip, compact_weighted_agg,
-                        fused_softmax_agg, fused_softmax_agg_src_compact)
+                        GATLayerFused, HGTCompactAttention,
+                        HGTPlainAttention, HGTPlainFull, NodeFusedGAT,
+                        _clip, compact_weighted_agg, fused_softmax_agg,
+                        fused_softmax_agg_src_compact)
 from .kernels import seg_max_sorted
 from .linear import (compact_dst_inner, edge_rel_inner, edge_typed_linear,
                      expand_compact)
@@ -330,19 +333,40 @@ def hgt_compact_attention(g, message_c: torch.Tensor,
         CLIP_LOGIT if mode == "clip" else None, impl)
 
 
-def hgt_plain_attention(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
-                        k_nodes: torch.Tensor, w_att: torch.Tensor,
-                        mu: torch.Tensor, *, stable=False,
-                        impl: str = "kernel") -> torch.Tensor:
-    """HGT's per-edge attention chain: ``att_q_e = q[dst] W_att[rel]``
-    (:func:`edge_typed_linear`, a row a head), the score ``<att_q_e,
-    k[src]>``, the typed softmax and the aggregation of ``message_e``.
-    het_tpu fuses it for "raw" and "clip" in an op no ``HGTLayer`` path
-    reaches; the port runs the chain in every mode."""
+def hgt_plain_chain(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
+                    k_nodes: torch.Tensor, w_att: torch.Tensor,
+                    mu: torch.Tensor, *, stable=False,
+                    impl: str = "kernel") -> torch.Tensor:
+    """:func:`hgt_plain_attention`'s unfused chain, in any mode: ``att_q_e
+    = q[dst] W_att[rel]`` (:func:`edge_typed_linear`, a row a head), the
+    score ``<att_q_e, k[src]>`` (:func:`inner_product_edge_node`), then
+    :func:`hgt_softmax_weighted_agg`."""
     att_q_e = edge_typed_linear(g, q_nodes, w_att, side="dst", impl=impl)
     score = inner_product_edge_node(g, att_q_e, k_nodes, "src", impl=impl)
     return hgt_softmax_weighted_agg(g, message_e, score, mu, stable=stable,
                                     impl=impl)
+
+
+def hgt_plain_attention(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
+                        k_nodes: torch.Tensor, w_att: torch.Tensor,
+                        mu: torch.Tensor, *, stable=False,
+                        impl: str = "kernel") -> torch.Tensor:
+    """HGT's per-edge attention: ``att_q_e = q[dst] W_att[rel]``, the
+    score ``<att_q_e, k[src]>``, the typed softmax and the aggregation of
+    ``message_e`` (EP, H, dk) in canonical order -> (N, H, dk).  "raw"
+    and "clip" take the fused :class:`~.fused_agg.HGTPlainAttention`,
+    whose ``att_q_e`` never leaves the op; "max" the unfused chain
+    (:func:`hgt_plain_chain`), as het_tpu's pallas backend does."""
+    mode = _mode(stable)
+    if mode == "max":
+        return hgt_plain_chain(g, message_e, q_nodes, k_nodes, w_att, mu,
+                               stable=mode, impl=impl)
+    EP, H, dk = message_e.shape
+    return HGTPlainAttention.apply(
+        message_e.reshape(EP, H * dk),
+        q_nodes.reshape(q_nodes.shape[0], H * dk),
+        k_nodes.reshape(k_nodes.shape[0], H * dk), w_att, mu, g,
+        CLIP_LOGIT if mode == "clip" else None, impl)
 
 
 def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
@@ -358,8 +382,8 @@ def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
     if mode == "max":
         message_e = edge_typed_linear(g, v_nodes, w_msg, side="src",
                                       impl=impl)
-        return hgt_plain_attention(g, message_e, q_nodes, k_nodes, w_att,
-                                   mu, stable=mode, impl=impl)
+        return hgt_plain_chain(g, message_e, q_nodes, k_nodes, w_att, mu,
+                               stable=mode, impl=impl)
     H, dk = q_nodes.shape[1], q_nodes.shape[2]
     return HGTPlainFull.apply(
         v_nodes.reshape(v_nodes.shape[0], H * dk),

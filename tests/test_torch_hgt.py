@@ -4,14 +4,18 @@ parameters: the ops (per-head ``segment_matmul`` on host offsets,
 ``ntype_linear`` at two node types, ``scatter_sum_src``,
 ``expand_compact`` at 16 lanes and fewer, ``compact_dst_inner``,
 ``inner_product_edge_node`` on both sides, ``hgt_edge_softmax``,
-``hgt_softmax_weighted_agg``, ``hgt_compact_attention`` and
-``hgt_plain_layer_core`` under clip, raw and max), ``HGTLayer`` over
+``hgt_softmax_weighted_agg``, ``hgt_compact_attention``,
+``hgt_plain_attention`` and ``hgt_plain_layer_core`` under clip, raw and
+max; the fused plain attention also on device-only offsets, against
+het_tpu's on the same offsets and its own host-offset result, with its
+launches counted), ``HGTLayer`` over
 compact x stable x ``use_norm`` and multiply-first at two node types,
 ``HGTModel``'s logits and every gradient, and three Adam steps against
 ``optax.adam``.  Every gradient is held, ``relation_pri``'s (``mu``'s)
 included.  Tolerances: values rtol 1e-4 / atol 2e-4, gradients rtol 5e-3
 / atol 2e-4 (the repo's backend-parity ones)."""
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -32,6 +36,9 @@ from het_tpu_torch import ops
 from het_tpu_torch.graph import random_heterograph as t_random_heterograph
 from het_tpu_torch.models import (HGTLayer, HGTModel, NodeEmbed,
                                   dp_params_from_jax, params_from_jax)
+from het_tpu_torch.ops import kernels
+from het_tpu_torch.ops.fused_agg import HGTPlainAttention
+from het_tpu_torch.ops.kernels import _dispatch
 from het_tpu_torch.train.driver import NodeClassifier
 from het_tpu_torch.utils.misc import nll_loss
 
@@ -148,6 +155,13 @@ def _op_case(name, jg, tg, rng):
                 lambda f, a, k, m: ops.hgt_compact_attention(
                     tg, f, a, k, m, stable=mode),
                 [n((UCs, H, DK)), n((UCd, H, DK)), n((N, H, DK)), mu], None)
+    if op == "hgt_plain_attention":
+        return (lambda f, q, k, wa, m: jops.hgt_plain_attention(
+                    jg, f, q, k, wa, m, stable=mode),
+                lambda f, q, k, wa, m: ops.hgt_plain_attention(
+                    tg, f, q, k, wa, m, stable=mode),
+                [n((EP, H, DK)), n((N, H, DK)), n((N, H, DK)),
+                 n((R, H, DK, DK)) / 2, mu], None)
     assert op == "hgt_plain_layer_core"
     return (lambda v, q, k, wm, wa, m: jops.hgt_plain_layer_core(
                 jg, v, q, k, wm, wa, m, stable=mode),
@@ -163,7 +177,8 @@ OP_CASES = (["segment_matmul", "segment_matmul_hx1", "ntype_linear",
              "inner_product_edge_node:src"]
             + [f"{op}:{mode}" for op in (
                 "hgt_edge_softmax", "hgt_softmax_weighted_agg",
-                "hgt_compact_attention", "hgt_plain_layer_core")
+                "hgt_compact_attention", "hgt_plain_attention",
+                "hgt_plain_layer_core")
                for mode in MODES])
 
 
@@ -194,6 +209,88 @@ def test_op_matches_het_tpu(pallas_backend, graphs, name):
     for i, (t, jgr) in enumerate(zip(targs, jgrads)):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgr),
                                    err_msg=f"input {i}", **GRAD)
+
+
+def _device_only(g):
+    """``g`` with its relation offsets on the device only
+    (``seg_ptrs_static = None``, as on a shard)."""
+    return dataclasses.replace(g, edge_rel_seg=dataclasses.replace(
+        g.edge_rel_seg, seg_ptrs_static=None))
+
+
+@pytest.fixture(scope="module")
+def device_offsets_graph(graphs):
+    """The one-node-type graph, het_tpu's and the port's, with the
+    relation offsets on the device only: the typed linears take the
+    segment-matmul kernels' path (het_tpu's W-resident Pallas kernel)."""
+    jg, tg = graphs[1]
+    return _device_only(jg), _device_only(tg)
+
+
+def _plain_attention_inputs(tg, seed):
+    rng = np.random.default_rng(seed)
+    EP, N, R = tg.num_padded_edges, tg.num_nodes, tg.num_rels
+    shapes = [(EP, H, DK), (N, H, DK), (N, H, DK), (R, H, DK, DK), (R, H)]
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    xs[3] /= 2
+    xs[4] = (1.0 + 0.3 * xs[4]).astype(np.float32)
+    return xs
+
+
+@pytest.mark.parametrize("mode", ["raw", "clip"])
+def test_plain_attention_on_device_offsets(pallas_backend, graphs,
+                                           device_offsets_graph, mode):
+    """``HGTPlainAttention`` with the offsets on the device only (the
+    segment-matmul forward, dX and dW): the output and the gradients of
+    all five inputs against het_tpu's fused op on the same offsets (its
+    segment matmul the W-resident Pallas kernel, interpret mode), and
+    against the port's own host-offset result."""
+    jg_dev, tg_dev = device_offsets_graph
+    _, tg = graphs[1]
+    xs = _plain_attention_inputs(tg, 21)
+    ct = np.random.default_rng(22).standard_normal(
+        (tg.num_nodes, H, DK)).astype(np.float32)
+    _, jout, jgrads = _j_value_and_grads(
+        lambda *a: jops.hgt_plain_attention(jg_dev, *a, stable=mode), xs,
+        ct)
+    results = []
+    for g in (tg_dev, tg):
+        targs = [_t(a, grad=True) for a in xs]
+        out = ops.hgt_plain_attention(g, *targs, stable=mode)
+        (out * torch.from_numpy(ct)).sum().backward()
+        results.append([out.detach()] + [t.grad for t in targs])
+    want = [np.asarray(jout)] + [np.asarray(a) for a in jgrads]
+    for i, (dev, host, j) in enumerate(zip(*results, want)):
+        tol = VAL if i == 0 else GRAD
+        np.testing.assert_allclose(dev.numpy(), j, err_msg=f"tensor {i}",
+                                   **tol)
+        np.testing.assert_allclose(dev.numpy(), host.numpy(),
+                                   err_msg=f"tensor {i}", **tol)
+
+
+@pytest.mark.parametrize("offsets", ["host", "device"])
+def test_plain_attention_launches(graphs, device_offsets_graph, monkeypatch,
+                                  offsets):
+    """The launches ``chip_smoke.py`` asserts for a forward and a backward
+    into every input (``HGTPlainAttention.LAUNCHES``), counted on
+    the CPU by a stand-in that bumps a kernel's count wherever a CUDA
+    tensor would launch it and runs the plain version."""
+    plain = _dispatch.takes_plain
+
+    def counted(t, impl, what):
+        if impl == "kernel":
+            getattr(kernels, what).launches += 1
+        return plain(t, "plain", what)
+
+    monkeypatch.setattr(_dispatch, "takes_plain", counted)
+    g = graphs[1][1] if offsets == "host" else device_offsets_graph[1]
+    targs = [_t(a, grad=True) for a in _plain_attention_inputs(g, 23)]
+    kernels.reset_launches()
+    ops.hgt_plain_attention(g, *targs, stable="clip").square().sum(
+        ).backward()
+    got = {k: n for k, n in kernels.launch_counts().items() if n}
+    kernels.reset_launches()
+    assert got == HGTPlainAttention.LAUNCHES[offsets]
 
 
 def test_hgt_ops_sum_without_atomics(graphs):
