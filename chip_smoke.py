@@ -43,7 +43,8 @@ Phases, each of which fails the run:
      of 100,000 edges among rows of 1-3 at C = 4, 12 and 68 with and
      without perm; every shape launched twice and compared bit for bit;
    * ``seg_max_sorted`` bit for bit at every shape the stable="max" steps
-     give it (packed at 0.2, plain RGAT and compact HGT at 0.1), plus
+     give it (packed at 0.2, plain RGAT and compact HGT at 0.1, plain
+     RGAT on rank 0's shard), plus
      edge cases, among them a
      hub row with a NaN and a +inf in different workers' chunks;
    * ``segment_matmul_dw`` at every shape the plain RGAT, the compact and
@@ -52,9 +53,10 @@ Phases, each of which fails the run:
      relation-typed inner products' dW at H = 1, O = 1, and under
      gather_einsum the typed linears' W over the edge rows), and the
      data-parallel runs (RGAT,
-     compact
+     compact and plain
      RGCN, and HGT's per-head typed linears, x a row a head at K = O =
-     16 and 2) give rank 0's shard, at the general segment-matmul
+     16 and 2, and over two node types its per-node typed linears) give
+     rank 0's shard, at the general segment-matmul
      shapes (Hx = 1, K = O = 64, S =
      4 and S = 535, about 1e6 rows), plus edge cases (among them S = 535
      segments mostly shorter than a chunk, NaN rows before and past the
@@ -151,11 +153,28 @@ Phases, each of which fails the run:
 5. data-parallel training: the graph split into P = 2 destination-range
    shards (balanced on edges), two ranks spawned as processes on cuda:0
    over gloo, five steps of compact multiply-first, of compact RGCN and
-   of compact HGT (halo "auto", one partition) and two of plain RGAT and
-   of plain HGT (halo "boundary", one partition),
+   of compact HGT (halo "auto", one partition) and two of plain RGAT, of
+   plain RGAT with stable="max" (the segment max on a shard), of plain
+   RGCN and of plain HGT (halo "boundary", one partition), and two of
+   compact HGT over two node types whose boundary falls inside shard 0
+   (its own partition; ``ntype_linear`` on the segment-matmul kernels),
    through the kernels and the plain versions, each held per step to the
    other and to a single-process run on the unpartitioned graph, with
-   each kernel's launches a step a rank;
+   each kernel's launches a step a rank; in the same spawn, compact
+   multiply-first through the kernels with rank 0 profiled
+   (``utils/profile_step.py::profile_dp``): its warm step split into the
+   collectives (timed on the host after a synchronize and a barrier, the
+   wait for the peer apart), the card's work by category and the rest,
+   printed; ``entry.dryrun_multichip``'s jobs on 2 ranks; and
+   ``bench.scaling`` at its smallest form (mag at 0.01, worlds of 1 and 2
+   ranks, 3 timed steps, each world's kernel loss held to its plain
+   run's); then ``entry.dryrun_multichip`` on 4 ranks (the 2 x 2 mesh of
+   ``make_mesh2``), all on cuda:0 over gloo: the dry runs take two steps
+   of the RGCN -> HGT -> compact RGAT stack through the kernels and the
+   plain versions, every loss finite and the two within TRAIN_RTOL at
+   each step (the second's loss is the one after the first Adam step, so
+   the backward's kernels are held too), each rank's launches and
+   coordinates asserted; the phase's seconds;
 6. the benchmark entry points (``het_tpu_torch.bench``): ``bench.step``
    (``bench.py``'s 1-layer RGAT forward + backward on synthetic
    ogbn-mag at 0.018, six variants: plain and kernels, with neither
@@ -166,7 +185,8 @@ Phases, each of which fails the run:
    ``bench.infer``, ``bench.compiled``, ``bench.sweep``,
    ``bench.fullscale`` (at 0.1), ``bench.segmm_strategies`` and
    ``bench.skew`` once each at their smallest form, each row's kernel
-   held to its plain version, and the phase's seconds;
+   held to its plain version; ``bench.halo_bytes`` at 0.01 (host only:
+   the CPU tests hold its numbers); and the phase's seconds;
 7. the breakdown phase: ``bench.breakdown --quick`` (``scripts/
    breakdown.py``'s 16 op rows of bench.py's step and HGT's plain
    attention at 4 heads, D = 16, on mag at 0.018, each kernel row held to
@@ -352,13 +372,26 @@ MM_TOL = 1e-5
 # linears on the edge rows, each run in the forward and again in the
 # backward (a dX and a dW each), its 3 segment sums and, with the
 # boundary halo, the exchange backwards of k and v; both the dW of
-# relation_pri a layer.
+# relation_pri a layer.  Plain RGAT under stable="max" adds one
+# destination max a layer.  Plain RGCN makes one typed linear a layer
+# over the edge rows (H = 1; a dX in layer 1) and reduces once in layer 0
+# (the destination aggregation) and 3 times in layer 1 (and its
+# edge-gather backward and the boundary exchange's backward).  HGT over
+# two node types whose boundary falls inside shard 0 (``ntypes``: the
+# graph and the single-process reference take ``_ntype_offsets``) drops
+# ``ntype_seg``'s host offsets on the shards, so its four per-node typed
+# linears a layer (k, q and v per head, the output's a) reach the
+# segment-matmul kernels: a forward and a dW each, a dX for a and, in
+# layer 1, for k, q and v (layer 0's input is the fixed features), on
+# top of compact HGT's launches.
 P = 2
 
 
-def _dp_run(compact, multiply_first, steps, halo, launches, model="RGAT"):
+def _dp_run(compact, multiply_first, steps, halo, launches, model="RGAT",
+            stable="clip", ntypes=False):
     return dict(compact=compact, multiply_first=multiply_first, steps=steps,
-                halo=halo, launches=launches, model=model)
+                halo=halo, launches=launches, model=model, stable=stable,
+                ntypes=ntypes)
 
 
 DP_RUNS = {
@@ -377,8 +410,31 @@ DP_RUNS = {
     "dp_hgt_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
         seg_sum_sorted=12, segment_matmul_fwd=8, segment_matmul_dx=4,
         segment_matmul_dw=6), model="HGT"),
+    "dp_plain_max": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
+        seg_sum_sorted=7, seg_max_sorted=2, segment_matmul_fwd=4,
+        segment_matmul_dx=2, segment_matmul_dw=8), stable="max"),
+    "dp_rgcn_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
+        seg_sum_sorted=4, segment_matmul_fwd=2, segment_matmul_dx=1,
+        segment_matmul_dw=2), model="RGCN"),
+    "dp_hgt_ntypes": _dp_run(True, False, SHORT_STEPS, "auto", dict(
+        seg_sum_sorted=14, segment_matmul_fwd=12, segment_matmul_dx=9,
+        segment_matmul_dw=14), model="HGT", ntypes=True),
 }
 DP_MAIN = "dp_compact_multiply_first"  # this slice's main path
+# ntype_linear's launches a step on dp_hgt_ntypes beyond dp_hgt_compact's
+NTYPE_LINEAR = dict(segment_matmul_fwd=8, segment_matmul_dx=5,
+                    segment_matmul_dw=8)
+# dryrun_multichip's launches a step, a rank (the RGCN -> HGT -> compact
+# RGAT stack at its shapes, halo "auto" -> boundary at 2 and 4 ranks;
+# each rank's launches, from a CPU count of what CUDA tensors launch);
+# the 2-rank jobs join the data-parallel spawn, the 4-rank run spawns
+# its own ranks
+DRYRUN_RANKS = (2, 4)
+DRYRUN_LAUNCHES = dict(seg_sum_sorted=15, segment_matmul_fwd=7,
+                       segment_matmul_dx=4, segment_matmul_dw=8)
+# bench.scaling at its smallest form, in the data-parallel spawn: mag at
+# 0.01, worlds of 1 and 2 ranks (both on cuda:0 over gloo), 3 timed steps
+SCALING_RANKS, SCALING_SCALE, SCALING_STEPS = (1, 2), 0.01, 3
 
 # neighbour-sampled minibatch runs (--minibatch at het_tpu's defaults:
 # BATCH seeds a batch, FANOUT in-edges a node a hop, HOPS hops) on mag at
@@ -1461,10 +1517,33 @@ def _dw_shapes(g, gu, shards, dev, edge_graphs):
     ps = shards["dp_plain"]
     rs = shards["dp_rgcn_compact"]
     hc, hp = shards["dp_hgt_compact"], shards["dp_hgt_plain"]
+    hn = shards["dp_hgt_ntypes"]
     hgt = ("hgt_plain", "hgt_compact", "hgt_compact_max")
     shapes = []
     for layer in range(LAYERS):
         K = dims[layer + 1] // HEADS
+        shapes += [
+            # two node types: compact HGT's dWs on its own shard, and
+            # ntype_linear's k, q, v (x shared by the heads) and a over
+            # the node rows arranged by type
+            (f"l{layer} shard HGT relation_pri dW, edge rows, two node "
+             "types", "dp_hgt_ntypes", 1, hn.edge_rel_seg, HEADS, HEADS, 1,
+             1, True),
+            (f"l{layer} shard dst compact HGT q.W_att dW, per head, two node"
+             " types", "dp_hgt_ntypes", 1, hn.compact_dst.seg, HEADS, HEADS,
+             K, K, True),
+            (f"l{layer} shard src compact HGT v.W_msg dW, per head, two node"
+             " types", "dp_hgt_ntypes", 1, hn.compact_src.seg, HEADS, HEADS,
+             K, K, True),
+            (f"l{layer} shard node rows HGT k, q, v dW by node type",
+             "dp_hgt_ntypes", 3, hn.ntype_seg, HEADS, 1, dims[layer], K,
+             True),
+            (f"l{layer} shard node rows HGT a dW by node type",
+             "dp_hgt_ntypes", 1, hn.ntype_seg, 1, 1, dims[layer + 1],
+             dims[layer + 1], True),
+            (f"l{layer} shard edge rows RGCN W dW", "dp_rgcn_plain", 1,
+             ps.edge_rel_seg, 1, 1, dims[layer], dims[layer + 1], False),
+        ]
         shapes += [
             # HGT's relation_pri: score * mu[rel], K = O = 1 a head
             (f"l{layer} HGT relation_pri dW, edge rows", hgt, 1, E, HEADS,
@@ -1534,10 +1613,12 @@ def _dw_shapes(g, gu, shards, dev, edge_graphs):
             (f"l{layer} shard dst compact W.a_r dW",
              "dp_compact_multiply_first", 1, cs.compact_dst.seg, HEADS, 1,
              K, 1, False),
-            (f"l{layer} shard edge rows W dW (src, dst)", "dp_plain", 2,
-             ps.edge_rel_seg, HEADS, 1, K, D, False),
-            (f"l{layer} shard attn_l/attn_r dW, edge rows", "dp_plain", 2,
-             ps.edge_rel_seg, HEADS, HEADS, D, 1, True),
+            (f"l{layer} shard edge rows W dW (src, dst)",
+             ("dp_plain", "dp_plain_max"), 2, ps.edge_rel_seg, HEADS, 1, K,
+             D, False),
+            (f"l{layer} shard attn_l/attn_r dW, edge rows",
+             ("dp_plain", "dp_plain_max"), 2, ps.edge_rel_seg, HEADS, HEADS,
+             D, 1, True),
             (f"l{layer} shard src compact RGCN W dW", "dp_rgcn_compact", 1,
              rs.compact_src.seg, 1, 1, K, dims[layer + 1], False),
         ]
@@ -1776,11 +1857,31 @@ def _mm_shapes(shards, dev, g):
     ps = shards["dp_plain"]
     rs = shards["dp_rgcn_compact"]
     hc, hp = shards["dp_hgt_compact"], shards["dp_hgt_plain"]
-    R = ps.num_rels
+    hn = shards["dp_hgt_ntypes"]
+    R, T = ps.num_rels, hn.num_ntypes
     shapes = []
     for layer in range(LAYERS):
         K, D = dims[layer], dims[layer + 1] // HEADS
+        out = dims[layer + 1]
         dx = 1 if layer > 0 else 0
+        # two node types: compact HGT's per-head typed linears on its own
+        # shard, and ntype_linear's k, q, v (x shared by the heads; a dX
+        # where the layer's input needs one) and a (always a dX) over the
+        # node rows arranged by type, on device offsets
+        shapes += [
+            (f"l{layer} dst compact HGT q.W_att, per head, two node types",
+             "dp_hgt_ntypes", 1, 1, hn.compact_dst.seg, R, HEADS, HEADS, D,
+             D),
+            (f"l{layer} src compact HGT v.W_msg, per head, two node types",
+             "dp_hgt_ntypes", 1, 1, hn.compact_src.seg, R, HEADS, HEADS, D,
+             D),
+            (f"l{layer} node rows HGT k, q, v by node type", "dp_hgt_ntypes",
+             3, 3 * dx, hn.ntype_seg, T, HEADS, 1, K, D),
+            (f"l{layer} node rows HGT a by node type", "dp_hgt_ntypes", 1, 1,
+             hn.ntype_seg, T, 1, 1, out, out),
+            (f"l{layer} edge rows RGCN W", "dp_rgcn_plain", 1, dx,
+             ps.edge_rel_seg, R, 1, 1, K, out),
+        ]
         # HGT's per-head typed linears: an input gradient in every layer;
         # the plain core runs its two in the forward and again in the
         # backward
@@ -1799,8 +1900,8 @@ def _mm_shapes(shards, dev, g):
              1, dx, cs.compact_src.seg, R, HEADS, 1, K, 1 + D),
             (f"l{layer} dst compact W.a_r", "dp_compact_multiply_first", 1,
              dx, cs.compact_dst.seg, R, HEADS, 1, K, 1),
-            (f"l{layer} edge rows W (src, dst)", "dp_plain", 2, 2 * dx,
-             ps.edge_rel_seg, R, HEADS, 1, K, D),
+            (f"l{layer} edge rows W (src, dst)", ("dp_plain", "dp_plain_max"),
+             2, 2 * dx, ps.edge_rel_seg, R, HEADS, 1, K, D),
         ]
 
     # compiled plain RGAT with every GEMM spec on device offsets (H = 1):
@@ -1936,8 +2037,8 @@ def check_fwd_dx(shards, dev, flush, g):
     for i, name in ((2, "segment_matmul_fwd"), (3, "segment_matmul_dx")):
         counts = dict.fromkeys(list(DP_RUNS) + list(COMPILED_RUNS), 0)
         for shape in shapes:
-            if shape[1] is not None:
-                counts[shape[1]] += shape[i]
+            for run in _runs_of(shape[1]):
+                counts[run] += shape[i]
         _check_shape_count(name, counts)
     for (label, run, n_fwd, n_dx, seg, S, H, Hx, K, O, *form) in shapes:
         n = seg.n_rows
@@ -2005,18 +2106,17 @@ def check_fwd_dx(shards, dev, flush, g):
                   f"{bound * 1e3:.4f} "
                   f"({'bytes' if bytes_s >= ops_s else 'operations'}) | "
                   f"{plain:.4f} | {host_ms:.4f} | {bare_ms:.4f}")
-            if run is None:
-                continue
-            total = totals[direction].setdefault(run, dict(
-                ms=0.0, plain_ms=0.0, bound_ms=0.0, bare_cublas_ms=0.0,
-                plain_host_offsets_ms=0.0, bytes_ms=0.0, ops_ms=0.0))
-            for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("bound_ms", bound * 1e3),
-                           ("bare_cublas_ms", bare_ms),
-                           ("plain_host_offsets_ms", host_ms),
-                           ("bytes_ms", bytes_s * 1e3),
-                           ("ops_ms", ops_s * 1e3)):
-                total[key] += per_step * v
+            for r in _runs_of(run):
+                total = totals[direction].setdefault(r, dict(
+                    ms=0.0, plain_ms=0.0, bound_ms=0.0, bare_cublas_ms=0.0,
+                    plain_host_offsets_ms=0.0, bytes_ms=0.0, ops_ms=0.0))
+                for key, v in (("ms", ms), ("plain_ms", plain),
+                               ("bound_ms", bound * 1e3),
+                               ("bare_cublas_ms", bare_ms),
+                               ("plain_host_offsets_ms", host_ms),
+                               ("bytes_ms", bytes_s * 1e3),
+                               ("ops_ms", ops_s * 1e3)):
+                    total[key] += per_step * v
     entries = []
     for direction, name, replaces in (
             ("fwd", "segment_matmul_fwd",
@@ -2061,27 +2161,51 @@ def _dp_features(g, seed=0):
     return rng.standard_normal((g.num_nodes, IN_FEAT)).astype(np.float32)
 
 
+def _ntype_offsets(info):
+    """Two node types whose boundary falls in the middle of shard 0's
+    destination range (the edge-balanced bounds do not depend on the node
+    types): the offsets of the ``ntypes`` runs' graphs."""
+    lo, hi = info.bounds[0], info.bounds[1]
+    return (0, lo + (hi - lo) // 2, info.num_global_nodes)
+
+
+def _coo(g):
+    E = g.num_edges
+    return [t[:E].numpy() for t in (g.src, g.dst, g.rel)]
+
+
 def partition_dp(data):
     """Each data-parallel run's partition of the graph: P shards by
     destination ranges balanced on edges, one partition for the runs that
-    share its compact rows and halo.  Returns {run: (shards, info)}."""
+    share its compact rows, halo and node types.  Returns {run: (shards,
+    info)}."""
     from het_tpu_torch.parallel import halo_bytes, partition_by_dst
 
     g = data.graph
-    E = g.num_edges
-    coo = [t[:E].numpy() for t in (g.src, g.dst, g.rel)]
+    coo = _coo(g)
     out, made = {}, {}
     for run, spec in DP_RUNS.items():
-        compact, halo = spec["compact"], spec["halo"]
-        if (compact, halo) in made:
-            out[run] = made[compact, halo]
+        compact, halo, ntypes = spec["compact"], spec["halo"], spec["ntypes"]
+        key = compact, halo, ntypes
+        if key in made:
+            out[run] = made[key]
             print(f"[{run}] the partition of {out[run][2]}")
             continue
+        offsets = None
+        if ntypes:  # the bounds of the first partition made
+            offsets = _ntype_offsets(next(iter(made.values()))[1])
         t0 = time.perf_counter()
         shards, info = partition_by_dst(
             *coo, g.num_nodes, g.num_rels, P, tile=g.edge_rel_seg.tile,
-            build_compact=compact, balance="edges", halo=halo)
+            build_compact=compact, balance="edges", halo=halo,
+            ntype_offsets=offsets)
         hb = halo_bytes(shards[0], P, IN_FEAT)
+        if ntypes:
+            print(f"[{run}] node types at {offsets}: the boundary "
+                  f"{offsets[1]} inside shard 0's destinations, bounds "
+                  f"{info.bounds}")
+            assert info.bounds[0] < offsets[1] < info.bounds[1]
+            assert _ntype_offsets(info) == offsets
         print(f"[{run}] partitioned in {time.perf_counter() - t0:.1f} s: "
               f"halo={halo} -> {hb['mode']} ({hb['bytes']} B a rank receives "
               f"for a {IN_FEAT}-wide layer; all-gather {hb['gather_bytes']} "
@@ -2093,21 +2217,84 @@ def partition_dp(data):
               f"{shards[0].edge_rel_seg.n_rows}"
               + (f", compact rows src {shards[0].compact_src.seg.n_rows} dst"
                  f" {shards[0].compact_dst.seg.n_rows}" if compact else ""))
-        out[run] = made[compact, halo] = (shards, info, run)
+        out[run] = made[key] = (shards, info, run)
     return {run: part[:2] for run, part in out.items()}
+
+
+def _dp_model(spec, g):
+    """The family and keyword arguments of a ``DP_RUNS`` entry's model on
+    ``g`` (the graph whose node types it reads)."""
+    from het_tpu_torch.parallel.launch import MODELS
+
+    if spec["model"] == "RGCN":
+        kw = dict(num_nodes=g.num_nodes, hidden=HIDDEN, num_classes=CLASSES,
+                  num_rels=g.num_rels, featureless=False, in_feat=IN_FEAT,
+                  compact=spec["compact"], dropout=0.0)
+    elif spec["model"] == "HGT":
+        kw = dict(in_dim=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                  num_ntypes=g.num_ntypes, num_rels=g.num_rels,
+                  num_heads=HEADS, num_layers=LAYERS,
+                  compact=spec["compact"], dropout=0.0,
+                  stable_softmax=spec["stable"])
+    else:
+        kw = dict(in_feat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                  num_rels=g.num_rels, num_heads=HEADS, num_layers=LAYERS,
+                  compact=spec["compact"],
+                  multiply_first=spec["multiply_first"], dropout=0.0,
+                  stable_softmax=spec["stable"])
+    return MODELS[spec["model"]], kw
+
+
+def _print_dp_profile(prof, card):
+    """The profiled DP step's split (``utils/profile_step.py::
+    profile_dp``): collectives, the card's work by category, the rest."""
+    coll = sum(prof["collective_ms"].values())
+    busy = prof["device_busy_ms"]
+    copies = prof["device_ms_by_category"].get("copies", 0.0)
+    step = prof["step_ms"]
+    wait = prof["collective_wait_ms"]
+    print(f"[{DP_MAIN}] profiled warm step, rank 0 of {P} sharing one card "
+          f"over gloo ({card}): {step:.2f} ms (traced {prof['traced_step_ms']}"
+          f", untraced warm {prof['untraced_warm_step_ms']}); collectives "
+          f"{coll:.2f} ms ({100 * coll / step:.1f}%: "
+          + ", ".join(f"{k} {v:.2f} ms in {prof['collective_calls'][k]} "
+                      "calls" for k, v in prof["collective_ms"].items())
+          + f"); waiting for the peer at them {wait:.2f} ms "
+          f"({100 * wait / step:.1f}%); the card's work outside them "
+          f"{busy - copies:.2f} ms "
+          f"({100 * (busy - copies) / step:.1f}%); gloo's host <-> card "
+          f"copies {copies:.2f} ms; the rest {prof['rest_ms']:.2f} ms "
+          f"({100 * prof['rest_ms'] / step:.1f}%)")
+    print("category | device ms a step")
+    for cat, ms in sorted(prof["device_ms_by_category"].items(),
+                          key=lambda kv: -kv[1]):
+        print(f"{cat} | {ms:.4f}")
+    print(f"[{DP_MAIN}] profile:", json.dumps(prof))
+    if not busy > 0 or not coll > 0:
+        raise AssertionError(f"{DP_MAIN} profile: busy {busy} ms, "
+                             f"collectives {coll} ms")
 
 
 def check_dp(data, parts, dev, card):
     """Every DP_RUNS entry on P spawned ranks sharing cuda:0 (gloo),
     through the kernels and through the plain versions from the same
     seeded parameters, each against a single-process run of the port's
-    model on the unpartitioned graph.  Returns {run: rank 0's launches}."""
+    model on the unpartitioned graph (the ``ntypes`` runs' graph built
+    with their node types); then, in the same spawn, ``DP_MAIN`` through
+    the kernels with rank 0 profiled (``profile_dp``), whose split is
+    printed; then ``entry.dryrun_multichip``'s jobs on P ranks
+    (:func:`check_dryrun`) and ``bench.scaling``'s at its smallest form.
+    Returns {run: rank 0's launches}."""
     import tempfile
 
     import torch
+    from het_tpu_torch.bench import scaling
+    from het_tpu_torch.entry import dryrun_jobs
+    from het_tpu_torch.graph import build_heterograph
     from het_tpu_torch.ops.kernels import KERNELS
     from het_tpu_torch.parallel import train_full
-    from het_tpu_torch.parallel.launch import MODELS, spawn_ranks
+    from het_tpu_torch.parallel.launch import spawn_ranks
+    from het_tpu_torch.utils.profile_step import STEPS as PROFILE_STEPS
 
     g = data.graph
     x = _dp_features(g)
@@ -2116,46 +2303,58 @@ def check_dp(data, parts, dev, card):
     for run, spec in DP_RUNS.items():
         shards, info = parts[run]
         steps = spec["steps"]
-        if spec["model"] == "RGCN":
-            kw = dict(num_nodes=g.num_nodes, hidden=HIDDEN,
-                      num_classes=CLASSES, num_rels=g.num_rels,
-                      featureless=False, in_feat=IN_FEAT,
-                      compact=spec["compact"], dropout=0.0)
-        elif spec["model"] == "HGT":
-            kw = dict(in_dim=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
-                      num_ntypes=g.num_ntypes, num_rels=g.num_rels,
-                      num_heads=HEADS, num_layers=LAYERS,
-                      compact=spec["compact"], dropout=0.0,
-                      stable_softmax="clip")
-        else:
-            kw = dict(in_feat=IN_FEAT, hidden=HIDDEN, num_classes=CLASSES,
-                      num_rels=g.num_rels, num_heads=HEADS,
-                      num_layers=LAYERS, compact=spec["compact"],
-                      multiply_first=spec["multiply_first"], dropout=0.0,
-                      stable_softmax="clip")
-        family = MODELS[spec["model"]]
+        gr = g
+        if spec["ntypes"]:
+            gr = build_heterograph(*_coo(g), g.num_nodes, g.num_rels,
+                                   tile=g.edge_rel_seg.tile,
+                                   ntype_offsets=_ntype_offsets(info),
+                                   build_compact=True)
+            print(f"[{run}] single-process graph at node types "
+                  f"{_ntype_offsets(info)}: {gr.describe()}")
+        family, kw = _dp_model(spec, gr)
         state = _initial_state(family(**kw))
         model = family(**kw)
         model.load_state_dict(state)
-        single = train_full(model.to(dev).train(), g.to(dev),
+        single = train_full(model.to(dev).train(), gr.to(dev),
                             torch.from_numpy(x).to(dev),
                             torch.as_tensor(labels).to(dev), steps=steps)
         singles[run] = single["loss_list"]
         print(f"[{run}] single process, unpartitioned ({card}): "
               f"{json.dumps(single)}")
-        del model
+        del model, gr
         for impl in ("kernel", "plain"):
             jobs.append(dict(shards=shards, nodes_per_part=info.nodes_per_part,
                              x=info.pad_node_data(x),
                              labels=info.pad_node_data(labels, fill=-1),
                              family=spec["model"], model=kw, state=state,
                              steps=steps, lr=1e-2, impl=impl))
+    # DP_MAIN (the first run, kernels first) again, rank 0 profiled
+    assert next(iter(DP_RUNS)) == DP_MAIN and jobs[0]["impl"] == "kernel"
+    jobs.append(dict(jobs[0], profile=True))
+    n_dp = len(jobs)
+    dry_jobs, dry_meta = dryrun_jobs(P)
+    scale_jobs, scale_meta = scaling.scaling_jobs(
+        SCALING_RANKS, SCALING_SCALE, steps=SCALING_STEPS)
+    assert scale_meta["world"] <= P
+    jobs += dry_jobs + scale_jobs
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         results = spawn_ranks(P, jobs, workdir=workdir, device="cuda")
     print(f"data-parallel ranks ran in {time.perf_counter() - t0:.1f} s")
-    launches = {}
+    launches = check_dryrun(P, dry_jobs, dry_meta, [
+        r[n_dp:n_dp + len(dry_jobs)] for r in results], card)
+    res = scaling.summarize(scale_jobs, results[0][n_dp + len(dry_jobs):],
+                            scale_meta, torch.device("cuda"))
+    if [r["world"] for r in res["results"]] != list(SCALING_RANKS) or \
+            res["note"] != scaling.SHARED:
+        raise AssertionError(f"bench.scaling: {json.dumps(res)}")
+    print(f"bench.scaling ({card}): " + ", ".join(
+        f"world {r['world']} {r['step_ms']:.2f} ms (median "
+        f"{r['median_step_ms']:.2f}), {r['edges_per_s']:.4g} edges/s, "
+        f"efficiency {r['scaling_efficiency']:.3f}, kernel vs plain "
+        f"{r['kernel_vs_plain_max_rel']:.3g}" for r in res["results"])
+          + f"; {res['note']}")
     i = 0
     for run, spec in DP_RUNS.items():
         compact, steps = spec["compact"], spec["steps"]
@@ -2187,6 +2386,9 @@ def check_dp(data, parts, dev, card):
                 if m["backend"] != "gloo" or m["device"] != "cuda:0":
                     raise AssertionError(f"{run}: rank {rank} ran on "
                                          f"{m['device']} with {m['backend']}")
+                if spec["ntypes"] and not m["device_only"]["ntype_seg"]:
+                    raise AssertionError(f"{run} rank {rank}: ntype_seg kept "
+                                         "its host offsets")
         for step, (a, b) in enumerate(zip(runs["kernel"][0]["loss_list"],
                                           runs["plain"][0]["loss_list"])):
             if abs(a - b) > TRAIN_RTOL * abs(b):
@@ -2207,7 +2409,81 @@ def check_dp(data, parts, dev, card):
               f"(step times of ranks that share a card are not scaling "
               f"figures; {card}):", json.dumps(summary))
         launches[run] = runs["kernel"][0]["launches"]
+    # ntype_linear past the node-type boundary: kernels 4, 6 and 7 beyond
+    # compact HGT's, a step
+    for k, n in NTYPE_LINEAR.items():
+        per = DP_RUNS["dp_hgt_ntypes"]["steps"]
+        extra = (launches["dp_hgt_ntypes"][k] / per
+                 - launches["dp_hgt_compact"][k] / DP_RUNS["dp_hgt_compact"]
+                 ["steps"])
+        if extra != n:
+            raise AssertionError(f"dp_hgt_ntypes: ntype_linear launched "
+                                 f"{extra} {k} a step, expected {n}")
+    print(f"dp_hgt_ntypes: ntype_linear a step on the kernels: "
+          f"{json.dumps(NTYPE_LINEAR)}")
+    prof = results[0][i]
+    want = {k: DP_RUNS[DP_MAIN]["launches"].get(k, 0) * PROFILE_STEPS
+            for k in KERNELS}
+    if prof["launches"] != want:
+        raise AssertionError(f"{DP_MAIN} profiled: launched "
+                             f"{prof['launches']}, expected {want}")
+    _print_dp_profile(prof["profile"], card)
     return launches
+
+
+def check_dryrun(n, jobs, meta, results, card):
+    """``entry.dryrun_multichip``'s results on ``n`` ranks, every rank on
+    cuda:0 over gloo (``results[rank][i]`` for ``jobs[i]``): every loss
+    finite and the kernels' within ``TRAIN_RTOL`` of the plain versions'
+    at each step (``entry.dryrun_check`` raises otherwise), each rank's
+    launches ``DRYRUN_LAUNCHES`` a step and, on the mesh, each rank's
+    coordinates.  Returns {run: rank 0's launches}."""
+    from het_tpu_torch.entry import dryrun_check, dryrun_mesh
+
+    res = dryrun_check(n, jobs, meta, results)
+    mesh = dryrun_mesh(n)
+    coords = ([(p // mesh[1], p % mesh[1]) for p in range(n)] if mesh
+              else [None] * n)
+    if res["coords"] != coords or res["mesh"] != mesh:
+        raise AssertionError(f"dryrun_multichip({n}): mesh {res['mesh']},"
+                             f" coordinates {res['coords']}")
+    if res["backend"] != "gloo" or res["device"] != "cuda:0":
+        raise AssertionError(f"dryrun_multichip({n}): {res['device']} "
+                             f"with {res['backend']}")
+    steps = jobs[0]["steps"]
+    for rank, counts in enumerate(res["launches"]):
+        want = {k: DRYRUN_LAUNCHES.get(k, 0) * steps for k in counts}
+        if counts != want:
+            raise AssertionError(f"dryrun_multichip({n}) rank {rank}: "
+                                 f"launched {counts}, expected {want}")
+    print(f"dryrun_multichip({n}) ({card}): losses {res['losses']} (plain "
+          f"{res['plain_losses']}), mesh {res['mesh']}, coordinates "
+          f"{res['coords']}, launches a rank "
+          f"{json.dumps(res['launches'][0])}, halo {json.dumps(res['halo'])}")
+    return {f"dryrun_multichip_{n}": res["launches"][0]}
+
+
+def check_dryruns(card):
+    """``entry.dryrun_multichip`` on each of ``DRYRUN_RANKS`` past P (4:
+    the 2 x 2 mesh), spawning its ranks, held by :func:`check_dryrun`
+    (the P-rank run joins :func:`check_dp`'s spawn).  Returns {run: rank
+    0's launches}."""
+    import tempfile
+
+    from het_tpu_torch.entry import dryrun_jobs
+    from het_tpu_torch.parallel.launch import spawn_ranks
+
+    out = {}
+    for n in DRYRUN_RANKS:
+        if n == P:
+            continue
+        t0 = time.perf_counter()
+        jobs, meta = dryrun_jobs(n)
+        with tempfile.TemporaryDirectory() as workdir:
+            results = spawn_ranks(n, jobs, workdir=workdir, device="cuda")
+        out.update(check_dryrun(n, jobs, meta, results, card))
+        print(f"dryrun_multichip({n}): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------------ training
@@ -3394,6 +3670,8 @@ def check_full_scale(dev, card):
 
 # bench.step's timed steps (after its warm-up) a variant
 BENCH_WARMUP, BENCH_STEPS = 3, 10
+# bench.halo_bytes at 0.01 (host only; the CPU tests hold its numbers)
+HALO_SCALE = 0.01
 
 
 def check_bench(dev, card):
@@ -3408,8 +3686,9 @@ def check_bench(dev, card):
     each and ``bench.fullscale`` at 0.1; each raises where its kernel
     disagrees with its plain version (the sweep records it: a failed case
     fails the run here).  Prints the phase's seconds."""
-    from het_tpu_torch.bench import (compiled, fullscale, infer, models,
-                                     segmm_strategies, skew, step, sweep)
+    from het_tpu_torch.bench import (compiled, fullscale, halo_bytes, infer,
+                                     models, segmm_strategies, skew, step,
+                                     sweep)
     from het_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -3460,9 +3739,13 @@ def check_bench(dev, card):
     fullscale.run(0.1, dev)
     segmm_strategies.run(dev, cases=("mag_like",))
     skew.run(dev, kinds=("one_hub",))
+    t2 = time.perf_counter()
+    report = halo_bytes.run(HALO_SCALE)
+    if len(report["rows"]) != 6:
+        raise AssertionError(f"bench.halo_bytes: {json.dumps(report)}")
     print(f"bench phase: {time.perf_counter() - t0:.1f} s (bench.step "
-          f"{t1 - t0:.1f} s, the other modules {time.perf_counter() - t1:.1f}"
-          " s)")
+          f"{t1 - t0:.1f} s, the other modules {t2 - t1:.1f} s, "
+          f"bench.halo_bytes {time.perf_counter() - t2:.1f} s)")
 
 
 # ------------------------------------------------------------ breakdown
@@ -3691,7 +3974,8 @@ def main() -> int:
                       extra={**{run: t for run, (_, t) in mb.items()},
                              **dict.fromkeys(LINK_RUNS, link_shapes)}),
         check_seg_max({SLICE_MAIN: gp, "plain_max": gd,
-                       "hgt_compact_max": gd}, dev, flush),
+                       "hgt_compact_max": gd,
+                       "dp_plain_max": shards["dp_plain_max"]}, dev, flush),
         check_dw(gd, gu, shards, dev, flush,
                  {"minibatch_plain": mb["minibatch_plain"][0],
                   "link_plain": gl}),
@@ -3736,7 +4020,14 @@ def main() -> int:
             del datasets[key]
     full_launches, full_by_dtype, full_totals = check_full_scale(dev, card)
     launches.update(full_launches)
+    t0 = time.perf_counter()
     launches.update(check_dp(data, parts, dev, card))
+    t1 = time.perf_counter()
+    launches.update(check_dryruns(card))
+    print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s (the "
+          f"training runs, the profile, the 2-rank dry run and "
+          f"bench.scaling {t1 - t0:.1f} s, the 4-rank dry run "
+          f"{time.perf_counter() - t1:.1f} s)")
     # the bf16 instantiations' launches: each typed kernel's count by
     # element types, on this slice's bf16 main path (the dW's on the bf16
     # plain RGAT run, the only one that reaches it)

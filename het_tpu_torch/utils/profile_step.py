@@ -31,17 +31,26 @@ profiler's schedule).  Prints each kernel's device time per step
 (averaged over the traced steps), the traced steps' own times (CUDA
 events), the device's busy share of them and the rest, the host's share
 (the card idle, waiting for the host to issue work).
+
+A data-parallel job's step is split by :func:`profile_dp` (a job's
+``profile`` option, ``parallel/launch.py``): rank 0 traces the same warm
+steps, and every rank times each collective call in them on the host,
+after a ``torch.cuda.synchronize()`` and a barrier over the call's group
+(the wait for the peers timed apart), up to a synchronize after it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+from typing import Dict, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
+from ..parallel.dp import COLLECTIVES, timed_collectives, train_dp
 from ..train.config import add_args, config_from_args
 from ..train.driver import train
 from ..train.link import train_link
@@ -63,6 +72,7 @@ CATEGORIES = (
     ("multi_tensor_apply", "optimizer"),
     ("reduce_kernel", "reductions"),
     ("elementwise", "elementwise"),
+    ("Memcpy", "copies"),  # host <-> card (gloo stages a collective so)
 )
 
 
@@ -80,6 +90,94 @@ def category(kernel: str) -> str:
     return "other"
 
 
+def _kernel_rows(prof) -> List[Tuple[str, float, int]]:
+    """(kernel, device ms a traced step, launches a traced step), largest
+    first: kernel rows only, since operator rows and annotations (the
+    optimizer's step range) carry their kernels' time again."""
+    return sorted(((e.key, _device_us(e) / 1e3 / ACTIVE, e.count // ACTIVE)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith(("Optimizer.", "ProfilerStep"))),
+                  key=lambda r: -r[1])
+
+
+def _categories(rows) -> Dict[str, List]:
+    """{category: [device ms, launches]} a traced step."""
+    cats = {}
+    for key, ms, calls in rows:
+        c = cats.setdefault(category(key), [0.0, 0])
+        c[0] += ms
+        c[1] += calls
+    return cats
+
+
+def _traced():
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=WAIT, warmup=WARMUP, active=ACTIVE,
+                                     repeat=1))
+
+
+def profile_dp(dp, shard, x_loc: torch.Tensor, labels: torch.Tensor, *,
+               lr: float, trace: bool) -> Dict:
+    """``STEPS`` data-parallel training steps (``parallel.dp.train_dp``)
+    on this rank.  Every rank times each collective call in the ``ACTIVE``
+    steps from step ``WAIT + WARMUP`` on (``parallel.dp.CollectiveTimes``:
+    a barrier before each call, so that the wait for the peers is timed
+    apart from the transfer; the barrier is collective, so every rank
+    takes part).  Where ``trace`` (rank 0), the same steps are traced with
+    ``torch.profiler`` and the result gains ``"profile"``: the traced
+    steps' ms (CUDA events) and the untraced warm ones', the card's busy
+    ms a step in all and by category, the ms a step and calls of each kind
+    of collective, the ms a step waiting for the peers at them, and the
+    rest of the step, neither a collective, a wait nor this rank's work on
+    the card: the host issuing work, and the card's time given to the
+    other ranks that share it.  The synchronizes and barriers slow the
+    traced steps; the untraced warm steps show by how much."""
+    if labels.device.type != "cuda":
+        raise ValueError("profile_dp measures the card: its tensors are on "
+                         f"{labels.device}")
+    first = WAIT + WARMUP
+    with contextlib.ExitStack() as stack:
+        times = stack.enter_context(timed_collectives())
+        prof = stack.enter_context(_traced()) if trace else None
+        done = 0
+
+        def log(_):
+            nonlocal done
+            if prof is not None:
+                prof.step()
+            done += 1
+            times.on = first <= done < first + ACTIVE
+
+        out = train_dp(dp, shard, x_loc, labels, steps=STEPS, lr=lr,
+                       log=log)
+    if not trace:
+        return out
+    traced = out["step_ms_list"][first:first + ACTIVE]
+    step = sum(traced) / len(traced)
+    rows = _kernel_rows(prof)
+    cats = {k: v[0] for k, v in _categories(rows).items()}
+    busy = sum(cats.values())
+    coll = {k: times.ms[k] / ACTIVE for k in COLLECTIVES}
+    wait = times.wait_ms / ACTIVE
+    out["profile"] = {
+        "traced_step_ms": traced, "step_ms": step,
+        "untraced_warm_step_ms": [
+            ms for i, ms in enumerate(out["step_ms_list"])
+            if i and not first <= i < first + ACTIVE],
+        "device_busy_ms": busy, "device_ms_by_category": cats,
+        "collective_ms": coll,
+        "collective_calls": {k: times.calls[k] // ACTIVE
+                             for k in COLLECTIVES},
+        "collective_wait_ms": wait,
+        # the copies are gloo's, inside the collectives' windows
+        "rest_ms": (step - sum(coll.values()) - wait
+                    - (busy - cats.get("copies", 0.0))),
+        "top_kernels": rows[:TOP]}
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser("profile one training step")
     add_args(parser)
@@ -91,19 +189,10 @@ def main() -> None:
         raise SystemExit("profile_step measures the card: --device cuda")
     trainer = (train_link if cfg.task == "link" else
                train if cfg.full_graph_training else train_minibatch)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=WAIT, warmup=WARMUP,
-                                   active=ACTIVE, repeat=1)) as prof:
+    with _traced() as prof:
         metrics = trainer(cfg, log=lambda s: (print(s), prof.step()))
     traced = metrics["step_ms_list"][WAIT + WARMUP: WAIT + WARMUP + ACTIVE]
-    # kernel rows only: operator rows and annotations (the optimizer's
-    # step range) carry their kernels' time again
-    rows = sorted(((e.key, _device_us(e) / 1e3 / ACTIVE, e.count // ACTIVE)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and not e.key.startswith(("Optimizer.", "ProfilerStep"))),
-                  key=lambda r: -r[1])
+    rows = _kernel_rows(prof)
     busy = sum(r[1] for r in rows)
     step = sum(traced) / len(traced)
     print(f"device: {metrics['device']}")
@@ -111,11 +200,7 @@ def main() -> None:
     print(f"device busy per step: {busy:.3f} ms of {step:.3f} ms "
           f"({100 * busy / step:.1f}%); host share (device idle) "
           f"{100 * (1 - busy / step):.1f}%")
-    cats = {}
-    for key, ms, calls in rows:
-        c = cats.setdefault(category(key), [0.0, 0])
-        c[0] += ms
-        c[1] += calls
+    cats = _categories(rows)
     print("category | device ms per step | launches per step")
     for cat, (ms, calls) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
         print(f"{cat} | {ms:.4f} | {calls}")

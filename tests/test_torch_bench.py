@@ -27,7 +27,8 @@ from het_tpu.data import loaders as jl
 from het_tpu.models import RGATModel as JRGATModel
 from het_tpu.utils.misc import nll_loss as j_nll_loss
 from het_tpu_torch.bench import (common, compiled, fullscale, infer, models,
-                                 segmm_strategies, skew, step, sweep)
+                                 scaling, segmm_strategies, skew, step,
+                                 sweep)
 from het_tpu_torch.models import params_from_jax
 from het_tpu_torch.ops import kernels
 from het_tpu_torch.ops.kernels import _dispatch
@@ -153,6 +154,10 @@ MODULES = {
                     "3000", "--reps", "1"],
              ["kind", "max_in_degree", "reduce_ms", "plain_ms", "bound_ms",
               "pct_of_bound", "peak_mem_mb", "card"]),
+    "scaling": (scaling, ["--ranks", "1", "2", "--scale", "0.0005",
+                          "--steps", "1"],
+                ["world", "step_ms", "edges_per_s", "scaling_efficiency",
+                 "kernel_vs_plain_max_rel", "backend", "card"]),
 }
 
 
@@ -181,6 +186,13 @@ def test_module_runs_on_cpu(name, capsys, tmp_path):
         assert rows[-1]["compact_duplication_src"] > 1
     if name == "sweep":
         assert rows[-1]["failed"] == 0 and rows[-1]["cases"] == 1
+    if name == "scaling":  # two gloo ranks spawned on the CPU
+        last = rows[-1]
+        assert last["note"] == scaling.HOST and last["skipped_worlds"] == []
+        assert [r["world"] for r in last["results"]] == [1, 2]
+        assert last["results"][0]["scaling_efficiency"] == 1.0
+        assert all(r["backend"] == "gloo" and r["device"] == "cpu"
+                   for r in rows[:-1])
 
 
 @pytest.mark.parametrize("name", list(MODULES))

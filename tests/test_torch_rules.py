@@ -63,8 +63,10 @@ def test_port_scripts_and_bench_modules_are_checked():
                    "bench_seg_sum", "bench_turns"):
         assert f"scripts/{script}.py" in names, script
     for mod in ("common", "step", "models", "infer", "compiled", "sweep",
-                "fullscale", "segmm_strategies", "skew"):
+                "fullscale", "segmm_strategies", "skew", "breakdown",
+                "scaling", "halo_bytes"):
         assert f"het_tpu_torch/bench/{mod}.py" in names, mod
+    assert "het_tpu_torch/entry.py" in names
     assert "scripts/bench_models.py" not in names  # het_tpu's
 
 
@@ -269,18 +271,22 @@ def test_parallel_modules_follow_the_rules(monkeypatch):
     without one they raise before opening a process group."""
     import inspect
 
+    from het_tpu_torch import entry
     from het_tpu_torch.parallel import dp, launch, partition
 
     files = set(_port_files())
-    for mod in (dp, launch, partition):
+    for mod in (dp, launch, partition, entry):
         assert os.path.abspath(mod.__file__) in files
-    assert inspect.signature(dp.setup_rank).parameters[
-        "device"].default == "cuda"
-    assert inspect.signature(launch.spawn_ranks).parameters[
-        "device"].default == "cuda"
+    for fn in (dp.setup_rank, launch.spawn_ranks, entry.entry,
+               entry.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dp.setup_rank(0, 1, init_method="file:///nonexistent/rendezvous")
+    for fn in (entry.entry, lambda: entry.dryrun_multichip(2),
+               lambda: entry.main(["--ranks", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     assert not torch.distributed.is_initialized()
 
 
