@@ -19,6 +19,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import convert, native
 from .structures import CompactInfo, HeteroGraph, Segments
 
@@ -250,6 +251,14 @@ def _canonical_runs(c_dst: np.ndarray, c_rel: np.ndarray,
     return _i32(canon_ptr), _i32(to_run)
 
 
+def _with_canonical_runs(c_dst, c_rel,
+                         compact_dst: CompactInfo) -> CompactInfo:
+    """``compact_dst`` with its canonical (dst, rel) runs."""
+    canon_ptr, canon_to_row = _canonical_runs(c_dst, c_rel, compact_dst)
+    return dataclasses.replace(compact_dst, canon_ptr=canon_ptr,
+                               canon_to_row=canon_to_row)
+
+
 def _node_types(num_nodes, ntype_offsets, node_ntype, tile, force_rows,
                 sorts):
     """``ntype_offsets``, the type count and ``ntype_seg``: node types from
@@ -274,6 +283,7 @@ def _node_types(num_nodes, ntype_offsets, node_ntype, tile, force_rows,
     return ntype_offsets, num_ntypes, ntype_seg
 
 
+@spans.setup("graph.build")
 def build_heterograph(
     src: np.ndarray,
     dst: np.ndarray,
@@ -325,48 +335,54 @@ def build_heterograph(
     force = force_sizes or {}
     hs = _sorts(sorts)
 
-    # the canonical sort's key bound: a shard's sources index its source
-    # space
-    order = hs.canonical_sort(src, dst, rel, max(num_nodes, src_space),
-                              num_rels)
-    c_src, c_dst, c_rel = src[order], dst[order], rel[order]
+    with spans.setup("graph.sort"):
+        # the canonical sort's key bound: a shard's sources index its
+        # source space
+        order = hs.canonical_sort(src, dst, rel, max(num_nodes, src_space),
+                                  num_rels)
+        c_src, c_dst, c_rel = src[order], dst[order], rel[order]
 
-    EP = max(round_up(E, EDGE_PAD), EDGE_PAD) + EDGE_EXTRA
-    EP = max(EP, force.get("num_padded_edges", 0))
-    pad = EP - E
-    p_src = np.concatenate([c_src, np.full(pad, src_space, dtype=np.int64)])
-    p_dst = np.concatenate([c_dst, np.full(pad, num_nodes, dtype=np.int64)])
-    p_rel = np.concatenate([c_rel, np.zeros(pad, dtype=np.int64)])
-    p_eid = np.concatenate([order, np.zeros(pad, dtype=np.int64)])
+        EP = max(round_up(E, EDGE_PAD), EDGE_PAD) + EDGE_EXTRA
+        EP = max(EP, force.get("num_padded_edges", 0))
+        pad = EP - E
+        p_src = np.concatenate([c_src, np.full(pad, src_space,
+                                               dtype=np.int64)])
+        p_dst = np.concatenate([c_dst, np.full(pad, num_nodes,
+                                               dtype=np.int64)])
+        p_rel = np.concatenate([c_rel, np.zeros(pad, dtype=np.int64)])
+        p_eid = np.concatenate([order, np.zeros(pad, dtype=np.int64)])
 
-    in_deg = hs.bincount(c_dst, num_nodes).astype(np.int64)
-    out_deg = hs.bincount(c_src, src_space).astype(np.int64)
-    in_row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.cumsum(in_deg, out=in_row_ptr[1:])
+    with spans.setup("graph.segments"):
+        in_deg = hs.bincount(c_dst, num_nodes).astype(np.int64)
+        out_deg = hs.bincount(c_src, src_space).astype(np.int64)
+        in_row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+        np.cumsum(in_deg, out=in_row_ptr[1:])
 
-    # src-sorted canonical positions; padding slots point at padding edges
-    out_perm = np.concatenate(
-        [hs.counting_argsort(c_src, src_space + 1),
-         np.arange(E, EP, dtype=np.int64)]
-    )
-    out_row_ptr = np.zeros(src_space + 1, dtype=np.int64)
-    np.cumsum(out_deg, out=out_row_ptr[1:])
+        # src-sorted canonical positions; padding slots point at padding
+        # edges
+        out_perm = np.concatenate(
+            [hs.counting_argsort(c_src, src_space + 1),
+             np.arange(E, EP, dtype=np.int64)]
+        )
+        out_row_ptr = np.zeros(src_space + 1, dtype=np.int64)
+        np.cumsum(out_deg, out=out_row_ptr[1:])
 
-    # relation segments cover every padded edge slot (padding edges go to
-    # relation 0 and are marked invalid)
-    edge_rel_seg = build_segments(p_rel, num_rels, tile,
-                                  force_rows=force.get("edge_rel_rows"),
-                                  sorts=sorts)
-    erv = edge_rel_seg.row_valid.numpy() & (
-        p_src[edge_rel_seg.perm.numpy()] < src_space
-    )
-    edge_rel_seg = dataclasses.replace(
-        edge_rel_seg, row_valid=torch.from_numpy(erv)
-    )
+        # relation segments cover every padded edge slot (padding edges go
+        # to relation 0 and are marked invalid)
+        edge_rel_seg = build_segments(p_rel, num_rels, tile,
+                                      force_rows=force.get("edge_rel_rows"),
+                                      sorts=sorts)
+        erv = edge_rel_seg.row_valid.numpy() & (
+            p_src[edge_rel_seg.perm.numpy()] < src_space
+        )
+        edge_rel_seg = dataclasses.replace(
+            edge_rel_seg, row_valid=torch.from_numpy(erv)
+        )
 
-    ntype_offsets, num_ntypes, ntype_seg = _node_types(
-        num_nodes, ntype_offsets, node_ntype, tile, force.get("ntype_rows"),
-        sorts)
+    with spans.setup("graph.ntypes"):
+        ntype_offsets, num_ntypes, ntype_seg = _node_types(
+            num_nodes, ntype_offsets, node_ntype, tile,
+            force.get("ntype_rows"), sorts)
 
     compact_src = compact_dst = None
     if build_compact and compact_union:
@@ -374,23 +390,23 @@ def build_heterograph(
             raise ValueError("union-list compact needs one node space; the "
                              "shards of a partitioned graph use the "
                              "dual-list kind")
-        compact_src, compact_dst = _build_compact_union(
-            c_rel, c_src, c_dst, num_nodes, num_rels, tile, EP,
-            force_rows=force.get("compact_src_rows"),
-            force_pairs=force.get("compact_src_pairs"), sorts=sorts)
+        with spans.setup("graph.compact.union"):
+            compact_src, compact_dst = _build_compact_union(
+                c_rel, c_src, c_dst, num_nodes, num_rels, tile, EP,
+                force_rows=force.get("compact_src_rows"),
+                force_pairs=force.get("compact_src_pairs"), sorts=sorts)
+            compact_dst = _with_canonical_runs(c_dst, c_rel, compact_dst)
     elif build_compact:
-        compact_src = _build_compact(
-            c_rel, c_src, src_space, num_rels, tile, EP,
-            force_rows=force.get("compact_src_rows"),
-            force_pairs=force.get("compact_src_pairs"), sorts=sorts)
-        compact_dst = _build_compact(
-            c_rel, c_dst, num_nodes, num_rels, tile, EP,
-            force_rows=force.get("compact_dst_rows"),
-            force_pairs=force.get("compact_dst_pairs"), sorts=sorts)
-    if build_compact:
-        canon_ptr, canon_to_row = _canonical_runs(c_dst, c_rel, compact_dst)
-        compact_dst = dataclasses.replace(compact_dst, canon_ptr=canon_ptr,
-                                          canon_to_row=canon_to_row)
+        with spans.setup("graph.compact.src"):
+            compact_src = _build_compact(
+                c_rel, c_src, src_space, num_rels, tile, EP,
+                force_rows=force.get("compact_src_rows"),
+                force_pairs=force.get("compact_src_pairs"), sorts=sorts)
+        with spans.setup("graph.compact.dst"):
+            compact_dst = _with_canonical_runs(c_dst, c_rel, _build_compact(
+                c_rel, c_dst, num_nodes, num_rels, tile, EP,
+                force_rows=force.get("compact_dst_rows"),
+                force_pairs=force.get("compact_dst_pairs"), sorts=sorts))
 
     if rel_names is None:
         rel_names = tuple(f"rel{i}" for i in range(num_rels))

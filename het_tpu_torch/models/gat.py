@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..utils import spans
 from .rgat import LEAKY_RELU_SLOPE, dropout, xavier_uniform_
 
 
@@ -105,6 +106,7 @@ class GATModel(nn.Module):
     def forward(self, g, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x
-        for layer in self.layers:
-            h = layer(g, h, generator=generator)
+        for i, layer in enumerate(self.layers):
+            with spans.span("layer", i):
+                h = layer(g, h, generator=generator)
         return h

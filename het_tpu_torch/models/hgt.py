@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..utils import spans
 from .rgat import dropout, xavier_uniform_
 
 LAYER_NORM_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
@@ -200,6 +201,7 @@ class HGTModel(nn.Module):
     def forward(self, g, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x
-        for layer in self.layers:
-            h = layer(g, h, generator=generator)
+        for i, layer in enumerate(self.layers):
+            with spans.span("layer", i):
+                h = layer(g, h, generator=generator)
         return h

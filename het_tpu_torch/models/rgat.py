@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..utils import spans
 
 LEAKY_RELU_SLOPE = 0.2
 
@@ -235,6 +236,7 @@ class RGATModel(nn.Module):
     def forward(self, g, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x
-        for layer in self.layers:
-            h = layer(g, h, generator=generator)
+        for i, layer in enumerate(self.layers):
+            with spans.span("layer", i):
+                h = layer(g, h, generator=generator)
         return h

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..utils import spans
 from .rgat import dropout, xavier_uniform_
 
 
@@ -165,8 +166,10 @@ class RGCNModel(nn.Module):
     def forward(self, g, x: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         norm_e = ops.rgcn_norm(g)
-        if self.featureless:
-            h = self.layers[0](g, norm_e)
-        else:
-            h = self.layers[0](g, x, norm_e, generator=generator)
-        return self.layers[1](g, h, norm_e, generator=generator)
+        with spans.span("layer", 0):
+            if self.featureless:
+                h = self.layers[0](g, norm_e)
+            else:
+                h = self.layers[0](g, x, norm_e, generator=generator)
+        with spans.span("layer", 1):
+            return self.layers[1](g, h, norm_e, generator=generator)

@@ -1,6 +1,9 @@
 """Graph ops of the port.  Each picks its implementation from the device
 of its tensors: hand-written CUDA kernels on the card, their plain
-PyTorch versions on the CPU."""
+PyTorch versions on the CPU.  The typed linears and the fused attention
+and aggregation entry points are spans of the families ``linear:`` and
+``agg:``, and every autograd Function of the port a device span
+(``utils/spans.py``)."""
 
 from .common import (edge_rel_gather, edge_rel_sum,  # noqa: F401
                      gather_dst, gather_nodes, gather_src, ntype_sum,

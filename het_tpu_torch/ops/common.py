@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from .kernels import seg_sum_sorted
 
 
@@ -33,6 +34,7 @@ def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return take_rows(src, idx)
 
 
+@spans.function
 class _TakeRowsInjective(torch.autograd.Function):
     """``y[inv]``; backward ``ct[perm]`` zeroed on invalid rows."""
 
@@ -60,6 +62,7 @@ def take_rows_injective(y: torch.Tensor, inv: torch.Tensor,
     return _TakeRowsInjective.apply(y, inv, perm, row_valid)
 
 
+@spans.function
 class _GatherRowsInjective(torch.autograd.Function):
     """``x[perm]`` zeroed on invalid rows; backward ``ct[inv]``."""
 
@@ -86,6 +89,7 @@ def gather_rows_injective(x: torch.Tensor, perm: torch.Tensor,
     return _GatherRowsInjective.apply(x, perm, inv, row_valid)
 
 
+@spans.function
 class _SortedGather(torch.autograd.Function):
     """``x[idx]`` (with ``sentinel``, the sentinel reading a zero row).
     Backward: the cotangent rows summed into ``x``'s rows by one sorted
@@ -134,6 +138,7 @@ def _sum_src(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
                           impl=impl)
 
 
+@spans.function
 class _GatherSide(torch.autograd.Function):
     """Per-edge rows of node rows at each edge's destination or source
     (zero on padding edges).  Backward: the transpose, one sorted segment
@@ -167,6 +172,7 @@ def gather_src(g, node_vals: torch.Tensor, *,
     return _GatherSide.apply(node_vals, g, "src", impl)
 
 
+@spans.function
 class _ScatterSum(torch.autograd.Function):
     """Per-edge rows summed into their destinations or sources by one
     sorted segment sum.  Backward: the gather at each edge's node."""
@@ -230,6 +236,7 @@ def _sum_rel(g, flat: torch.Tensor, impl: str) -> torch.Tensor:
     return seg_sum_sorted(rows.contiguous(), seg.seg_ptrs, perm, impl=impl)
 
 
+@spans.function
 class _EdgeRelSum(torch.autograd.Function):
     """Per-edge rows summed into their relations (padding edges add
     nothing); backward the read of each real edge's relation row."""
@@ -254,6 +261,7 @@ def edge_rel_sum(g, edge_vals: torch.Tensor, *,
     return _EdgeRelSum.apply(edge_vals, g, impl)
 
 
+@spans.function
 class _EdgeRelGather(torch.autograd.Function):
     """``w[rel]`` per canonical edge; backward :func:`edge_rel_sum`."""
 
@@ -281,6 +289,7 @@ def _ntype_ptr(g, device) -> torch.Tensor:
     return torch.tensor(g.ntype_offsets, dtype=torch.int32, device=device)
 
 
+@spans.function
 class _NtypeSum(torch.autograd.Function):
     """Node rows summed into their node types (each type a contiguous
     range of node ids); backward the read of each node's type row."""

@@ -95,6 +95,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import spans
 from .common import gather_dst, gather_nodes, safe_div, take_rows
 from .kernels import seg_max_sorted, seg_sum_sorted
 from .linear import (_edge_row_idx, edge_rel_scale_grad, segment_matmul,
@@ -231,6 +232,7 @@ def _compact_raw(el_feat_c, er_c, infoS, infoD, H):
     return ge[:, :H] + take_rows(er_c, infoD.edge_map), ge[:, H:]
 
 
+@spans.function
 class FusedGAT(torch.autograd.Function):
     """``forward(feat2d (EP, H*D), raw (EP, H), g, slope, stable, impl) ->
     (N, H, D)`` with ``raw = el + er`` per canonical edge.  The forward
@@ -266,6 +268,7 @@ def _d_er(infoD, draw, impl: str, dt=torch.float32):
     return gather_nodes(red_d, infoD.canon_to_row)
 
 
+@spans.function
 class CompactFusedGAT(torch.autograd.Function):
     """``forward(feat_c2d (UCs, H*D), el_c (UCs, H), er_c (UCd, H), g,
     slope, stable, impl) -> (N, H, D)``; ``impl`` picks the kernels or
@@ -304,6 +307,7 @@ class CompactFusedGAT(torch.autograd.Function):
                 d_er_c.to(er_c.dtype), None, None, None, None)
 
 
+@spans.function
 class CompactFusedGATPacked(torch.autograd.Function):
     """``forward(fe2d (UCs, H*(1+D)), er_c (UCd, H), g, slope, stable,
     impl) -> (N, H, D)`` with per-head lanes ``[el | feat]`` in ``fe2d``.
@@ -352,6 +356,7 @@ class CompactFusedGATPacked(torch.autograd.Function):
                 None, None, None, None)
 
 
+@spans.function
 class CompactWeightedAgg(torch.autograd.Function):
     """``forward(feat_c (UCs, C), w_e (EP,), g, impl) -> (N, C)``.  Saves
     the compact rows and the weights, no per-edge tensor; ``d_w`` only
@@ -383,6 +388,7 @@ class CompactWeightedAgg(torch.autograd.Function):
         return d_feat, d_w, None, None
 
 
+@spans.op("agg")
 def compact_weighted_agg(g, feat_c: torch.Tensor, w_e: torch.Tensor, *,
                          impl: str = "kernel") -> torch.Tensor:
     """``out[v] = sum_{dst(e)=v} w_e * feat_c[compact_src_row(e)]``:
@@ -394,6 +400,7 @@ def compact_weighted_agg(g, feat_c: torch.Tensor, w_e: torch.Tensor, *,
     return CompactWeightedAgg.apply(feat_c, w_e, g, impl)
 
 
+@spans.op("agg")
 def fused_softmax_agg(g, feat_e: torch.Tensor, raw_e: torch.Tensor, *,
                       act: str = "leaky_relu", slope: float = 0.2,
                       stable: str = "raw",
@@ -411,6 +418,7 @@ def fused_softmax_agg(g, feat_e: torch.Tensor, raw_e: torch.Tensor, *,
                           impl)
 
 
+@spans.function
 class SrcCompactFusedSoftmaxAgg(torch.autograd.Function):
     """The softmax aggregation of source-compact features with per-edge
     logits (``_make_src_compact_fused_op``, the target of the compiler's
@@ -453,6 +461,7 @@ class SrcCompactFusedSoftmaxAgg(torch.autograd.Function):
                 None, None)
 
 
+@spans.op("agg")
 def fused_softmax_agg_src_compact(g, feat_c: torch.Tensor,
                                   raw_e: torch.Tensor, *,
                                   act: str = "identity", slope: float = 0.2,
@@ -479,6 +488,7 @@ def fused_softmax_agg_src_compact(g, feat_c: torch.Tensor,
 # ------------------------------------------------------------------- HGT
 
 
+@spans.function
 class HGTCompactAttention(torch.autograd.Function):
     """HGT's compact attention chain in one op
     (``_make_hgt_compact_attention_op``):
@@ -599,6 +609,7 @@ def _plain_score_pullback(q2d, k2d, w_att, g, dscore_rows, need_q: bool,
     return d_q, d_watt, attq_rows.reshape(-1, HD)
 
 
+@spans.function
 class HGTPlainFull(torch.autograd.Function):
     """HGT's plain layer core in one op (``_make_hgt_plain_full_op``):
     both per-edge typed linears over the relation-sorted edge rows
@@ -689,6 +700,7 @@ class HGTPlainFull(torch.autograd.Function):
                 None, None)
 
 
+@spans.function
 class HGTPlainAttention(torch.autograd.Function):
     """HGT's plain attention in one op (``_make_hgt_plain_attention_op``):
     :class:`HGTPlainFull` without the message transform, the messages
@@ -801,6 +813,7 @@ def _node_fused_backward(ct, feat_e, el, er, s, out, g, slope, clip, impl,
     return d_feat, d_el, d_er
 
 
+@spans.function
 class NodeFusedGAT(torch.autograd.Function):
     """Homogeneous GAT's fused softmax aggregation with node-sided inputs
     (``_make_node_fused_op``):
@@ -835,6 +848,7 @@ class NodeFusedGAT(torch.autograd.Function):
                 d_er.to(er.dtype), None, None, None, None)
 
 
+@spans.function
 class GATLayerFused(torch.autograd.Function):
     """Homogeneous GAT's layer core in one op (``_make_gat_layer_op``): the
     projection ``feat = x W``, the logits ``el = <feat, attn_l>`` and ``er

@@ -26,6 +26,8 @@ import subprocess
 import tempfile
 from typing import Dict, List, Tuple
 
+from ...utils import spans
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -121,10 +123,13 @@ def build_all(names=SOURCES) -> List[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed: a set-up span
+    ``kernels.load.<name>`` whose ``built`` counts 1 where this process
+    compiled it."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(_lib_path(name))
+        with spans.setup(f"kernels.load.{name}") as span:
+            span.count("built", len(build_all((name,))))
+            lib = ctypes.CDLL(_lib_path(name))
         _LIBS[name] = lib
     return lib

@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from ...utils import spans
 from . import _dispatch
 
 # the segment sum's (rows, output) element types
@@ -179,6 +180,26 @@ def _seg_reduce_cuda(symbol, what, vals, row_ptr, perm,
     return out
 
 
+def _reduce_work(vals, row_ptr, perm=None, out_dtype=torch.float32):
+    """A segment reduction's least bytes and operations, from the shapes:
+    each row it walks (``perm``'s entries, else ``vals``' rows) read once
+    with its index, the row pointer read once, each output element written
+    once, and one add (or max) an element walked."""
+    C = vals.shape[1]
+    walked = perm.numel() if perm is not None else vals.shape[0]
+    n = row_ptr.numel() - 1
+    nbytes = (walked * C * vals.element_size()
+              + (walked * perm.element_size() if perm is not None else 0)
+              + row_ptr.numel() * row_ptr.element_size()
+              + n * C * out_dtype.itemsize)
+    return nbytes, walked * C
+
+
+def _copy_work(x):
+    """A copy's least bytes and operations: read once, written once."""
+    return 2 * x.numel() * x.element_size(), 0
+
+
 def dtype_key(*dtypes: torch.dtype) -> str:
     """"bf16->f32"-style name of an instantiation's element types."""
     short = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -237,9 +258,11 @@ def seg_sum_sorted(vals: torch.Tensor, row_ptr: torch.Tensor,
     plain = _dispatch.takes_plain(vals, impl, "seg_sum_sorted")
     out_dtype = out_dtype or torch.float32
     _check(vals, row_ptr, perm, out_dtype, SUM_DTYPES)
-    if plain:
-        return seg_sum_sorted_plain(vals, row_ptr, perm, out_dtype)
-    return _seg_sum_sorted_cuda(vals, row_ptr, perm, out_dtype)
+    with spans.kernel(seg_sum_sorted, _reduce_work, vals=vals,
+                      row_ptr=row_ptr, perm=perm, out_dtype=out_dtype):
+        if plain:
+            return seg_sum_sorted_plain(vals, row_ptr, perm, out_dtype)
+        return _seg_sum_sorted_cuda(vals, row_ptr, perm, out_dtype)
 
 
 # launches of the CUDA kernel since the count was last set to 0, in all
@@ -256,9 +279,11 @@ def seg_max_sorted(vals: torch.Tensor, row_ptr: torch.Tensor, *,
     plain version bit for bit."""
     plain = _dispatch.takes_plain(vals, impl, "seg_max_sorted")
     _check(vals, row_ptr, None)
-    if plain:
-        return seg_max_sorted_plain(vals, row_ptr)
-    return _seg_max_sorted_cuda(vals, row_ptr)
+    with spans.kernel(seg_max_sorted, _reduce_work, vals=vals,
+                      row_ptr=row_ptr):
+        if plain:
+            return seg_max_sorted_plain(vals, row_ptr)
+        return _seg_max_sorted_cuda(vals, row_ptr)
 
 
 seg_max_sorted.launches = 0
@@ -274,9 +299,10 @@ def force_rowmajor(x: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
     if math.prod(x.shape[1:]) >= 2**31:
         raise ValueError(f"rows of {tuple(x.shape[1:])} elements are too "
                          "wide for the kernel's int32 columns")
-    if plain:
-        return force_rowmajor_plain(x)
-    return _force_rowmajor_cuda(x)
+    with spans.kernel(force_rowmajor, _copy_work, x=x):
+        if plain:
+            return force_rowmajor_plain(x)
+        return _force_rowmajor_cuda(x)
 
 
 force_rowmajor.launches = 0

@@ -41,6 +41,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ...utils import spans
 from . import _dispatch
 
 
@@ -241,6 +242,33 @@ def _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg_ptrs):
     return out
 
 
+# A segment matmul's least bytes and operations, from the call's operands:
+# each input element read once (the rows, the weight, the S + 1 offsets),
+# each f32 output element written once, two operations a multiply-add.
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _fwd_work(x, w, seg_ptrs):
+    n, (S, H, K, O) = x.shape[0], w.shape
+    return (_nbytes(x) + _nbytes(w) + _nbytes(seg_ptrs) + 4 * n * H * O,
+            2 * n * H * K * O)
+
+
+def _dx_work(ct, w, seg_ptrs, x_heads):
+    n, (S, H, K, O) = ct.shape[0], w.shape
+    return (_nbytes(ct) + _nbytes(w) + _nbytes(seg_ptrs)
+            + 4 * n * x_heads * K, 2 * n * H * O * K)
+
+
+def _dw_work(x, ct, w_shape, seg_ptrs):
+    n, (S, H, K, O) = x.shape[0], w_shape
+    return (_nbytes(x) + _nbytes(ct) + _nbytes(seg_ptrs) + 4 * S * H * K * O,
+            2 * n * H * K * O)
+
+
 def _check_seg(seg, S: int, n_rows: int) -> None:
     if seg.n_segments != S or seg.seg_ptrs.numel() != S + 1:
         raise ValueError(f"seg has {seg.n_segments} segments, the weight {S}")
@@ -292,10 +320,12 @@ def segment_matmul_dw(x_rows: torch.Tensor, ct_rows: torch.Tensor, w_shape,
     _check_dw_dtypes(x_rows, ct_rows)
     x2, ct2, Hx = _operands(x_rows, ct_rows, w_shape)
     _check_seg(seg, w_shape[0], x2.shape[0])
-    if plain:
-        return segment_matmul_dw_plain(x2, ct2, w_shape, seg)
-    _check_cuda((("x_rows", x2), ("ct_rows", ct2)), seg)
-    return _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg.seg_ptrs)
+    with spans.kernel(segment_matmul_dw, _dw_work, x=x2, ct=ct2,
+                      w_shape=tuple(w_shape), seg_ptrs=seg.seg_ptrs):
+        if plain:
+            return segment_matmul_dw_plain(x2, ct2, w_shape, seg)
+        _check_cuda((("x_rows", x2), ("ct_rows", ct2)), seg)
+        return _segment_matmul_dw_cuda(x2, ct2, w_shape, Hx, seg.seg_ptrs)
 
 
 # launches of the CUDA kernel since the count was last set to 0 (one a
@@ -511,14 +541,16 @@ def segment_matmul_fwd(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
     x2 = _rows2d(x_rows)
     Hx = _heads_of(x2, H, K, "x_rows")
     _check_seg(seg, S, x2.shape[0])
-    if plain:
-        return segment_matmul_fwd_plain(x2, w, seg)
-    _check_cuda((("x_rows", x2), ("w", w)), seg)
-    out = torch.empty(x2.shape[0], H, O, dtype=torch.float32,
-                      device=x2.device)
-    if _segment_matmul_cuda(x2, w, seg.seg_ptrs, out, Hx, False):
-        segment_matmul_fwd.launches += 1
-    return out
+    with spans.kernel(segment_matmul_fwd, _fwd_work, x=x2, w=w,
+                      seg_ptrs=seg.seg_ptrs):
+        if plain:
+            return segment_matmul_fwd_plain(x2, w, seg)
+        _check_cuda((("x_rows", x2), ("w", w)), seg)
+        out = torch.empty(x2.shape[0], H, O, dtype=torch.float32,
+                          device=x2.device)
+        if _segment_matmul_cuda(x2, w, seg.seg_ptrs, out, Hx, False):
+            segment_matmul_fwd.launches += 1
+        return out
 
 
 def segment_matmul_dx(ct_rows: torch.Tensor, w: torch.Tensor, seg,
@@ -539,14 +571,16 @@ def segment_matmul_dx(ct_rows: torch.Tensor, w: torch.Tensor, seg,
         raise ValueError(f"ct_rows {tuple(ct_rows.shape)} is not (n_rows, "
                          f"{H}*{O}), or x_heads={x_heads} not in (1, {H})")
     _check_seg(seg, S, ct2.shape[0])
-    if plain:
-        return segment_matmul_dx_plain(ct2, w, seg, x_heads)
-    _check_cuda((("ct_rows", ct2), ("w", w)), seg)
-    out = torch.empty(ct2.shape[0], x_heads * K, dtype=torch.float32,
-                      device=ct2.device)
-    if _segment_matmul_cuda(ct2, w, seg.seg_ptrs, out, x_heads, True):
-        segment_matmul_dx.launches += 1
-    return out
+    with spans.kernel(segment_matmul_dx, _dx_work, ct=ct2, w=w,
+                      seg_ptrs=seg.seg_ptrs, x_heads=x_heads):
+        if plain:
+            return segment_matmul_dx_plain(ct2, w, seg, x_heads)
+        _check_cuda((("ct_rows", ct2), ("w", w)), seg)
+        out = torch.empty(ct2.shape[0], x_heads * K, dtype=torch.float32,
+                          device=ct2.device)
+        if _segment_matmul_cuda(ct2, w, seg.seg_ptrs, out, x_heads, True):
+            segment_matmul_dx.launches += 1
+        return out
 
 
 # launches of each CUDA kernel since its count was last set to 0

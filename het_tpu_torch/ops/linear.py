@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import spans
 from .common import (gather_nodes, gather_rows_injective, sorted_gather,
                      take_rows, take_rows_injective)
 from .kernels import (seg_sum_sorted, segment_matmul_dw, segment_matmul_dx,
@@ -172,6 +173,7 @@ def segment_matmul_pullback(x_rows: torch.Tensor, w: torch.Tensor, seg,
     return dx, (dw.to(w.dtype) if dw is not None else None)
 
 
+@spans.function
 class _SegmentMatmul(torch.autograd.Function):
     """Per-segment matmul: per-relation ``torch.matmul`` over host-known
     row slices, or the segment-matmul kernels where the offsets live only
@@ -197,6 +199,7 @@ class _SegmentMatmul(torch.autograd.Function):
         return dx, dw, None, None
 
 
+@spans.op("linear")
 def segment_matmul(x_rows: torch.Tensor, w: torch.Tensor, seg, *,
                    impl: str = "kernel") -> torch.Tensor:
     """x_rows (n_rows, K), or (n_rows, Hx, K) with Hx in {1, H} (one row
@@ -228,6 +231,7 @@ def _offsets(seg, offsets: str):
     return seg
 
 
+@spans.op("linear")
 def ntype_linear(g, x: torch.Tensor, w: torch.Tensor, *,
                  impl: str = "kernel") -> torch.Tensor:
     """Per-node-type linear ``y_n = x[n] @ W[ntype(n)]``: x (N, K), w (T,
@@ -244,6 +248,7 @@ def ntype_linear(g, x: torch.Tensor, w: torch.Tensor, *,
                                seg.inv, seg.perm, seg.row_valid)
 
 
+@spans.op("linear")
 def compact_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
                          side: str = "src", *, impl: str = "kernel",
                          offsets: str = "host") -> torch.Tensor:
@@ -291,6 +296,7 @@ def _edge_row_idx(g, side: str) -> torch.Tensor:
                        torch.full_like(seg.perm, _side_rows(g, side)))
 
 
+@spans.function
 class _EdgeRowGather(torch.autograd.Function):
     """Node rows -> relation-sorted edge rows (zero on padding rows).
 
@@ -321,6 +327,7 @@ class _EdgeRowGather(torch.autograd.Function):
         return dx.view(ctx.x_shape).to(ct_rows.dtype), None, None, None
 
 
+@spans.op("linear")
 def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
                       side: str = "src", *, impl: str = "kernel",
                       offsets: str = "host") -> torch.Tensor:
@@ -335,6 +342,7 @@ def edge_typed_linear(g, x: torch.Tensor, w: torch.Tensor,
     return take_rows_injective(y, seg.inv, seg.perm, seg.row_valid)
 
 
+@spans.op("linear")
 def edge_rows_typed_linear(g, x_e: torch.Tensor, w: torch.Tensor, *,
                            impl: str = "kernel",
                            offsets: str = "host") -> torch.Tensor:
@@ -362,6 +370,7 @@ def expand_compact(g, c: torch.Tensor, side: str = "src", *,
                          info.edge_sort_perm, impl=impl)
 
 
+@spans.function
 class _CompactDstInner(torch.autograd.Function):
     """``score[e, h] = <c2d[rowD(e)] (head h), x[src(e), h]>``.  Backward
     (``_cdi_bwd``): ``d_c`` one segment sum over the canonical (dst, rel)
@@ -412,6 +421,7 @@ def compact_dst_inner(g, c_dst: torch.Tensor, x_src: torch.Tensor, *,
     return _CompactDstInner.apply(c_dst.reshape(UC, H * dk), x_src, g, impl)
 
 
+@spans.function
 class _RelInner(torch.autograd.Function):
     """``score[i, h] = <feat[i, h], a[rel[i], h]>``.  Backward: ``d_feat
     = ct * a[rel]``; ``d_a`` is the grouped dW over the segments of

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import spans
 from .common import (_edge_valid, gather_dst, gather_nodes, gather_src,
                      safe_div, scatter_sum_dst, scatter_sum_src,
                      sorted_gather)
@@ -61,6 +62,7 @@ def _mode(stable) -> str:
     return mode
 
 
+@spans.op("agg")
 def relational_fused_gat(
     g,
     feat_src_e: torch.Tensor,
@@ -78,6 +80,7 @@ def relational_fused_gat(
                              stable=_mode(stable), impl=impl)
 
 
+@spans.op("agg")
 def relational_fused_gat_compact(
     g,
     feat_c: torch.Tensor,
@@ -95,6 +98,7 @@ def relational_fused_gat_compact(
                                  float(slope), _mode(stable), impl)
 
 
+@spans.op("agg")
 def relational_fused_gat_compact_packed(
     g,
     fe: torch.Tensor,
@@ -126,6 +130,7 @@ def rgcn_norm(g, kind: str = "in_degree") -> torch.Tensor:
     return gather_dst(g, inv)
 
 
+@spans.op("agg")
 def rgcn_aggregate(g, feat_e: torch.Tensor, norm_e: torch.Tensor, *,
                    impl: str = "kernel") -> torch.Tensor:
     """``out[dst] = sum_e feat_e * norm_e``: feat_e (EP, ...) in canonical
@@ -135,6 +140,7 @@ def rgcn_aggregate(g, feat_e: torch.Tensor, norm_e: torch.Tensor, *,
                            impl=impl)
 
 
+@spans.op("agg")
 def rgcn_aggregate_compact(g, feat_c: torch.Tensor, norm_e: torch.Tensor,
                            *, impl: str = "kernel") -> torch.Tensor:
     """``out[dst] = sum_e norm_e * feat_c[compact_src_row(e)]``: feat_c
@@ -143,6 +149,7 @@ def rgcn_aggregate_compact(g, feat_c: torch.Tensor, norm_e: torch.Tensor,
     return compact_weighted_agg(g, feat_c, norm_e, impl=impl)
 
 
+@spans.op("agg")
 def rgcn_layer1(g, x: torch.Tensor, w: torch.Tensor, norm_e: torch.Tensor,
                 *, impl: str = "kernel") -> torch.Tensor:
     """``out[dst] = sum_e norm_e * (x[src_e] @ W[rel_e])``: x (N, in),
@@ -174,6 +181,7 @@ def rel_src_runs(g) -> Tuple[torch.Tensor, torch.Tensor]:
     return ptr.to(torch.int32), perm.to(torch.int32)
 
 
+@spans.op("agg")
 def rgcn_layer0(g, w: torch.Tensor, norm_e: torch.Tensor, *,
                 impl: str = "kernel",
                 runs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -196,6 +204,7 @@ def rgcn_layer0(g, w: torch.Tensor, norm_e: torch.Tensor, *,
 # ------------------------------------------------------------------- HGT
 
 
+@spans.function
 class _InnerProduct(torch.autograd.Function):
     """``score[e, h] = <left_e[e, h], right[side(e), h]>``.  Backward:
     ``d_left = ct * right[side(e)]``; ``d_right`` the sorted segment sum
@@ -255,6 +264,7 @@ def _masked_exp(g, logits: torch.Tensor) -> torch.Tensor:
                        zero)
 
 
+@spans.op("agg")
 def edge_softmax(g, logits: torch.Tensor, *, stable=False,
                  impl: str = "kernel") -> torch.Tensor:
     """Per-destination softmax over incoming edges, (EP, H) -> (EP, H),
@@ -273,6 +283,7 @@ def _typed_logits(g, score_e: torch.Tensor, mu: torch.Tensor,
     return edge_rel_inner(g, score_e[..., None], mu[..., None], impl=impl)
 
 
+@spans.op("agg")
 def hgt_edge_softmax(g, score_e: torch.Tensor, mu: torch.Tensor, *,
                      stable=False, impl: str = "kernel") -> torch.Tensor:
     """HGT's typed edge softmax ``softmax_dst(score_e * mu[rel_e])``: mu
@@ -281,6 +292,7 @@ def hgt_edge_softmax(g, score_e: torch.Tensor, mu: torch.Tensor, *,
                         stable=stable, impl=impl)
 
 
+@spans.op("agg")
 def hgt_softmax_weighted_agg(g, message_e: torch.Tensor,
                              score_e: torch.Tensor, mu: torch.Tensor, *,
                              stable=False,
@@ -298,6 +310,7 @@ def hgt_softmax_weighted_agg(g, message_e: torch.Tensor,
                                      message_e, stable=stable, impl=impl)
 
 
+@spans.op("agg")
 def hgt_softmax_weighted_agg_compact(g, message_c: torch.Tensor,
                                      score_e: torch.Tensor,
                                      mu: torch.Tensor, *, stable=False,
@@ -309,6 +322,7 @@ def hgt_softmax_weighted_agg_compact(g, message_c: torch.Tensor,
                                     stable=stable, impl=impl)
 
 
+@spans.op("agg")
 def hgt_compact_attention(g, message_c: torch.Tensor,
                           att_q_c: torch.Tensor, k_nodes: torch.Tensor,
                           mu: torch.Tensor, *, stable=False,
@@ -333,6 +347,7 @@ def hgt_compact_attention(g, message_c: torch.Tensor,
         CLIP_LOGIT if mode == "clip" else None, impl)
 
 
+@spans.op("agg")
 def hgt_plain_chain(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
                     k_nodes: torch.Tensor, w_att: torch.Tensor,
                     mu: torch.Tensor, *, stable=False,
@@ -347,6 +362,7 @@ def hgt_plain_chain(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
                                     impl=impl)
 
 
+@spans.op("agg")
 def hgt_plain_attention(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
                         k_nodes: torch.Tensor, w_att: torch.Tensor,
                         mu: torch.Tensor, *, stable=False,
@@ -369,6 +385,7 @@ def hgt_plain_attention(g, message_e: torch.Tensor, q_nodes: torch.Tensor,
         CLIP_LOGIT if mode == "clip" else None, impl)
 
 
+@spans.op("agg")
 def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
                          k_nodes: torch.Tensor, w_msg: torch.Tensor,
                          w_att: torch.Tensor, mu: torch.Tensor, *,
@@ -392,6 +409,7 @@ def hgt_plain_layer_core(g, v_nodes: torch.Tensor, q_nodes: torch.Tensor,
         CLIP_LOGIT if mode == "clip" else None, impl)
 
 
+@spans.op("agg")
 def edge_softmax_weighted_sum(g, logits: torch.Tensor,
                               vec_e: torch.Tensor, *, stable=False,
                               impl: str = "kernel") -> torch.Tensor:
@@ -423,6 +441,7 @@ def edge_softmax_weighted_sum(g, logits: torch.Tensor,
     return out[:, 0, :] if squeeze else out
 
 
+@spans.op("agg")
 def edge_softmax_weighted_sum_compact(g, logits: torch.Tensor,
                                       msg_c: torch.Tensor, *, stable=False,
                                       impl: str = "kernel") -> torch.Tensor:
@@ -452,6 +471,7 @@ def edge_softmax_weighted_sum_compact(g, logits: torch.Tensor,
 # ------------------------------------------------------------------- GAT
 
 
+@spans.op("agg")
 def gat_node_fused(g, feat: torch.Tensor, el: torch.Tensor,
                    er: torch.Tensor, slope: float, *, stable=False,
                    impl: str = "kernel") -> torch.Tensor:
@@ -471,6 +491,7 @@ def gat_node_fused(g, feat: torch.Tensor, el: torch.Tensor,
     return out.view(-1, H, D)
 
 
+@spans.op("agg")
 def gat_node_fused2d(g, feat2d: torch.Tensor, el: torch.Tensor,
                      er: torch.Tensor, slope: float, *, num_heads: int,
                      stable=False, impl: str = "kernel") -> torch.Tensor:
@@ -481,6 +502,7 @@ def gat_node_fused2d(g, feat2d: torch.Tensor, el: torch.Tensor,
     return out.reshape(out.shape[0], -1)
 
 
+@spans.op("agg")
 def gat_layer_core(g, x2d: torch.Tensor, w: torch.Tensor,
                    attn_l: torch.Tensor, attn_r: torch.Tensor, slope: float,
                    *, stable=False, impl: str = "kernel") -> torch.Tensor:

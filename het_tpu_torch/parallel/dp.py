@@ -41,6 +41,7 @@ from torch import nn
 from ..models.hgt import HGTLayer
 from ..ops.kernels import seg_sum_sorted
 from ..train.loop import train_steps
+from ..utils import spans
 from ..utils.misc import resolve_device
 
 __all__ = ["setup_rank", "Mesh2", "make_mesh2", "halo_gather",
@@ -172,6 +173,7 @@ def _collective(kind: str, group, call: Callable[[], object]) -> None:
 # ---------------------------------------------------------------- halo
 
 
+@spans.function
 class _HaloGather(torch.autograd.Function):
     """All-gather of every rank's rows in rank order; the backward is its
     transpose, a reduce-scatter that sums each rank's block."""
@@ -203,6 +205,7 @@ def halo_gather(h_local: torch.Tensor, group=None) -> torch.Tensor:
     return _HaloGather.apply(h_local, group)
 
 
+@spans.function
 class _HaloExchange(torch.autograd.Function):
     """``[own rows | rows received from each rank]``: the own rows by a
     local gather, the rest by an all-to-all of the rows each peer needs.
@@ -310,13 +313,15 @@ class DPGNN(nn.Module):
     def forward(self, shard, x_loc: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x_loc
-        for layer in self.layers:
-            if isinstance(layer, HGTLayer):
-                h = layer(shard, h, halo=lambda t: self.exchange(shard, t),
-                          generator=generator)
-            else:
-                h = layer(shard, self.exchange(shard, h), x_dst=h,
-                          generator=generator)
+        for i, layer in enumerate(self.layers):
+            with spans.span("layer", i):
+                if isinstance(layer, HGTLayer):
+                    h = layer(shard, h,
+                              halo=lambda t: self.exchange(shard, t),
+                              generator=generator)
+                else:
+                    h = layer(shard, self.exchange(shard, h), x_dst=h,
+                              generator=generator)
         return h
 
 

@@ -34,9 +34,9 @@ from ..data.loaders import Dataset, load_dataset
 from ..graph.build import build_heterograph
 from ..models import NodeEmbed, RGATModel
 from ..ops.common import sorted_gather
+from ..utils import spans
 from ..utils.misc import exact_matmuls, resolve_device
 from .config import TrainConfig
-from .loop import _Clock
 
 NEG_RATIO = 4  # corrupted objects a supervision triple
 NUM_CANDIDATES = 100
@@ -212,15 +212,19 @@ def train_link(
         else:
             neg_o = torch.randint(0, N, (n_sup * neg_ratio,), device=dev,
                                   generator=neg_gen)
-        clock = _Clock(on_card)
-        clock.mark()
-        opt.zero_grad(set_to_none=True)
-        loss = step_loss(neg_o)
-        loss.backward()
-        opt.step()
-        clock.mark()
-        losses.append(loss.item())
-        step_ms.append(clock.intervals_ms()[0])
+        step = spans.Step(on_card, first=ep == 0)
+        with step.phase("zero_grad"):
+            opt.zero_grad(set_to_none=True)
+        with step.phase("forward"):
+            loss = step_loss(neg_o)
+        with step.phase("backward"):
+            loss.backward()
+        with step.phase("adam"):
+            opt.step()
+        with step.phase("sync"):
+            step_ms.append(sum(step.ms()))
+            losses.append(loss.item())
+        step.close()
         log(f"epoch {ep} loss {losses[-1]:.6f} step_ms {step_ms[-1]:.3f}")
     wall = time.perf_counter() - t0
     peak_mb = (torch.cuda.max_memory_allocated(dev) / 1e6 if on_card

@@ -1,41 +1,18 @@
 """The training-step loop every trainer of the port runs: Adam, whose
 defaults (eps outside the square root, bias correction) are
-``optax.adam``'s, under a loss-scale policy (``scaling.py``), and each
-step timed with CUDA events on the card or the host clock on the CPU."""
+``optax.adam``'s, under a loss-scale policy (``scaling.py``), each step
+run in the phases of ``utils/spans.py::Step`` and timed by its marks:
+CUDA events on the card, the host clock on the CPU."""
 
 from __future__ import annotations
 
-import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..utils import spans
 from .scaling import LossScaleState, all_finite, make_loss_scale
-
-
-class _Clock:
-    """Marks on the card's stream (CUDA events) or on the host clock, and
-    the milliseconds between consecutive marks."""
-
-    def __init__(self, on_card: bool):
-        self.on_card = on_card
-        self.marks: List = []
-
-    def mark(self) -> None:
-        if self.on_card:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self.marks.append(e)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals_ms(self) -> List[float]:
-        m = self.marks
-        if self.on_card:
-            m[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(m, m[1:])]
-        return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
 
 
 def train_steps(
@@ -86,44 +63,53 @@ def train_steps(
     on_card = device.type == "cuda"
     params = [p for group in opt.param_groups for p in group["params"]]
 
-    def update(forward_done: Callable[[], None]):
+    def update(step: spans.Step):
         nonlocal scale_state
-        opt.zero_grad(set_to_none=True)
-        local, value = step_loss()
-        forward_done()
-        scaled = policy.scale(local, scale_state)
-        scaled.backward()
-        if scaled is not local:  # het_tpu reports the scaled loss / scale
-            value = (policy.scale(value.detach(), scale_state)
-                     / scale_state.scale)
-        if after_backward is not None:
-            after_backward()
-        grads = [p.grad for p in params]
-        policy.unscale_(grads, scale_state)
-        if dynamic:
-            finite = all_finite(grads)
-            if bool(finite):  # the step's one wait for the card
+        with step.phase("zero_grad"):
+            opt.zero_grad(set_to_none=True)
+        with step.phase("forward"):
+            local, value = step_loss()
+        with step.phase("backward"):
+            scaled = policy.scale(local, scale_state)
+            scaled.backward()
+            if scaled is not local:  # het_tpu reports the scaled loss / scale
+                value = (policy.scale(value.detach(), scale_state)
+                         / scale_state.scale)
+            if after_backward is not None:
+                after_backward()
+            grads = [p.grad for p in params]
+            policy.unscale_(grads, scale_state)
+        with step.phase("adam"):
+            if dynamic:
+                finite = all_finite(grads)
+                if bool(finite):  # the step's one wait for the card
+                    opt.step()
+                scale_state = policy.update(scale_state, finite)
+            else:
                 opt.step()
-            scale_state = policy.update(scale_state, finite)
-        else:
-            opt.step()
         return value
 
     def snapshot() -> Dict[str, Any]:
         return {"optimizer": opt.state_dict(),
                 "loss_scale": scale_state.state_dict()}
 
-    for _ in range(warmup):
-        update(lambda: None)
+    for i in range(warmup):  # untimed; the first ends in a wait
+        step = spans.Step(on_card, first=i == 0, timed=False)
+        update(step)
+        if i == 0:
+            with step.phase("sync"):
+                if on_card:
+                    torch.cuda.synchronize(device)
+        step.close()
     losses, step_ms, forward_ms = [], [], []
     done = start
     for epoch in range(start, steps):
-        clock = _Clock(on_card)
-        clock.mark()
-        value = update(clock.mark)
-        clock.mark()
-        fwd, bwd = clock.intervals_ms()
-        losses.append(value.detach().item())
+        step = spans.Step(on_card, first=warmup == 0 and epoch == start)
+        value = update(step)
+        with step.phase("sync"):
+            fwd, bwd = step.ms()
+            losses.append(value.detach().item())
+        step.close()
         step_ms.append(fwd + bwd)
         forward_ms.append(fwd)
         if log is not None:

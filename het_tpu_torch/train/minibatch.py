@@ -34,11 +34,11 @@ from ..data.sampling import NeighborSampler
 from ..graph import native
 from ..graph.build import round_up
 from ..ops.common import sorted_gather, take_rows
+from ..utils import spans
 from ..utils.misc import (EarlyStopping, exact_matmuls, nll_loss,
                           resolve_device)
 from .config import TrainConfig
 from .driver import _mean_after_first_quarter, build_model
-from .loop import _Clock
 
 # at most this many batches of training seeds in the training accuracy
 TRAIN_ACC_BATCHES = 32
@@ -226,16 +226,19 @@ def train_minibatch(
             batch = make_batch(sampler, seeds_all[order[i:i + B]], cfg, N,
                                dev)
             y = torch.from_numpy(labels[batch.node_map[:B]]).to(dev)
-            clock = _Clock(on_card)
-            clock.mark()
-            opt.zero_grad(set_to_none=True)
-            loss = nll_loss(logits(batch), y)
-            clock.mark()
-            loss.backward()
-            opt.step()
-            clock.mark()
-            fwd, bwd = clock.intervals_ms()
-            losses.append(loss.item())
+            step = spans.Step(on_card, first=n_batches == 0)
+            with step.phase("zero_grad"):
+                opt.zero_grad(set_to_none=True)
+            with step.phase("forward"):
+                loss = nll_loss(logits(batch), y)
+            with step.phase("backward"):
+                loss.backward()
+            with step.phase("adam"):
+                opt.step()
+            with step.phase("sync"):
+                fwd, bwd = step.ms()
+                losses.append(loss.item())
+            step.close()
             ep_losses.append(losses[-1])
             step_ms.append(fwd + bwd)
             forward_ms.append(fwd)

@@ -30,7 +30,12 @@ traces steps 3-5 with
 profiler's schedule).  Prints each kernel's device time per step
 (averaged over the traced steps), the traced steps' own times (CUDA
 events), the device's busy share of them and the rest, the host's share
-(the card idle, waiting for the host to issue work).
+(the card idle, waiting for the host to issue work).  Then the port's
+spans (``utils/spans.py``) of the traced steps by path: calls, device ms
+and self ms a step, and for a ``kernel:`` span its bytes, operations and
+share of its roofline (the H100 SXM's peaks); and the set-up spans (the
+graph build, the kernel libraries' loads, the first step) in host
+seconds.  The last line, JSON, holds the same under ``spans``.
 
 A data-parallel job's step is split by :func:`profile_dp` (a job's
 ``profile`` option, ``parallel/launch.py``): rank 0 traces the same warm
@@ -55,6 +60,8 @@ from ..train.config import add_args, config_from_args
 from ..train.driver import train
 from ..train.link import train_link
 from ..train.minibatch import train_minibatch
+from . import spans
+from .profiling import device_peaks
 
 STEPS, WAIT, WARMUP, ACTIVE = 6, 1, 1, 3
 TOP = 30  # kernels listed by name
@@ -178,6 +185,31 @@ def profile_dp(dp, shard, x_loc: torch.Tensor, labels: torch.Tensor, *,
     return out
 
 
+def span_table(steps: List[Dict], peaks: Dict[str, float]) -> Dict:
+    """The traced steps' spans by path, each total a step (calls, ms,
+    self ms; a ``kernel:`` span's launches, bytes, flops and calls by
+    operands too, and ``roofline_pct``: its least time, the larger of its
+    bytes at the HBM peak and its operations at the f32 peak, over its
+    ms)."""
+    out: Dict[str, Dict] = {}
+    for step in steps:
+        for path, t in step.items():
+            row = out.setdefault(path, {})
+            for k, v in t.items():
+                if isinstance(v, dict):  # calls by operands
+                    d = row.setdefault(k, {})
+                    for key, n in v.items():
+                        d[key] = d.get(key, 0) + n / len(steps)
+                else:
+                    row[k] = row.get(k, 0) + v / len(steps)
+    for path, row in out.items():
+        if "bytes" in row and row["ms"] > 0:
+            least_s = max(row["bytes"] / (peaks["hbm_gbps"] * 1e9),
+                          row["flops"] / (peaks["f32_tflops"] * 1e12))
+            row["roofline_pct"] = 100 * least_s * 1e3 / row["ms"]
+    return dict(sorted(out.items()))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser("profile one training step")
     add_args(parser)
@@ -189,6 +221,7 @@ def main() -> None:
         raise SystemExit("profile_step measures the card: --device cuda")
     trainer = (train_link if cfg.task == "link" else
                train if cfg.full_graph_training else train_minibatch)
+    spans.reset()
     with _traced() as prof:
         metrics = trainer(cfg, log=lambda s: (print(s), prof.step()))
     traced = metrics["step_ms_list"][WAIT + WARMUP: WAIT + WARMUP + ACTIVE]
@@ -207,9 +240,27 @@ def main() -> None:
     print("kernel | device ms per step | launches per step")
     for key, ms, calls in rows[:TOP]:
         print(f"{key[:110]} | {ms:.4f} | {calls}")
+    table = span_table(spans.REGISTRY.steps,
+                       device_peaks(metrics["device"]))
+    print(f"spans of {len(spans.REGISTRY.steps)} traced steps, a step: "
+          "path | calls | device ms | self ms | launches | bytes | flops | "
+          "roofline %")
+    for path, r in table.items():
+        kern = (f" | {r['launches']:g} | {r['bytes']:.4g} | "
+                f"{r['flops']:.4g} | {r.get('roofline_pct', 0):.2f}"
+                if "bytes" in r else "")
+        print(f"{path} | {r['calls']:g} | {r['ms']:.4f} | "
+              f"{r['self_ms']:.4f}{kern}")
+    print("set-up spans: path | calls | host s | counters")
+    for path, r in spans.REGISTRY.setup.items():
+        extra = {k: v for k, v in r.items() if k not in ("calls", "s")}
+        print(f"{path} | {r['calls']} | {r['s']:.3f} | {extra or ''}")
     print(json.dumps({"step_ms": step, "device_busy_ms": busy,
                       "host_share": 1 - busy / step,
-                      "categories": {k: v[0] for k, v in cats.items()}}))
+                      "categories": {k: v[0] for k, v in cats.items()},
+                      "spans": {"traced_steps": len(spans.REGISTRY.steps),
+                                "by_path": table,
+                                "setup": spans.REGISTRY.setup}}))
 
 
 if __name__ == "__main__":
