@@ -84,6 +84,11 @@ Phases, each of which fails the run:
    * the featureless RGCN layer's weight gradient (one segment sum over
      the (relation, source) runs) bit for bit on a second call and
      against its plain version;
+   * (in phase 4, on the full-scale graph) the packed compact GAT op's
+     three walks (``compact_gat_packed_fwd``, ``_bwd_dst``, ``_bwd_src``)
+     at the benchmark's first cell's widths (8 heads of 8, clip), each
+     against its plain version, a second launch bit for bit, timed beside
+     its bound, its plain version and the chain of ops it replaces;
 4. training runs of the 2-layer RGAT (heads 4, in 64, hidden 64, 8
    classes, f32, TF32 off, dropout 0), each once through the kernels and
    once through their plain versions from the same seeded parameters,
@@ -253,11 +258,32 @@ FULL_STEPS = 3
 
 def _run(compact, multiply_first, steps, launches, *, union=False,
          stable="clip", scale=SCALE, model="RGAT", dataset="mag",
-         classes=CLASSES, in_feat=IN_FEAT):
+         classes=CLASSES, in_feat=IN_FEAT, chain=None):
     return dict(compact=compact, multiply_first=multiply_first, steps=steps,
                 launches=launches, union=union, stable=stable, scale=scale,
                 model=model, dataset=dataset, classes=classes,
-                in_feat=in_feat)
+                in_feat=in_feat, chain=chain)
+
+
+# the launches a step of the packed op's three walks, two layers
+WALK_LAUNCHES = dict(compact_gat_packed_fwd=2, compact_gat_packed_bwd_dst=2,
+                     compact_gat_packed_bwd_src=2)
+
+
+def _walks(r):
+    """Whether run ``r`` (a spec of any table) takes the packed compact
+    op's walks: f32 dual-list compact multiply-first RGAT under "raw" or
+    "clip" (``CompactFusedGATPacked._walks``); not its chain (``r`` from
+    :func:`_chain`)."""
+    return (r["model"] == "RGAT" and r["compact"] and r["multiply_first"]
+            and not r.get("union") and r["stable"] != "max"
+            and not r.get("compiled") and not r.get("on_chain"))
+
+
+def _chain(r):
+    """Run ``r`` with its packed op on the chain (its bf16 run): the
+    launches a step the chain makes."""
+    return dict(r, launches=r.get("chain") or r["launches"], on_chain=True)
 
 
 # training runs: name -> the branch, its softmax, its graph's scale, its
@@ -267,7 +293,11 @@ def _run(compact, multiply_first, steps, launches, *, union=False,
 # segment sums and no [narrow | wide] buffer, PERF.md's GAT findings).
 # Per layer: the dual-list compact branches reduce 7 times (z and z*feat,
 # the (dst, rel) draw, the src-compact draw and dfeat, two compact-gather
-# backwards; the packed form the same), the union ones 6 times (one
+# backwards; the packed form the same on its chain: bf16 or stable="max");
+# the packed form in f32 under "raw" or "clip" (_walks) runs its three
+# walks and reduces 3 times (the (dst, rel) draw and the two
+# compact-gather backwards; ``chain`` keeps its chain's launches, for its
+# bf16 run); the union ones 6 times (one
 # compact gather: one projection serves both sides), the plain ones 4
 # times (z and z*feat, two edge-gather backwards; the per-edge fused
 # backward is gathers only); every branch
@@ -299,7 +329,8 @@ def _run(compact, multiply_first, steps, launches, *, union=False,
 # the backward (_eval_launches).
 RUNS = {
     "compact_multiply_first": _run(True, True, STEPS,
-                                   dict(seg_sum_sorted=14)),
+                                   dict(seg_sum_sorted=6, **WALK_LAUNCHES),
+                                   chain=dict(seg_sum_sorted=14)),
     "plain": _run(False, False, STEPS, dict(seg_sum_sorted=8,
                                             segment_matmul_dw=4)),
     "plain_multiply_first": _run(False, True, SHORT_STEPS,
@@ -396,8 +427,8 @@ def _dp_run(compact, multiply_first, steps, halo, launches, model="RGAT",
 
 DP_RUNS = {
     "dp_compact_multiply_first": _dp_run(True, True, STEPS, "auto", dict(
-        seg_sum_sorted=12, segment_matmul_fwd=4, segment_matmul_dx=2,
-        segment_matmul_dw=4)),
+        seg_sum_sorted=4, segment_matmul_fwd=4, segment_matmul_dx=2,
+        segment_matmul_dw=4, **WALK_LAUNCHES)),
     "dp_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
         seg_sum_sorted=7, segment_matmul_fwd=4, segment_matmul_dx=2,
         segment_matmul_dw=8)),
@@ -479,8 +510,8 @@ def _link_run(compact, multiply_first, epochs, launches, plain):
 
 
 LINK_RUNS = {
-    "link_compact_multiply_first": _link_run(True, True, STEPS,
-                                             dict(seg_sum_sorted=16), True),
+    "link_compact_multiply_first": _link_run(
+        True, True, STEPS, dict(seg_sum_sorted=8, **WALK_LAUNCHES), True),
     # kernel 7 at S = 474 relations
     "link_plain": _link_run(False, False, SHORT_STEPS, dict(
         seg_sum_sorted=10, segment_matmul_dw=4), False),
@@ -577,14 +608,17 @@ def _per_step(run):
 
 def _eval_launches(r):
     """The launches of the trainer's accuracy pass after its steps (``r`` a
-    ``RUNS`` value): a step's forward without its backward, one segment
+    ``RUNS`` value): a step's forward without its backward, two segment
     sums a layer (the fused attention ops' z and z*feat; one for RGCN's
-    aggregation and HGT's unfused stable="max" chain) and, under
-    stable="max", one segment max a layer; a compiled run on device
-    offsets also its step's segment-matmul forwards."""
+    aggregation and HGT's unfused stable="max" chain; none and the forward
+    walk where the packed op takes its walks) and, under stable="max", one
+    segment max a layer; a compiled run on device offsets also its step's
+    segment-matmul forwards."""
     one = r["model"] == "RGCN" or (r["model"] == "HGT"
                                    and r["stable"] == "max")
-    return dict(seg_sum_sorted=LAYERS * (1 if one else 2),
+    walks = _walks(r)
+    return dict(seg_sum_sorted=LAYERS * (0 if walks else 1 if one else 2),
+                compact_gat_packed_fwd=LAYERS if walks else 0,
                 seg_max_sorted=LAYERS if r["stable"] == "max" else 0,
                 segment_matmul_fwd=(r["launches"].get("segment_matmul_fwd", 0)
                                     if r.get("compiled") else 0))
@@ -630,11 +664,13 @@ def _dims(classes=CLASSES):
 # ------------------------------------------------------------ seg_sum_sorted
 
 
-def _seg_sum_shapes(g, compact, first_input_grad, classes=CLASSES):
+def _seg_sum_shapes(g, compact, first_input_grad, classes=CLASSES,
+                    walks=False):
     """[(label, rows of vals, C, row_ptr, perm)] of every seg_sum_sorted
     launch of one training step of the compact branches (the reductions
-    of both, and of the packed form, the same) or the plain ones on
-    ``g``.  Layer 0's gather backwards run only where
+    of both, and of the packed form on its chain, the same; the packed
+    form's ``walks`` sum only draw over the (dst, rel) runs) or the plain
+    ones on ``g``.  Layer 0's gather backwards run only where
     its input needs a gradient: the learned embeddings of a single-card
     run, not the fixed features of a data-parallel one.  A union-list
     graph has one compact gather a layer (one projection).  A shard with
@@ -648,19 +684,21 @@ def _seg_sum_shapes(g, compact, first_input_grad, classes=CLASSES):
     for layer in range(LAYERS):
         width = dims[layer + 1]  # z*feat, dfeat
         gathers = layer > 0 or first_input_grad
-        shapes += [
-            (f"l{layer} fwd dst z", EP, HEADS, g.in_row_ptr, None),
-            (f"l{layer} fwd dst z*feat", EP, width, g.in_row_ptr, None),
-        ]
-        if compact:
+        if not walks:
             shapes += [
-                (f"l{layer} bwd (dst,rel) runs draw", EP, HEADS,
-                 D.canon_ptr, None),
-                (f"l{layer} bwd src-compact draw", EP, HEADS,
-                 S.edge_row_ptr, S.edge_sort_perm),
-                (f"l{layer} bwd src-compact dfeat", EP, width,
-                 S.edge_row_ptr, S.edge_sort_perm),
+                (f"l{layer} fwd dst z", EP, HEADS, g.in_row_ptr, None),
+                (f"l{layer} fwd dst z*feat", EP, width, g.in_row_ptr, None),
             ]
+        if compact:
+            shapes.append((f"l{layer} bwd (dst,rel) runs draw", EP, HEADS,
+                           D.canon_ptr, None))
+            if not walks:
+                shapes += [
+                    (f"l{layer} bwd src-compact draw", EP, HEADS,
+                     S.edge_row_ptr, S.edge_sort_perm),
+                    (f"l{layer} bwd src-compact dfeat", EP, width,
+                     S.edge_row_ptr, S.edge_sort_perm),
+                ]
             if gathers:
                 shapes.append((f"l{layer} bwd src gather", S.seg.n_rows,
                                dims[layer], S.node_row_ptr,
@@ -864,12 +902,15 @@ def _compiled_seg_sum_shapes(g, spec):
     return shapes
 
 
-def _run_seg_sum_shapes(run, g):
+def _run_seg_sum_shapes(run, g, chain=False):
     """Every seg_sum_sorted launch of a step of ``run``'s model on ``g``
     (rank 0's shard for a data-parallel run, whose layer 0 reads fixed
     features; a sampled subgraph for a minibatch run; the message graph
-    for a link run, whose last layer is HIDDEN wide)."""
+    for a link run, whose last layer is HIDDEN wide), with its packed op
+    on the chain where ``chain`` (the run's bf16 form)."""
     spec = _spec(run)
+    if chain:
+        spec = _chain(spec)
     if spec.get("compiled"):
         return _compiled_seg_sum_shapes(g, spec)
     if spec["model"] == "GAT":
@@ -880,7 +921,7 @@ def _run_seg_sum_shapes(run, g):
     if spec["model"] == "RGCN":
         return _rgcn_seg_sum_shapes(g, spec["compact"], run not in DP_RUNS)
     return _seg_sum_shapes(g, spec["compact"], run not in DP_RUNS,
-                           spec.get("classes", CLASSES))
+                           spec.get("classes", CLASSES), _walks(spec))
 
 
 def _hub_ptr(dev, hub=100_000, short=20_000, at=1, seed=0):
@@ -1328,6 +1369,156 @@ def check_force_rowmajor(g, dev, flush):
     del fe
     entry["max_abs_err"] = max_err
     return entry
+
+
+# ------------------------------------------------- packed compact GAT walks
+
+# the benchmark's first cell: 8 heads of 8 in both layers (hidden 64, 64
+# classes), the clip softmax
+CELL_HEADS, CELL_D = 8, 8
+WALKS = ("compact_gat_packed_fwd", "compact_gat_packed_bwd_dst",
+         "compact_gat_packed_bwd_src")
+
+
+def _walk_bytes(g, H, D):
+    """Each walk's least bytes (every walked edge's index and row reads
+    once, as the segment sum's bound counts rows read through perm; each
+    row pointer and output once): {walk: bytes}."""
+    E = int(g.in_row_ptr[-1] - g.in_row_ptr[0])
+    N, UCs = g.num_nodes, g.compact_src.seg.n_rows
+    W, HD = H * (1 + D), H * D
+    row = 4 * (2 + W + H)  # two edge-map entries, a source row, er's row
+    return {
+        "compact_gat_packed_fwd": E * row + 4 * (N + 1 + N * (H + HD)),
+        "compact_gat_packed_bwd_dst": (E * (row + 8 * H)
+                                       + 4 * (N + 1 + N * (H + 2 * HD))),
+        "compact_gat_packed_bwd_src": (E * 4 * (2 + 2 * H + HD)
+                                       + 4 * (UCs + 1 + UCs * W)),
+    }
+
+
+def check_compact_gat(g, dev, flush, label):
+    """The packed compact GAT op's three walks (``ops/kernels/
+    compact_gat.py``) at the benchmark's first cell's shapes on ``g`` (the
+    full-scale graph: H = 8, D = 8, the clip softmax): each against its
+    plain version (TOL_RTOL; the backward walks on the plain forward's s
+    and out, the source walk on the plain draw and alpha), a second launch
+    bit for bit, each timed beside its bound (bytes), its plain version
+    and, as the yardstick, the chain of PyTorch ops and segment sums it
+    replaces in ``CompactFusedGATPacked`` (the forward's gathers and two
+    sums; the backward's gathers, destination gather and elementwise
+    terms; its two source-side sums and the concatenation).  Returns the
+    three JSON entries."""
+    import torch
+    from het_tpu_torch.ops import fused_agg as fa
+    from het_tpu_torch.ops.kernels import (
+        compact_gat_packed_bwd_dst, compact_gat_packed_bwd_dst_plain,
+        compact_gat_packed_bwd_src, compact_gat_packed_bwd_src_plain,
+        compact_gat_packed_fwd, compact_gat_packed_fwd_plain)
+    from het_tpu_torch.models.rgat import LEAKY_RELU_SLOPE as slope
+
+    H, D = CELL_HEADS, CELL_D
+    clip = fa.CLIP_LOGIT
+    gen = torch.Generator(device=dev).manual_seed(9)
+    S, Dc = g.compact_src, g.compact_dst
+    fe2d = torch.randn(S.seg.n_rows, H * (1 + D), device=dev, generator=gen)
+    er = torch.randn(Dc.seg.n_rows, H, device=dev, generator=gen)
+    ct = torch.randn(g.num_nodes, H, D, device=dev, generator=gen)
+    rows = (S.edge_map, Dc.edge_map, g.in_row_ptr)
+    walk3 = (ct, g.dst, S.edge_row_ptr, S.edge_sort_perm)
+    E = g.num_edges
+    s, out = compact_gat_packed_fwd_plain(fe2d, er, *rows, slope, clip)
+    draw, alpha = compact_gat_packed_bwd_dst_plain(fe2d, er, *rows, s, out,
+                                                   ct, slope, clip)
+    calls = {
+        "compact_gat_packed_fwd": (
+            lambda: compact_gat_packed_fwd(fe2d, er, *rows, slope, clip),
+            lambda: compact_gat_packed_fwd_plain(fe2d, er, *rows, slope,
+                                                 clip),
+            lambda t: t),
+        "compact_gat_packed_bwd_dst": (
+            lambda: compact_gat_packed_bwd_dst(fe2d, er, *rows, s, out, ct,
+                                               slope, clip),
+            lambda: compact_gat_packed_bwd_dst_plain(fe2d, er, *rows, s, out,
+                                                     ct, slope, clip),
+            lambda t: tuple(x[:E] for x in t)),
+        "compact_gat_packed_bwd_src": (
+            lambda: compact_gat_packed_bwd_src(draw, alpha, *walk3),
+            lambda: compact_gat_packed_bwd_src_plain(draw, alpha, *walk3),
+            lambda t: t),
+    }
+
+    def edge_rows():
+        return fa.CompactFusedGATPacked._edge_rows(fe2d, er, g, H)
+
+    def chain_fwd():
+        raw, ge = edge_rows()
+        z, _ = fa._softmax_num(g, raw, slope, "clip", "kernel")
+        return fa._aggregate(g, z, ge[..., 1:], "kernel")
+
+    def chain_dst():
+        raw, ge = edge_rows()
+        return fa._softmax_backward(g, ct, s, out, raw, ge[..., 1:], slope,
+                                    clip)
+
+    ctd = chain_dst()[0]
+
+    def chain_src():
+        d_el, d_feat = fa._sum_heads(draw, alpha, ctd, S.edge_row_ptr,
+                                     S.edge_sort_perm, "kernel",
+                                     torch.float32, torch.float32)
+        return torch.cat([d_el[..., None], d_feat.view(-1, H, D)], dim=2)
+
+    chains = dict(zip(WALKS, (chain_fwd, chain_dst, chain_src)))
+    nbytes = _walk_bytes(g, H, D)
+    print(f"[{label}] packed compact GAT walks vs plain (H = {H}, D = {D}, "
+          f"clip; rtol {TOL_RTOL}, atol {TOL_RTOL} * max|plain|), a second "
+          "launch bit for bit")
+    print("walk | kernel ms | bound ms (bytes) | share of bound | plain ms | "
+          "replaced chain ms | max |kernel - plain|")
+    entries = []
+    for name in WALKS:
+        kern, plain, cut = calls[name]
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(cut(got), cut(want)):
+            torch.testing.assert_close(
+                a, b, rtol=TOL_RTOL,
+                atol=TOL_RTOL * max(b.abs().max().item(), 1e-30),
+                msg=lambda m, n=name: f"{label} {n}: {m}")
+            err = max(err, (a - b).abs().max().item())
+        again = kern()
+        again = again if isinstance(again, tuple) else (again,)
+        for a, b in zip(cut(again), cut(got)):
+            _compare_exact(a, b, f"{label} {name} (repeat)")
+        del got, want, again
+        ms = _time_ms(kern, 10, flush)
+        plain_ms = _time_ms(plain, 3, flush)
+        chain_ms = _time_ms(chains[name], 3, flush)
+        bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        print(f"{name} | {ms:.3f} | {bound:.3f} | {100 * bound / ms:.1f}% | "
+              f"{plain_ms:.3f} | {chain_ms:.3f} | {err:.3e}")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "het_tpu_torch/csrc/compact_gat.cu",
+            "replaces": ("het_tpu/ops/pallas/fused_agg.py:476 "
+                         "_make_compact_fused_packed_op"),
+            "launches": None,  # filled from the training run
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call computes it
+            "chain_ms": chain_ms,
+            "shape": f"{label}: H = {H}, D = {D}, {E} edges",
+        })
+    return entries
 
 
 # ------------------------------------------------------------ fused op forms
@@ -2985,8 +3176,8 @@ def _bf16_launches(run, steps, g):
     from het_tpu_torch.ops.kernels.seg_reduce import dtype_key
 
     spec = BF16_RUNS[run]
-    r = RUNS[spec["f32"]]
-    shapes = _run_seg_sum_shapes(spec["f32"], g)
+    r = _chain(RUNS[spec["f32"]])
+    shapes = _run_seg_sum_shapes(spec["f32"], g, chain=True)
     sums = Counter(dtype_key(*_bf16_sum_pair(s[0])) for s in shapes)
     sums = {k: v * (WARMUP + steps) for k, v in sums.items()}
     sums["bf16->f32"] = (sums.get("bf16->f32", 0)
@@ -3048,8 +3239,8 @@ def check_seg_sum_bf16(graphs, dev, flush):
     totals = {}
     for run, g in graphs.items():
         totals[run], err = seg_sum_run_table(
-            run, _run_seg_sum_shapes(BF16_RUNS[run]["f32"], g), dev, flush,
-            gen, pair_of=_bf16_sum_pair)
+            run, _run_seg_sum_shapes(BF16_RUNS[run]["f32"], g, chain=True),
+            dev, flush, gen, pair_of=_bf16_sum_pair)
         max_err = max(max_err, err)
     entries = []
     for key in ("bf16->f32", "bf16->bf16"):
@@ -3242,10 +3433,10 @@ def check_bf16_training(datasets, dev, card, summaries):
         if gap > BF16_F32_RTOL:
             raise AssertionError(f"{run}: bf16 losses {k['loss_list']} vs "
                                  f"f32 {f32['losses']} (rtol {BF16_F32_RTOL})")
-        want = _train_launches(r, steps)
+        want = _train_launches(_chain(r), steps)
         if k["launches"] != want:
             raise AssertionError(f"{run}: launched {k['launches']}, the f32 "
-                                 f"run's {want}")
+                                 f"run's on the chain {want}")
         want_by = _bf16_launches(run, steps, data.graph)
         if k["launches_by_dtype"] != want_by:
             raise AssertionError(f"{run}: launched by dtype "
@@ -3559,7 +3750,9 @@ def check_full_scale(dev, card):
     same graph (MB_FULL): the segment sum at every shape of a sampled
     batch's step, then MB_FULL_BATCHES batches through the kernels
     (``check_minibatch``).  Returns each run's launches, in all and by
-    element types, and those per-step totals."""
+    element types, those per-step totals and the packed compact GAT
+    walks' entries (``check_compact_gat`` at the benchmark's first cell's
+    widths on this graph)."""
     import gc
 
     import torch
@@ -3589,6 +3782,7 @@ def check_full_scale(dev, card):
             BF16_FULL, _seg_sum_shapes(g, True, True), dev, flush, gen,
             pair_of=_bf16_sum_pair)[0]["by_dtype"],
     }
+    walks = check_compact_gat(g, dev, flush, FULL)
     del g, flush
     torch.cuda.empty_cache()
     launches, by_dtype, f32_losses = {}, {}, None
@@ -3663,7 +3857,7 @@ def check_full_scale(dev, card):
         batches=MB_FULL_BATCHES, plain=False)
     del data
     gc.collect()
-    return launches, by_dtype, totals
+    return launches, by_dtype, totals, walks
 
 
 # ---------------------------------------------------------------- bench
@@ -4018,7 +4212,9 @@ def main() -> int:
     for key in list(datasets):  # host memory for the full-scale graph
         if key != _data_key(RUNS[MAIN]):
             del datasets[key]
-    full_launches, full_by_dtype, full_totals = check_full_scale(dev, card)
+    full_launches, full_by_dtype, full_totals, walks = check_full_scale(
+        dev, card)
+    entries += walks
     launches.update(full_launches)
     t0 = time.perf_counter()
     launches.update(check_dp(data, parts, dev, card))
@@ -4053,10 +4249,12 @@ def main() -> int:
         # minibatch path for the segment sum, the packed max path for the
         # segment max, the single-card plain RGAT for the dW, the
         # data-parallel run for the forward and dX, whose only caller is a
-        # shard; no path calls the row copy (nor does het_tpu)
+        # shard, the compact multiply-first run for the packed op's walks;
+        # no path calls the row copy (nor does het_tpu)
         main = {"segment_matmul_fwd": DP_MAIN, "segment_matmul_dx": DP_MAIN,
-                "segment_matmul_dw": MAIN,
-                "seg_sum_sorted": MB_MAIN}.get(kernel, SLICE_MAIN)
+                "segment_matmul_dw": MAIN, "seg_sum_sorted": MB_MAIN,
+                **dict.fromkeys(WALKS, "compact_multiply_first")}.get(
+                    kernel, SLICE_MAIN)
         entry["launches"] = launches[main][kernel]
         entry["launches_by_run"] = {r: counts[kernel]
                                     for r, counts in launches.items()}

@@ -71,8 +71,9 @@ QUICK_E2E = 2
 # the host-offset typed linears multiply with torch.matmul): the sorted
 # segment sum in every gather's backward, the fused ops' z and z*feat,
 # the packed sum; the grouped dW in the plain model's attention gradients
-# (edge_rel_inner).  The end-to-end rows' inputs take no gradient, as in
-# bench.step
+# (edge_rel_inner); the packed compact op's three walks and its d_er sum
+# in the compact multiply-first rows.  The end-to-end rows' inputs take no
+# gradient, as in bench.step
 LAUNCHES_A_CALL = {
     "compact_typed_linear src grad": {"seg_sum_sorted": 1},
     "edge_typed_linear src grad": {"seg_sum_sorted": 1},
@@ -83,8 +84,10 @@ LAUNCHES_A_CALL = {
     "hgt_plain_attention fwd": {"seg_sum_sorted": 2},
     "hgt_plain_attention grad": {"seg_sum_sorted": 2},
     "scatter_sum_dst packed (EP,H+HD)": {"seg_sum_sorted": 1},
-    "kernel compact+multfirst (headline)": {"seg_sum_sorted": 5},
-    "kernel compact+multfirst fwd only": {"seg_sum_sorted": 2},
+    "kernel compact+multfirst (headline)": {
+        "seg_sum_sorted": 1, "compact_gat_packed_fwd": 1,
+        "compact_gat_packed_bwd_dst": 1, "compact_gat_packed_bwd_src": 1},
+    "kernel compact+multfirst fwd only": {"compact_gat_packed_fwd": 1},
     "kernel plain": {"seg_sum_sorted": 2, "segment_matmul_dw": 2},
 }
 

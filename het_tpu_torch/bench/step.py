@@ -61,12 +61,17 @@ VARIANTS = {
 # (bench.py differentiates the parameters only), so no gather's backward
 # sums into them.  Plain: the fused op's forward sums z and z*feat over
 # in_row_ptr (2), and each edge_rel_inner's attention gradient is a
-# grouped dW (2).  Compact + multiply-first (the packed fused op): z and
-# z*feat forward (2), draw over the (dst, rel) runs (1), draw and dfeat
-# into the source compact rows through edge_sort_perm (2); bf16 the same.
+# grouped dW (2).  Compact + multiply-first (the packed fused op): in f32
+# its three walks (the forward's, the backward's destination and source
+# walks) and draw summed over the (dst, rel) runs (1); in bf16 its chain,
+# z and z*feat forward (2), draw over the (dst, rel) runs (1), draw and
+# dfeat into the source compact rows through edge_sort_perm (2).
 LAUNCHES_A_STEP = {
     "kernel": {"seg_sum_sorted": 2, "segment_matmul_dw": 2},
-    "kernel_compact_multfirst": {"seg_sum_sorted": 5},
+    "kernel_compact_multfirst": {"seg_sum_sorted": 1,
+                                 "compact_gat_packed_fwd": 1,
+                                 "compact_gat_packed_bwd_dst": 1,
+                                 "compact_gat_packed_bwd_src": 1},
     "kernel_bf16_compact_multfirst": {"seg_sum_sorted": 5},
 }
 

@@ -22,7 +22,9 @@ backward recomputes the edge terms from compact-row gathers.
 ``_make_compact_fused_packed_op``: the same function with the source
 operand the packed output of the multiply-first projection, per-head lanes
 ``[el | feat]`` in one ``(UCs, H*(1+D))`` buffer, whose gradient leaves
-the source-side reduce already in that layout.
+the source-side reduce already in that layout.  On f32 operands on the
+card under "raw" or "clip" it computes its edge terms inside three segment
+walks (``kernels/compact_gat.py``) and writes no (EP, H*D) tensor.
 
 The softmax is a raw ``exp`` by default (the reference's), or clipped
 (``stable="clip"``, logits clamped to +-``CLIP_LOGIT``), or exact
@@ -97,29 +99,16 @@ import torch
 
 from ..utils import spans
 from .common import gather_dst, gather_nodes, safe_div, take_rows
-from .kernels import seg_max_sorted, seg_sum_sorted
+from .kernels import (_dispatch, compact_gat_packed_bwd_dst,
+                      compact_gat_packed_bwd_src, compact_gat_packed_fwd,
+                      seg_max_sorted, seg_sum_sorted)
+from .kernels.compact_gat import (MAX_D, act as _act_apply,
+                                  act_deriv as _act_deriv)
 from .linear import (_edge_row_idx, edge_rel_scale_grad, segment_matmul,
                      segment_matmul_pullback)
 
 CLIP_LOGIT = 60.0  # exp(60) ~ 1e26: far from f32 overflow, keeps order
 STABLE_MODES = ("raw", "clip", "max")
-
-
-def _act_apply(raw, slope: float, clip: Optional[float]):
-    a = torch.where(raw >= 0, raw, slope * raw)
-    if clip is not None:
-        a = a.clamp(-clip, clip)
-    return a
-
-
-def _act_deriv(raw, slope: float, clip: Optional[float]):
-    """Derivative of :func:`_act_apply`: zero outside the clip."""
-    d = torch.where(raw >= 0, torch.ones_like(raw),
-                    torch.full_like(raw, slope))
-    if clip is not None:
-        inner = torch.where(raw >= 0, raw, slope * raw)
-        d = torch.where(inner.abs() <= clip, d, torch.zeros_like(d))
-    return d
 
 
 def _clip(stable: str) -> Optional[float]:
@@ -311,10 +300,31 @@ class CompactFusedGAT(torch.autograd.Function):
 class CompactFusedGATPacked(torch.autograd.Function):
     """``forward(fe2d (UCs, H*(1+D)), er_c (UCd, H), g, slope, stable,
     impl) -> (N, H, D)`` with per-head lanes ``[el | feat]`` in ``fe2d``.
-    The backward sums ``draw`` and ``dfeat`` through ``edge_sort_perm``
-    and lays the compact rows' sums out per head as ``[d_el | d_feat]``,
-    ``d_fe``; the destination (dst, rel)-run reduce takes ``draw``.  Seven
-    segment sums a layer with the compact gathers, as the split op."""
+
+    Two routes, picked from the inputs (:meth:`_walks`).  On f32 operands
+    that the kernels launch on (CUDA tensors under ``impl="kernel"``),
+    under "raw" or "clip", with D <= ``MAX_D``, three segment walks
+    compute the edge terms in registers: the forward's
+    (:func:`~.kernels.compact_gat_packed_fwd`, ``s`` and ``out`` over
+    ``in_row_ptr``), the backward's destination walk
+    (:func:`~.kernels.compact_gat_packed_bwd_dst`, ``draw`` and ``alpha``
+    (EP, H)) and its source walk (:func:`~.kernels.compact_gat_packed_bwd_src`,
+    ``d_fe`` over ``edge_row_ptr`` through ``edge_sort_perm``), with
+    ``d_er`` the (dst, rel)-run sum of ``draw``.  Otherwise (bf16
+    payloads, "max", ``impl="plain"``, CPU tensors) the chain: gathers
+    and elementwise work around the segment sums, the backward summing
+    ``draw`` and ``dfeat`` through ``edge_sort_perm`` and laying the
+    compact rows' sums out per head as ``[d_el | d_feat]``; seven segment
+    sums a layer with the compact gathers, as the split op.  Both save
+    ``(fe2d, er_c, s, out, m)``."""
+
+    @staticmethod
+    def _walks(fe2d, er_c, stable: str, impl: str) -> bool:
+        """Whether the op takes the three walks (the class docstring)."""
+        return (stable != "max" and fe2d.dtype == torch.float32
+                and er_c.dtype == torch.float32
+                and fe2d.shape[1] // er_c.shape[1] - 1 <= MAX_D
+                and _dispatch.launches(fe2d, impl))
 
     @staticmethod
     def _edge_rows(fe2d, er_c, g, H):
@@ -327,15 +337,25 @@ class CompactFusedGATPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fe2d, er_c, g, slope: float, stable: str, impl: str):
         H = er_c.shape[1]
-        raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
-        z, m = _softmax_num(g, raw, slope, stable, impl)
-        s, out = _aggregate(g, z, ge[..., 1:], impl, _pack_dt(fe2d))
+        ctx.walks = CompactFusedGATPacked._walks(fe2d, er_c, stable, impl)
+        if ctx.walks:
+            fe2d, er_c = fe2d.contiguous(), er_c.contiguous()
+            s, out = compact_gat_packed_fwd(
+                fe2d, er_c, g.compact_src.edge_map, g.compact_dst.edge_map,
+                g.in_row_ptr, slope, _clip(stable), impl=impl)
+            m = None
+        else:
+            raw, ge = CompactFusedGATPacked._edge_rows(fe2d, er_c, g, H)
+            z, m = _softmax_num(g, raw, slope, stable, impl)
+            s, out = _aggregate(g, z, ge[..., 1:], impl, _pack_dt(fe2d))
         ctx.save_for_backward(fe2d, er_c, s, out, m)
         ctx.g, ctx.slope, ctx.stable, ctx.impl = g, slope, stable, impl
         return out.to(fe2d.dtype)
 
     @staticmethod
     def backward(ctx, ct):
+        if ctx.walks:
+            return CompactFusedGATPacked._walk_backward(ctx, ct)
         fe2d, er_c, s, out, m = ctx.saved_tensors
         g, impl = ctx.g, ctx.impl
         H = er_c.shape[1]
@@ -354,6 +374,25 @@ class CompactFusedGATPacked(torch.autograd.Function):
         d_er_c = _d_er(g.compact_dst, draw, impl, dt)
         return (d_fe.to(fe2d.dtype), d_er_c.to(er_c.dtype),
                 None, None, None, None)
+
+    @staticmethod
+    def _walk_backward(ctx, ct):
+        """The backward of the walks' route: ``draw`` and ``alpha`` from
+        the destination walk, ``d_fe`` from the source walk, ``d_er``
+        from one segment sum of ``draw``."""
+        fe2d, er_c, s, out, _ = ctx.saved_tensors
+        g, impl = ctx.g, ctx.impl
+        infoS = g.compact_src
+        ct = ct.float().contiguous()
+        draw, alpha = compact_gat_packed_bwd_dst(
+            fe2d, er_c, infoS.edge_map, g.compact_dst.edge_map, g.in_row_ptr,
+            s, out, ct, ctx.slope, _clip(ctx.stable), impl=impl)
+        d_fe = compact_gat_packed_bwd_src(draw, alpha, ct, g.dst,
+                                          infoS.edge_row_ptr,
+                                          infoS.edge_sort_perm, impl=impl)
+        del alpha
+        d_er_c = _d_er(g.compact_dst, draw, impl)
+        return d_fe, d_er_c, None, None, None, None
 
 
 @spans.function

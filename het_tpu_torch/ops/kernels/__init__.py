@@ -2,6 +2,11 @@
 
 from typing import Dict
 
+from .compact_gat import (compact_gat_packed_bwd_dst,  # noqa: F401
+                          compact_gat_packed_bwd_dst_plain,
+                          compact_gat_packed_bwd_src,
+                          compact_gat_packed_bwd_src_plain,
+                          compact_gat_packed_fwd, compact_gat_packed_fwd_plain)
 from .seg_reduce import (force_rowmajor,  # noqa: F401
                          force_rowmajor_plain, seg_max_sorted,
                          seg_max_sorted_plain, seg_sum_sorted,
@@ -13,7 +18,9 @@ from .segment_mm import (segment_matmul_dw,  # noqa: F401
 
 # every kernel wrapper, each with a ``launches`` count of its CUDA launches
 KERNELS = ("seg_sum_sorted", "seg_max_sorted", "segment_matmul_fwd",
-           "segment_matmul_dx", "segment_matmul_dw", "force_rowmajor")
+           "segment_matmul_dx", "segment_matmul_dw", "force_rowmajor",
+           "compact_gat_packed_fwd", "compact_gat_packed_bwd_dst",
+           "compact_gat_packed_bwd_src")
 # the wrappers that also count their launches by element types (bf16
 # instantiations beside the f32 ones) in ``launches_by_dtype``
 TYPED = ("seg_sum_sorted", "segment_matmul_dw")

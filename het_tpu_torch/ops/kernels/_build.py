@@ -32,7 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("seg_reduce", "segment_mm")  # CUDA kernels, csrc/<name>.cu
+# CUDA kernels, csrc/<name>.cu
+SOURCES = ("seg_reduce", "segment_mm", "compact_gat")
 HOST_SOURCES = ("graphops",)  # host code, csrc/<name>.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -37,6 +37,13 @@ def check_launch(name: str, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {text}")
 
 
+def launches(t: torch.Tensor, impl: str) -> bool:
+    """Whether a wrapper given ``t`` launches its kernel: a CUDA tensor
+    under ``impl="kernel"``.  An op whose route rests on it (which kernels
+    it calls, not which version of one) asks here."""
+    return t.device.type == "cuda" and impl == "kernel"
+
+
 def takes_plain(t: torch.Tensor, impl: str, what: str) -> bool:
     """Whether a wrapper given ``t`` runs its plain version: on a CPU
     tensor, or where ``impl="plain"``.  Raises for an unknown ``impl`` and

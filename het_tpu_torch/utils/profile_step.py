@@ -73,6 +73,8 @@ CATEGORIES = (
     ("segment_matmul_dw", "segment_matmul_dw (port kernel)"),
     ("segment_matmul_fwd", "segment_matmul_fwd (port kernel)"),
     ("segment_matmul_dx", "segment_matmul_dx (port kernel)"),
+    *((f"compact_gat_packed_{w}", f"compact_gat_packed_{w} (port kernel)")
+      for w in ("fwd", "bwd_dst", "bwd_src")),
     ("gemm", "matmul"), ("gemv", "matmul"), ("splitKreduce", "matmul"),
     ("index", "gather / index"), ("gather", "gather / index"),
     ("Cat", "concatenate"),

@@ -14,7 +14,9 @@
   forward + backward step of the 1-layer compact multiply-first RGAT
   (``bench.py``'s model), :func:`rgat_compact_step_traffic_ms` the bound
   of a design that writes per-edge payloads, as the port's packed fused
-  op (``ops/fused_agg.py::CompactFusedGATPacked``) does.
+  op (``ops/fused_agg.py::CompactFusedGATPacked``) does on its chain (bf16
+  payloads, ``stable="max"``; in f32 its walks write only ``draw`` and
+  ``alpha``).
 * :func:`trace` captures a ``torch.profiler`` trace (Chrome format).
 
 The module imports nothing of the package at run time, so that a script
@@ -152,9 +154,10 @@ def rgat_compact_step_roofline_ms(
 
 
 def compact_step_edge_lanes(heads: int, d_head: int) -> Dict[str, int]:
-    """Per-edge lanes the packed fused op (``CompactFusedGATPacked``)
-    writes or reads in one step, term by term (a lane is one element of
-    one canonical edge row, charged once each way it crosses HBM)::
+    """Per-edge lanes the packed fused op (``CompactFusedGATPacked``) on
+    its chain writes or reads in one step, term by term (a lane is one
+    element of one canonical edge row, charged once each way it crosses
+    HBM)::
 
         forward:  the [el | feat] gather            P
                   the er gather                     H

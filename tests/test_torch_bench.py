@@ -279,7 +279,8 @@ def test_sweep_records_a_failed_case_and_exits_nonzero(monkeypatch, capsys):
 def test_step_launches_match_chip_smokes_count(monkeypatch):
     """The launches a step ``chip_smoke.py`` asserts (``LAUNCHES_A_STEP``),
     counted on the CPU by a stand-in that bumps a kernel's count wherever
-    a CUDA tensor would launch it and runs the plain version."""
+    a CUDA tensor would launch it and runs the plain version, and that
+    answers an op's route as the card would (``_dispatch.launches``)."""
     plain = _dispatch.takes_plain
 
     def counted(t, impl, what):
@@ -288,12 +289,14 @@ def test_step_launches_match_chip_smokes_count(monkeypatch):
         return plain(t, "plain", what)
 
     monkeypatch.setattr(_dispatch, "takes_plain", counted)
+    monkeypatch.setattr(_dispatch, "launches",
+                        lambda t, impl: impl == "kernel")
     kernels.reset_launches()
     res = step.run(SCALE, "cpu", warmup=0, steps=1)
     got = res["detail"]["launches_a_step"]
     assert got == {n: step.LAUNCHES_A_STEP.get(n, {}) for n in step.VARIANTS}
     totals = kernels.launch_counts()
-    for k in ("seg_sum_sorted", "segment_matmul_dw"):
+    for k in kernels.KERNELS:
         assert totals[k] == 2 * sum(v.get(k, 0) for v in
                                     step.LAUNCHES_A_STEP.values())
     kernels.reset_launches()

@@ -52,7 +52,8 @@ def _load_once(_loaded, monkeypatch):
 def counted_run(_loaded):
     """One full run (both impls, every end-to-end row) with a stand-in
     that bumps a kernel's count wherever a CUDA tensor would launch it and
-    runs the plain version."""
+    runs the plain version, and that answers an op's route as the card
+    would (``_dispatch.launches``)."""
     plain = _dispatch.takes_plain
 
     def counted(t, impl, what):
@@ -63,6 +64,7 @@ def counted_run(_loaded):
     with pytest.MonkeyPatch.context() as mp:
         _light(mp, _loaded)
         mp.setattr(_dispatch, "takes_plain", counted)
+        mp.setattr(_dispatch, "launches", lambda t, impl: impl == "kernel")
         kernels.reset_launches()
         try:
             return breakdown.run(TINY, "cpu", quick=False)

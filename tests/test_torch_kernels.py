@@ -7,11 +7,21 @@ PyTorch is installed, on a machine with an NVIDIA GPU:
 
 Without a GPU every test skips."""
 
+import numpy as np
 import pytest
 import torch
 
 from het_tpu_torch.graph import random_heterograph
-from het_tpu_torch.ops.kernels import (force_rowmajor, force_rowmajor_plain,
+from het_tpu_torch.graph.build import build_heterograph
+from het_tpu_torch.ops import kernels
+from het_tpu_torch.ops.fused_agg import CLIP_LOGIT, CompactFusedGATPacked
+from het_tpu_torch.ops.kernels import (compact_gat_packed_bwd_dst,
+                                       compact_gat_packed_bwd_dst_plain,
+                                       compact_gat_packed_bwd_src,
+                                       compact_gat_packed_bwd_src_plain,
+                                       compact_gat_packed_fwd,
+                                       compact_gat_packed_fwd_plain,
+                                       force_rowmajor, force_rowmajor_plain,
                                        seg_max_sorted, seg_max_sorted_plain,
                                        seg_sum_sorted, seg_sum_sorted_plain,
                                        segment_matmul_dw,
@@ -620,3 +630,142 @@ def test_force_rowmajor_kernel_equals_plain(cuda, view):
     torch.cuda.synchronize()
     assert force_rowmajor.launches == (1 if x.numel() else 0)
     assert got.is_contiguous() and torch.equal(got, force_rowmajor_plain(x))
+
+
+# ------------------------------------------------- packed compact GAT walks
+
+WALKS = ("compact_gat_packed_fwd", "compact_gat_packed_bwd_dst",
+         "compact_gat_packed_bwd_src")
+
+
+def _skewed_graph(dev, num_nodes=2000, num_edges=40_000, num_rels=3):
+    """Destinations by 1 / (1 + id): node 0's run of about 4,900 edges
+    spans many of the walks' chunks, node 5 has no in-edge; a quarter of
+    the edges leave node 7, whose source compact rows run past a chunk;
+    padding edges and padding compact rows (tile 8)."""
+    rng = np.random.default_rng(3)
+    w = 1.0 / (1.0 + np.arange(num_nodes))
+    w[5] = 0.0
+    dst = rng.choice(num_nodes, size=num_edges, p=w / w.sum())
+    src = rng.integers(0, num_nodes, size=num_edges)
+    src[: num_edges // 4] = 7
+    rel = rng.integers(0, num_rels, size=num_edges)
+    return build_heterograph(src, dst, rel, num_nodes, num_rels,
+                             tile=8).to(dev)
+
+
+def _walk_inputs(g, H, D, stable, dev):
+    """fe2d, er_c and ct; under "clip" logits far past the clip (both
+    signs), under "raw" moderate ones."""
+    gen = torch.Generator(device=dev).manual_seed(H * 100 + D)
+    scale = 60.0 if stable == "clip" else 1.0
+    UCs, UCd = g.compact_src.seg.n_rows, g.compact_dst.seg.n_rows
+    fe = torch.randn(UCs, H, 1 + D, device=dev, generator=gen)
+    fe[..., 0] *= scale
+    er = torch.randn(UCd, H, device=dev, generator=gen) * scale
+    ct = torch.randn(g.num_nodes, H, D, device=dev, generator=gen)
+    return fe.reshape(UCs, -1), er, ct
+
+
+def _close(got, want):
+    """f32 sums in another order: rtol 1e-5, atol 1e-5 * max|want|."""
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def skewed():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA kernel has no CPU mode)")
+    return _skewed_graph(torch.device("cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stable", ["raw", "clip"])
+@pytest.mark.parametrize("H,D", [(1, 8), (8, 8), (1, 64), (8, 64)])
+def test_compact_gat_walks_match_plain(cuda, skewed, H, D, stable):
+    """Each walk against its plain version on the same inputs (the
+    backward walks on the plain forward's s and out, the source walk on
+    the plain draw and alpha), one launch each, and a second launch equal
+    bit for bit."""
+    g = skewed
+    fe2d, er, ct = _walk_inputs(g, H, D, stable, cuda)
+    clip = CLIP_LOGIT if stable == "clip" else None
+    src, dst = g.compact_src, g.compact_dst
+    rows = (src.edge_map, dst.edge_map, g.in_row_ptr)
+    kernels.reset_launches()
+    s, out = compact_gat_packed_fwd(fe2d, er, *rows, 0.2, clip)
+    s_p, out_p = compact_gat_packed_fwd_plain(fe2d, er, *rows, 0.2, clip)
+    torch.cuda.synchronize()
+    _close(s, s_p)
+    _close(out, out_p)
+    assert (s[5] == 0).all() and (out[5] == 0).all()
+    draw, alpha = compact_gat_packed_bwd_dst(fe2d, er, *rows, s_p, out_p,
+                                             ct, 0.2, clip)
+    draw_p, alpha_p = compact_gat_packed_bwd_dst_plain(
+        fe2d, er, *rows, s_p, out_p, ct, 0.2, clip)
+    E = g.num_edges
+    torch.cuda.synchronize()
+    _close(draw[:E], draw_p[:E])
+    _close(alpha[:E], alpha_p[:E])
+    walk3 = (ct, g.dst, src.edge_row_ptr, src.edge_sort_perm)
+    d_fe = compact_gat_packed_bwd_src(draw_p, alpha_p, *walk3)
+    torch.cuda.synchronize()
+    _close(d_fe, compact_gat_packed_bwd_src_plain(draw_p, alpha_p, *walk3))
+    assert {k: kernels.launch_counts()[k] for k in WALKS} == dict.fromkeys(
+        WALKS, 1)
+    again = (compact_gat_packed_fwd(fe2d, er, *rows, 0.2, clip),
+             compact_gat_packed_bwd_dst(fe2d, er, *rows, s_p, out_p, ct,
+                                        0.2, clip),
+             compact_gat_packed_bwd_src(draw_p, alpha_p, *walk3))
+    assert all(torch.equal(a, b) for a, b in zip(again[0], (s, out)))
+    assert torch.equal(again[1][0][:E], draw[:E])
+    assert torch.equal(again[2], d_fe)
+
+
+def _op(g, fe2d, er, ct, stable, impl):
+    """The op's output and the gradients of <out, ct>, with the launches
+    of the forward and of the backward."""
+    fe2d = fe2d.clone().requires_grad_()
+    er = er.clone().requires_grad_()
+    kernels.reset_launches()
+    out = CompactFusedGATPacked.apply(fe2d, er, g, 0.2, stable, impl)
+    torch.cuda.synchronize()
+    fwd = {k: n for k, n in kernels.launch_counts().items() if n}
+    kernels.reset_launches()
+    d_fe, d_er = torch.autograd.grad((out * ct.to(out.dtype)).sum(),
+                                     (fe2d, er))
+    torch.cuda.synchronize()
+    bwd = {k: n for k, n in kernels.launch_counts().items() if n}
+    return (out.detach(), d_fe, d_er), fwd, bwd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stable", ["raw", "clip"])
+@pytest.mark.parametrize("H,D", [(1, 8), (8, 8), (1, 64), (8, 64)])
+def test_compact_gat_op_walks_match_its_chain(cuda, skewed, H, D, stable):
+    """The op on the card in f32 takes the walks: out, d_fe and d_er
+    against its chain (impl="plain"); a forward launches the forward walk,
+    a backward the two backward walks and d_er's segment sum."""
+    g = skewed
+    fe2d, er, ct = _walk_inputs(g, H, D, stable, cuda)
+    got, fwd, bwd = _op(g, fe2d, er, ct, stable, "kernel")
+    want, _, _ = _op(g, fe2d, er, ct, stable, "plain")
+    for a, b in zip(got, want):
+        _close(a, b)
+    assert fwd == {"compact_gat_packed_fwd": 1}
+    assert bwd == {"compact_gat_packed_bwd_dst": 1,
+                   "compact_gat_packed_bwd_src": 1, "seg_sum_sorted": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bf16", "max"])
+def test_compact_gat_op_bf16_and_max_keep_the_chain(cuda, skewed, case):
+    g = skewed
+    fe2d, er, ct = _walk_inputs(g, 8, 8, "raw", cuda)
+    if case == "bf16":
+        fe2d, er = fe2d.bfloat16(), er.bfloat16()
+    _, fwd, bwd = _op(g, fe2d, er, ct, "max" if case == "max" else "clip",
+                      "kernel")
+    assert not (set(fwd) | set(bwd)) & set(WALKS)
+    assert fwd["seg_sum_sorted"] == 2 and bwd["seg_sum_sorted"] > 1
