@@ -10,12 +10,13 @@ from .common import (edge_rel_gather, edge_rel_sum,  # noqa: F401
                      safe_div, scatter_sum_dst, scatter_sum_src, take_rows,
                      take_rows_injective)
 from .fused_agg import (compact_weighted_agg,  # noqa: F401
-                        fused_softmax_agg)
-from .linear import (compact_dst_inner, compact_rows,  # noqa: F401
-                     compact_typed_linear, edge_rel_inner,
-                     edge_rel_scale_grad, edge_rows_typed_linear,
-                     edge_typed_linear, expand_compact, ntype_linear,
-                     segment_matmul, segment_rel_inner)
+                        fused_softmax_agg, simple_hgn_attention)
+from .linear import (attention_projection,  # noqa: F401
+                     compact_dst_inner, compact_rows, compact_typed_linear,
+                     edge_rel_inner, edge_rel_scale_grad,
+                     edge_rows_typed_linear, edge_type_logits,
+                     edge_typed_linear, expand_compact, node_linear,
+                     ntype_linear, segment_matmul, segment_rel_inner)
 from .spmm import (CLIP_LOGIT, edge_softmax,  # noqa: F401
                    edge_softmax_weighted_sum,
                    edge_softmax_weighted_sum_compact,

@@ -79,6 +79,13 @@ with node-sided inputs: the logits ``el[src] + er[dst]`` and the features
 through ``out_perm`` (d_el, d_feat).  The layer op computes the projection
 and the logits inside and pulls their gradients back at node scale.
 
+:class:`NodeFusedHGNAttention` (:func:`simple_hgn_attention`) is
+Simple-HGN's node-sided attention, which the JAX package lacks: a
+per-relation logit term, a self-loop term in each destination's softmax
+and the previous layer's attention mixed in, over node-aligned edge
+blocks (``graph/blocks.py``) so that its (edges, H*D) payloads stay a
+block's size at 512 lanes.
+
 Every op sums its narrow and wide per-edge terms (``z`` and ``z*feat``;
 ``draw`` and ``dfeat`` at the source side) through one helper,
 :func:`_sum_heads`, in two segment sums.
@@ -98,7 +105,8 @@ from typing import Optional
 import torch
 
 from ..utils import spans
-from .common import gather_dst, gather_nodes, safe_div, take_rows
+from ..graph.blocks import graph_blocks
+from .common import _sum_rel, gather_dst, gather_nodes, safe_div, take_rows
 from .kernels import (_dispatch, compact_gat_packed_bwd_dst,
                       compact_gat_packed_bwd_src, compact_gat_packed_fwd,
                       seg_max_sorted, seg_sum_sorted)
@@ -955,3 +963,244 @@ class GATLayerFused(torch.autograd.Function):
             ctx.impl, _pack_dt(x2d))
         return GATLayerFused._pullback(x2d, w, attn_l, attn_r, f3, d_feat,
                                        d_el, d_er)
+
+
+# ------------------------------------------------------------ Simple-HGN
+
+HGN_BLOCK_BYTES = 4_000_000_000  # a block's (edges, H*D) f32 payload
+
+
+def hgn_block_edges(width: int) -> int:
+    """Edges a block of :class:`NodeFusedHGNAttention` holds by default at
+    ``width`` = H*D lanes: a (block, H*D) f32 payload of at most
+    :data:`HGN_BLOCK_BYTES`."""
+    return max(1, HGN_BLOCK_BYTES // (4 * width))
+
+
+def _hgn_edges(el, er, ee, g, lo: int, hi: int, slope: float, clip):
+    """Canonical edges ``lo:hi``: their sources, destinations, ``raw =
+    el[src] + er[dst] + ee[rel]`` and ``z = exp(act(raw))`` (B, H)."""
+    src, dst = g.src[lo:hi], g.dst[lo:hi]
+    raw = take_rows(el, src) + take_rows(er, dst) + take_rows(ee, g.rel[lo:hi])
+    return src, dst, raw, torch.exp(_act_apply(raw, slope, clip))
+
+
+def _hgn_self(el, er, ee, v0: int, v1: int, slope: float, clip):
+    """The self-loops of nodes ``v0:v1`` (edge type the table's last
+    row): their ``raw`` and ``z`` (nb, H)."""
+    raw = el[v0:v1] + er[v0:v1] + ee[-1]
+    return raw, torch.exp(_act_apply(raw, slope, clip))
+
+
+def _hgn_mix(alpha, prev, beta: float):
+    """Residual attention, ``(1 - beta) alpha + beta prev``, under its own
+    span; ``alpha`` where there is no ``prev``."""
+    if prev is None:
+        return alpha
+    with spans.inner("res_attn"):
+        return alpha * (1 - beta) + prev * beta
+
+
+def hgn_bytes(num_edges: int, N: int, H: int, HD: int, num_rels: int,
+              keep: bool, prev: bool) -> int:
+    """A call's least bytes, forward and backward (f32): each edge's
+    (self-loops' too) source row read once and each output row written
+    once; then each edge's source row and destination cotangent row read
+    once and each source gradient written once; the node tables (``el``
+    and ``er`` read twice, ``s`` written and read, ``d_el`` and ``d_er``
+    written), the edge-type table (read twice, its gradient written) and
+    the attention carried out (``keep``, written) or in (``prev``, read
+    forward and backward), (E + N, H) each."""
+    E1 = num_edges + N
+    tables = 8 * N * H + 3 * (num_rels + 1) * H
+    carried = E1 * H * (int(keep) + 2 * int(prev))
+    return 4 * (3 * E1 * HD + 2 * N * HD + tables + carried)
+
+
+@spans.function
+class NodeFusedHGNAttention(torch.autograd.Function):
+    """Simple-HGN's attention and aggregation (HGB's ``myGATConv``) with
+    node-sided inputs and a self-loop a node:
+
+        raw_e  = el[src] + er[dst] + ee[rel]   (a self-loop: el[v] + er[v]
+                                                + ee[R], R = num_rels)
+        a_e    = softmax_v(act(raw))           over v's in-edges and its
+                                                self-loop
+        m_e    = (1 - beta) a_e + beta prev_e  (prev given), else a_e
+        out[v] = sum_{dst(e)=v} m_e feat[src(e)] + m_self feat[v]
+
+    ``forward(feat (N, H*D) head-major, el, er (N, H), ee (R+1, H), prev
+    (EP+N, H) or None, g, beta, slope, clip, keep, dst_blocks,
+    src_blocks, impl) -> (out (N, H*D), alpha)``: ``alpha`` (EP+N, H)
+    holds ``m`` (canonical edges, then the self-loops; 0 on padding
+    edges) where ``keep``, else nothing; it carries no gradient, and
+    ``prev`` gets none (HGB detaches both).
+
+    The self-loop is a term of each destination's softmax, not an edge
+    of the graph.  The edges are walked in node-aligned blocks
+    (``graph/blocks.py``): destination blocks over ``in_row_ptr`` for the
+    forward's sums and the backward's destination side, source blocks
+    over ``out_row_ptr`` through ``out_perm`` for ``d_feat``; no per-edge
+    tensor holds more than a block's edges of H*D lanes.  The forward
+    saves ``(feat, el, er, ee, s, prev)``, ``s`` the denominators (N, H),
+    and the backward recomputes the edge terms from them:
+
+        t1_e    = <feat[src], ct[dst]>,   T_v = sum_{e -> v} a_e t1_e
+        draw_e  = (1 - beta) a_e (t1_e - T_v) act'(raw_e)   (no prev: 1)
+        d_feat  = sum over sources of m_e ct[dst]; d_er, d_el the sums of
+                  draw at destinations and sources; d_ee its sum a
+                  relation (the self-loops' into row R)
+
+    Every per-edge payload is f32 and summed by ``seg_sum_sorted``."""
+
+    @staticmethod
+    def forward(ctx, feat, el, er, ee, prev, g, beta: float, slope: float,
+                clip: Optional[float], keep: bool, dst_blocks, src_blocks,
+                impl: str):
+        N, HD = feat.shape
+        H = el.shape[1]
+        EP = g.num_padded_edges
+        f = feat.float()
+        el_, er_, ee_ = el.float(), er.float(), ee.float()
+        out = torch.empty(N, HD, device=feat.device)
+        s = torch.empty(N, H, device=feat.device)
+        alpha = torch.zeros((EP + N) if keep else 0, H, device=feat.device)
+        for v0, v1, lo, hi in dst_blocks:
+            ptr = g.in_row_ptr[v0:v1 + 1] - lo
+            src, dst, _, z = _hgn_edges(el_, er_, ee_, g, lo, hi, slope, clip)
+            _, z_s = _hgn_self(el_, er_, ee_, v0, v1, slope, clip)
+            s_b = _sum(z, ptr, None, impl, torch.float32) + z_s
+            m = _hgn_mix(z / take_rows(s_b, dst - v0),
+                         None if prev is None else prev[lo:hi], beta)
+            m_s = _hgn_mix(z_s / s_b, None if prev is None
+                           else prev[EP + v0:EP + v1], beta)
+            if keep:
+                with spans.inner("res_attn"):
+                    alpha[lo:hi] = m
+                    alpha[EP + v0:EP + v1] = m_s
+            rows = take_rows(f, src).view(hi - lo, H, -1)
+            rows.mul_(m[..., None])
+            agg = _sum(rows.view(hi - lo, HD), ptr, None, impl,
+                       torch.float32)
+            del rows
+            nb = v1 - v0
+            torch.addcmul(agg.view(nb, H, -1), m_s[..., None],
+                          f[v0:v1].view(nb, H, -1),
+                          out=out[v0:v1].view(nb, H, -1))
+            s[v0:v1] = s_b
+        ctx.save_for_backward(feat, el, er, ee, s, prev)
+        ctx.g, ctx.beta, ctx.slope, ctx.clip, ctx.impl = (g, beta, slope,
+                                                          clip, impl)
+        ctx.blocks = (dst_blocks, src_blocks)
+        ctx.mark_non_differentiable(alpha)
+        return out.to(feat.dtype), alpha
+
+    @staticmethod
+    def backward(ctx, ct, _ct_alpha):
+        feat, el, er, ee, s, prev = ctx.saved_tensors
+        g, beta, slope, clip, impl = (ctx.g, ctx.beta, ctx.slope, ctx.clip,
+                                      ctx.impl)
+        dst_blocks, src_blocks = ctx.blocks
+        N, HD = feat.shape
+        H = el.shape[1]
+        EP = g.num_padded_edges
+        dev = feat.device
+        f, c = feat.float(), ct.float().contiguous()
+        el_, er_, ee_ = el.float(), er.float(), ee.float()
+        draw, m = torch.zeros(EP, H, device=dev), torch.zeros(EP, H,
+                                                              device=dev)
+        draw_s, m_s = torch.empty(N, H, device=dev), torch.empty(N, H,
+                                                                 device=dev)
+        d_er = torch.empty(N, H, device=dev)
+        # destination side: the softmax's backward a block
+        for v0, v1, lo, hi in dst_blocks:
+            nb = v1 - v0
+            ptr = g.in_row_ptr[v0:v1 + 1] - lo
+            src, dst, raw, z = _hgn_edges(el_, er_, ee_, g, lo, hi, slope,
+                                          clip)
+            raw_s, z_s = _hgn_self(el_, er_, ee_, v0, v1, slope, clip)
+            local = dst - v0
+            a = z / take_rows(s[v0:v1], local)
+            a_s = z_s / s[v0:v1]
+            m[lo:hi] = _hgn_mix(a, None if prev is None else prev[lo:hi],
+                                beta)
+            m_s[v0:v1] = _hgn_mix(a_s, None if prev is None
+                                  else prev[EP + v0:EP + v1], beta)
+            rows = take_rows(f, src)
+            rows.mul_(take_rows(c, dst))
+            t1 = rows.view(hi - lo, H, -1).sum(-1)
+            del rows
+            t1_s = (f[v0:v1].view(nb, H, -1)
+                    * c[v0:v1].view(nb, H, -1)).sum(-1)
+            T = _sum(a * t1, ptr, None, impl, torch.float32) + a_s * t1_s
+            dr = a * (t1 - take_rows(T, local)) * _act_deriv(raw, slope, clip)
+            dr_s = a_s * (t1_s - T) * _act_deriv(raw_s, slope, clip)
+            if prev is not None:
+                with spans.inner("res_attn"):
+                    dr, dr_s = dr * (1 - beta), dr_s * (1 - beta)
+            draw[lo:hi], draw_s[v0:v1] = dr, dr_s
+            d_er[v0:v1] = _sum(dr, ptr, None, impl, torch.float32) + dr_s
+        # source side: d_feat a block, through out_perm
+        d_feat = torch.empty(N, HD, device=dev)
+        for u0, u1, lo, hi in src_blocks:
+            nb = u1 - u0
+            pos = g.out_perm[lo:hi]
+            rows = take_rows(c, take_rows(g.dst, pos)).view(hi - lo, H, -1)
+            rows.mul_(take_rows(m, pos)[..., None])
+            agg = _sum(rows.view(hi - lo, HD), g.out_row_ptr[u0:u1 + 1] - lo,
+                       None, impl, torch.float32)
+            del rows
+            torch.addcmul(agg.view(nb, H, -1), m_s[u0:u1, :, None],
+                          c[u0:u1].view(nb, H, -1),
+                          out=d_feat[u0:u1].view(nb, H, -1))
+        d_el = _sum(draw, g.out_row_ptr, g.out_perm, impl,
+                    torch.float32) + draw_s
+        d_ee = torch.cat([_sum_rel(g, draw, impl), draw_s.sum(0)[None]])
+        return (d_feat.to(feat.dtype), d_el.to(el.dtype), d_er.to(er.dtype),
+                d_ee.to(ee.dtype)) + (None,) * 9
+
+
+@spans.op("agg")
+def simple_hgn_attention(g, feat: torch.Tensor, el: torch.Tensor,
+                         er: torch.Tensor, ee: torch.Tensor,
+                         alpha_prev: Optional[torch.Tensor] = None, *,
+                         beta: float = 0.0, slope: float,
+                         stable: str = "clip", keep_alpha: bool = False,
+                         impl: str = "kernel"):
+    """Simple-HGN's fused attention and aggregation
+    (:class:`NodeFusedHGNAttention`) on a graph whose sources are its
+    destinations: feat (N, H*D), el and er (N, H), ee (num_rels + 1, H),
+    ``alpha_prev`` (EP + N, H) the previous layer's attention (detached)
+    or None.  Returns ``out`` (N, H*D) and, where ``keep_alpha``, this
+    layer's attention for the next (EP + N, H), else None.  ``stable`` is
+    "clip" or "raw".  A block holds :func:`hgn_block_edges` edges, a
+    payload of at most :data:`HGN_BLOCK_BYTES`.  The span counts the
+    call's blocks a side, its least bytes (:func:`hgn_bytes`) and the
+    bytes of the attention it carries to the next layer, which it carries
+    whole (``alpha_carried_bytes``), not recomputed from node tables."""
+    N, HD = feat.shape
+    H = el.shape[1]
+    EP = g.num_padded_edges
+    if stable not in ("raw", "clip"):
+        raise ValueError(f"stable must be 'raw' or 'clip', got {stable!r}")
+    if N != g.num_nodes or g.src_space != N:
+        raise ValueError("the self-loops need node-sided inputs on a graph "
+                         "whose sources are its destinations")
+    if tuple(ee.shape) != (g.num_rels + 1, H) or HD % H:
+        raise ValueError(f"ee {tuple(ee.shape)} is not (num_rels + 1, "
+                         f"{H}), or feat's {HD} lanes are not H heads")
+    if alpha_prev is not None and tuple(alpha_prev.shape) != (EP + N, H):
+        raise ValueError(f"alpha_prev {tuple(alpha_prev.shape)} is not "
+                         f"({EP + N}, {H})")
+    n = hgn_block_edges(HD)
+    dst_blocks = graph_blocks(g, "dst", n)
+    src_blocks = graph_blocks(g, "src", n)
+    spans.count(dst_blocks=len(dst_blocks), src_blocks=len(src_blocks),
+                bytes=hgn_bytes(g.num_edges, N, H, HD, g.num_rels,
+                                keep_alpha, alpha_prev is not None),
+                alpha_carried_bytes=4 * (EP + N) * H if keep_alpha else 0)
+    out, alpha = NodeFusedHGNAttention.apply(
+        feat, el, er, ee,
+        None if alpha_prev is None else alpha_prev.detach(), g, beta, slope,
+        _clip(stable), keep_alpha, dst_blocks, src_blocks, impl)
+    return out, (alpha if keep_alpha else None)

@@ -31,7 +31,10 @@ Counterpart of ``het_tpu/ops/linear.py``:
   edges;
 * :func:`edge_rel_inner` and :func:`segment_rel_inner` are the
   attention-logit inner products ``<feat[h], a[rel, h]>``; their ``a``
-  gradient is the grouped dW kernel (``kernels.segment_matmul_dw``).
+  gradient is the grouped dW kernel (``kernels.segment_matmul_dw``);
+* :func:`node_linear`, :func:`attention_projection` and
+  :func:`edge_type_logits` are Simple-HGN's node-level linears (no
+  counterpart in the JAX package): plain matmuls under ``linear:`` spans.
 
 ``impl`` ("kernel" or "plain") picks the version of every kernel an op
 runs; see ``kernels/_dispatch.py``.
@@ -488,3 +491,35 @@ def segment_rel_inner(x_rows: torch.Tensor, a: torch.Tensor, seg, *,
     in the segment space of ``seg`` (compact rows): (n_rows, H, D),
     (R, H, D) -> (n_rows, H)."""
     return _RelInner.apply(x_rows, a, seg.row_seg, seg, None, impl)
+
+
+# ------------------------------------------- node-level linears (Simple-HGN)
+
+
+@spans.op("linear")
+def node_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` at node rows: x (N, K), w (K, O) -> (N, O)."""
+    return x @ w
+
+
+@spans.op("linear")
+def attention_projection(x: torch.Tensor, w: torch.Tensor,
+                         attn_l: torch.Tensor, attn_r: torch.Tensor):
+    """GAT's projection and its two logits a head: ``feat = x W`` (N,
+    H*D) head-major, and ``el``, ``er`` (N, H) with ``el[n, h] = <feat[n,
+    h], attn_l[h]>``, taken as ``x (W attn_l)`` (the weights multiplied
+    first, (K, H)) so that no (N, H*D) product is built for them."""
+    H, D = attn_l.shape
+    w3 = w.view(w.shape[0], H, D)
+    lr = x @ torch.cat([(w3 * attn_l).sum(-1), (w3 * attn_r).sum(-1)], 1)
+    return x @ w, lr[:, :H], lr[:, H:]
+
+
+@spans.op("linear")
+def edge_type_logits(emb: torch.Tensor, w_e: torch.Tensor,
+                     attn_e: torch.Tensor) -> torch.Tensor:
+    """Simple-HGN's edge-type term a head, ``ee[r, h] = <(emb[r] W_e)_h,
+    attn_e[h]>``: emb (T, F), w_e (F, H*Fe), attn_e (H, Fe) -> (T, H)."""
+    H, Fe = attn_e.shape
+    return ((emb @ w_e).view(-1, H, Fe) * attn_e).sum(-1)
+

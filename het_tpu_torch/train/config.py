@@ -7,7 +7,7 @@ prediction (``link.py``), ``--minibatch`` neighbour-sampled minibatches
 (``minibatch.py``: ``--batch_size``, ``--fanout``, ``--num_hops``,
 ``--max_batches``), else full-graph (``driver.py``); ``--tile`` is the
 graphs' relation-segment padding.  ``--model`` is RGAT, RGCN, HGT or
-GAT, as in het_tpu;
+GAT, as in het_tpu, or SimpleHGN (HGB's Simple-HGN, the port's own);
 ``--logfile_enabled`` appends the run's metrics to ``--logfilename`` as
 one JSON line.  ``--dtype bfloat16`` trains in mixed precision (f32
 master parameters, the model in bf16) with ``--loss_scale`` none, dynamic

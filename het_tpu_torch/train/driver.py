@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 from ..data.loaders import Dataset, load_dataset
-from ..models import GATModel, HGTModel, NodeEmbed, RGATModel, RGCNModel
+from ..models import (GATModel, HGTModel, NodeEmbed, RGATModel, RGCNModel,
+                      SimpleHGNModel)
 from ..utils.misc import (EarlyStopping, exact_matmuls, nll_loss,
                           resolve_device)
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -59,8 +60,12 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
     GAT is too: at least two layers (``max(--num_layers, 2)``), and
     neither ``--dropout`` nor ``--stable_softmax`` reaches it, so its
     ``feat_drop`` is 0 and its softmax raw; the relational flags change
-    nothing.  With ``--use_compiler`` RGAT, HGT and RGCN are the compiled
-    models (``compiled.py``), and any other family raises."""
+    nothing.  SimpleHGN (HGB's Simple-HGN) takes ``--num_layers`` layers
+    (at least one), the last of one head, at the published edge-type
+    width, residual attention and slope (``models/simple_hgn.py``), and
+    ``--stable_softmax`` "clip" or "raw"; ``--dropout`` and the relational
+    flags do not reach it.  With ``--use_compiler`` RGAT, HGT and RGCN are
+    the compiled models (``compiled.py``), and any other family raises."""
     g = data.graph
     name = cfg.model.upper()
     if cfg.use_compiler:
@@ -93,8 +98,16 @@ def build_model(cfg: TrainConfig, data: Dataset, *,
             cfg.n_infeat, cfg.hidden, data.num_classes, cfg.num_heads,
             max(cfg.num_layers, 2), impl=impl, generator=generator,
         )
+    elif name == "SIMPLEHGN":
+        model = SimpleHGNModel(
+            cfg.n_infeat, cfg.hidden, data.num_classes, cfg.num_heads,
+            max(cfg.num_layers, 1), g.num_rels, g.num_ntypes,
+            stable_softmax=cfg.stable_softmax, impl=impl,
+            generator=generator,
+        )
     else:
-        raise ValueError(f"--model {cfg.model}: RGAT, RGCN, HGT or GAT")
+        raise ValueError(f"--model {cfg.model}: RGAT, RGCN, HGT or GAT "
+                         "(het_tpu's families), or SimpleHGN")
     return NodeClassifier(
         NodeEmbed(g.num_nodes, cfg.n_infeat, generator=generator), model
     )

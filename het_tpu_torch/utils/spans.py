@@ -26,7 +26,12 @@ current stream (``perf_counter`` on the CPU).  They are:
   only so have no calls, no self time, and the sum of their children;
 * the kernel wrappers, :func:`kernel` (``kernel:<name>``), which count
   the call's launches, its least bytes and operations, and its operands'
-  element types and shapes.
+  element types and shapes;
+* a part of a Function's forward or backward, :func:`inner` (CUDA events
+  only), such as Simple-HGN's ``res_attn``.
+
+:func:`count` adds counters to the innermost open span (an op's blocks
+and bytes).
 
 Once a traced step's sync has passed, its events are read into totals by
 path: calls, ms (device ms on the card), self ms (ms minus the children's
@@ -162,6 +167,30 @@ def span(name: str, index: Optional[int] = None):
     if not _profiling():
         return _NULL
     return _Span(name if index is None else f"{name}{index}", True)
+
+
+def inner(name: str):
+    """A span inside an autograd Function's forward or backward (CUDA
+    events only: autograd names the Function's own range), under the
+    Function's span; a null context outside a traced step."""
+    if REGISTRY.step is None:
+        return _NULL
+    return _Span(name, False)
+
+
+def count(**counters: float) -> None:
+    """Add ``counters`` to the innermost span open on this thread (an op
+    span's own counts: its blocks, its bytes); nothing outside a traced
+    step."""
+    step = REGISTRY.step
+    stack = REGISTRY.stack()
+    if step is None or not stack:
+        return
+    rec = step.recs[stack[-1][1]]
+    if rec[4] is None:
+        rec[4] = {}
+    for k, v in counters.items():
+        rec[4][k] = rec[4].get(k, 0) + v
 
 
 def op(family: str) -> Callable:
