@@ -88,7 +88,10 @@ Phases, each of which fails the run:
      three walks (``compact_gat_packed_fwd``, ``_bwd_dst``, ``_bwd_src``)
      at the benchmark's first cell's widths (8 heads of 8, clip), each
      against its plain version, a second launch bit for bit, timed beside
-     its bound, its plain version and the chain of ops it replaces;
+     its bound, its plain version and the chain of ops it replaces; and
+     HGT's plain core's three walks (``hgt_plain_fwd``, ``_bwd_dst``,
+     ``_bwd_src``) at ``hgt.mag.plain``'s widths (8 heads of 8, R = 4,
+     clip) the same way;
 4. training runs of the 2-layer RGAT (heads 4, in 64, hidden 64, 8
    classes, f32, TF32 off, dropout 0), each once through the kernels and
    once through their plain versions from the same seeded parameters,
@@ -268,6 +271,12 @@ def _run(compact, multiply_first, steps, launches, *, union=False,
 # the launches a step of the packed op's three walks, two layers
 WALK_LAUNCHES = dict(compact_gat_packed_fwd=2, compact_gat_packed_bwd_dst=2,
                      compact_gat_packed_bwd_src=2)
+# the launches a step of HGT's plain core's three walks, two layers
+HGT_WALK_LAUNCHES = dict(hgt_plain_fwd=2, hgt_plain_bwd_dst=2,
+                         hgt_plain_bwd_src=2)
+# the head widths d_k HGT's plain core's walks take
+# (``ops/kernels/hgt_plain.py::WIDTHS``)
+HGT_WIDTHS = (1, 2, 4, 8, 16)
 
 
 def _walks(r):
@@ -278,6 +287,22 @@ def _walks(r):
     return (r["model"] == "RGAT" and r["compact"] and r["multiply_first"]
             and not r.get("union") and r["stable"] != "max"
             and not r.get("compiled") and not r.get("on_chain"))
+
+
+def _hgt_plain_launches(heads=HEADS, classes=CLASSES):
+    """The launches a step of plain HGT on one card, f32 under "raw" or
+    "clip" (``HGTPlainFull._walks``): a layer whose d_k the walks take
+    runs them and three grouped dWs (the two weights' over the walks'
+    (dst, rel) run rows, ``relation_pri``'s over the edge rows), another
+    the chain, 4 segment sums (z, z*msg, d_q, [d_k | d_v]) and
+    ``relation_pri``'s dW."""
+    widths = [HIDDEN] * (LAYERS - 1) + [classes]  # each layer's output
+    walk = sum(w // heads in HGT_WIDTHS for w in widths)
+    chain = LAYERS - walk
+    out = dict(seg_sum_sorted=4 * chain, segment_matmul_dw=3 * walk + chain,
+               hgt_plain_fwd=walk, hgt_plain_bwd_dst=walk,
+               hgt_plain_bwd_src=walk)
+    return {k: n for k, n in out.items() if n}
 
 
 def _chain(r):
@@ -308,9 +333,10 @@ def _chain(r):
 # edge-gather backward; the aggregation's backward is a gather) and 3
 # times compact (compact_weighted_agg forward and backward through
 # edge_sort_perm, the compact-gather backward).  HGT (2 layers from the
-# learned embeddings, heads 4: d_k 16 in layer 0, 2 in layer 1) reduces 4
-# times a layer plain (the fused core's z and z*msg, d_q, d_k with d_v in
-# one) and 7 times compact (the fused attention's z and z*msg, its
+# learned embeddings, heads 4: d_k 16 in layer 0, 2 in layer 1) runs its
+# plain core's three walks a layer (``_hgt_walks``: f32, "raw" or "clip";
+# the destination walk adds two grouped dWs, the weights', over its
+# (dst, rel) run rows) and reduces nothing there, and 7 times compact (the fused attention's z and z*msg, its
 # source-compact, source-node and (dst, rel)-run reduces, and the two
 # compact-gather backwards); compact with stable="max" takes the unfused
 # chain, 6 (one [z | z*msg] sum: its backward is autograd's gather of that
@@ -351,8 +377,7 @@ RUNS = {
                        model="RGCN"),
     "rgcn_compact": _run(True, False, STEPS, dict(seg_sum_sorted=6),
                          model="RGCN"),
-    "hgt_plain": _run(False, False, STEPS, dict(seg_sum_sorted=8,
-                                                segment_matmul_dw=2),
+    "hgt_plain": _run(False, False, STEPS, _hgt_plain_launches(),
                       model="HGT"),
     "hgt_compact": _run(True, False, STEPS, dict(seg_sum_sorted=14,
                                                  segment_matmul_dw=2),
@@ -399,10 +424,9 @@ MM_TOL = 1e-5
 # per-relation matmuls) and exchanges k and v, so every layer's typed
 # linears need an input gradient: compact, two per-head typed linears a
 # layer on compact rows (a forward, a dX and a dW each) and the single
-# card's 6 segment sums; plain, the fused core's two per-head typed
-# linears on the edge rows, each run in the forward and again in the
-# backward (a dX and a dW each), its 3 segment sums and, with the
-# boundary halo, the exchange backwards of k and v; both the dW of
+# card's 6 segment sums; plain, the fused core's three walks (their two
+# grouped dWs, the weights', over the shard's (dst, rel) run rows) and,
+# with the boundary halo, the exchange backwards of k and v; both the dW of
 # relation_pri a layer.  Plain RGAT under stable="max" adds one
 # destination max a layer.  Plain RGCN makes one typed linear a layer
 # over the edge rows (H = 1; a dX in layer 1) and reduces once in layer 0
@@ -439,8 +463,8 @@ DP_RUNS = {
         seg_sum_sorted=14, segment_matmul_fwd=4, segment_matmul_dx=4,
         segment_matmul_dw=6), model="HGT"),
     "dp_hgt_plain": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
-        seg_sum_sorted=12, segment_matmul_fwd=8, segment_matmul_dx=4,
-        segment_matmul_dw=6), model="HGT"),
+        seg_sum_sorted=4, segment_matmul_dw=6, **HGT_WALK_LAUNCHES),
+        model="HGT"),
     "dp_plain_max": _dp_run(False, False, SHORT_STEPS, "boundary", dict(
         seg_sum_sorted=7, seg_max_sorted=2, segment_matmul_fwd=4,
         segment_matmul_dx=2, segment_matmul_dw=8), stable="max"),
@@ -461,8 +485,10 @@ NTYPE_LINEAR = dict(segment_matmul_fwd=8, segment_matmul_dx=5,
 # the 2-rank jobs join the data-parallel spawn, the 4-rank run spawns
 # its own ranks
 DRYRUN_RANKS = (2, 4)
-DRYRUN_LAUNCHES = dict(seg_sum_sorted=15, segment_matmul_fwd=7,
-                       segment_matmul_dx=4, segment_matmul_dw=8)
+DRYRUN_LAUNCHES = dict(seg_sum_sorted=11, segment_matmul_fwd=3,
+                       segment_matmul_dx=2, segment_matmul_dw=8,
+                       hgt_plain_fwd=1, hgt_plain_bwd_dst=1,
+                       hgt_plain_bwd_src=1)
 # bench.scaling at its smallest form, in the data-parallel spawn: mag at
 # 0.01, worlds of 1 and 2 ranks (both on cuda:0 over gloo), 3 timed steps
 SCALING_RANKS, SCALING_SCALE, SCALING_STEPS = (1, 2), 0.01, 3
@@ -544,10 +570,14 @@ LINK_RUNS = {
 # needs a gradient too) and dW kernels.  The accuracy pass launches a
 # step's forward (_eval_launches).
 def _compiled_run(model, compact, multiply_first, steps, launches, base, *,
-                  plain=True, strategy="host_offsets", same_as=None):
+                  plain=True, strategy="host_offsets", same_as=None,
+                  handwritten=None):
+    """A compiled run; ``handwritten``: the launches a step of the
+    hand-written model at H = 1 where they are not its ``base`` run's (at
+    H = 1 plain HGT's layer 0, d_k 64, takes the chain)."""
     return dict(_run(compact, multiply_first, steps, launches, stable="raw",
                      model=model), compiled=True, base=base, plain=plain,
-                strategy=strategy, same_as=same_as)
+                strategy=strategy, same_as=same_as, handwritten=handwritten)
 
 
 COMPILED_RUNS = {
@@ -563,8 +593,9 @@ COMPILED_RUNS = {
         "plain_multiply_first"),
     "compiled_compact": _compiled_run("RGAT", True, False, SHORT_STEPS, dict(
         seg_sum_sorted=14, segment_matmul_dw=4), "compact"),
-    "compiled_hgt_plain": _compiled_run("HGT", False, False, SHORT_STEPS,
-                                        dict(seg_sum_sorted=10), "hgt_plain"),
+    "compiled_hgt_plain": _compiled_run(
+        "HGT", False, False, SHORT_STEPS, dict(seg_sum_sorted=10),
+        "hgt_plain", handwritten=_hgt_plain_launches(heads=1)),
     "compiled_hgt_compact": _compiled_run("HGT", True, False, SHORT_STEPS,
                                           dict(seg_sum_sorted=14),
                                           "hgt_compact"),
@@ -611,14 +642,19 @@ def _eval_launches(r):
     ``RUNS`` value): a step's forward without its backward, two segment
     sums a layer (the fused attention ops' z and z*feat; one for RGCN's
     aggregation and HGT's unfused stable="max" chain; none and the forward
-    walk where the packed op takes its walks) and, under stable="max", one
+    walk where the packed op or HGT's plain core takes its walks) and,
+    under stable="max", one
     segment max a layer; a compiled run on device offsets also its step's
     segment-matmul forwards."""
     one = r["model"] == "RGCN" or (r["model"] == "HGT"
                                    and r["stable"] == "max")
     walks = _walks(r)
-    return dict(seg_sum_sorted=LAYERS * (0 if walks else 1 if one else 2),
+    # HGT's plain core: the layers that take its walks sum nothing
+    hgt_walks = r["launches"].get("hgt_plain_fwd", 0)
+    return dict(seg_sum_sorted=LAYERS * (0 if walks else 1 if one else 2)
+                - 2 * hgt_walks,
                 compact_gat_packed_fwd=LAYERS if walks else 0,
+                hgt_plain_fwd=hgt_walks,
                 seg_max_sorted=LAYERS if r["stable"] == "max" else 0,
                 segment_matmul_fwd=(r["launches"].get("segment_matmul_fwd", 0)
                                     if r.get("compiled") else 0))
@@ -757,11 +793,12 @@ def _rgcn_seg_sum_shapes(g, compact, first_input_grad):
     return shapes
 
 
-def _hgt_seg_sum_shapes(g, compact, stable):
+def _hgt_seg_sum_shapes(g, compact, stable, walks):
     """The same list for a step of the HGT runs.  Every layer's typed
     linears need an input gradient (their inputs are projections), and
     the gathered rows are the projections, as wide as the layer's output
-    (``out`` = heads x d_k)."""
+    (``out`` = heads x d_k).  The plain core sums nothing where it takes
+    its walks (``walks``)."""
     S, D, E = g.compact_src, g.compact_dst, g.edge_rel_seg
     EP = g.num_padded_edges
     dims = _dims()
@@ -790,7 +827,7 @@ def _hgt_seg_sum_shapes(g, compact, stable):
                 (f"l{layer} bwd (dst,rel) runs dscore*k", EP, out,
                  D.canon_ptr, None),
             ]
-        else:
+        elif not walks:
             shapes += [
                 (f"l{layer} fwd dst z", EP, HEADS, g.in_row_ptr, None),
                 (f"l{layer} fwd dst z*msg", EP, out, g.in_row_ptr, None),
@@ -917,7 +954,8 @@ def _run_seg_sum_shapes(run, g, chain=False):
         return _gat_seg_sum_shapes(g, spec["classes"])
     if spec["model"] == "HGT":
         return _hgt_seg_sum_shapes(g, spec["compact"],
-                                   spec.get("stable", "clip"))
+                                   spec.get("stable", "clip"),
+                                   "hgt_plain_fwd" in spec["launches"])
     if spec["model"] == "RGCN":
         return _rgcn_seg_sum_shapes(g, spec["compact"], run not in DP_RUNS)
     return _seg_sum_shapes(g, spec["compact"], run not in DP_RUNS,
@@ -1521,6 +1559,183 @@ def check_compact_gat(g, dev, flush, label):
     return entries
 
 
+# ------------------------------------------------- HGT plain core walks
+
+HGT_WALKS = ("hgt_plain_fwd", "hgt_plain_bwd_dst", "hgt_plain_bwd_src")
+# the walks' sums reassociated a run at a time (d_q, d_k, d_v, the
+# weights' gradients), over up to 7.5M edges a relation
+WALK_SUM_RTOL = 1e-4
+
+
+def _hgt_walk_bytes(g, H, dk, runs):
+    """Each HGT walk's least bytes: every walked edge's indices and rows
+    read once, each per-edge output written once (the destination walk's
+    score and draw twice, in canonical order and in the edge rows), each
+    node row read or written once, the runs' rows written once: {walk:
+    bytes}."""
+    E = int(g.in_row_ptr[-1] - g.in_row_ptr[0])
+    N, S, HD = g.num_nodes, g.src_space, H * dk
+    n_runs = runs.run_slot.numel()
+    rows = 4 * (N + 1)
+    return {
+        "hgt_plain_fwd": E * 4 * (2 + 2 * HD + H) + rows
+        + 4 * N * (2 * HD + H),
+        "hgt_plain_bwd_dst": E * 4 * (3 + 2 * HD + 5 * H) + 2 * rows
+        + 4 * N * (4 * HD + H) + 4 * n_runs * (2 + 4 * HD),
+        "hgt_plain_bwd_src": E * 4 * (3 + 2 * H + 2 * HD) + 4 * (S + 1)
+        + 4 * N * 2 * HD + 4 * S * 2 * HD,
+    }
+
+
+def check_hgt_plain_walks(g, dev, flush, label):
+    """HGT's plain core's three walks (``ops/kernels/hgt_plain.py``) at
+    ``hgt.mag.plain``'s widths on ``g`` (the full-scale graph: H = 8, d_k
+    = 8, R = 4, the clip softmax): each against its plain version
+    (TOL_RTOL, the run-reassociated sums WALK_SUM_RTOL; the backward walks
+    on the plain forward's outputs, the source walk on the plain draw and
+    alpha), a second launch bit for bit, each timed beside its bound
+    (bytes), its plain version and the chain of PyTorch ops, segment sums
+    and matmuls it replaces in ``HGTPlainFull`` (the forward's edge-row
+    matmuls, read-back and two sums; the backward's recomputation,
+    softmax terms, take, both matmul pullbacks and the sum of d_q; its
+    source-side sum of [dscore attq | d_v]).  Returns the three JSON
+    entries."""
+    import torch
+    from het_tpu_torch.ops import fused_agg as fa
+    from het_tpu_torch.ops.common import take_rows
+    from het_tpu_torch.ops.kernels import (
+        hgt_plain_bwd_dst, hgt_plain_bwd_dst_plain, hgt_plain_bwd_src,
+        hgt_plain_bwd_src_plain, hgt_plain_fwd, hgt_plain_fwd_plain,
+        seg_sum_sorted)
+    from het_tpu_torch.ops.linear import segment_matmul_pullback
+
+    H, dk = CELL_HEADS, CELL_D
+    HD, R = H * dk, g.num_rels
+    clip = fa.CLIP_LOGIT
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def n(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    v, q, k = n(g.src_space, HD), n(g.num_nodes, HD), n(g.src_space, HD)
+    wm, wa = n(R, H, dk, dk) / dk, n(R, H, dk, dk) / dk
+    mu = 1.0 + 0.3 * n(R, H)
+    ct = n(g.num_nodes, H, dk)
+    t0 = time.perf_counter()
+    runs, perm = fa._hgt_walk_plan(g)
+    print(f"[{label}] HGT walks' orders in {time.perf_counter() - t0:.2f} s:"
+          f" {runs.run_slot.numel()} (dst, rel) runs")
+    E = g.num_edges
+    fwd = (v, q, k, wm, wa, mu, g.src, g.rel, g.in_row_ptr)
+    s, out, score = hgt_plain_fwd_plain(*fwd, clip)
+    dst = fwd + (score, s, out, ct, clip, g.edge_rel_seg.inv,
+                 g.edge_rel_seg.n_rows)
+    draw, alpha = hgt_plain_bwd_dst_plain(*dst)[:2]
+    src = (q, ct, wm, wa, mu, g.dst, g.rel, g.out_row_ptr, perm, draw, alpha)
+    calls = {
+        "hgt_plain_fwd": (lambda: hgt_plain_fwd(*fwd, clip),
+                          lambda: hgt_plain_fwd_plain(*fwd, clip),
+                          lambda t: (t[0], t[1], t[2][:E]), 0),
+        "hgt_plain_bwd_dst": (lambda: hgt_plain_bwd_dst(*dst, runs),
+                              lambda: hgt_plain_bwd_dst_plain(*dst),
+                              lambda t: (t[0][:E], t[1][:E]) + t[2:], 2),
+        "hgt_plain_bwd_src": (lambda: hgt_plain_bwd_src(*src),
+                              lambda: hgt_plain_bwd_src_plain(*src),
+                              lambda t: t, 0),
+    }
+    seg = g.edge_rel_seg
+
+    def chain_fwd():
+        return fa.HGTPlainFull._chain_forward(v, q, k, wm, wa, mu, g, clip,
+                                              "kernel")
+
+    def chain_dst():
+        v_rows, msg_rows = fa.HGTPlainFull._rows(v, wm, g, "src", H,
+                                                 "kernel")
+        msg_e = take_rows(msg_rows.reshape(-1, HD), seg.inv)
+        mu_e = take_rows(mu, g.rel)
+        ctd, al, dr = fa._softmax_backward(g, ct, s, out, score * mu_e,
+                                           msg_e, 1.0, clip)
+        both = take_rows(torch.cat([dr * mu_e, fa._per_head(al, ctd)],
+                                   dim=1), seg.perm)
+        del ctd, msg_e
+        both = torch.where(seg.row_valid[:, None], both,
+                           torch.zeros_like(both))
+        _, _, attq_rows = fa._plain_score_pullback(
+            q, k, wa, g, both[:, :H], True, True, "kernel", torch.float32)
+        d_v_rows, _ = segment_matmul_pullback(
+            v_rows, wm, seg, both[:, H:], need_dx=True, need_dw=True,
+            impl="kernel")
+        return both[:, :H], attq_rows, d_v_rows
+
+    def chain_src_on_rows():
+        """The source-side sum on the destination chain's rows, made once
+        here (held only while it is timed: three (edge rows, H*dk)
+        buffers)."""
+        dscore_rows, attq_rows, d_v_rows = chain_dst()
+
+        def chain_src():
+            pay = torch.empty(dscore_rows.shape[0], 2 * HD, device=dev)
+            fa._per_head(dscore_rows, attq_rows, pay[:, :HD])
+            pay[:, HD:] = d_v_rows.reshape(-1, HD)
+            return seg_sum_sorted(pay, g.out_row_ptr,
+                                  take_rows(seg.inv, g.out_perm))
+        return chain_src
+
+    chains = dict(zip(HGT_WALKS, (lambda: chain_fwd, lambda: chain_dst,
+                                  chain_src_on_rows)))
+    nbytes = _hgt_walk_bytes(g, H, dk, runs)
+    print(f"[{label}] HGT plain core walks vs plain (H = {H}, d_k = {dk}, "
+          f"R = {R}, clip; rtol {TOL_RTOL}, the run sums {WALK_SUM_RTOL}, "
+          "atol the same times max|plain|), a second launch bit for bit")
+    print("walk | kernel ms | bound ms (bytes) | share of bound | plain ms | "
+          "replaced chain ms | max |kernel - plain| / max|plain|")
+    entries = []
+    for name in HGT_WALKS:
+        kern, plain, cut, exact = calls[name]
+        got, want = cut(kern()), cut(plain())
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            tol = TOL_RTOL if i < exact or name == "hgt_plain_fwd" else \
+                WALK_SUM_RTOL
+            big = max(b.abs().max().item(), 1e-30)
+            torch.testing.assert_close(
+                a, b, rtol=tol, atol=tol * big,
+                msg=lambda m, n=name: f"{label} {n}: {m}")
+            err = max(err, (a - b).abs().max().item() / big)
+        for a, b in zip(cut(kern()), got):
+            _compare_exact(a, b, f"{label} {name} (repeat)")
+        del got, want
+        ms = _time_ms(kern, 10, flush)
+        plain_ms = _time_ms(plain, 3, flush)
+        torch.cuda.empty_cache()  # the chain's buffers are the largest
+        chain = chains[name]()
+        chain_ms = _time_ms(chain, 3, flush)
+        del chain
+        torch.cuda.empty_cache()
+        bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        print(f"{name} | {ms:.3f} | {bound:.3f} | {100 * bound / ms:.1f}% | "
+              f"{plain_ms:.3f} | {chain_ms:.3f} | {err:.3e}")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "het_tpu_torch/csrc/hgt_plain.cu",
+            "replaces": ("het_tpu/ops/pallas/fused_agg.py:1222 "
+                         "_make_hgt_plain_full_op"),
+            "launches": None,  # filled from the training run
+            "max_rel_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call computes it
+            "chain_ms": chain_ms,
+            "shape": f"{label}: H = {H}, d_k = {dk}, R = {R}, {E} edges",
+        })
+    return entries
+
+
 # ------------------------------------------------------------ fused op forms
 
 
@@ -1695,9 +1910,11 @@ def _dw_shapes(g, gu, shards, dev, edge_graphs):
     typed-linear dWs of both data-parallel runs and the plain one's
     attention-vector dWs; the attention-vector dWs of the plain RGAT steps
     on ``edge_graphs`` (run -> graph on the card: the minibatch run's
-    sampled subgraph, the link run's message graph at S = 474); the
+    sampled subgraph, the link run's message graph at S = 474); HGT's
+    plain core's weight dWs on the (dst, rel) run rows of its walks; the
     general segment-matmul dW and edge cases."""
     import numpy as np
+    from het_tpu_torch.ops.fused_agg import _hgt_walk_plan
 
     E = g.edge_rel_seg
     dims = _dims()
@@ -1750,8 +1967,14 @@ def _dw_shapes(g, gu, shards, dev, edge_graphs):
             (f"l{layer} shard src compact HGT v.W_msg dW, per head",
              "dp_hgt_compact", 1, hc.compact_src.seg, HEADS, HEADS, K, K,
              True),
-            (f"l{layer} shard edge rows HGT q.W_att, v.W_msg dW, per head",
-             "dp_hgt_plain", 2, hp.edge_rel_seg, HEADS, HEADS, K, K, True),
+            # the plain core's W_att and W_msg: its destination walk's
+            # (dst, rel) run rows, relation-sorted
+            (f"l{layer} HGT W_att, W_msg dW, (dst, rel) run rows",
+             "hgt_plain", 2, _hgt_walk_plan(g)[0].seg, HEADS, HEADS, K, K,
+             False),
+            (f"l{layer} shard HGT W_att, W_msg dW, (dst, rel) run rows",
+             "dp_hgt_plain", 2, _hgt_walk_plan(hp)[0].seg, HEADS, HEADS, K,
+             K, False),
         ]
         shapes += [
             (f"l{layer} attn_l/attn_r dW, edge rows", (MAIN, "plain_max"),
@@ -1855,8 +2078,9 @@ def _dw_shapes(g, gu, shards, dev, edge_graphs):
                        None, 0, _segments((rows + 1, 3000 - rows - 1), 1,
                                           dev), H, Hx, K, O, False))
     assert g.num_rels == E.n_segments
-    for shape in shapes:
-        if any(run in DP_RUNS for run in _runs_of(shape[1])):
+    for shape in shapes:  # a shard's own segments: offsets on the card
+        if any(run in DP_RUNS for run in _runs_of(shape[1])) and \
+                "run rows" not in shape[0]:
             assert shape[3].seg_ptrs_static is None, shape[0]
     return shapes
 
@@ -2073,16 +2297,13 @@ def _mm_shapes(shards, dev, g):
             (f"l{layer} edge rows RGCN W", "dp_rgcn_plain", 1, dx,
              ps.edge_rel_seg, R, 1, 1, K, out),
         ]
-        # HGT's per-head typed linears: an input gradient in every layer;
-        # the plain core runs its two in the forward and again in the
-        # backward
+        # HGT's per-head typed linears: an input gradient in every layer
+        # (the plain core computes its two inside its walks)
         shapes += [
             (f"l{layer} dst compact HGT q.W_att, per head", "dp_hgt_compact",
              1, 1, hc.compact_dst.seg, R, HEADS, HEADS, D, D),
             (f"l{layer} src compact HGT v.W_msg, per head", "dp_hgt_compact",
              1, 1, hc.compact_src.seg, R, HEADS, HEADS, D, D),
-            (f"l{layer} edge rows HGT q.W_att, v.W_msg, per head",
-             "dp_hgt_plain", 4, 2, hp.edge_rel_seg, R, HEADS, HEADS, D, D),
         ]
         shapes += [
             (f"l{layer} src compact RGCN W", "dp_rgcn_compact", 1, dx,
@@ -2865,7 +3086,10 @@ def check_compiled(data, dev, card, run, summaries, *, r=None, name=None):
     hm["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     _check_losses(name + " hand-written", "kernel", hm["loss_list"], steps,
                   False)
-    hw_want = _train_launches(dict(RUNS[r["base"]], stable="raw"), steps)
+    hw = dict(RUNS[r["base"]], stable="raw")
+    if r["handwritten"] is not None:
+        hw["launches"] = r["handwritten"]
+    hw_want = _train_launches(hw, steps)
     if hm["launches"] != hw_want:
         raise AssertionError(f"{name} hand-written H=1: launched "
                              f"{hm['launches']}, expected {hw_want}")
@@ -3782,7 +4006,8 @@ def check_full_scale(dev, card):
             BF16_FULL, _seg_sum_shapes(g, True, True), dev, flush, gen,
             pair_of=_bf16_sum_pair)[0]["by_dtype"],
     }
-    walks = check_compact_gat(g, dev, flush, FULL)
+    walks = (check_compact_gat(g, dev, flush, FULL)
+             + check_hgt_plain_walks(g, dev, flush, FULL))
     del g, flush
     torch.cuda.empty_cache()
     launches, by_dtype, f32_losses = {}, {}, None
@@ -4253,7 +4478,8 @@ def main() -> int:
         # no path calls the row copy (nor does het_tpu)
         main = {"segment_matmul_fwd": DP_MAIN, "segment_matmul_dx": DP_MAIN,
                 "segment_matmul_dw": MAIN, "seg_sum_sorted": MB_MAIN,
-                **dict.fromkeys(WALKS, "compact_multiply_first")}.get(
+                **dict.fromkeys(WALKS, "compact_multiply_first"),
+                **dict.fromkeys(HGT_WALKS, "hgt_plain")}.get(
                     kernel, SLICE_MAIN)
         entry["launches"] = launches[main][kernel]
         entry["launches_by_run"] = {r: counts[kernel]

@@ -62,6 +62,9 @@ source compact rows and ``d_w_e = <feat_c[rowS(e)], ct[dst(e)]>``.
 activation, an optional clip, ``raw = score * mu[rel]``) and aggregation
 in one op each, with the backward above and ``d_mu``, the sum of ``draw *
 score`` a relation, the grouped dW over the relation-sorted edge rows.
+On f32 operands on the card under "raw" or "clip", :class:`HGTPlainFull`
+computes its edge terms inside three segment walks
+(``kernels/hgt_plain.py``) and writes no (EP, H*dk) tensor.
 :func:`fused_softmax_agg` is :class:`FusedGAT` with the activation
 named ("identity" is a leaky ReLU of slope 1).
 :class:`SrcCompactFusedSoftmaxAgg` is the counterpart of
@@ -109,9 +112,12 @@ from ..graph.blocks import graph_blocks
 from .common import _sum_rel, gather_dst, gather_nodes, safe_div, take_rows
 from .kernels import (_dispatch, compact_gat_packed_bwd_dst,
                       compact_gat_packed_bwd_src, compact_gat_packed_fwd,
+                      hgt_plain_bwd_dst, hgt_plain_bwd_src, hgt_plain_fwd,
                       seg_max_sorted, seg_sum_sorted)
 from .kernels.compact_gat import (MAX_D, act as _act_apply,
                                   act_deriv as _act_deriv)
+from .kernels.hgt_plain import (MAX_H as HGT_MAX_H, WIDTHS as HGT_WIDTHS,
+                                dst_runs, src_rel_perm)
 from .linear import (_edge_row_idx, edge_rel_scale_grad, segment_matmul,
                      segment_matmul_pullback)
 
@@ -656,25 +662,65 @@ def _plain_score_pullback(q2d, k2d, w_att, g, dscore_rows, need_q: bool,
     return d_q, d_watt, attq_rows.reshape(-1, HD)
 
 
+def _hgt_walk_plan(g):
+    """The orders :class:`HGTPlainFull`'s walks read on ``g``: the (dst,
+    rel) runs of its destination CSR (:func:`~.kernels.hgt_plain.dst_runs`)
+    and its source CSR's permutation with each source's edges sorted by
+    relation (:func:`~.kernels.hgt_plain.src_rel_perm`), worked out once a
+    graph (a read-back from the card) and kept on the graph object, as
+    ``graph_blocks`` keeps its blocks."""
+    plan = g.__dict__.get("_hgt_walk_plan")
+    if plan is None:
+        plan = g.__dict__["_hgt_walk_plan"] = (
+            dst_runs(g.rel, g.in_row_ptr, g.num_rels),
+            src_rel_perm(g.src, g.rel, g.out_row_ptr, g.out_perm,
+                         g.num_rels))
+    return plan
+
+
 @spans.function
 class HGTPlainFull(torch.autograd.Function):
     """HGT's plain layer core in one op (``_make_hgt_plain_full_op``):
-    both per-edge typed linears over the relation-sorted edge rows
-    (``edge_rel_seg``), ``msg = v[src] W_msg[rel]`` and ``attq = q[dst]
-    W_att[rel]``, the score ``<attq, k[src]>``, the typed softmax and the
-    aggregation.
+    both per-edge typed linears, ``msg = v[src] W_msg[rel]`` and ``attq =
+    q[dst] W_att[rel]``, the score ``<attq, k[src]>``, the typed softmax
+    and the aggregation.
 
     ``forward(v2d, q2d, k2d (rows, H*dk), w_msg, w_att (R, H, dk, dk), mu
-    (R, H), g, clip, impl) -> (N, H, dk)``.  Forward: the two matmuls on
-    the edge rows (:func:`~.linear.segment_matmul`, a row's input one a
-    head), one read-back of ``[score | msg]`` through ``seg.inv``, the
-    segment sums of :func:`_aggregate` over ``in_row_ptr``.  It keeps the
-    per-edge score (EP, H) and recomputes the matmuls in the backward,
-    which takes: their pullbacks
-    (:func:`~.linear.segment_matmul_pullback`), ``d_q`` as one
-    segment sum over ``in_row_ptr`` through ``seg.inv``, ``d_k`` and
-    ``d_v`` together in one over ``out_row_ptr`` through
-    ``seg.inv[out_perm]``, and ``d_mu`` as in :class:`HGTCompactAttention`."""
+    (R, H), g, clip, impl) -> (N, H, dk)``.  Both routes keep the
+    per-edge score (EP, H) and ``d_mu`` as in
+    :class:`HGTCompactAttention`; the route is picked from the inputs
+    (:meth:`_walks`).
+
+    On f32 operands that the kernels launch on (CUDA tensors under
+    ``impl="kernel"``) with ``dk`` in ``HGT_WIDTHS``, three
+    segment walks compute the edge terms in registers: the forward's
+    (:func:`~.kernels.hgt_plain_fwd`, ``s``, ``out`` and ``score`` over
+    ``in_row_ptr``), the backward's destination walk
+    (:func:`~.kernels.hgt_plain_bwd_dst`, ``draw`` and ``alpha`` (EP, H),
+    ``d_q`` and the weights' gradients) and its source walk
+    (:func:`~.kernels.hgt_plain_bwd_src`, ``d_k`` and ``d_v`` over
+    ``out_row_ptr``), on the orders of :func:`_hgt_walk_plan`.  Each
+    counts ``walks`` in its span.
+
+    Otherwise (bf16 operands, other widths, ``impl="plain"``, CPU
+    tensors) the chain, over the relation-sorted edge rows
+    (``edge_rel_seg``).  Forward: the two matmuls on the edge rows
+    (:func:`~.linear.segment_matmul`, a row's input one a head), one
+    read-back of ``[score | msg]`` through ``seg.inv``, the segment sums
+    of :func:`_aggregate` over ``in_row_ptr``.  It recomputes the
+    matmuls in the backward, which takes: their pullbacks
+    (:func:`~.linear.segment_matmul_pullback`), ``d_q`` as one segment
+    sum over ``in_row_ptr`` through ``seg.inv``, ``d_k`` and ``d_v``
+    together in one over ``out_row_ptr`` through ``seg.inv[out_perm]``."""
+
+    @staticmethod
+    def _walks(v2d, q2d, k2d, w_msg, w_att, mu, impl: str) -> bool:
+        """Whether the op takes the three walks (the class docstring)."""
+        H = mu.shape[1]
+        return (all(t.dtype == torch.float32
+                    for t in (v2d, q2d, k2d, w_msg, w_att, mu))
+                and q2d.shape[1] // H in HGT_WIDTHS and H <= HGT_MAX_H
+                and _dispatch.launches(v2d, impl))
 
     @staticmethod
     def _rows(x2d, w, g, side, H, impl):
@@ -685,6 +731,25 @@ class HGTPlainFull(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v2d, q2d, k2d, w_msg, w_att, mu, g,
                 clip: Optional[float], impl: str):
+        ctx.walks = HGTPlainFull._walks(v2d, q2d, k2d, w_msg, w_att, mu,
+                                        impl)
+        if ctx.walks:
+            spans.count(walks=1)
+            v2d, q2d, k2d, w_msg, w_att, mu = (
+                t.contiguous() for t in (v2d, q2d, k2d, w_msg, w_att, mu))
+            s, out, score = hgt_plain_fwd(v2d, q2d, k2d, w_msg, w_att, mu,
+                                          g.src, g.rel, g.in_row_ptr, clip,
+                                          impl=impl)
+        else:
+            s, out, score = HGTPlainFull._chain_forward(
+                v2d, q2d, k2d, w_msg, w_att, mu, g, clip, impl)
+        ctx.save_for_backward(v2d, q2d, k2d, w_msg, w_att, mu, score, s, out)
+        ctx.g, ctx.clip, ctx.impl = g, clip, impl
+        return out.to(v2d.dtype)
+
+    @staticmethod
+    def _chain_forward(v2d, q2d, k2d, w_msg, w_att, mu, g, clip, impl):
+        """The chain's forward: ``(s, out, score)``."""
         seg = g.edge_rel_seg
         H = mu.shape[1]
         HD = q2d.shape[1]
@@ -697,12 +762,36 @@ class HGTPlainFull(torch.autograd.Function):
         mu_e = take_rows(mu, g.rel).float()
         z = torch.exp(_act_apply(score * mu_e, 1.0, clip))
         s, out = _aggregate(g, z, se[:, H:], impl, _pack_dt(v2d))
-        ctx.save_for_backward(v2d, q2d, k2d, w_msg, w_att, mu, score, s, out)
-        ctx.g, ctx.clip, ctx.impl = g, clip, impl
-        return out.to(v2d.dtype)
+        return s, out, score
+
+    @staticmethod
+    def _walk_backward(ctx, ct):
+        """The backward of the walks' route: ``draw``, ``alpha``, ``d_q``
+        and the weights' gradients from the destination walk, ``d_k`` and
+        ``d_v`` from the source walk, ``d_mu`` from ``score`` and ``draw``
+        as the destination walk wrote them in the edge rows."""
+        v2d, q2d, k2d, w_msg, w_att, mu, score, s, out = ctx.saved_tensors
+        g, impl = ctx.g, ctx.impl
+        seg = g.edge_rel_seg
+        spans.count(walks=1)
+        runs, src_perm = _hgt_walk_plan(g)
+        ct = ct.float().contiguous()
+        w = hgt_plain_bwd_dst(v2d, q2d, k2d, w_msg, w_att, mu, g.src, g.rel,
+                              g.in_row_ptr, score, s, out, ct, ctx.clip,
+                              seg.inv, seg.n_rows, runs, impl=impl)
+        d_k, d_v = hgt_plain_bwd_src(q2d, ct, w_msg, w_att, mu, g.dst,
+                                     g.rel, g.out_row_ptr, src_perm, w.draw,
+                                     w.alpha, impl=impl)
+        # the walk wrote score and draw in the edge rows: no take
+        d_mu = edge_rel_scale_grad(g, w.score_rows, w.draw_rows, impl=impl,
+                                   rows=True)
+        return (d_v, w.d_q, d_k, w.d_w_msg, w.d_w_att, d_mu, None, None,
+                None)
 
     @staticmethod
     def backward(ctx, ct):
+        if ctx.walks:
+            return HGTPlainFull._walk_backward(ctx, ct)
         v2d, q2d, k2d, w_msg, w_att, mu, score, s, out = ctx.saved_tensors
         g, impl = ctx.g, ctx.impl
         seg = g.edge_rel_seg

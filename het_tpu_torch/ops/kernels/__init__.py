@@ -7,6 +7,10 @@ from .compact_gat import (compact_gat_packed_bwd_dst,  # noqa: F401
                           compact_gat_packed_bwd_src,
                           compact_gat_packed_bwd_src_plain,
                           compact_gat_packed_fwd, compact_gat_packed_fwd_plain)
+from .hgt_plain import (hgt_plain_bwd_dst,  # noqa: F401
+                        hgt_plain_bwd_dst_plain, hgt_plain_bwd_src,
+                        hgt_plain_bwd_src_plain, hgt_plain_fwd,
+                        hgt_plain_fwd_plain)
 from .seg_reduce import (force_rowmajor,  # noqa: F401
                          force_rowmajor_plain, seg_max_sorted,
                          seg_max_sorted_plain, seg_sum_sorted,
@@ -20,7 +24,8 @@ from .segment_mm import (segment_matmul_dw,  # noqa: F401
 KERNELS = ("seg_sum_sorted", "seg_max_sorted", "segment_matmul_fwd",
            "segment_matmul_dx", "segment_matmul_dw", "force_rowmajor",
            "compact_gat_packed_fwd", "compact_gat_packed_bwd_dst",
-           "compact_gat_packed_bwd_src")
+           "compact_gat_packed_bwd_src", "hgt_plain_fwd", "hgt_plain_bwd_dst",
+           "hgt_plain_bwd_src")
 # the wrappers that also count their launches by element types (bf16
 # instantiations beside the f32 ones) in ``launches_by_dtype``
 TYPED = ("seg_sum_sorted", "segment_matmul_dw")

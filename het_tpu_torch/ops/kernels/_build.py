@@ -33,7 +33,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # CUDA kernels, csrc/<name>.cu
-SOURCES = ("seg_reduce", "segment_mm", "compact_gat")
+SOURCES = ("seg_reduce", "segment_mm", "compact_gat", "hgt_plain")
 HOST_SOURCES = ("graphops",)  # host code, csrc/<name>.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

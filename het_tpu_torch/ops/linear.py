@@ -465,15 +465,17 @@ def _rel_inner_da(feat, ct, R: int, seg, perm, impl: str) -> torch.Tensor:
 
 
 def edge_rel_scale_grad(g, score_e: torch.Tensor, ct_e: torch.Tensor, *,
-                        impl: str = "kernel") -> torch.Tensor:
+                        impl: str = "kernel",
+                        rows: bool = False) -> torch.Tensor:
     """The gradient of ``mu`` (R, H) in ``raw_e = score_e * mu[rel_e]``
-    for the cotangent ``ct_e`` of ``raw``, both (EP, H): the inner
-    product's ``d_a`` at D = 1, the grouped dW over the relation-sorted
-    edge rows (no atomics: a segment's rows in chunks, each summed in a
-    fixed order)."""
+    for the cotangent ``ct_e`` of ``raw``, both (EP, H) in canonical order,
+    or, where ``rows``, already in the relation-sorted edge rows (n_rows,
+    H; ``score_e`` finite on every row): the inner product's ``d_a`` at D
+    = 1, the grouped dW over the relation-sorted edge rows (no atomics: a
+    segment's rows in chunks, each summed in a fixed order)."""
     seg = g.edge_rel_seg
-    return _rel_inner_da(score_e[..., None], ct_e, g.num_rels, seg, seg.perm,
-                         impl)[..., 0]
+    return _rel_inner_da(score_e[..., None], ct_e, g.num_rels, seg,
+                         None if rows else seg.perm, impl)[..., 0]
 
 
 def edge_rel_inner(g, feat_e: torch.Tensor, a: torch.Tensor, *,

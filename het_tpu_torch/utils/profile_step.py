@@ -64,6 +64,10 @@ from . import spans
 from .profiling import device_peaks
 
 STEPS, WAIT, WARMUP, ACTIVE = 6, 1, 1, 3
+# a span table row's own keys; an op's counters (``spans.count``) are the
+# rest
+SPAN_KEYS = ("calls", "ms", "self_ms", "launches", "bytes", "flops",
+             "roofline_pct", "args")
 TOP = 30  # kernels listed by name
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
@@ -73,7 +77,8 @@ CATEGORIES = (
     ("segment_matmul_dw", "segment_matmul_dw (port kernel)"),
     ("segment_matmul_fwd", "segment_matmul_fwd (port kernel)"),
     ("segment_matmul_dx", "segment_matmul_dx (port kernel)"),
-    *((f"compact_gat_packed_{w}", f"compact_gat_packed_{w} (port kernel)")
+    *((f"{op}_{w}", f"{op}_{w} (port kernel)")
+      for op in ("compact_gat_packed", "hgt_plain")
       for w in ("fwd", "bwd_dst", "bwd_src")),
     ("gemm", "matmul"), ("gemv", "matmul"), ("splitKreduce", "matmul"),
     ("index", "gather / index"), ("gather", "gather / index"),
@@ -246,13 +251,14 @@ def main() -> None:
                        device_peaks(metrics["device"]))
     print(f"spans of {len(spans.REGISTRY.steps)} traced steps, a step: "
           "path | calls | device ms | self ms | launches | bytes | flops | "
-          "roofline %")
+          "roofline % | an op span's own counters")
     for path, r in table.items():
         kern = (f" | {r['launches']:g} | {r['bytes']:.4g} | "
                 f"{r['flops']:.4g} | {r.get('roofline_pct', 0):.2f}"
                 if "bytes" in r else "")
+        own = {k: v for k, v in r.items() if k not in SPAN_KEYS}
         print(f"{path} | {r['calls']:g} | {r['ms']:.4f} | "
-              f"{r['self_ms']:.4f}{kern}")
+              f"{r['self_ms']:.4f}{kern}" + (f" | {own}" if own else ""))
     print("set-up spans: path | calls | host s | counters")
     for path, r in spans.REGISTRY.setup.items():
         extra = {k: v for k, v in r.items() if k not in ("calls", "s")}

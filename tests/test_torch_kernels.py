@@ -14,7 +14,8 @@ import torch
 from het_tpu_torch.graph import random_heterograph
 from het_tpu_torch.graph.build import build_heterograph
 from het_tpu_torch.ops import kernels
-from het_tpu_torch.ops.fused_agg import CLIP_LOGIT, CompactFusedGATPacked
+from het_tpu_torch.ops.fused_agg import (CLIP_LOGIT, CompactFusedGATPacked,
+                                         HGTPlainFull, _hgt_walk_plan)
 from het_tpu_torch.ops.kernels import (compact_gat_packed_bwd_dst,
                                        compact_gat_packed_bwd_dst_plain,
                                        compact_gat_packed_bwd_src,
@@ -22,6 +23,11 @@ from het_tpu_torch.ops.kernels import (compact_gat_packed_bwd_dst,
                                        compact_gat_packed_fwd,
                                        compact_gat_packed_fwd_plain,
                                        force_rowmajor, force_rowmajor_plain,
+                                       hgt_plain_bwd_dst,
+                                       hgt_plain_bwd_dst_plain,
+                                       hgt_plain_bwd_src,
+                                       hgt_plain_bwd_src_plain,
+                                       hgt_plain_fwd, hgt_plain_fwd_plain,
                                        seg_max_sorted, seg_max_sorted_plain,
                                        seg_sum_sorted, seg_sum_sorted_plain,
                                        segment_matmul_dw,
@@ -768,4 +774,152 @@ def test_compact_gat_op_bf16_and_max_keep_the_chain(cuda, skewed, case):
     _, fwd, bwd = _op(g, fe2d, er, ct, "max" if case == "max" else "clip",
                       "kernel")
     assert not (set(fwd) | set(bwd)) & set(WALKS)
+    assert fwd["seg_sum_sorted"] == 2 and bwd["seg_sum_sorted"] > 1
+
+
+# ----------------------------------------------------- HGT plain core walks
+
+HGT_WALKS = ("hgt_plain_fwd", "hgt_plain_bwd_dst", "hgt_plain_bwd_src")
+
+
+def _many_rels_graph(dev, num_nodes=1000, num_edges=20_000, num_rels=535):
+    """ogbl-wikikg2's 535 relations: at H = 8, dk = 8 their weights (2.2
+    MB) are read from global memory, not shared memory."""
+    rng = np.random.default_rng(4)
+    return build_heterograph(rng.integers(0, num_nodes, num_edges),
+                             rng.integers(0, num_nodes, num_edges),
+                             rng.integers(0, num_rels, num_edges), num_nodes,
+                             num_rels, tile=8).to(dev)
+
+
+@pytest.fixture(scope="module")
+def many_rels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA kernel has no CPU mode)")
+    return _many_rels_graph(torch.device("cuda"))
+
+
+def _hgt_inputs(g, H, dk, stable, dev):
+    """v, q, k, w_msg, w_att, mu and ct; under "clip" logits far past the
+    clip (both signs), under "raw" moderate ones."""
+    gen = torch.Generator(device=dev).manual_seed(H * 100 + dk)
+    scale = 30.0 if stable == "clip" else 0.5
+    S, N, R, HD = g.src_space, g.num_nodes, g.num_rels, H * dk
+
+    def n(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    return (n(S, HD), n(N, HD) * scale, n(S, HD), n(R, H, dk, dk) / dk,
+            n(R, H, dk, dk) / dk, 1.0 + 0.3 * n(R, H)), n(N, H, dk)
+
+
+def _close_sums(got, want):
+    """Sums over up to 40,000 edges, reassociated a run at a time and in
+    another order: rtol 1e-4, atol 1e-4 * max|want|."""
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stable", ["raw", "clip"])
+@pytest.mark.parametrize("graph,H,dk", [("skewed", 8, 8), ("skewed", 4, 16),
+                                        ("skewed", 2, 4),
+                                        ("many_rels", 8, 8)])
+def test_hgt_plain_walks_match_plain(cuda, request, graph, H, dk, stable):
+    """Each walk against its plain version on the same inputs (the
+    backward walks on the plain forward's outputs, the source walk on the
+    plain draw and alpha) on a graph with a destination of about 4,900
+    edges and a source of 10,000 (split over helpers), and on one whose
+    535 relations' weights stay in global memory; one launch each, and a
+    second launch equal bit for bit, the weights' gradients included."""
+    g = request.getfixturevalue(graph)
+    (v, q, k, wm, wa, mu), ct = _hgt_inputs(g, H, dk, stable, cuda)
+    clip = CLIP_LOGIT if stable == "clip" else None
+    runs, perm = _hgt_walk_plan(g)
+    fwd_args = (v, q, k, wm, wa, mu, g.src, g.rel, g.in_row_ptr)
+    kernels.reset_launches()
+    got = hgt_plain_fwd(*fwd_args, clip)
+    want = hgt_plain_fwd_plain(*fwd_args, clip)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b)
+    s, out, score = want
+    assert (got[2][g.num_edges:] == 0).all()  # padding edges
+    if graph == "skewed":  # node 5 has no in-edge
+        assert (got[0][5] == 0).all() and (got[1][5] == 0).all()
+    dst_args = fwd_args + (score, s, out, ct, clip, g.edge_rel_seg.inv,
+                           g.edge_rel_seg.n_rows)
+    got_d = hgt_plain_bwd_dst(*dst_args, runs)
+    want_d = hgt_plain_bwd_dst_plain(*dst_args)
+    E = g.num_edges
+    torch.cuda.synchronize()
+    for a, b in zip(got_d[:2], want_d[:2]):
+        _close(a[:E], b[:E])
+    for a, b in zip(got_d[2:5], want_d[2:5]):
+        _close_sums(a, b)
+    for a, b in zip(got_d[5:], want_d[5:]):  # score and draw in edge rows
+        _close(a, b)
+    draw, alpha = want_d[:2]
+    src_args = (q, ct, wm, wa, mu, g.dst, g.rel, g.out_row_ptr, perm, draw,
+                alpha)
+    got_s = hgt_plain_bwd_src(*src_args)
+    want_s = hgt_plain_bwd_src_plain(*src_args)
+    torch.cuda.synchronize()
+    for a, b in zip(got_s, want_s):
+        _close_sums(a, b)
+    assert {k: kernels.launch_counts()[k] for k in HGT_WALKS} == dict.fromkeys(
+        HGT_WALKS, 1)
+    again = (hgt_plain_fwd(*fwd_args, clip),
+             hgt_plain_bwd_dst(*dst_args, runs), hgt_plain_bwd_src(*src_args))
+    assert all(torch.equal(a, b) for a, b in zip(again[0], got))
+    assert all(torch.equal(a[:E], b[:E]) for a, b in zip(again[1][:2],
+                                                         got_d[:2]))
+    assert all(torch.equal(a, b) for a, b in zip(again[1][2:], got_d[2:]))
+    assert all(torch.equal(a, b) for a, b in zip(again[2], got_s))
+
+
+def _hgt_op(g, inputs, ct, stable, impl):
+    """The op's output and the gradients of <out, ct> into every input,
+    with the launches of the forward and of the backward."""
+    xs = [x.clone().requires_grad_() for x in inputs]
+    clip = CLIP_LOGIT if stable == "clip" else None
+    kernels.reset_launches()
+    out = HGTPlainFull.apply(*xs, g, clip, impl)
+    torch.cuda.synchronize()
+    fwd = {k: n for k, n in kernels.launch_counts().items() if n}
+    kernels.reset_launches()
+    grads = torch.autograd.grad((out * ct.to(out.dtype)).sum(), xs)
+    torch.cuda.synchronize()
+    bwd = {k: n for k, n in kernels.launch_counts().items() if n}
+    return (out.detach(),) + grads, fwd, bwd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stable", ["raw", "clip"])
+@pytest.mark.parametrize("H,dk", [(8, 8), (4, 16)])
+def test_hgt_plain_op_walks_match_its_chain(cuda, skewed, H, dk, stable):
+    """The op on the card in f32 takes the walks: its output and every
+    input's gradient against its chain (impl="plain"); a forward launches
+    the forward walk, a backward the two backward walks and three grouped
+    dWs (the two weights' over the runs, ``mu``'s over the edges)."""
+    inputs, ct = _hgt_inputs(skewed, H, dk, stable, cuda)
+    got, fwd, bwd = _hgt_op(skewed, inputs, ct, stable, "kernel")
+    want, _, _ = _hgt_op(skewed, inputs, ct, stable, "plain")
+    for a, b in zip(got, want):
+        _close_sums(a, b)
+    assert fwd == {"hgt_plain_fwd": 1}
+    assert bwd == {"hgt_plain_bwd_dst": 1, "hgt_plain_bwd_src": 1,
+                   "segment_matmul_dw": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bf16", "dk3"])
+def test_hgt_plain_op_bf16_and_other_widths_keep_the_chain(cuda, skewed,
+                                                          case):
+    inputs, ct = _hgt_inputs(skewed, 2, 3 if case == "dk3" else 8, "clip",
+                             cuda)
+    if case == "bf16":
+        inputs = [x.bfloat16() for x in inputs]
+    _, fwd, bwd = _hgt_op(skewed, inputs, ct, "clip", "kernel")
+    assert not (set(fwd) | set(bwd)) & set(HGT_WALKS)
     assert fwd["seg_sum_sorted"] == 2 and bwd["seg_sum_sorted"] > 1

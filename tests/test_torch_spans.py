@@ -251,10 +251,12 @@ def traced_call(name, impl):
     return totals[f"step/het.zero_grad/kernel:{name}"]
 
 
-# the packed compact GAT op's walks: no ``kernel:`` span (the benchmark's
-# cost table has no count for them); their time shows under the op's
+# the packed compact GAT op's walks and HGT's plain core's: no ``kernel:``
+# span (the benchmark's cost table has no count for them); their time
+# shows under the op's
 UNSPANNED = ("compact_gat_packed_fwd", "compact_gat_packed_bwd_dst",
-             "compact_gat_packed_bwd_src")
+             "compact_gat_packed_bwd_src", "hgt_plain_fwd",
+             "hgt_plain_bwd_dst", "hgt_plain_bwd_src")
 
 
 @pytest.mark.parametrize("impl", ["kernel", "plain"])
@@ -274,7 +276,7 @@ def test_kernel_counters_match_a_hand_count(name, impl):
 
 def _walk_calls():
     """One call of each packed compact GAT walk on a tiny graph (H = 2,
-    D = 3)."""
+    D = 3), and of each HGT plain core walk."""
     g = random_heterograph(N, E, R, seed=3)
     gen = torch.Generator().manual_seed(2)
     S, Dc = g.compact_src, g.compact_dst
@@ -287,6 +289,18 @@ def _walk_calls():
                                                      out, ct, 0.2)
     kernels.compact_gat_packed_bwd_src(draw, alpha, ct, g.dst,
                                        S.edge_row_ptr, S.edge_sort_perm)
+    # HGT's plain core's walks at H = 2, dk = 4
+    x = torch.randn(N, 8, generator=gen)
+    w = torch.randn(R, 2, 4, 4, generator=gen)
+    mu = torch.ones(R, 2)
+    s, out, score = kernels.hgt_plain_fwd(x, x, x, w, w, mu, g.src, g.rel,
+                                          g.in_row_ptr)
+    ct = torch.randn(N, 2, 4, generator=gen)
+    draw, alpha, *_ = kernels.hgt_plain_bwd_dst(
+        x, x, x, w, w, mu, g.src, g.rel, g.in_row_ptr, score, s, out, ct,
+        None, g.edge_rel_seg.inv, g.edge_rel_seg.n_rows)
+    kernels.hgt_plain_bwd_src(x, ct, w, w, mu, g.dst, g.rel, g.out_row_ptr,
+                              g.out_perm, draw, alpha)
 
 
 def test_walks_open_no_kernel_span():
